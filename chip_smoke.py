@@ -1,0 +1,328 @@
+"""Smoke run of libcml_tpu_torch on one CUDA card (an NVIDIA H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero, and no result line is printed):
+  0. the card: `nvidia-smi` name and power limit, torch's device name;
+     exits non-zero without CUDA.
+  1. build the hand-written kernel from the sources in this checkout.
+  2. the kernel against its plain PyTorch version on the card, at the
+     main path's shapes and at edge cases, exact equality required; kernel
+     and plain times with CUDA events, and the kernel's bound (HBM bytes or
+     popcounts at the card's highest SM clock, whichever takes longer).
+  3. direct path at full width: DirectOdometry with bench.py's config on 60
+     rendered 640x480 frames; fps, ATE < 0.1, no lost segment.
+  4. hybrid tracking programs at full width: ORB (512 per level, 3 levels)
+     on the same frames, a 4096-slot map from frame 0, then per frame
+     _project_match_pnp and _local_map_pass2; every frame must launch the
+     Hamming kernel twice, keep >= 12 PnP inliers and stay within the
+     two-view pose budget (0.04 translation, 0.01 rad).
+Then the phases' results, the card's name and power limit, the kernel
+table ({"kernels": [...]}, launches counted in phase 4 only), and the result
+line {"ok": true, "device": {...}} last.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from libcml_tpu_torch import workload as wl
+from libcml_tpu_torch.eval.trajectory import ate_rmse
+from libcml_tpu_torch.ops import hamming_match as hm
+from libcml_tpu_torch.runtime import hybrid
+from libcml_tpu_torch.runtime.odometry import DirectOdometry
+
+# published H100 SXM memory rate at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+# population count issues 16 per clock and SM on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0); the
+# XOR and the adds of an entry go to the 64-per-clock integer pipe and take
+# at most half as long, so popcount is the operations floor
+POPC_PER_SM_CLOCK = 16
+
+N_DIRECT = 60
+WARMUP = 10                  # frames before the steady-state clock starts
+HYBRID_FRAMES = range(1, 21)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi(query: str, *fmt: str) -> str:
+    cmd = ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader" + "".join(fmt)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def popc_per_s() -> float:
+    """The card's popcount rate: SMs x 16 per clock x its highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm", ",nounits"))
+    rate = sms * POPC_PER_SM_CLOCK * clock_mhz * 1e6
+    print(f"popcount rate {rate:.6g}/s ({sms} SMs x {POPC_PER_SM_CLOCK} x {clock_mhz:g} MHz)")
+    return rate
+
+
+def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median device milliseconds of one call of `fn` (CUDA events between
+    back-to-back calls). A spin kernel first holds the card while the host
+    queues every call, so the host's launch overhead stays out of the
+    events' intervals."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for i in range(reps):
+        fn()
+        ev[i + 1].record()
+    ev[-1].synchronize()
+    return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+def hamming_bound(args, popc_rate: float) -> tuple[float, str, int]:
+    """Least time for one resolution, in milliseconds: the larger of the bytes
+    (pair mask, masks and descriptors read once, d1/d2/idx/col_row written
+    once) over the HBM rate, and the popcounts the result needs (8 for each
+    entry that all three masks leave, as this call's masks count them) over
+    the card's popcount rate. Also returns the number of such entries."""
+    dq, mq, dt, mt, pm = args
+    N, M = dq.shape[0], dt.shape[0]
+    live = mq[:, None] & mt[None, :]
+    if pm is not None:
+        live &= pm
+    nbytes = (N * M if pm is not None else 0) + N + M + (N + M) * 32 + N * 12 + M * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    n_live = int(live.sum())
+    t_ops = 8.0 * n_live / popc_rate * 1e3
+    return (t_ops, "operations", n_live) if t_ops >= t_bytes else (t_bytes, "bytes", n_live)
+
+
+def random_case(rng, N, M, dev, p_mask=0.2, pair="random"):
+    dq = rng.integers(-2**31, 2**31, (N, 8), dtype=np.int64).astype(np.int32)
+    dt = rng.integers(-2**31, 2**31, (M, 8), dtype=np.int64).astype(np.int32)
+    mq = rng.random(N) > p_mask
+    mt = rng.random(M) > p_mask
+    if pair == "random":
+        pm = rng.random((N, M)) > 0.3
+    elif pair == "radius":
+        # corners of a 640x480 frame vs projected points, 15 px * 1.5^level
+        uq = rng.uniform([0, 0], [wl.W, wl.H], (N, 2))
+        ut = rng.uniform([0, 0], [wl.W, wl.H], (M, 2))
+        lq = rng.integers(0, 3, N)
+        lt = rng.integers(0, 3, M)
+        r = 15.0 * 1.5 ** lq
+        d2 = ((uq[:, None] - ut[None]) ** 2).sum(-1)
+        pm = (d2 <= (r * r)[:, None]) & (np.abs(lq[:, None] - lt[None]) <= 1)
+    else:
+        pm = None
+    t = lambda a: None if a is None else torch.as_tensor(a).to(dev)
+    return t(dq), t(mq), t(dt), t(mt), t(pm)
+
+
+def edge_case(rng, dev):
+    """All-masked row and column, exact distance ties (duplicate train
+    descriptors), a query identical to two train columns."""
+    N, M = 40, 70
+    dq, mq, dt, mt, pm = (x.cpu().numpy() for x in random_case(rng, N, M, "cpu"))
+    dt[10] = dt[20] = dt[30] = dq[5]          # d1 == d2 == 0 for row 5, ties
+    dt[40:50] = dt[0]                          # many exact ties
+    dq[6] = dq[7]                              # two rows tie for each column
+    mq[:] = True
+    mt[:] = True
+    mq[3] = False                              # fully masked row
+    mt[4] = False                              # fully masked column
+    pm[:, 60] = False                          # column masked by the pair mask
+    pm[8, :] = False                           # row masked by the pair mask
+    t = lambda a: torch.as_tensor(a).to(dev)
+    return t(dq), t(mq), t(dt), t(mt), t(pm)
+
+
+def kernel_vs_plain(dev, card: str, popc_rate: float) -> tuple[list[dict], float]:
+    rng = np.random.default_rng(11)
+    cases = [
+        ("67x301 random masks + pair", random_case(rng, 67, 301, dev)),
+        ("4096x1536 radius pair (match_projection)", random_case(rng, 4096, 1536, dev,
+                                                                pair="radius")),
+        ("1536x1536 radius pair (match_window)", random_case(rng, 1536, 1536, dev,
+                                                            pair="radius")),
+        ("1536x1536 no pair (match_descriptors)", random_case(rng, 1536, 1536, dev,
+                                                             pair=None)),
+        ("edge cases: masked row/column, ties", edge_case(rng, dev)),
+    ]
+    rows, max_err = [], 0.0
+    for name, args in cases:
+        got = hm.hamming_resolve_cuda(*args)
+        want = hm.hamming_resolve_plain(*args)
+        torch.cuda.synchronize()
+        for g, w_, what in zip(got, want, ("d1", "d2", "idx", "col_row")):
+            err = float((g.long() - w_.long()).abs().max())
+            max_err = max(max_err, err)
+            require(torch.equal(g, w_), f"hamming kernel != plain on {name}: {what}")
+        N, M = args[0].shape[0], args[2].shape[0]
+        bound, by, n_live = hamming_bound(args, popc_rate)
+        row = {"case": name, "N": N, "M": M,
+               "kernel_ms": cuda_ms(lambda: hm.hamming_resolve_cuda(*args)),
+               "plain_ms": cuda_ms(lambda: hm.hamming_resolve_plain(*args), reps=20),
+               "bound_ms": bound, "bound_by": by, "live_entries": n_live,
+               # the popcounts of all N * M entries, which this kernel computes
+               "dense_popc_ms": 8.0 * N * M / popc_rate * 1e3,
+               "equal": True, "card": card}
+        rows.append(row)
+        print(json.dumps(row))
+    return rows, max_err
+
+
+# -- phases 3 and 4 -----------------------------------------------------------
+
+
+def direct_phase(dev, cam, traj, frames) -> dict:
+    odo = DirectOdometry(cam, wl.BENCH_CFG)         # default device: the card
+    imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
+    gt = []
+    kf = lost = 0
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    t0 = time.perf_counter()
+    for i, img in enumerate(imgs):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        out = odo.process(img, float(i))
+        kf += int(bool(out.get("kf", False)))
+        lost += int(out.get("state") == "LOST")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    launches = hm.hamming_resolve_cuda.launches   # the direct path runs no kernel yet
+    for R, t in traj[:N_DIRECT]:
+        M = np.eye(4)
+        M[:3, :3], M[:3, 3] = R, t
+        gt.append(np.linalg.inv(M))
+    _, est = odo.trajectory_c2w()
+    ate = ate_rmse(est[:, :3, 3], np.asarray(gt)[:, :3, 3], with_scale=True)
+    # host milliseconds per stage (enqueue plus the syncs inside the stage)
+    host_ms = {name: statistics.mean(odo.sheet.stat(name).series()[1])
+               for name in ("time_preprocess", "time_track", "time_keyframe")}
+    res = {"phase": "direct", "frames": len(imgs), "fps": len(imgs) / wall,
+           "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
+           "wall_s": wall, "ate": ate, "segments": odo.segments, "lost_frames": lost,
+           "keyframes": kf, "host_ms_per_stage": host_ms,
+           "kernel_launches": {"hamming_resolve": launches}}
+    print(json.dumps(res))
+    require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
+    require(odo.segments == 0 and lost == 0, "direct path lost tracking")
+    return res
+
+
+def hybrid_phase(dev, cam, traj, frames) -> dict:
+    map_, n_map = wl.build_map(cam, traj, frames, dev)
+    feats = {i: wl.extract(frames[i]) for i in HYBRID_FRAMES}
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    per_frame = []
+    for i in HYBRID_FRAMES:
+        before = hm.hamming_resolve_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, bundle, bundle2 = wl.track_frame(map_, cam, traj, feats[i], i, dev)
+        b1, b2 = bundle.cpu().numpy(), bundle2.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        R_gt, t_gt = traj[i]
+        R_est = res.T.R.cpu().numpy().astype(np.float64)
+        t_err = float(np.linalg.norm(res.T.t.cpu().numpy() - t_gt))
+        r_err = float(np.arccos(np.clip((np.trace(R_est @ R_gt.T) - 1) / 2, -1, 1)))
+        launched = hm.hamming_resolve_cuda.launches - before
+        row = {"frame": i, "matches": int(b1[0]), "inliers": int(b1[1]),
+               "pass2_matches": int(b2[0]), "pass2_inliers": int(b2[1]),
+               "t_err": t_err, "r_err": r_err, "ms": ms, "kernel_launches": launched}
+        per_frame.append(row)
+        print(json.dumps(row))
+        require(launched == 2, f"frame {i}: {launched} kernel launches, expected 2")
+        require(b1[2] > 0.5 and b1[1] >= 12 and b2[1] >= 12,
+                f"frame {i}: PnP failed ({b1[1]} / {b2[1]} inliers)")
+        require(t_err < 0.04 and r_err < 0.01,
+                f"frame {i}: pose error {t_err:.4f} / {r_err:.4f} rad out of budget")
+    launches = hm.hamming_resolve_cuda.launches
+    res = {"phase": "hybrid_tracking", "frames": len(per_frame), "map_points": n_map,
+           "launches": launches,
+           "ms_per_frame": statistics.median(r["ms"] for r in per_frame),
+           "min_inliers": min(r["inliers"] for r in per_frame),
+           "max_t_err": max(r["t_err"] for r in per_frame),
+           "max_r_err": max(r["r_err"] for r in per_frame)}
+    print(json.dumps(res))
+    require(launches == 2 * len(per_frame), "kernel launch count off")
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = nvidia_smi("name,power.limit")
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    path, secs, log = hm.build(verbose=True)
+    print(f"built hamming_resolve: {path.name} in {secs:.1f} s")
+    print(log.strip())
+
+    t0 = time.perf_counter()
+    rows, max_err = kernel_vs_plain(dev, card, popc_per_s())
+    print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cam, traj, frames = wl.render_frames(dev, N_DIRECT)
+    torch.cuda.synchronize()
+    print(f"rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    direct = direct_phase(dev, cam, traj, frames)
+    print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    hyb = hybrid_phase(dev, cam, traj, frames)
+    print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
+
+    main_row = next(r for r in rows if r["N"] == hybrid.MAP_CAP)
+    kernels = [{
+        "name": "hamming_resolve",
+        "route": "cuda",
+        "source": "libcml_tpu_torch/csrc/hamming_match.cu",
+        "replaces": "libcml_tpu/ops/pallas_match.py:107",
+        "launches": hyb["launches"],
+        "max_abs_err": max_err,
+        "ms": main_row["kernel_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+    }]
+    print(json.dumps({"direct": direct, "hybrid_tracking": hyb}))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

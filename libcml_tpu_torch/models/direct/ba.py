@@ -1,0 +1,703 @@
+"""Windowed photometric bundle adjustment with FEJ + marginalization.
+
+PyTorch port of libcml_tpu/models/direct/ba.py without its mixed half (the
+reference's DSOBundleAdjustment: src/cml/optimization/dso/
+DSOBundleAdjustment.cpp:744 run, :1284 solveLevenbergMarquardt,
+DSOBundleAdjustment.h:35 marginalizeFrame, :48 computeNullspaces).
+
+  - The window is a FIXED arena of F keyframe slots and P point slots with
+    validity masks; the residual set is the dense (P, F) grid of
+    (point, target-frame) pairs with an activity mask.
+  - One linearization = one sweep producing all residuals, robust weights
+    and Jacobians as (P, F, ...) tensors; the 8-dof-per-frame Hessian blocks
+    are assembled with one-hot einsums and the per-point inverse depths are
+    Schur-eliminated with a batched divide.
+  - First-Estimate Jacobians: geometry at the linearization point, the
+    photometric residual at the current state.
+  - Marginalization folds a frame into a dense prior (H_m, b_m) over the
+    window slots; the runtime does that algebra in host float64
+    (`marginalize_frame_f64`), as the reference does it in double.
+
+State layout (F = frame slots, P = point slots):
+  frames : T (F), ab (F, 2), FEJ copies, delta (F, 8), valid (F,)
+  points : uv (P, 2), host (P,), idepth (P,), idepth_fej (P,),
+           color (P, 8), weight (P, 8), valid (P,)
+  resid  : active (P, F) bool
+  prior  : H_m (F*8, F*8), b_m (F*8,)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as Fnn
+
+from libcml_tpu_torch._device import const
+from libcml_tpu_torch.core.camera import PinholeCamera
+from libcml_tpu_torch.core.lie import SE3, se3_exp, se3_select, skew
+from libcml_tpu_torch.models.direct.config import DirectConfig
+from libcml_tpu_torch.models.direct.residuals import (
+    huber_energy,
+    huber_weight,
+    pattern_uv,
+    proj_jacobian,
+)
+from libcml_tpu_torch.ops.image import bilinear_stack
+
+_D = 8  # per-frame state dim: [v(3), w(3), a, b]
+
+
+@dataclasses.dataclass
+class BAState:
+    # frames (F slots)
+    T: SE3                     # current world-to-camera poses
+    ab: torch.Tensor           # (F, 2) per-frame affine brightness [a, b]
+    T_fej: SE3                 # linearization-point poses
+    ab_fej: torch.Tensor       # (F, 2)
+    delta: torch.Tensor        # (F, 8) accumulated left-tangent state - FEJ
+    frame_valid: torch.Tensor  # (F,) bool
+
+    # points (P slots)
+    uv: torch.Tensor           # (P, 2) level-0 pixel in host frame
+    host: torch.Tensor         # (P,) int32 host slot index
+    idepth: torch.Tensor       # (P,)
+    idepth_fej: torch.Tensor   # (P,)
+    color: torch.Tensor        # (P, 8) host pattern intensities
+    weight: torch.Tensor       # (P, 8) host gradient weights
+    point_valid: torch.Tensor  # (P,) bool
+
+    res_active: torch.Tensor   # (P, F) bool residual activity
+
+    H_m: torch.Tensor          # (F*8, F*8) marginalization prior
+    b_m: torch.Tensor          # (F*8,)
+
+    def replace(self, **kw) -> "BAState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num_frames(self) -> int:
+        return self.ab.shape[0]
+
+    @property
+    def num_points(self) -> int:
+        return self.uv.shape[0]
+
+
+def empty_state(cfg: DirectConfig, device: str | torch.device = "cpu") -> BAState:
+    F, P = cfg.max_frames, cfg.max_points
+    f32 = dict(dtype=torch.float32, device=device)
+    return BAState(
+        T=SE3.identity((F,), device=device),
+        ab=torch.zeros((F, 2), **f32),
+        T_fej=SE3.identity((F,), device=device),
+        ab_fej=torch.zeros((F, 2), **f32),
+        delta=torch.zeros((F, _D), **f32),
+        frame_valid=torch.zeros((F,), dtype=torch.bool, device=device),
+        uv=torch.zeros((P, 2), **f32),
+        host=torch.zeros((P,), dtype=torch.int32, device=device),
+        idepth=torch.ones((P,), **f32),
+        idepth_fej=torch.ones((P,), **f32),
+        color=torch.zeros((P, 8), **f32),
+        weight=torch.zeros((P, 8), **f32),
+        point_valid=torch.zeros((P,), dtype=torch.bool, device=device),
+        res_active=torch.zeros((P, F), dtype=torch.bool, device=device),
+        H_m=torch.zeros((F * _D, F * _D), **f32),
+        b_m=torch.zeros((F * _D,), **f32),
+    )
+
+
+def anchor_first_frame(state: BAState, slot: int, cfg: DirectConfig) -> BAState:
+    """Gauge anchor: a strong pose prior on the first keyframe's slot."""
+    idx = slot * _D + torch.arange(6, device=state.H_m.device)
+    H_m = state.H_m.clone()
+    H_m[idx, idx] += cfg.pose_prior_first
+    return state.replace(H_m=H_m)
+
+
+# ---------------------------------------------------------------------------
+# Linearization
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Linearization:
+    """All (P, F) residual quantities one BA iteration needs."""
+
+    r: torch.Tensor        # (P, F, 8) residuals at CURRENT state
+    w: torch.Tensor        # (P, F, 8) robust*gradient*active weights
+    J_t: torch.Tensor      # (P, F, 8, 8) d r / d target-frame state (FEJ)
+    J_h: torch.Tensor      # (P, F, 8, 8) d r / d host-frame state (FEJ)
+    J_rho: torch.Tensor    # (P, F, 8) d r / d idepth (FEJ)
+    active: torch.Tensor   # (P, F) residual active & in-bounds & positive depth
+    energy: torch.Tensor   # (P, F) per-residual Huber energy (masked)
+
+
+def _pairwise_rel(T: SE3) -> SE3:
+    """All relative poses T_rel[i, j] = T_j ∘ T_i^-1 (target j <- host i)."""
+    F = T.t.shape[0]
+    Ti = SE3(R=T.R[:, None].expand(F, F, 3, 3), t=T.t[:, None].expand(F, F, 3))
+    Tj = SE3(R=T.R[None, :].expand(F, F, 3, 3), t=T.t[None, :].expand(F, F, 3))
+    return Tj.compose(Ti.inverse())
+
+
+def _onehot(host: torch.Tensor, F: int, dtype=torch.float32) -> torch.Tensor:
+    return Fnn.one_hot(host.long(), F).to(dtype)
+
+
+def linearize(
+    state: BAState,
+    images: torch.Tensor,   # (F, H, W, 3) level-0 gradient images per slot
+    cam: PinholeCamera,
+    cfg: DirectConfig,
+) -> Linearization:
+    """One dense (P, F) linearization sweep. FEJ: geometry at linearization
+    point, residual at current state."""
+    P, F = state.num_points, state.num_frames
+    dev = state.uv.device
+    host = state.host.long()
+
+    rel_cur = _pairwise_rel(state.T)
+    rel_fej = _pairwise_rel(state.T_fej)
+    R_cur, t_cur = rel_cur.R[host], rel_cur.t[host]    # (P, F, 3, 3)/(P, F, 3)
+    R_fej, t_fej = rel_fej.R[host], rel_fej.t[host]
+
+    # ---- current-state warp + residual -----------------------------------
+    p_uv = pattern_uv(state.uv)                            # (P, 8, 2)
+    Xp_i = cam.unproject(p_uv, state.idepth[:, None])      # (P, 8, 3)
+    Xp_j = torch.einsum("pfij,pkj->pfki", R_cur, Xp_i) + t_cur[:, :, None, :]
+    uv_j, valid_z = cam.project(Xp_j)                      # (P, F, 8, 2)
+    in_b = cam.in_bounds(uv_j, border=2.0)
+    geo_ok = torch.all(valid_z & in_b, dim=-1)             # (P, F)
+
+    # sample every target image at its own warped pixels
+    sample = bilinear_stack(images, uv_j)                  # (P, F, 8, 3)
+    I_j = sample[..., 0]                                   # (P, F, 8)
+    g = sample[..., 1:3]                                   # (P, F, 8, 2)
+
+    # r = I_j - b_j - e^{a_j - a_i} * (color - b_i)
+    a_i = state.ab[host, 0][:, None]                       # (P, 1)
+    b_i = state.ab[host, 1][:, None]
+    a_j = state.ab[None, :, 0]                             # (1, F)
+    b_j = state.ab[None, :, 1]
+    s_ji = torch.exp(a_j - a_i)                            # (P, F)
+    r = I_j - b_j[:, :, None] - s_ji[:, :, None] * (state.color[:, None, :] - b_i[:, :, None])
+
+    # ---- FEJ geometry for Jacobians ---------------------------------------
+    X_i0 = cam.unproject(state.uv, state.idepth_fej)       # (P, 3)
+    X_j0 = torch.einsum("pfij,pj->pfi", R_fej, X_i0) + t_fej
+    J_uv_Xj = proj_jacobian(cam, X_j0)                     # (P, F, 2, 3)
+
+    eye3 = torch.eye(3, dtype=r.dtype, device=dev)
+    J_Xj_t = torch.cat([eye3.expand(P, F, 3, 3), -skew(X_j0)], dim=-1)   # (P, F, 3, 6)
+    J_Xi = torch.cat([eye3.expand(P, 3, 3), -skew(X_i0)], dim=-1)        # (P, 3, 6)
+    J_Xj_h = -torch.einsum("pfij,pjd->pfid", R_fej, J_Xi)                # (P, F, 3, 6)
+
+    J_uv_t = J_uv_Xj @ J_Xj_t                              # (P, F, 2, 6)
+    J_uv_h = J_uv_Xj @ J_Xj_h
+    Jg_t = g @ J_uv_t                                      # (P, F, 8, 6)
+    Jg_h = g @ J_uv_h
+
+    dXj_drho = -(X_j0 - t_fej) / torch.clamp(state.idepth_fej, min=1e-8)[:, None, None]
+    J_uv_rho = (J_uv_Xj @ dXj_drho[..., None])[..., 0]     # (P, F, 2)
+    J_rho = (g @ J_uv_rho[..., None])[..., 0]              # (P, F, 8)
+
+    a_i0 = state.ab_fej[host, 0][:, None]
+    b_i0 = state.ab_fej[host, 1][:, None]
+    a_j0 = state.ab_fej[None, :, 0]
+    s0 = torch.exp(a_j0 - a_i0)                            # (P, F)
+    col0 = state.color[:, None, :] - b_i0[:, :, None]      # (P, F, 8)
+    dr_daj = -s0[:, :, None] * col0
+    dr_dai = s0[:, :, None] * col0
+    dr_dbj = -torch.ones_like(r)
+    dr_dbi = s0[:, :, None].expand(r.shape)
+
+    J_t = torch.cat([Jg_t, dr_daj[..., None], dr_dbj[..., None]], dim=-1)
+    J_h = torch.cat([Jg_h, dr_dai[..., None], dr_dbi[..., None]], dim=-1)
+
+    # ---- masks + robust weights -------------------------------------------
+    fv = state.frame_valid
+    not_self = host[:, None] != torch.arange(F, device=dev)[None, :]
+    active = (
+        state.res_active
+        & state.point_valid[:, None]
+        & fv[None, :]
+        & fv[host][:, None]
+        & not_self
+        & geo_ok
+    )
+    w = huber_weight(r, cfg.huber_intensity) * state.weight[:, None, :]
+    w = torch.where(active[..., None], w, torch.zeros_like(w))
+    energy = torch.where(
+        active,
+        torch.sum(state.weight[:, None, :] * huber_energy(r, cfg.huber_intensity), dim=-1),
+        torch.zeros_like(active, dtype=r.dtype),
+    )
+    return Linearization(r=r, w=w, J_t=J_t, J_h=J_h, J_rho=J_rho,
+                         active=active, energy=energy)
+
+
+# ---------------------------------------------------------------------------
+# Normal equations: frame blocks + idepth Schur complement
+# ---------------------------------------------------------------------------
+
+
+def _assemble(
+    lin: Linearization,
+    state: BAState,
+    cfg: DirectConfig,
+    r_shift: torch.Tensor | None = None,
+):
+    """Build the Schur-reducible camera system.
+
+    Returns (H (F*8, F*8), b (F*8,), H_rho (P,), b_rho (P,), H_xr (P, F*8)).
+    If r_shift is given it replaces the residual used for b (the res_toZeroF
+    FEJ shift at marginalization time)."""
+    P, F = state.num_points, state.num_frames
+    D = F * _D
+    r = lin.r if r_shift is None else r_shift
+    w = lin.w
+    onehot_h = _onehot(state.host, F, r.dtype)                        # (P, F)
+
+    Jt_w = lin.J_t * w[..., None]                                     # (P, F, 8, 8)
+    Jh_w = lin.J_h * w[..., None]
+
+    H_tt = torch.einsum("pfkd,pfke->fde", Jt_w, lin.J_t)              # (F, 8, 8)
+    H_hh = torch.einsum("pde,ph->hde", torch.einsum("pfkd,pfke->pde", Jh_w, lin.J_h),
+                        onehot_h)
+    H_th = torch.einsum("pfde,ph->fhde", torch.einsum("pfkd,pfke->pfde", Jt_w, lin.J_h),
+                        onehot_h)                                     # (F, F, 8, 8)
+
+    b_t = torch.einsum("pfkd,pfk->fd", Jt_w, r)                       # (F, 8)
+    b_h = torch.einsum("pd,ph->hd", torch.einsum("pfkd,pfk->pd", Jh_w, r), onehot_h)
+
+    # H[f,g] += J_t^T W J_h, H[g,f] its transpose, the diagonal collects both
+    # roles (same-slot residuals are masked, so nothing is counted twice)
+    diag = H_tt + H_hh
+    idx = torch.arange(F, device=r.device)
+    H_full = H_th + H_th.permute(1, 0, 3, 2)
+    H_full = H_full.clone()
+    H_full[idx, idx] += diag
+    b_full = (b_t + b_h).reshape(D)
+    H_dense = H_full.permute(0, 2, 1, 3).reshape(D, D)
+
+    Jr_w = lin.J_rho * w                                              # (P, F, 8)
+    H_rho = torch.einsum("pfk,pfk->p", Jr_w, lin.J_rho)
+    b_rho = torch.einsum("pfk,pfk->p", Jr_w, r)
+    Hx_t = torch.einsum("pfkd,pfk->pfd", Jt_w, lin.J_rho)             # (P, F, 8)
+    Hx_h = torch.einsum("pfkd,pfk->pd", Jh_w, lin.J_rho)              # (P, 8)
+    H_xr = Hx_t.reshape(P, D) + (Hx_h[:, None, :] * onehot_h[:, :, None]).reshape(P, D)
+    return H_dense, b_full, H_rho, b_rho, H_xr
+
+
+def _schur_reduce(H, b, H_rho, b_rho, H_xr, lam, point_valid):
+    """Eliminate the (diagonal) idepth block with LM damping."""
+    one = torch.ones_like(H_rho)
+    H_rho_d = torch.where(point_valid, H_rho * (1.0 + lam) + 1e-10, one)
+    scale = torch.where(point_valid, 1.0 / H_rho_d, torch.zeros_like(H_rho))
+    H_sc = H - torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
+    b_sc = b - torch.einsum("pd,p->d", H_xr, b_rho * scale)
+    return H_sc, b_sc, H_rho_d
+
+
+def _ab_flat(ab: torch.Tensor) -> torch.Tensor:
+    """(F, 2) affine states -> (F*8,) vector with them in the a/b rows."""
+    F = ab.shape[0]
+    return torch.cat([torch.zeros((F, 6), dtype=ab.dtype, device=ab.device), ab],
+                     dim=1).reshape(F * _D)
+
+
+def _gauge_priors(state: BAState, cfg: DirectConfig):
+    """Diagonal priors: affine anchoring on valid slots + an identity guard on
+    invalid slots so the dense solve stays non-singular."""
+    F = state.num_frames
+    ab_w = const((0.0,) * 6 + (cfg.ba_prior_a, cfg.ba_prior_b), state.ab.device).repeat(F)
+    fv = torch.repeat_interleave(state.frame_valid, _D)
+    diag = torch.where(fv, ab_w, torch.ones_like(ab_w))
+    b_prior = torch.where(fv, diag * _ab_flat(state.ab), torch.zeros_like(ab_w))
+    return diag, b_prior
+
+
+def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                 cfg: DirectConfig) -> torch.Tensor:
+    """The exact functional the solver minimizes (photometric + prior +
+    affine anchors), for accept/reject consistency."""
+    lin = linearize(state, images, cam, cfg)
+    e_photo = torch.sum(lin.energy)
+    delta_flat = state.delta.reshape(-1)
+    e_prior = torch.dot(state.b_m, delta_flat) + 0.5 * torch.dot(
+        delta_flat, state.H_m @ delta_flat)
+    fv = state.frame_valid
+    e_ab = 0.5 * torch.sum(torch.where(
+        fv, cfg.ba_prior_a * state.ab[:, 0] ** 2 + cfg.ba_prior_b * state.ab[:, 1] ** 2,
+        torch.zeros_like(state.ab[:, 0])))
+    return e_photo + e_prior + e_ab
+
+
+def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+            cfg: DirectConfig, lam: torch.Tensor):
+    """One LM iteration: linearize, Schur-solve, back-substitute idepths.
+    Returns (new_state, lin)."""
+    F = state.num_frames
+    D = F * _D
+    lin = linearize(state, images, cam, cfg)
+    H, b, H_rho, b_rho, H_xr = _assemble(lin, state, cfg)
+
+    # marginalization prior (gradient at current state: b_m + H_m delta)
+    delta_flat = state.delta.reshape(-1)
+    H = H + state.H_m
+    b = b + state.b_m + state.H_m @ delta_flat
+
+    diag_prior, b_prior = _gauge_priors(state, cfg)
+    H = H + torch.diag(diag_prior)
+    b = b + b_prior
+
+    H_sc, b_sc, H_rho_d = _schur_reduce(H, b, H_rho, b_rho, H_xr, lam,
+                                        state.point_valid)
+    eye = torch.eye(D, dtype=H.dtype, device=H.device)
+    H_sc = H_sc + lam * torch.diag(torch.diag(H_sc)) + 1e-6 * eye
+    dx, _ = torch.linalg.solve_ex(H_sc, b_sc)
+
+    # project the SCALE gauge mode out of the step (reference: orthogonalize
+    # after solving, DSOBundleAdjustment.h:149); translation/rotation stay
+    # pinned by the first-frame anchor and its marginalized descendant
+    N = _nullspaces(state)[:, 6:7]                                     # (D, 1)
+    NtN = N.T @ N + 1e-6 * torch.eye(1, dtype=dx.dtype, device=dx.device)
+    coeff, _ = torch.linalg.solve_ex(NtN, N.T @ dx)
+    dx = dx - N @ coeff
+
+    d_rho = (b_rho - H_xr @ dx) / H_rho_d
+    d_rho = torch.where(state.point_valid, d_rho, torch.zeros_like(d_rho))
+
+    dx_f = dx.reshape(F, _D)
+    dx_f = torch.where(state.frame_valid[:, None], dx_f, torch.zeros_like(dx_f))
+    T_new = se3_exp(-dx_f[:, :6]).compose(state.T)
+    new_state = state.replace(
+        T=se3_select(state.frame_valid, T_new, state.T),
+        ab=state.ab - dx_f[:, 6:],
+        delta=state.delta - dx_f,
+        idepth=torch.clamp(state.idepth - d_rho, cfg.idepth_min, cfg.idepth_max),
+    )
+    return new_state, lin
+
+
+def _select_state(accept: torch.Tensor, a: BAState, b: BAState) -> BAState:
+    """where(accept, a, b) over every leaf of a BAState."""
+    out = {}
+    for f in dataclasses.fields(BAState):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        out[f.name] = (se3_select(accept, x, y) if isinstance(x, SE3)
+                       else torch.where(accept, x, y))
+    return BAState(**out)
+
+
+def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+           cfg: DirectConfig) -> tuple[BAState, torch.Tensor]:
+    """Fixed-iteration LM loop with accept/reject (reference:
+    DSOBundleAdjustment::run, energy-based step control). The accept test
+    stays on the device: no host read per iteration."""
+    E = total_energy(state, images, cam, cfg)
+    lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=E.device)
+    for _ in range(cfg.ba_iters):
+        cand, _ = ba_step(state, images, cam, cfg, lam)
+        E_new = total_energy(cand, images, cam, cfg)
+        accept = E_new < E
+        state = _select_state(accept, cand, state)
+        E = torch.where(accept, E_new, E)
+        lam = torch.where(accept, torch.clamp(lam * 0.4, min=1e-7),
+                          torch.clamp(lam * 5.0, max=1e2))
+    return state, E
+
+
+def relinearize(state: BAState) -> BAState:
+    """Move the linearization point to the CURRENT state, shifting the
+    marginalization prior's expansion point along (exact for a quadratic:
+    b' = b + H delta, H unchanged). Called once per keyframe event."""
+    delta_flat = state.delta.reshape(-1)
+    return state.replace(
+        b_m=state.b_m + state.H_m @ delta_flat,
+        delta=torch.zeros_like(state.delta),
+        T_fej=state.T,
+        ab_fej=state.ab,
+        idepth_fej=state.idepth,
+    )
+
+
+def refresh_fej(state: BAState) -> BAState:
+    """Re-anchor the linearization point at the CURRENT state (only valid
+    while the prior holds no off-diagonal marginalization information)."""
+    return state.replace(
+        T_fej=state.T,
+        ab_fej=state.ab,
+        idepth_fej=state.idepth,
+        delta=torch.zeros_like(state.delta),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Outlier management
+# ---------------------------------------------------------------------------
+
+
+def update_residual_status(state: BAState, images: torch.Tensor,
+                           cam: PinholeCamera, cfg: DirectConfig) -> BAState:
+    """Deactivate residuals whose energy exceeds the outlier threshold and
+    points left with no active residual at all."""
+    lin = linearize(state, images, cam, cfg)
+    good = lin.active & (lin.energy < cfg.outlier_energy)
+    res_active = state.res_active & (good | ~lin.active)
+    n_good = torch.sum(good, dim=1)
+    point_valid = state.point_valid & (n_good >= 1)
+    return state.replace(res_active=res_active, point_valid=point_valid)
+
+
+# ---------------------------------------------------------------------------
+# Marginalization
+# ---------------------------------------------------------------------------
+
+
+def _psd_project(H: torch.Tensor) -> torch.Tensor:
+    """Project a (nearly) symmetric matrix onto the PSD cone (f32 Schur
+    complements leave small negative eigenvalues, and an indefinite
+    quadratic prior is unbounded below)."""
+    H = 0.5 * (H + H.T)
+    w, V = torch.linalg.eigh(H)
+    w = torch.clamp(w, min=0.0)
+    return (V * w[None, :]) @ V.T
+
+
+def _psd_project_with_gradient(H: torch.Tensor, b: torch.Tensor,
+                               rel_floor: float = 1e-7):
+    """PSD-project H AND restrict b to the numerically significant range of
+    H (a Gaussian marginal's gradient lies in the range of its Hessian)."""
+    H = 0.5 * (H + H.T)
+    w, V = torch.linalg.eigh(H)
+    w = torch.clamp(w, min=0.0)
+    keep = w > rel_floor * torch.max(w)
+    zero = torch.zeros_like(w)
+    H_out = (V * torch.where(keep, w, zero)[None, :]) @ V.T
+    b_out = V @ torch.where(keep, V.T @ b, zero)
+    return H_out, b_out
+
+
+def _nullspaces(state: BAState) -> torch.Tensor:
+    """(F*8, 7) global gauge directions: world translation (3), world
+    rotation (3), scale (1) — reference: computeNullspaces."""
+    F = state.num_frames
+    R, t = state.T.R, state.T.t
+    fv = state.frame_valid[:, None, None].to(R.dtype)
+    N = torch.zeros((F, _D, 7), dtype=torch.float32, device=R.device)
+    N[:, 0:3, 0:3] = R * fv
+    N[:, 0:3, 3:6] = (skew(t) @ R) * fv
+    N[:, 3:6, 3:6] = R * fv
+    N[:, 0:3, 6] = t * fv[..., 0]
+    return N.reshape(F * _D, 7)
+
+
+def orthogonalize_gradient(state: BAState, b: torch.Tensor) -> torch.Tensor:
+    """Project the gauge directions out of a gradient vector (reference:
+    orthogonalize, DSOBundleAdjustment.h:149)."""
+    N = _nullspaces(state)
+    NtN = N.T @ N + 1e-6 * torch.eye(7, dtype=b.dtype, device=b.device)
+    coeff, _ = torch.linalg.solve_ex(NtN, N.T @ b)
+    return b - N @ coeff
+
+
+def _fej_shifted(state: BAState, images, cam, cfg, slot):
+    """Linearize the points hosted in `slot` and FEJ-shift their residuals
+    (res_toZeroF): r0 = r - J_t dx_t - J_h dx_h - J_rho d_rho."""
+    hosted = state.point_valid & (state.host == slot)
+    marg_state = state.replace(point_valid=hosted)
+    lin = linearize(marg_state, images, cam, cfg)
+    d_t = state.delta[None, :, None, :]                                # (1,F,1,8)
+    d_h = state.delta[state.host.long()][:, None, None, :]             # (P,1,1,8)
+    d_rho = (state.idepth - state.idepth_fej)[:, None, None]
+    r0 = (lin.r - torch.sum(lin.J_t * d_t, dim=-1)
+          - torch.sum(lin.J_h * d_h, dim=-1) - lin.J_rho * d_rho)
+    return hosted, marg_state, lin, r0
+
+
+def marginalize_frame(
+    state: BAState,
+    images: torch.Tensor,
+    cam: PinholeCamera,
+    cfg: DirectConfig,
+    slot,
+    exact: bool = False,
+) -> BAState:
+    """Marginalize the keyframe in `slot` in f32 on the device:
+      1. fold the FEJ-shifted residuals of points hosted there into the
+         prior (Schur over their idepths),
+      2. drop those points + all residuals targeting the slot,
+      3. Schur-eliminate the slot's 8 dof from (H_m, b_m),
+      4. orthogonalize the prior gradient against the gauge nullspace."""
+    F = state.num_frames
+    D = F * _D
+    dev = state.uv.device
+
+    hosted, marg_state, lin, r0 = _fej_shifted(state, images, cam, cfg, slot)
+    H_pts, b_pts, H_rho, b_rho, H_xr = _assemble(lin, marg_state, cfg, r_shift=r0)
+    H_rho_d = torch.where(hosted, H_rho + 1e-8, torch.ones_like(H_rho))
+    scale = torch.where(hosted, 1.0 / H_rho_d, torch.zeros_like(H_rho))
+    H_add = H_pts - torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
+    b_add = b_pts - torch.einsum("pd,p->d", H_xr, b_rho * scale)
+
+    mw = cfg.marg_weight
+    H_m = state.H_m + mw * _psd_project(H_add)
+    b_m = state.b_m + mw * b_add
+
+    ar_F = torch.arange(F, device=dev)
+    point_valid = state.point_valid & ~hosted
+    res_active = state.res_active & (ar_F[None, :] != slot)
+
+    sel = (torch.arange(D, device=dev) // _D) == slot
+    aff_w = const((0.0,) * 6 + (cfg.ba_prior_a, cfg.ba_prior_b), dev).repeat(F)
+    zero_D = torch.zeros(D, dtype=torch.float32, device=dev)
+    H_m = H_m + torch.diag(torch.where(sel, aff_w, zero_D))
+    b_m = b_m + torch.where(sel, aff_w * _ab_flat(state.ab_fej), zero_D)
+
+    delta_flat = state.delta.reshape(-1) * sel
+    b_m = b_m + H_m @ delta_flat
+
+    self_f = sel.to(torch.float32)
+    keep_f = (~sel).to(torch.float32)
+    Hmm = H_m * self_f[:, None] * self_f[None, :]
+    Hmm_block = Hmm + torch.diag(torch.where(sel, zero_D + 1e-6, zero_D + 1.0))
+    H_am = H_m * keep_f[:, None] * self_f[None, :]
+    Hmm_inv = torch.linalg.inv_ex(Hmm_block)[0] * self_f[:, None] * self_f[None, :]
+    H_m_new = H_m * keep_f[:, None] * keep_f[None, :] - H_am @ Hmm_inv @ H_am.T
+    b_m_new = b_m * keep_f - H_am @ (Hmm_inv @ (b_m * self_f))
+
+    state = state.replace(
+        point_valid=point_valid,
+        res_active=res_active,
+        frame_valid=state.frame_valid & (ar_F != slot),
+        H_m=H_m_new,
+        b_m=b_m_new,
+        delta=torch.where((ar_F == slot)[:, None], torch.zeros_like(state.delta),
+                          state.delta),
+    )
+    if exact:
+        return state
+    b_m_new = orthogonalize_gradient(state, state.b_m)
+    H_m_fix, b_m_fix = _psd_project_with_gradient(state.H_m, b_m_new)
+    return state.replace(H_m=H_m_fix, b_m=b_m_fix)
+
+
+def _marg_pieces(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                 cfg: DirectConfig, slot):
+    """Device half of f64 marginalization: linearize the points hosted in
+    `slot`, FEJ-shift the residuals, and contract the (P, F, 8, ...) tensors
+    down to the small normal-equation pieces. The point-Schur CORRECTION is
+    contracted here, but the cancellation-sensitive subtraction
+    H_pts - H_corr (both ~1e10, their difference along the scale direction
+    ~1e6) is left to the host in f64."""
+    hosted, marg_state, lin, r0 = _fej_shifted(state, images, cam, cfg, slot)
+    H_pts, b_pts, H_rho, b_rho, H_xr = _assemble(lin, marg_state, cfg, r_shift=r0)
+    scale = torch.where(hosted, 1.0 / (H_rho + 1e-12), torch.zeros_like(H_rho))
+    H_corr = torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
+    b_corr = H_xr.T @ (b_rho * scale)
+    return (H_pts, b_pts, H_corr, b_corr, hosted,
+            state.T.R, state.T.t, state.frame_valid, state.delta,
+            state.ab_fej, state.H_m, state.b_m)
+
+
+def marginalize_frame_f64(state: BAState, images: torch.Tensor,
+                          cam: PinholeCamera, cfg: DirectConfig, slot: int) -> BAState:
+    """Frame marginalization with the prior algebra in HOST float64 (the
+    reference runs this math in double, types.h:365: photometric Hessians
+    reach ~1e10 and the f32 Schur cancellation noise swamps the weak scale
+    direction). Synchronous form of the runtime's asynchronous
+    dispatch-pieces / host-Schur / apply sequence."""
+    slot = int(slot)
+    pieces = _marg_pieces(state, images, cam, cfg, slot)
+    packed, hosted = marg_host_schur(pieces, slot, cfg)
+    return _marg_apply(state, torch.as_tensor(packed).to(state.uv.device), hosted, slot)
+
+
+def marg_host_schur(pieces_dev, slot: int, cfg: DirectConfig):
+    """Host f64 half of marginalization: consume the device pieces, run the
+    Schur/nullspace/PSD algebra in numpy float64, return (packed
+    [H_new; b_new] float32 ndarray, device-resident hosted mask)."""
+    hosted_dev = pieces_dev[4]
+    (H_pts, b_pts, H_corr, b_corr,
+     T_R, T_t, fv, delta, ab_fej, H_m_f32, b_m_f32) = (
+        x.cpu().numpy() for x in pieces_dev[:4] + pieces_dev[5:])
+    D = H_m_f32.shape[0]
+    F = D // _D
+    H_pts, b_pts, H_corr, b_corr = (
+        np.asarray(x, np.float64) for x in (H_pts, b_pts, H_corr, b_corr))
+    H_add = H_pts - H_corr
+    b_add = b_pts - b_corr
+    delta = np.asarray(delta, np.float64)
+    ab_fej = np.asarray(ab_fej, np.float64)
+
+    mw = cfg.marg_weight
+    H_m = np.asarray(H_m_f32, np.float64) + mw * H_add
+    b_m = np.asarray(b_m_f32, np.float64) + mw * b_add
+
+    # fold the slot's affine anchors (see marginalize_frame)
+    H_m[slot * _D + 6, slot * _D + 6] += cfg.ba_prior_a
+    H_m[slot * _D + 7, slot * _D + 7] += cfg.ba_prior_b
+    b_m[slot * _D + 6] += cfg.ba_prior_a * ab_fej[slot, 0]
+    b_m[slot * _D + 7] += cfg.ba_prior_b * ab_fej[slot, 1]
+
+    # fold the slot's delta, then Schur its 8 dofs
+    sel = np.zeros(D, bool)
+    sel[slot * _D : slot * _D + _D] = True
+    b_m = b_m + H_m @ (delta.reshape(-1) * sel)
+    keep = ~sel
+    Hmm = H_m[np.ix_(sel, sel)]
+    Hkm = H_m[np.ix_(keep, sel)]
+    Hmm_inv = np.linalg.inv(Hmm + 1e-10 * np.eye(_D))
+    H_new = np.zeros((D, D))
+    b_new = np.zeros(D)
+    H_new[np.ix_(keep, keep)] = H_m[np.ix_(keep, keep)] - Hkm @ Hmm_inv @ Hkm.T
+    b_new[keep] = b_m[keep] - Hkm @ (Hmm_inv @ b_m[sel])
+    H_new = 0.5 * (H_new + H_new.T)
+
+    # gauge-orthogonalize b against the post-drop nullspaces + PSD floor
+    R_np = np.asarray(T_R, np.float64)
+    t_np = np.asarray(T_t, np.float64)
+    fv_np = np.asarray(fv).copy()
+    fv_np[slot] = False
+    Nmat = np.zeros((F, _D, 7))
+    for f in range(F):
+        if not fv_np[f]:
+            continue
+        Nmat[f, 0:3, 0:3] = R_np[f]
+        Nmat[f, 0:3, 3:6] = _skew_np(t_np[f]) @ R_np[f]
+        Nmat[f, 3:6, 3:6] = R_np[f]
+        Nmat[f, 0:3, 6] = t_np[f]
+    N = Nmat.reshape(D, 7)
+    coeff = np.linalg.solve(N.T @ N + 1e-9 * np.eye(7), N.T @ b_new)
+    b_new = b_new - N @ coeff
+    ew, V = np.linalg.eigh(H_new)
+    ew = np.maximum(ew, 0.0)
+    H_new = (V * ew[None, :]) @ V.T
+
+    packed = np.concatenate([H_new, b_new[None, :]], axis=0).astype(np.float32)
+    return packed, hosted_dev
+
+
+def _skew_np(v: np.ndarray) -> np.ndarray:
+    return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
+
+
+def _marg_apply(state: BAState, packed: torch.Tensor, hosted: torch.Tensor,
+                slot) -> BAState:
+    """Apply the marginalization's state mutations: drop hosted points +
+    residuals targeting the slot, invalidate the frame, zero its delta,
+    install the new prior. `packed` is the (D+1, D) [H_new; b_new]."""
+    F = state.num_frames
+    ar_F = torch.arange(F, device=state.uv.device)
+    return state.replace(
+        point_valid=state.point_valid & ~hosted,
+        res_active=state.res_active & (ar_F[None, :] != slot),
+        frame_valid=state.frame_valid & (ar_F != slot),
+        delta=torch.where((ar_F == slot)[:, None], torch.zeros_like(state.delta),
+                          state.delta),
+        H_m=packed[:-1],
+        b_m=packed[-1],
+    )

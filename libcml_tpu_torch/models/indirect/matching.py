@@ -1,0 +1,153 @@
+"""Feature matcher suite: batched Hamming matching with ratio / orientation /
+window / projection / epipolar constraints.
+
+PyTorch port of libcml_tpu/models/indirect/matching.py (the reference's
+matcher stack: BoWTracker.cpp:112 trackByBoW, :291 trackForInitialization,
+:442 trackForTriangulation, :624 trackByProjection; CornerMatcher.h:295
+resolveByRatio). Every constrained variant is the same dense masked
+resolution with a different pair mask. `_resolve_from_desc` dispatches by
+the tensors' device: the hand-written CUDA kernel (ops/hamming_match.py) for
+CUDA tensors, the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from libcml_tpu_torch.core.camera import PinholeCamera
+from libcml_tpu_torch.core.lie import SE3
+from libcml_tpu_torch.ops.hamming_match import hamming_resolve, resolve_matrix
+
+# reference thresholds (BoWTracker.h: TH_LOW=50, TH_HIGH=100, ratio 0.6-0.9)
+TH_LOW = 50
+TH_HIGH = 100
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """Fixed-shape matching: one candidate per query row (masked)."""
+
+    idx: torch.Tensor     # (N,) index into the train set (argmin column)
+    dist: torch.Tensor    # (N,) int32 best Hamming distance
+    valid: torch.Tensor   # (N,) bool passed all checks
+    num: torch.Tensor     # () number of valid matches
+
+
+def _finish(d1, d2, best, col_best_row, max_dist: int, ratio: float):
+    """Lowe ratio + distance gate + mutual cross-check (the chosen column's
+    best row must be this row)."""
+    ok = (d1 <= max_dist) & (d1.float() < ratio * d2.float())
+    rows = torch.arange(d1.shape[0], device=d1.device)
+    ok = ok & (col_best_row[best.long()] == rows)
+    return best.long(), d1, ok
+
+
+def _resolve_from_desc(desc_q, desc_t, row_mask, col_mask, pair_mask, max_dist: int,
+                       ratio: float):
+    """Masked-Hamming match resolution from raw descriptors (the reference's
+    CornerMatchingGraph::resolveByRatio semantics, CornerMatcher.h:295):
+    one fused kernel sweep on the card, the materialized matrix on the CPU."""
+    d1, d2, best, col_best_row = hamming_resolve(desc_q, row_mask, desc_t, col_mask,
+                                                 pair_mask)
+    return _finish(d1, d2, best, col_best_row, max_dist, ratio)
+
+
+def _resolve(D, row_mask, col_mask, pair_mask, max_dist: int, ratio: float):
+    """Resolution over a materialized distance matrix (see
+    _resolve_from_desc)."""
+    d1, d2, best, col_best_row = resolve_matrix(D, row_mask, col_mask, pair_mask)
+    return _finish(d1, d2, best, col_best_row, max_dist, ratio)
+
+
+def orientation_check(angle_q, angle_t, idx, valid, n_bins: int = 30,
+                      keep_bins: int = 3):
+    """Rotation-consistency histogram check (reference: BoWTracker's
+    CheckOrientation — keep only matches whose angle delta falls in the 3
+    most-populated of 30 bins, dropping bins under 0.1x the best)."""
+    dtheta = angle_q - angle_t[idx]
+    dtheta = torch.remainder(dtheta, 2.0 * math.pi)
+    bins = torch.clamp((dtheta * (n_bins / (2.0 * math.pi))).to(torch.int32), 0, n_bins - 1)
+    hist = torch.zeros((n_bins,), dtype=torch.int32, device=idx.device)
+    hist = hist.index_add(0, bins.long(), valid.to(torch.int32))
+    # argsort(-hist) with ties in index order, as jnp.argsort (stable)
+    order = torch.sort(-hist, stable=True).indices
+    top = order[:keep_bins]
+    strong = hist[top] >= torch.clamp(
+        torch.div(hist[top[0]], 10, rounding_mode="floor"), min=1)
+    in_top = torch.any((bins.long()[:, None] == top[None, :]) & strong[None, :], dim=1)
+    return valid & in_top
+
+
+def match_descriptors(desc_q, valid_q, desc_t, valid_t, max_dist: int = TH_LOW,
+                      ratio: float = 0.75) -> MatchResult:
+    """Unconstrained descriptor matching (the brute-force / LSH / BoW-node
+    paths of the reference all reduce to this)."""
+    idx, dist, ok = _resolve_from_desc(desc_q, desc_t, valid_q, valid_t, None,
+                                       max_dist, ratio)
+    return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok))
+
+
+def match_window(desc_q, uv_q, valid_q, desc_t, uv_t, valid_t, radius: float = 100.0,
+                 max_dist: int = TH_LOW, ratio: float = 0.9) -> MatchResult:
+    """Spatial-window matching for initialization (reference:
+    trackForInitialization, BoWTracker.cpp:291)."""
+    d2 = torch.sum((uv_q[:, None, :] - uv_t[None, :, :]) ** 2, dim=-1)
+    pair = d2 <= radius * radius
+    idx, dist, ok = _resolve_from_desc(desc_q, desc_t, valid_q, valid_t, pair,
+                                       max_dist, ratio)
+    return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok))
+
+
+def match_projection(
+    Xw: torch.Tensor,
+    desc_p: torch.Tensor,
+    valid_p: torch.Tensor,
+    level_p: torch.Tensor,
+    T: SE3,
+    cam: PinholeCamera,
+    desc_f: torch.Tensor,
+    uv_f: torch.Tensor,
+    level_f: torch.Tensor,
+    valid_f: torch.Tensor,
+    radius: float = 15.0,
+    max_dist: int = TH_HIGH,
+    ratio: float = 0.9,
+    max_depth_ratio: float = 0.0,
+) -> tuple[MatchResult, torch.Tensor]:
+    """Project map points into the frame at pose T and match to corners in a
+    level-scaled radius at compatible pyramid levels (reference:
+    trackByProjection BoWTracker.cpp:624 / ReprojectionTracker.h:10).
+    Queries are POINTS, train is the frame's corner set. Also returns the
+    projected pixel (P, 2)."""
+    Xc = Xw @ T.R.T + T.t
+    uv_p, z_ok = cam.project(Xc)
+    vis = valid_p & z_ok & cam.in_bounds(uv_p, border=2.0)
+
+    r = radius * (1.5 ** level_p.float())
+    d2 = torch.sum((uv_p[:, None, :] - uv_f[None, :, :]) ** 2, dim=-1)
+    pair = d2 <= (r * r)[:, None]
+    pair = pair & (torch.abs(level_p[:, None] - level_f[None, :]) <= 1)
+    idx, dist, ok = _resolve_from_desc(desc_p, desc_f, vis, valid_f, pair,
+                                       max_dist, ratio)
+    return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok)), uv_p
+
+
+def match_epipolar(desc_q, uv_q, valid_q, desc_t, uv_t, valid_t, F01: torch.Tensor,
+                   epi_tol: float = 3.84, max_dist: int = TH_LOW,
+                   ratio: float = 0.8) -> MatchResult:
+    """Epipolar-constrained matching for triangulation (reference:
+    trackForTriangulation, BoWTracker.cpp:442): the candidate must lie near
+    the epipolar line l = F01 @ [uv_q, 1] in the train view."""
+    xq = torch.cat([uv_q, torch.ones_like(uv_q[:, :1])], dim=-1)
+    lines = xq @ F01.T
+    xt = torch.cat([uv_t, torch.ones_like(uv_t[:, :1])], dim=-1)
+    num = lines @ xt.T
+    den = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    d2 = num**2 / torch.clamp(den, min=1e-9)[:, None]
+    pair = d2 <= epi_tol
+    idx, dist, ok = _resolve_from_desc(desc_q, desc_t, valid_q, valid_t, pair,
+                                       max_dist, ratio)
+    return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok))

@@ -1,0 +1,192 @@
+"""Fused masked-Hamming match resolution: the CUDA kernel and its plain version.
+
+The matcher's core primitive (models/indirect/matching._resolve_from_desc)
+needs, for a masked (N, M) Hamming-distance matrix over 256-bit ORB
+descriptors: the row best and second best (Lowe ratio), the best column per
+row, and the best row per column (mutual cross-check). A masked entry counts
+257 and ties go to the first occurrence.
+
+  hamming_resolve_cuda   hand-written sm_90a kernel (csrc/hamming_match.cu),
+                         the port of the TPU kernel `hamming_resolve_pallas`
+                         (libcml_tpu/ops/pallas_match.py:107); the (N, M)
+                         matrix never exists in memory.
+  hamming_resolve_plain  the same outputs from the materialized matrix, in
+                         plain PyTorch (the CPU path, and the yardstick the
+                         kernel is held to on the card).
+  hamming_resolve        dispatch by the tensors' device: the kernel for CUDA
+                         tensors, the plain version for CPU tensors. Nothing
+                         falls back: a kernel that fails to build or launch
+                         raises.
+
+The kernel is compiled with nvcc on first use into `_build/` beside this
+package (a shared library with a plain C interface, bound with ctypes).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from libcml_tpu_torch.models.indirect.orb import hamming_matrix
+
+MASKED = 257  # > the largest Hamming distance over 256 bits
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "hamming_match.cu"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """The CUDA launch returned an error."""
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    """The shared library's path, keyed by the source's content hash."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libhamming_match-{digest}.so"
+
+
+def build(verbose: bool = False) -> tuple[Path, float, str]:
+    """Compile the kernel if its library is missing. Returns (library path,
+    seconds spent compiling (0.0 when already built), compiler output —
+    ptxas register/shared-memory report when `verbose`)."""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-o", str(tmp), str(SOURCE)]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: concurrent builders never see a partial file
+    return lib, seconds, proc.stdout + proc.stderr
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        fn = lib.hamming_resolve_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def hamming_resolve_cuda(desc_q: torch.Tensor, mask_q: torch.Tensor,
+                         desc_t: torch.Tensor, mask_t: torch.Tensor,
+                         pair_mask: torch.Tensor | None = None):
+    """Launch the kernel on the current stream. Inputs: desc_q (N, 8) int32,
+    mask_q (N,) bool, desc_t (M, 8) int32, mask_t (M,) bool, optional
+    pair_mask (N, M) bool, all contiguous on one CUDA device. Returns int32
+    (d1 (N,), d2 (N,), idx (N,), col_row (M,)). Counts its launches in
+    `hamming_resolve_cuda.launches`."""
+    dev = desc_q.device
+    if dev.type != "cuda":
+        raise ValueError(f"hamming_resolve_cuda needs CUDA tensors, got {dev}")
+    N, M = desc_q.shape[0], desc_t.shape[0]
+    if N == 0 or M == 0:
+        raise ValueError("hamming_resolve_cuda needs at least one query and one train row")
+    _check("desc_q", desc_q, (N, 8), torch.int32, dev)
+    _check("mask_q", mask_q, (N,), torch.bool, dev)
+    _check("desc_t", desc_t, (M, 8), torch.int32, dev)
+    _check("mask_t", mask_t, (M,), torch.bool, dev)
+    if pair_mask is not None:
+        _check("pair_mask", pair_mask, (N, M), torch.bool, dev)
+    lib = _library()
+    d1 = torch.empty(N, dtype=torch.int32, device=dev)
+    d2 = torch.empty(N, dtype=torch.int32, device=dev)
+    idx = torch.empty(N, dtype=torch.int32, device=dev)
+    col_row = torch.empty(M, dtype=torch.int32, device=dev)
+    scratch = torch.empty(M, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.hamming_resolve_launch(
+            desc_q.data_ptr(), mask_q.data_ptr(), desc_t.data_ptr(), mask_t.data_ptr(),
+            None if pair_mask is None else pair_mask.data_ptr(), N, M,
+            d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), col_row.data_ptr(),
+            scratch.data_ptr(), stream)
+    if err != 0:
+        raise KernelLaunchError(f"hamming_resolve kernel launch failed: CUDA error {err}")
+    hamming_resolve_cuda.launches += 1
+    return d1, d2, idx, col_row
+
+
+hamming_resolve_cuda.launches = 0
+
+
+def resolve_matrix(D: torch.Tensor, mask_q: torch.Tensor, mask_t: torch.Tensor,
+                   pair_mask: torch.Tensor | None = None):
+    """(d1, d2, idx, col_row) int32 from a materialized (N, M) distance
+    matrix: masked entries count 257, argmin takes the first occurrence, d2
+    is the row minimum with the best column itself masked."""
+    mask = mask_q[:, None] & mask_t[None, :]
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    big = torch.full((), MASKED, dtype=torch.int32, device=D.device)
+    Dm = torch.where(mask, D.to(torch.int32), big)
+    idx = torch.argmin(Dm, dim=1)
+    d1 = torch.gather(Dm, 1, idx[:, None])[:, 0]
+    cols = torch.arange(Dm.shape[1], device=D.device)
+    d2 = torch.amin(torch.where(cols[None, :] == idx[:, None], big, Dm), dim=1)
+    col_row = torch.argmin(Dm, dim=0)
+    return d1, d2, idx.to(torch.int32), col_row.to(torch.int32)
+
+
+def hamming_resolve_plain(desc_q: torch.Tensor, mask_q: torch.Tensor,
+                          desc_t: torch.Tensor, mask_t: torch.Tensor,
+                          pair_mask: torch.Tensor | None = None):
+    """Plain PyTorch version of the kernel (same signature and outputs)."""
+    return resolve_matrix(hamming_matrix(desc_q, desc_t), mask_q, mask_t, pair_mask)
+
+
+def hamming_resolve(desc_q, mask_q, desc_t, mask_t, pair_mask=None):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if desc_q.is_cuda:
+        return hamming_resolve_cuda(desc_q.contiguous(), mask_q.contiguous(),
+                                    desc_t.contiguous(), mask_t.contiguous(),
+                                    None if pair_mask is None else pair_mask.contiguous())
+    if desc_q.device.type == "cpu":
+        return hamming_resolve_plain(desc_q, mask_q, desc_t, mask_t, pair_mask)
+    raise ValueError(f"hamming_resolve: unsupported device {desc_q.device}")
