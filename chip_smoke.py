@@ -7,9 +7,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      exits non-zero without CUDA.
   1. build the hand-written kernel from the sources in this checkout.
   2. the kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at edge cases, exact equality required; kernel
-     and plain times with CUDA events, and the kernel's bound (HBM bytes or
-     popcounts at the card's highest SM clock, whichever takes longer).
+     main path's shapes (random masks and frame 1's real phase-4 masks)
+     and at edge cases, exact equality required; kernel times with CUDA
+     events, cold L2 and warm, the plain version's (cold), the launches
+     and device operations a call makes (torch.profiler), and the kernel's bound
+     (HBM bytes or popcounts at the card's highest SM clock, whichever
+     takes longer) with the share of it that the cold time reaches; a
+     share above 1 fails the run.
   3. direct path at full width: DirectOdometry with bench.py's config on 60
      rendered 640x480 frames; fps, ATE < 0.1, no lost segment.
   4. hybrid tracking programs at full width: ORB (512 per level, 3 levels)
@@ -18,7 +22,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      Hamming kernel twice, keep >= 12 PnP inliers and stay within the
      two-view pose budget (0.04 translation, 0.01 rad).
 Then the phases' results, the card's name and power limit, the kernel
-table ({"kernels": [...]}, launches counted in phase 4 only), and the result
+table ({"kernels": [...]}: launches counted in phase 4 only, times and
+bound of the phase-4 masks case, cold), and the result
 line {"ok": true, "device": {...}} last.
 """
 
@@ -36,7 +41,6 @@ import torch
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.ops import hamming_match as hm
-from libcml_tpu_torch.runtime import hybrid
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
 
 # published H100 SXM memory rate at 700 W (NVIDIA's data sheet)
@@ -76,22 +80,59 @@ def popc_per_s() -> float:
     return rate
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device milliseconds of one call of `fn` (CUDA events between
-    back-to-back calls). A spin kernel first holds the card while the host
-    queues every call, so the host's launch overhead stays out of the
-    events' intervals."""
+# a buffer larger than the 50 MB L2: writing it before a call evicts the
+# call's inputs, so the call reads them from device memory
+FLUSH_BYTES = 128 * 2**20
+_flush: torch.Tensor | None = None
+
+
+def cuda_ms(fn, reps: int = 30, warmup: int = 3, cold: bool = True) -> float:
+    """Median device milliseconds of one call of `fn`, CUDA events around
+    each call alone. Cold (the default): a 128 MB buffer is written before
+    each call, outside the events, so the call finds its inputs out of L2;
+    warm: the calls run back to back on the same inputs. A spin kernel first
+    holds the card while the host queues every call, so the host's launch
+    overhead stays out of the events' intervals."""
+    global _flush
+    if cold and _flush is None:
+        _flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
     torch.cuda._sleep(100_000_000)
-    ev[0].record()
-    for i in range(reps):
+    for i, (a, b) in enumerate(ev):
+        if cold:
+            _flush.fill_(i)
+        a.record()
         fn()
-        ev[i + 1].record()
-    ev[-1].synchronize()
-    return statistics.median(ev[i].elapsed_time(ev[i + 1]) for i in range(reps))
+        b.record()
+    ev[-1][1].synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+# CUDA runtime and driver calls that put work on the device
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                 "cudaLaunchCooperativeKernel", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def launches_per_call(fn, calls: int = 10) -> tuple[float, float]:
+    """(runtime calls that enqueue device work, device operations) per call
+    of `fn`, from torch.profiler: the host's kernel launches, fills and
+    copies (the ctypes library's launch included), and the kernels, fills
+    and copies on the device timeline."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = sum(e.device_type.name == "CPU" and e.name in ENQUEUE_CALLS for e in events)
+    device = sum(e.device_type.name != "CPU" for e in events)
+    return host / calls, device / calls
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -99,20 +140,28 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def hamming_bound(args, popc_rate: float) -> tuple[float, str, int]:
     """Least time for one resolution, in milliseconds: the larger of the bytes
-    (pair mask, masks and descriptors read once, d1/d2/idx/col_row written
-    once) over the HBM rate, and the popcounts the result needs (8 for each
-    entry that all three masks leave, as this call's masks count them) over
-    the card's popcount rate. Also returns the number of such entries."""
+    over the HBM rate and the popcounts over the card's popcount rate. Bytes:
+    the pair-mask rows of the query rows whose mask_q is true (a masked row
+    needs none of its row), both masks, the descriptors of the rows and
+    columns that have a live entry, each read once, and d1/d2/idx/col_row
+    written once. Popcounts: 8 for each live entry (one that all three masks
+    leave). Also returns the number of live entries."""
     dq, mq, dt, mt, pm = args
     N, M = dq.shape[0], dt.shape[0]
     live = mq[:, None] & mt[None, :]
     if pm is not None:
         live &= pm
-    nbytes = (N * M if pm is not None else 0) + N + M + (N + M) * 32 + N * 12 + M * 4
+    pair_bytes = int(mq.sum()) * M if pm is not None else 0
+    desc_bytes = (int(live.any(1).sum()) + int(live.any(0).sum())) * 32
+    nbytes = pair_bytes + N + M + desc_bytes + N * 12 + M * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     n_live = int(live.sum())
     t_ops = 8.0 * n_live / popc_rate * 1e3
     return (t_ops, "operations", n_live) if t_ops >= t_bytes else (t_bytes, "bytes", n_live)
+
+
+def _dev(dev, *arrays):
+    return tuple(None if a is None else torch.as_tensor(a).to(dev) for a in arrays)
 
 
 def random_case(rng, N, M, dev, p_mask=0.2, pair="random"):
@@ -131,10 +180,21 @@ def random_case(rng, N, M, dev, p_mask=0.2, pair="random"):
         r = 15.0 * 1.5 ** lq
         d2 = ((uq[:, None] - ut[None]) ** 2).sum(-1)
         pm = (d2 <= (r * r)[:, None]) & (np.abs(lq[:, None] - lt[None]) <= 1)
+    elif pair == "epipolar":
+        # match_epipolar's test: squared distance of the train corner to the
+        # query's epipolar line F [u, v, 1] within epi_tol; a sideways
+        # translation gives near-horizontal lines, and epi_tol = 2.4^2 px^2
+        # leaves a band of about 1 % of the frame
+        uq = rng.uniform([0, 0], [wl.W, wl.H], (N, 2))
+        ut = rng.uniform([0, 0], [wl.W, wl.H], (M, 2))
+        F = np.array([[0.0, -0.1, 0.0], [0.1, 0.0, -1.0], [0.0, 1.0, 0.0]])
+        lines = np.c_[uq, np.ones(N)] @ F.T
+        num = lines @ np.c_[ut, np.ones(M)].T
+        d2 = num ** 2 / np.maximum(lines[:, 0] ** 2 + lines[:, 1] ** 2, 1e-9)[:, None]
+        pm = d2 <= 2.4 ** 2
     else:
         pm = None
-    t = lambda a: None if a is None else torch.as_tensor(a).to(dev)
-    return t(dq), t(mq), t(dt), t(mt), t(pm)
+    return _dev(dev, dq, mq, dt, mt, pm)
 
 
 def edge_case(rng, dev):
@@ -151,11 +211,13 @@ def edge_case(rng, dev):
     mt[4] = False                              # fully masked column
     pm[:, 60] = False                          # column masked by the pair mask
     pm[8, :] = False                           # row masked by the pair mask
-    t = lambda a: torch.as_tensor(a).to(dev)
-    return t(dq), t(mq), t(dt), t(mt), t(pm)
+    return _dev(dev, dq, mq, dt, mt, pm)
 
 
-def kernel_vs_plain(dev, card: str, popc_rate: float) -> tuple[list[dict], float]:
+PHASE4_CASE = "4096x1536 phase-4 masks (frame 1, match_projection)"
+
+
+def kernel_vs_plain(dev, card: str, popc_rate: float, phase4_args) -> tuple[list[dict], float]:
     rng = np.random.default_rng(11)
     cases = [
         ("67x301 random masks + pair", random_case(rng, 67, 301, dev)),
@@ -166,7 +228,18 @@ def kernel_vs_plain(dev, card: str, popc_rate: float) -> tuple[list[dict], float
         ("1536x1536 no pair (match_descriptors)", random_case(rng, 1536, 1536, dev,
                                                              pair=None)),
         ("edge cases: masked row/column, ties", edge_case(rng, dev)),
+        (PHASE4_CASE, phase4_args),
+        ("1536x1536 epipolar band (match_epipolar)", random_case(rng, 1536, 1536, dev,
+                                                                pair="epipolar")),
+        ("1x1", random_case(rng, 1, 1, dev, p_mask=0.0, pair=None)),
+        ("4096x17 unaligned M", random_case(rng, 4096, 17, dev)),
     ]
+    # the fixed cost of any call timed this way: one one-element PyTorch
+    # kernel between the same events
+    tiny = torch.zeros(1, device=dev)
+    print(json.dumps({"launch_floor_ms": cuda_ms(lambda: tiny.add_(1)),
+                      "launch_floor_warm_ms": cuda_ms(lambda: tiny.add_(1), cold=False),
+                      "card": card}))
     rows, max_err = [], 0.0
     for name, args in cases:
         got = hm.hamming_resolve_cuda(*args)
@@ -178,15 +251,24 @@ def kernel_vs_plain(dev, card: str, popc_rate: float) -> tuple[list[dict], float
             require(torch.equal(g, w_), f"hamming kernel != plain on {name}: {what}")
         N, M = args[0].shape[0], args[2].shape[0]
         bound, by, n_live = hamming_bound(args, popc_rate)
+        kernel_ms = cuda_ms(lambda: hm.hamming_resolve_cuda(*args))
+        launches, device_ops = launches_per_call(lambda: hm.hamming_resolve_cuda(*args))
+        pm = args[4]
         row = {"case": name, "N": N, "M": M,
-               "kernel_ms": cuda_ms(lambda: hm.hamming_resolve_cuda(*args)),
+               "kernel_ms": kernel_ms,
+               "kernel_warm_ms": cuda_ms(lambda: hm.hamming_resolve_cuda(*args), cold=False),
                "plain_ms": cuda_ms(lambda: hm.hamming_resolve_plain(*args), reps=20),
-               "bound_ms": bound, "bound_by": by, "live_entries": n_live,
-               # the popcounts of all N * M entries, which this kernel computes
+               "bound_ms": bound, "bound_by": by, "bound_share": bound / kernel_ms,
+               "launches_per_call": launches, "device_ops_per_call": device_ops,
+               "live_rows": int(args[1].sum()), "live_entries": n_live,
+               "pair_density": None if pm is None else float(pm.float().mean()),
+               # the popcounts of all N * M entries (PR 1's kernel computed them)
                "dense_popc_ms": 8.0 * N * M / popc_rate * 1e3,
                "equal": True, "card": card}
         rows.append(row)
         print(json.dumps(row))
+        require(row["bound_share"] <= 1.0,
+                f"{name}: {kernel_ms} ms is under its bound {bound} ms: the bound is wrong")
     return rows, max_err
 
 
@@ -286,13 +368,15 @@ def main() -> int:
     print(log.strip())
 
     t0 = time.perf_counter()
-    rows, max_err = kernel_vs_plain(dev, card, popc_per_s())
-    print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
     cam, traj, frames = wl.render_frames(dev, N_DIRECT)
     torch.cuda.synchronize()
     print(f"rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    map_, _ = wl.build_map(cam, traj, frames, dev)
+    phase4_args = wl.projection_match_inputs(map_, cam, traj, wl.extract(frames[1]), 1, dev)
+    rows, max_err = kernel_vs_plain(dev, card, popc_per_s(), phase4_args)
+    print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     direct = direct_phase(dev, cam, traj, frames)
@@ -302,7 +386,7 @@ def main() -> int:
     hyb = hybrid_phase(dev, cam, traj, frames)
     print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
 
-    main_row = next(r for r in rows if r["N"] == hybrid.MAP_CAP)
+    main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",

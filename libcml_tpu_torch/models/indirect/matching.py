@@ -101,6 +101,22 @@ def match_window(desc_q, uv_q, valid_q, desc_t, uv_t, valid_t, radius: float = 1
     return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok))
 
 
+def projection_pair_mask(Xw, valid_p, level_p, T: SE3, cam: PinholeCamera, uv_f, level_f,
+                         radius: float):
+    """The masks match_projection resolves under: the points visible at pose T
+    (vis (P,)), the (point, corner) pairs within the level-scaled radius at
+    compatible pyramid levels (pair (P, F)), and the projected pixels (P, 2)."""
+    Xc = Xw @ T.R.T + T.t
+    uv_p, z_ok = cam.project(Xc)
+    vis = valid_p & z_ok & cam.in_bounds(uv_p, border=2.0)
+
+    r = radius * (1.5 ** level_p.float())
+    d2 = torch.sum((uv_p[:, None, :] - uv_f[None, :, :]) ** 2, dim=-1)
+    pair = d2 <= (r * r)[:, None]
+    pair = pair & (torch.abs(level_p[:, None] - level_f[None, :]) <= 1)
+    return vis, pair, uv_p
+
+
 def match_projection(
     Xw: torch.Tensor,
     desc_p: torch.Tensor,
@@ -122,14 +138,8 @@ def match_projection(
     trackByProjection BoWTracker.cpp:624 / ReprojectionTracker.h:10).
     Queries are POINTS, train is the frame's corner set. Also returns the
     projected pixel (P, 2)."""
-    Xc = Xw @ T.R.T + T.t
-    uv_p, z_ok = cam.project(Xc)
-    vis = valid_p & z_ok & cam.in_bounds(uv_p, border=2.0)
-
-    r = radius * (1.5 ** level_p.float())
-    d2 = torch.sum((uv_p[:, None, :] - uv_f[None, :, :]) ** 2, dim=-1)
-    pair = d2 <= (r * r)[:, None]
-    pair = pair & (torch.abs(level_p[:, None] - level_f[None, :]) <= 1)
+    vis, pair, uv_p = projection_pair_mask(Xw, valid_p, level_p, T, cam, uv_f, level_f,
+                                           radius)
     idx, dist, ok = _resolve_from_desc(desc_p, desc_f, vis, valid_f, pair,
                                        max_dist, ratio)
     return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok)), uv_p

@@ -8,8 +8,9 @@ row, and the best row per column (mutual cross-check). A masked entry counts
 
   hamming_resolve_cuda   hand-written sm_90a kernel (csrc/hamming_match.cu),
                          the port of the TPU kernel `hamming_resolve_pallas`
-                         (libcml_tpu/ops/pallas_match.py:107); the (N, M)
-                         matrix never exists in memory.
+                         (libcml_tpu/ops/pallas_match.py:107); one launch a
+                         call, and only the entries that pass every mask are
+                         computed; the (N, M) matrix never exists in memory.
   hamming_resolve_plain  the same outputs from the materialized matrix, in
                          plain PyTorch (the CPU path, and the yardstick the
                          kernel is held to on the card).
@@ -90,6 +91,15 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
 
 _LIB: ctypes.CDLL | None = None
 
+# the kernel's work units (csrc/hamming_match.cu): rows per row group and the
+# most columns per column chunk, with and without a pair mask
+SPARSE_ROWS, DENSE_ROWS = 8, 32
+SPARSE_CW, DENSE_CW = 2048, 512
+# below this many entries one column chunk: splitting the columns adds the
+# row merge's memory round trips to a call that is too small to fill the card
+SPLIT_MIN_ENTRIES = 1 << 16
+COL_INIT = MASKED << 32          # an untouched column key: (257, row 0)
+
 
 def _library() -> ctypes.CDLL:
     global _LIB
@@ -97,10 +107,41 @@ def _library() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         fn = lib.hamming_resolve_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 8)
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def plan(N: int, M: int, has_pair: bool, sms: int) -> tuple[int, int, int]:
+    """(groups, chunks, cw): the kernel's grid of groups x chunks units. Row
+    group g holds rows g, g + groups, ...; column chunk k holds columns
+    [k cw, (k + 1) cw). From SPLIT_MIN_ENTRIES entries on, enough units to
+    give each of `sms` SMs one (two without a pair mask, whose units are
+    shorter), and no more chunks than one per 32 columns."""
+    rows, max_cw = (SPARSE_ROWS, SPARSE_CW) if has_pair else (DENSE_ROWS, DENSE_CW)
+    groups = -(-N // rows)
+    want = (sms if has_pair else 2 * sms) if N * M >= SPLIT_MIN_ENTRIES else 1
+    chunks = max(-(-M // max_cw), min(-(-want // groups), -(-M // 32)))
+    cw = -(-M // chunks)
+    return groups, -(-M // cw), cw
+
+
+# per (device, stream): column keys at COL_INIT and tickets at 0, which the
+# kernel leaves so on exit
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, stream: int, M: int, n_tickets: int):
+    key = (dev.index, stream)
+    cols, tickets = _SCRATCH.get(key, (None, None))
+    if cols is None or cols.numel() < M:
+        cols = torch.full((M,), COL_INIT, dtype=torch.int64, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = cols, tickets
+    return cols, tickets
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device) -> None:
@@ -117,11 +158,11 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device)
 def hamming_resolve_cuda(desc_q: torch.Tensor, mask_q: torch.Tensor,
                          desc_t: torch.Tensor, mask_t: torch.Tensor,
                          pair_mask: torch.Tensor | None = None):
-    """Launch the kernel on the current stream. Inputs: desc_q (N, 8) int32,
-    mask_q (N,) bool, desc_t (M, 8) int32, mask_t (M,) bool, optional
-    pair_mask (N, M) bool, all contiguous on one CUDA device. Returns int32
-    (d1 (N,), d2 (N,), idx (N,), col_row (M,)). Counts its launches in
-    `hamming_resolve_cuda.launches`."""
+    """Launch the kernel on the current stream (one launch). Inputs: desc_q
+    (N, 8) int32, mask_q (N,) bool, desc_t (M, 8) int32, mask_t (M,) bool,
+    optional pair_mask (N, M) bool, all contiguous on one CUDA device, the
+    descriptors 16-byte aligned. Returns int32 (d1 (N,), d2 (N,), idx (N,),
+    col_row (M,)). Counts its launches in `hamming_resolve_cuda.launches`."""
     dev = desc_q.device
     if dev.type != "cuda":
         raise ValueError(f"hamming_resolve_cuda needs CUDA tensors, got {dev}")
@@ -134,20 +175,27 @@ def hamming_resolve_cuda(desc_q: torch.Tensor, mask_q: torch.Tensor,
     _check("mask_t", mask_t, (M,), torch.bool, dev)
     if pair_mask is not None:
         _check("pair_mask", pair_mask, (N, M), torch.bool, dev)
+    if desc_q.data_ptr() % 16 or desc_t.data_ptr() % 16:
+        raise ValueError("descriptors must be 16-byte aligned")
     lib = _library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups, chunks, cw = plan(N, M, pair_mask is not None, sms)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    col_best, tickets = _scratch(dev, stream, M, groups + chunks)
     d1 = torch.empty(N, dtype=torch.int32, device=dev)
     d2 = torch.empty(N, dtype=torch.int32, device=dev)
     idx = torch.empty(N, dtype=torch.int32, device=dev)
     col_row = torch.empty(M, dtype=torch.int32, device=dev)
-    scratch = torch.empty(M, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    row_part = torch.empty((chunks, N, 2), dtype=torch.int32, device=dev) if chunks > 1 else None
     with torch.cuda.device(dev):
         err = lib.hamming_resolve_launch(
             desc_q.data_ptr(), mask_q.data_ptr(), desc_t.data_ptr(), mask_t.data_ptr(),
-            None if pair_mask is None else pair_mask.data_ptr(), N, M,
+            None if pair_mask is None else pair_mask.data_ptr(), N, M, groups, chunks, cw,
             d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), col_row.data_ptr(),
-            scratch.data_ptr(), stream)
+            None if row_part is None else row_part.data_ptr(), col_best.data_ptr(),
+            tickets.data_ptr(), stream)
     if err != 0:
+        _SCRATCH.pop((dev.index, stream), None)
         raise KernelLaunchError(f"hamming_resolve kernel launch failed: CUDA error {err}")
     hamming_resolve_cuda.launches += 1
     return d1, d2, idx, col_row

@@ -48,6 +48,11 @@ def _all_finite(T: SE3) -> torch.Tensor:
     return torch.all(torch.isfinite(T.t)) & torch.all(torch.isfinite(T.R))
 
 
+def predict_pose(T_curr: SE3, T_prev: SE3) -> SE3:
+    """Constant-velocity prediction of the next frame's pose."""
+    return T_curr.compose(T_prev.inverse()).compose(T_curr)
+
+
 def _local_map_pass2(Xw, desc_p, valid_p, level_p, T_refined: SE3, cam: PinholeCamera,
                      feats_desc, feats_uv, feats_level, feats_valid):
     """SECOND local-map tracking pass (reference: indirect/Tracking.cpp:413-632
@@ -79,8 +84,7 @@ def _project_match_pnp(Xw, desc_p, valid_p, level_p, T_curr: SE3, T_prev: SE3,
     [num_matches, num_inliers, finite, R(9), t(3), cov_rot(3), motion_dt,
     motion_ang] and use_seed = the inlier/finite gate for ORB-first seeding
     of the direct spine."""
-    T_delta = T_curr.compose(T_prev.inverse())
-    T_pred = T_delta.compose(T_curr)
+    T_pred = predict_pose(T_curr, T_prev)
     m, _ = match_projection(
         Xw, desc_p, valid_p, level_p, T_pred, cam,
         feats_desc, feats_uv, feats_level, feats_valid,

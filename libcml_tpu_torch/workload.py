@@ -17,6 +17,7 @@ from libcml_tpu_torch.core.camera import PinholeCamera
 from libcml_tpu_torch.core.lie import SE3
 from libcml_tpu_torch.data.synthetic import SyntheticScene, forward_trajectory
 from libcml_tpu_torch.models.direct.config import DirectConfig
+from libcml_tpu_torch.models.indirect.matching import projection_pair_mask
 from libcml_tpu_torch.models.indirect.orb import OrbFeatures
 from libcml_tpu_torch.runtime import hybrid
 
@@ -74,6 +75,19 @@ def build_map(cam: PinholeCamera, traj, frames, dev: torch.device) -> tuple[Hybr
                                         device=dev)])
 
     return (pad(Xw, 0.0), pad(f0.desc, 0), pad(ok, False), pad(f0.level, 0)), int(ok.sum())
+
+
+def projection_match_inputs(map_: HybridMap, cam: PinholeCamera, traj, f: OrbFeatures,
+                            i: int, dev: torch.device):
+    """The Hamming resolution's inputs (desc_q, mask_q, desc_t, mask_t,
+    pair_mask) in track_frame's first program on frame `i`: the map against
+    frame i's corners at the constant-velocity pose, match_projection's
+    default radius."""
+    Xw, desc, valid, level = map_
+    T_pred = hybrid.predict_pose(se3(*traj[i - 1], dev), se3(*traj[max(i - 2, 0)], dev))
+    vis, pair, _ = projection_pair_mask(Xw, valid, level, T_pred, cam, f.uv, f.level,
+                                        radius=15.0)
+    return desc, vis, f.desc, f.valid, pair
 
 
 def track_frame(map_: HybridMap, cam: PinholeCamera, traj, f: OrbFeatures, i: int,

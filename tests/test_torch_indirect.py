@@ -9,10 +9,14 @@ formulas agree to a few ulps; the iterative PnP solve gets a bound stated at
 its test.
 
 The hand-written CUDA kernel cannot run here; its plain version is held to
-the Pallas kernel in interpret mode (as tests/test_matching.py runs it), and
-the kernel itself is held to its plain version on the card
-(`test_cuda_kernel_matches_plain`, skipped without CUDA, and chip_smoke.py).
+the Pallas kernel in interpret mode (as tests/test_matching.py runs it), its
+rule for splitting the work into units and merging their partials is
+modelled here and held to both, and the kernel itself is held to its plain
+version on the card (`test_cuda_kernel_matches_plain`, skipped without
+CUDA, and chip_smoke.py).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -171,23 +175,53 @@ def _resolve_case(name):
         dq = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
         dt = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
         mq, mt, pm = rng.random(N) > 0.3, np.ones(M, bool), None
-    else:   # all_masked
+    elif name == "all_masked":
         N, M = 5, 300
         dq = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
         dt = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
         mq, mt, pm = np.zeros(N, bool), np.ones(M, bool), None
+    elif name == "pair_all_false":
+        N, M = 23, 50
+        dq = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
+        dt = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+        mq, mt, pm = rng.random(N) > 0.2, rng.random(M) > 0.2, np.zeros((N, M), bool)
+    elif name == "one_live_per_row":
+        N, M = 30, 64
+        dq = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
+        dt = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+        mq, mt = np.ones(N, bool), np.ones(M, bool)
+        pm = np.zeros((N, M), bool)
+        pm[np.arange(N), rng.integers(0, M, N)] = True
+    else:   # m1, m16, m17 (pair mask), m301 (none, distances tie everywhere)
+        N, M = {"m1": (40, 1), "m16": (37, 16), "m17": (70, 17), "m301": (45, 301)}[name]
+        base = rng.integers(0, 2**32, (5, 8), dtype=np.uint32)
+        dq, dt = base[rng.integers(0, 5, N)], base[rng.integers(0, 5, M)]
+        mq, mt = rng.random(N) > 0.2, rng.random(M) > 0.2
+        pm = None if name == "m301" else rng.random((N, M)) > 0.5
     return dq, mq, dt, mt, pm
 
 
-@pytest.mark.parametrize("name", ["odd_sizes", "ties_and_masked", "no_pair_small_alphabet",
-                                  "single_column", "all_masked"])
+RESOLVE_CASES = ["odd_sizes", "ties_and_masked", "no_pair_small_alphabet", "single_column",
+                 "all_masked"]
+NEW_CASES = ["pair_all_false", "one_live_per_row", "m1", "m16", "m17", "m301"]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(name):
+    """The Pallas kernel in interpret mode on one case (numpy outputs)."""
+    dq, mq, dt, mt, pm = _resolve_case(name)
+    out = hamming_resolve_pallas(jnp.asarray(dq), jnp.asarray(mq), jnp.asarray(dt),
+                                 jnp.asarray(mt), None if pm is None else jnp.asarray(pm),
+                                 tile_m=64, interpret=True)
+    return tuple(np.asarray(x) for x in out)
+
+
+@pytest.mark.parametrize("name", RESOLVE_CASES)
 def test_hamming_resolve_plain_equals_pallas(name):
     """Exact equality of all four outputs, masked rows and columns included
     (a masked entry counts 257; ties go to the first occurrence)."""
     dq, mq, dt, mt, pm = _resolve_case(name)
-    want = hamming_resolve_pallas(jnp.asarray(dq), jnp.asarray(mq), jnp.asarray(dt),
-                                  jnp.asarray(mt), None if pm is None else jnp.asarray(pm),
-                                  tile_m=64, interpret=True)
+    want = _pallas(name)
     got = hm.hamming_resolve_plain(_t(dq), _t(mq), _t(dt), _t(mt),
                                    None if pm is None else _t(pm))
     for g, w, what in zip(got, want, ("d1", "d2", "idx", "col_row")):
@@ -211,6 +245,91 @@ def test_hamming_resolve_dispatch_has_no_fallback():
     assert hm.hamming_resolve_cuda.launches == before
 
 
+def _merge_rows(a, b):
+    """The kernel's row merge: lexicographic on (d1, column), and
+    d2 = min(winner.d2, loser.d1)."""
+    a_wins = (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] < b[1]))
+    d1, i1, d2 = (torch.where(a_wins, x, y) for x, y in zip(a, b))
+    return d1, i1, torch.minimum(d2, torch.where(a_wins, b[0], a[0]))
+
+
+def _split_merge(dq, mq, dt, mt, pm, groups, chunks, cw):
+    """The kernel's split-and-merge rule on the CPU: resolve_matrix on each
+    (row group, column chunk) unit, row group g holding rows g, g + groups,
+    ..., chunk k columns [k cw, (k + 1) cw); row partials merged by
+    _merge_rows from an empty partial, column minima as (d, row) keys from
+    (257, row 0)."""
+    N, M = dq.shape[0], dt.shape[0]
+    D = torb.hamming_matrix(dq, dt).to(torch.int32)
+    rows_best = (torch.full((N,), 258, dtype=torch.int32),
+                 torch.full((N,), 2**31 - 1, dtype=torch.int32),
+                 torch.full((N,), 258, dtype=torch.int32))
+    col_key = torch.full((M,), hm.COL_INIT, dtype=torch.int64)
+    for g in range(groups):
+        rows = torch.arange(g, N, groups)
+        for k in range(chunks):
+            cols = torch.arange(k * cw, min(k * cw + cw, M))
+            sub = D[rows][:, cols]
+            sub_pm = None if pm is None else pm[rows][:, cols]
+            d1, d2, idx, col_row = hm.resolve_matrix(sub, mq[rows], mt[cols], sub_pm)
+            part = (d1, (cols[idx.long()]).to(torch.int32), d2)
+            merged = _merge_rows(tuple(x[rows] for x in rows_best), part)
+            for x, m in zip(rows_best, merged):
+                x[rows] = m
+            mask = mq[rows][:, None] & mt[cols][None, :]
+            if sub_pm is not None:
+                mask &= sub_pm
+            dcol = torch.where(mask, sub, hm.MASKED).gather(0, col_row[None].long())[0]
+            key = dcol.long() * 2**32 + rows[col_row.long()]
+            col_key[cols] = torch.minimum(col_key[cols], key)
+    d1, i1, d2 = rows_best
+    return (torch.clamp(d1, max=hm.MASKED), torch.clamp(d2, max=hm.MASKED),
+            torch.where(d1 < hm.MASKED, i1, 0), (col_key % 2**32).to(torch.int32))
+
+
+def _units(split, N, M, has_pair):
+    """(groups, chunks, cw) of one way to split an (N, M) resolution."""
+    if split.startswith("plan"):
+        return hm.plan(N, M, has_pair, int(split.split("_")[1]))
+    if split == "per_row":
+        return N, 1, M
+    return 1, M, 1                                     # per_column
+
+
+@pytest.mark.parametrize("split", ["plan_1_sm", "plan_7_sms", "plan_132_sms", "per_row",
+                                   "per_column"])
+@pytest.mark.parametrize("name", RESOLVE_CASES + NEW_CASES)
+def test_split_merge_equals_plain_and_pallas(name, split):
+    """The kernel's rule (rows in strided groups, columns in chunks, partials
+    merged) gives exactly the unsplit plain version and the Pallas kernel."""
+    dq, mq, dt, mt, pm = (None if x is None else _t(x) for x in _resolve_case(name))
+    groups, chunks, cw = _units(split, dq.shape[0], dt.shape[0], pm is not None)
+    got = _split_merge(dq, mq, dt, mt, pm, groups, chunks, cw)
+    plain = hm.hamming_resolve_plain(dq, mq, dt, mt, pm)
+    for g, p, w, what in zip(got, plain, _pallas(name), ("d1", "d2", "idx", "col_row")):
+        assert g.dtype == torch.int32, what
+        np.testing.assert_array_equal(_np(g), _np(p), err_msg=what)
+        np.testing.assert_array_equal(_np(g), w, err_msg=what)
+
+
+@pytest.mark.parametrize("has_pair", [True, False])
+def test_plan_fits_the_kernel(has_pair):
+    """Every plan meets the launcher's checks (csrc/hamming_match.cu): each
+    row group within its rows, each chunk within the shared-memory width,
+    no empty chunk; and the main path's shapes give every SM a unit."""
+    rows, max_cw = ((hm.SPARSE_ROWS, hm.SPARSE_CW) if has_pair
+                    else (hm.DENSE_ROWS, hm.DENSE_CW))
+    for N in (1, 2, 17, 40, 67, 1536, 4096, 10_000):
+        for M in (1, 16, 17, 301, 1536, 5000):
+            for sms in (1, 7, 132):
+                groups, chunks, cw = hm.plan(N, M, has_pair, sms)
+                assert groups * rows >= N > (groups - 1) * rows
+                assert 0 < cw <= max_cw and chunks * cw >= M > (chunks - 1) * cw
+    for N, M in ((4096, 1536), (1536, 1536)):
+        groups, chunks, _ = hm.plan(N, M, has_pair, 132)
+        assert groups * chunks >= 132
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -218,8 +337,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["odd_sizes", "ties_and_masked", "no_pair_small_alphabet",
-                                  "single_column", "all_masked"])
+@pytest.mark.parametrize("name", RESOLVE_CASES + NEW_CASES)
 def test_cuda_kernel_matches_plain(cuda, name):
     args = [None if x is None else _t(x).to(cuda) for x in _resolve_case(name)]
     before = hm.hamming_resolve_cuda.launches

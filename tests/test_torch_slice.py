@@ -26,6 +26,7 @@ from libcml_tpu.eval.trajectory import ate_rmse
 from libcml_tpu.models.direct.config import DirectConfig as JCfg
 from libcml_tpu.runtime.odometry import DirectOdometry as JOdo
 
+import libcml_tpu_torch.models.indirect.matching as tmatching
 import libcml_tpu_torch.runtime.hybrid as thyb
 from libcml_tpu_torch import convert
 from libcml_tpu_torch import workload as wl
@@ -172,6 +173,27 @@ def test_workload_map_reprojects_onto_frame0_corners():
     ok = _np(valid[:k])
     assert _np(in_front)[ok].all()
     np.testing.assert_allclose(_np(uv)[ok], _np(f0.uv)[ok], rtol=0, atol=1e-2)
+
+
+def test_projection_match_inputs_are_track_frames(monkeypatch):
+    """chip_smoke.py's phase-4 masks case: the inputs that
+    projection_match_inputs builds for frame 1 are those of track_frame's
+    first Hamming resolution, bit for bit, at full width."""
+    dev = torch.device("cpu")
+    cam, traj, frames = wl.render_frames(dev, 2)
+    map_, n = wl.build_map(cam, traj, frames, dev)
+    f1 = wl.extract(frames[1])
+    want = wl.projection_match_inputs(map_, cam, traj, f1, 1, dev)
+    seen = []
+    resolve = tmatching.hamming_resolve
+    monkeypatch.setattr(tmatching, "hamming_resolve",
+                        lambda *args: (seen.append(args), resolve(*args))[1])
+    wl.track_frame(map_, cam, traj, f1, 1, dev)
+    assert len(seen) == 2
+    for got, w in zip(seen[0], want):
+        assert torch.equal(got, w)
+    assert want[4].shape == (thyb.MAP_CAP, f1.desc.shape[0])
+    assert 0 < int(want[1].sum()) <= n
 
 
 # -- the hybrid's per-frame tracking programs -------------------------------------------
