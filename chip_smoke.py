@@ -21,10 +21,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      _project_match_pnp and _local_map_pass2; every frame must launch the
      Hamming kernel twice, keep >= 12 PnP inliers and stay within the
      two-view pose budget (0.04 translation, 0.01 rad).
-Then the phases' results, the card's name and power limit, the kernel
-table ({"kernels": [...]}: launches counted in phase 4 only, times and
-bound of the phase-4 masks case, cold), and the result
-line {"ok": true, "device": {...}} last.
+  5. the full sequential HybridOdometry (bench.py's hybrid) on the same 60
+     frames, after building the BoW vocabulary (timed apart): fps, ATE,
+     keyframes, indirect keyframes, map points, modes, mixed-BA events and
+     rollbacks, local-BA events, and the kernel's launches per call site;
+     ATE < 0.1, no lost segment, and at least one indirect keyframe that
+     triangulated points and completed a local BA.
+  6. relocalization at full width: 24 frames, 4 black frames, then frame
+     20 again (tests/test_recovery.py's run, one stored keyframe later:
+     workload.py says why); it must relocalize within 3 frames, within 0.15
+     of frame 20's earlier estimate.
+Then phase 2's real-input cases captured in phases 5 and 6 (the first
+keyframe's epipolar band, a relocalization match_descriptors call), held to
+the plain version exactly; the phases' results, the card's name and power
+limit, the kernel table ({"kernels": [...]}: launches of phase 5, the main
+path, with each path's count beside them; times and bound of the phase-4
+masks case, cold), and the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -34,13 +46,17 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.eval.trajectory import ate_rmse
+from libcml_tpu_torch.models.indirect import matching
+from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.ops import hamming_match as hm
+from libcml_tpu_torch.runtime import hybrid
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
 
 # published H100 SXM memory rate at 700 W (NVIDIA's data sheet)
@@ -240,36 +256,40 @@ def kernel_vs_plain(dev, card: str, popc_rate: float, phase4_args) -> tuple[list
     print(json.dumps({"launch_floor_ms": cuda_ms(lambda: tiny.add_(1)),
                       "launch_floor_warm_ms": cuda_ms(lambda: tiny.add_(1), cold=False),
                       "card": card}))
-    rows, max_err = [], 0.0
-    for name, args in cases:
-        got = hm.hamming_resolve_cuda(*args)
-        want = hm.hamming_resolve_plain(*args)
-        torch.cuda.synchronize()
-        for g, w_, what in zip(got, want, ("d1", "d2", "idx", "col_row")):
-            err = float((g.long() - w_.long()).abs().max())
-            max_err = max(max_err, err)
-            require(torch.equal(g, w_), f"hamming kernel != plain on {name}: {what}")
-        N, M = args[0].shape[0], args[2].shape[0]
-        bound, by, n_live = hamming_bound(args, popc_rate)
-        kernel_ms = cuda_ms(lambda: hm.hamming_resolve_cuda(*args))
-        launches, device_ops = launches_per_call(lambda: hm.hamming_resolve_cuda(*args))
-        pm = args[4]
-        row = {"case": name, "N": N, "M": M,
-               "kernel_ms": kernel_ms,
-               "kernel_warm_ms": cuda_ms(lambda: hm.hamming_resolve_cuda(*args), cold=False),
-               "plain_ms": cuda_ms(lambda: hm.hamming_resolve_plain(*args), reps=20),
-               "bound_ms": bound, "bound_by": by, "bound_share": bound / kernel_ms,
-               "launches_per_call": launches, "device_ops_per_call": device_ops,
-               "live_rows": int(args[1].sum()), "live_entries": n_live,
-               "pair_density": None if pm is None else float(pm.float().mean()),
-               # the popcounts of all N * M entries (PR 1's kernel computed them)
-               "dense_popc_ms": 8.0 * N * M / popc_rate * 1e3,
-               "equal": True, "card": card}
-        rows.append(row)
-        print(json.dumps(row))
-        require(row["bound_share"] <= 1.0,
-                f"{name}: {kernel_ms} ms is under its bound {bound} ms: the bound is wrong")
-    return rows, max_err
+    rows = [kernel_case(name, args, card, popc_rate) for name, args in cases]
+    return rows, max(r["max_abs_err"] for r in rows)
+
+
+def kernel_case(name: str, args, card: str, popc_rate: float) -> dict:
+    """One phase-2 case: the kernel's outputs equal to the plain version's
+    (else the run fails), its times, launches and bound."""
+    got = hm.hamming_resolve_cuda(*args)
+    want = hm.hamming_resolve_plain(*args)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for g, w_, what in zip(got, want, ("d1", "d2", "idx", "col_row")):
+        max_err = max(max_err, float((g.long() - w_.long()).abs().max()))
+        require(torch.equal(g, w_), f"hamming kernel != plain on {name}: {what}")
+    N, M = args[0].shape[0], args[2].shape[0]
+    bound, by, n_live = hamming_bound(args, popc_rate)
+    kernel_ms = cuda_ms(lambda: hm.hamming_resolve_cuda(*args))
+    launches, device_ops = launches_per_call(lambda: hm.hamming_resolve_cuda(*args))
+    pm = args[4]
+    row = {"case": name, "N": N, "M": M,
+           "kernel_ms": kernel_ms,
+           "kernel_warm_ms": cuda_ms(lambda: hm.hamming_resolve_cuda(*args), cold=False),
+           "plain_ms": cuda_ms(lambda: hm.hamming_resolve_plain(*args), reps=20),
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / kernel_ms,
+           "launches_per_call": launches, "device_ops_per_call": device_ops,
+           "live_rows": int(args[1].sum()), "live_entries": n_live,
+           "pair_density": None if pm is None else float(pm.float().mean()),
+           # the popcounts of all N * M entries (a kernel that skips no entry)
+           "dense_popc_ms": 8.0 * N * M / popc_rate * 1e3,
+           "equal": True, "max_abs_err": max_err, "card": card}
+    print(json.dumps(row))
+    require(row["bound_share"] <= 1.0,
+            f"{name}: {kernel_ms} ms is under its bound {bound} ms: the bound is wrong")
+    return row
 
 
 # -- phases 3 and 4 -----------------------------------------------------------
@@ -354,6 +374,212 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
     return res
 
 
+# -- phases 5 and 6 ------------------------------------------------------------
+
+# the hybrid's six Hamming call sites, functions of runtime/hybrid.py that
+# HybridOdometry looks up at call time (runtime/hybrid.py, "Device programs")
+CALL_SITES = ("_project_match_pnp", "_local_map_pass2", "_epipolar_triangulate",
+              "_map_projection_match", "match_window", "match_descriptors")
+
+
+class CallSites:
+    """Counts the kernel's launches inside each call site, and keeps (cloned)
+    the resolution inputs of the first call of the sites named in
+    `capture_at`, for phase 2's real-input cases."""
+
+    def __init__(self):
+        self.launches = Counter()
+        self.calls = Counter()
+        self.captured: dict[str, tuple] = {}
+        self.capture_at: set[str] = set()
+        self._site: str | None = None
+        self._saved = {name: getattr(hybrid, name) for name in CALL_SITES}
+        self._resolve = matching.hamming_resolve
+
+    def _wrap(self, name, fn):
+        def run(*args, **kw):
+            before, outer = hm.hamming_resolve_cuda.launches, self._site
+            self._site = name
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._site = outer
+                self.launches[name] += hm.hamming_resolve_cuda.launches - before
+                self.calls[name] += 1
+        return run
+
+    def _capture(self, *args):
+        if self._site in self.capture_at and self._site not in self.captured:
+            self.captured[self._site] = tuple(None if a is None else a.clone() for a in args)
+        return self._resolve(*args)
+
+    def __enter__(self):
+        for name, fn in self._saved.items():
+            setattr(hybrid, name, self._wrap(name, fn))
+        matching.hamming_resolve = self._capture
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(hybrid, name, fn)
+        matching.hamming_resolve = self._resolve
+
+
+def gt_centres(traj) -> np.ndarray:
+    out = []
+    for R, t in traj:
+        M = np.eye(4)
+        M[:3, :3], M[:3, 3] = R, t
+        out.append(np.linalg.inv(M)[:3, 3])
+    return np.asarray(out)
+
+
+def watch_hybrid(odo) -> Counter:
+    """Counts the hybrid's keyframe events on `odo`: indirect keyframes, the
+    points each triangulated, mixed-BA completions, local-BA write-backs, and the kernel launches inside the keyframe postprocess.
+    `ok_kf` counts the indirect keyframes that triangulated points and then
+    completed a local BA."""
+    ev = Counter()
+    cur = {}
+
+    def wrap(name, before=None, after=None):
+        fn = getattr(odo, name)
+
+        def run(*args, **kw):
+            if before:
+                before(*args)
+            out = fn(*args, **kw)
+            if after:
+                after(*args)
+            return out
+        setattr(odo, name, run)
+
+    def kf_start(*_):
+        ev["indirect_keyframes"] += 1
+        cur.update(tri=0, lba=False, launches=hm.hamming_resolve_cuda.launches)
+
+    def kf_end(*_):
+        ev["kf_launches"] += hm.hamming_resolve_cuda.launches - cur["launches"]
+        ev["ok_kf"] += int(cur["tri"] > 0 and cur["lba"])
+
+    def added(Xw, desc, level, ok):
+        cur["tri"] = cur.get("tri", 0) + int(np.sum(ok))
+        ev["triangulated"] += int(np.sum(ok))
+
+    def lba(lb, fetched):
+        if np.isfinite(fetched[0]).all():
+            cur["lba"] = True
+            ev["local_ba"] += 1
+
+    def mixed(*_):
+        ev["mixed_ba"] += 1
+
+    wrap("_indirect_postprocess", kf_start, kf_end)
+    wrap("_add_map_points", added)
+    wrap("_complete_indirect_local_ba", lba)
+    wrap("_complete_mixed_window_ba", mixed)
+    return ev
+
+
+def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
+    t0 = time.perf_counter()
+    voc = default_vocabulary()
+    voc_s = time.perf_counter() - t0
+    print(f"BoW vocabulary: {voc.num_words} words in {voc_s:.1f} s (before the timed loop)")
+    odo = wl.hybrid_odometry(cam, dev=dev)
+    ev = watch_hybrid(odo)
+    imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
+    kf = lost = 0
+    sites.capture_at = {"_epipolar_triangulate"}
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    sites.launches.clear()
+    sites.calls.clear()
+    t0 = time.perf_counter()
+    for i, img in enumerate(imgs):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        out = odo.process(img, float(i))
+        kf += int(bool(out.get("kf", False)))
+        lost += int(out.get("state") == "LOST")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = hm.hamming_resolve_cuda.launches
+    wall = t_end - t0
+    _, est = odo.trajectory_c2w()
+    ate = ate_rmse(est[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
+    host_ms = {name: statistics.mean(odo.sheet.stat(name).series()[1])
+               for name in ("time_preprocess", "time_orb", "time_pnp", "time_track",
+                            "time_keyframe", "time_ind_post", "time_mixed_ba", "time_local_ba")
+               if odo.sheet.stat(name).series()[1]}
+    n = len(imgs)
+    res = {"phase": "hybrid", "frames": n, "fps": n / wall,
+           "steady_fps": (n - WARMUP) / (t_end - t_steady), "wall_s": wall,
+           "vocabulary_s": voc_s, "ate": ate, "segments": odo.segments, "lost_frames": lost,
+           "keyframes": kf, "indirect_keyframes": ev["indirect_keyframes"],
+           "indirect_keyframe_frames": [k["frame"] for k in odo._ind_kfs],
+           "map_points": int(odo._pt_valid.sum()), "triangulated": ev["triangulated"],
+           "modes": dict(Counter(odo.mode_history)),
+           "mixed_ba": ev["mixed_ba"],
+           "mixed_ba_rollbacks": len(odo.sheet.stat("mixed_ba_rollback").series()[1]),
+           "local_ba": ev["local_ba"], "keyframes_triangulated_and_local_ba": ev["ok_kf"],
+           "kernel_launches": launches, "kernel_launches_per_frame": launches / n,
+           "kernel_launches_per_indirect_keyframe":
+               ev["kf_launches"] / max(ev["indirect_keyframes"], 1),
+           "launches_per_site": dict(sites.launches),
+           "launches_per_site_per_frame": {k: v / n for k, v in sites.launches.items()},
+           "calls_per_site": dict(sites.calls), "host_ms_per_stage": host_ms}
+    print(json.dumps(res))
+    require(np.isfinite(ate) and ate < 0.1, f"hybrid ATE {ate} >= 0.1")
+    require(odo.segments == 0 and lost == 0, "hybrid lost tracking")
+    require(ev["ok_kf"] >= 1, "no indirect keyframe triangulated points and completed a local BA")
+    require(launches == sum(sites.launches.values()),
+            "kernel launched outside the six call sites")
+    # the four sites a tracked run reaches (match_window serves the bootstrap,
+    # match_descriptors the relocalization of phase 6)
+    for site in CALL_SITES[:4]:
+        require(sites.launches[site] > 0, f"the hybrid launched no kernel at {site}")
+    return res
+
+
+def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
+    odo = wl.hybrid_odometry(cam, wl.RELOC_CFG, dev=dev)
+    seq = wl.relocalization_frames(frames)
+    sites.capture_at = {"match_descriptors"}
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    sites.launches.clear()
+    sites.calls.clear()
+    states, at, view_before = [], None, None
+    t0 = time.perf_counter()
+    for k, (view, img) in enumerate(seq):
+        out = odo.process(img, float(k))
+        states.append(out.get("state"))
+        if k == wl.RELOC_SEEN - 1:
+            require(odo.state == "TRACKING", f"not tracking before the blackout: {odo.state}")
+            _, est = odo.trajectory_c2w()
+            view_before = est[wl.RELOC_VIEW, :3, 3].copy()
+        if out.get("relocalized"):
+            at = k
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hm.hamming_resolve_cuda.launches
+    require(at is not None, f"never relocalized (states {states})")
+    _, est = odo.trajectory_c2w()
+    err = float(np.linalg.norm(est[-1, :3, 3] - view_before))
+    res = {"phase": "relocalization", "frames": len(states), "relocalized_at": at,
+           "black_frames": wl.RELOC_BLACK, "error": err, "states": states,
+           "segments": odo.segments, "map_points": int(odo._pt_valid.sum()),
+           "stored_keyframes": len(odo._kf_store), "wall_s": wall,
+           "kernel_launches": launches, "launches_per_site": dict(sites.launches)}
+    print(json.dumps(res))
+    require(err < 0.15, f"relocalized pose off by {err:.3f}")
+    require(sites.launches["match_descriptors"] >= 1, "relocalization ran no descriptor match")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -375,7 +601,8 @@ def main() -> int:
     t0 = time.perf_counter()
     map_, _ = wl.build_map(cam, traj, frames, dev)
     phase4_args = wl.projection_match_inputs(map_, cam, traj, wl.extract(frames[1]), 1, dev)
-    rows, max_err = kernel_vs_plain(dev, card, popc_per_s(), phase4_args)
+    popc_rate = popc_per_s()
+    rows, max_err = kernel_vs_plain(dev, card, popc_rate, phase4_args)
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -386,13 +613,31 @@ def main() -> int:
     hyb = hybrid_phase(dev, cam, traj, frames)
     print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
 
+    with CallSites() as sites:
+        t0 = time.perf_counter()
+        full = full_hybrid_phase(dev, cam, traj, frames, sites)
+        print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        reloc = relocalization_phase(dev, cam, traj, frames, sites)
+        print(f"phase 6 (relocalization) {time.perf_counter() - t0:.1f} s")
+    real = {"_epipolar_triangulate": "1536x1536 first keyframe's epipolar band (phase 5)",
+            "match_descriptors": "1536x1536 relocalization match_descriptors (phase 6)"}
+    for site, name in real.items():
+        require(site in sites.captured, f"no resolution captured at {site}")
+        row = kernel_case(name, sites.captured[site], card, popc_rate)
+        rows.append(row)
+        max_err = max(max_err, row["max_abs_err"])
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",
         "source": "libcml_tpu_torch/csrc/hamming_match.cu",
         "replaces": "libcml_tpu/ops/pallas_match.py:107",
-        "launches": hyb["launches"],
+        "launches": full["kernel_launches"],
+        "launches_by_path": {"hybrid_tracking": hyb["launches"], "hybrid": full["kernel_launches"],
+                             "relocalization": reloc["kernel_launches"]},
+        "launches_per_hybrid_frame": full["kernel_launches_per_frame"],
         "max_abs_err": max_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -400,7 +645,8 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
     }]
-    print(json.dumps({"direct": direct, "hybrid_tracking": hyb}))
+    print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
+                      "relocalization": reloc}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

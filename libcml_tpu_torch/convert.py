@@ -69,6 +69,52 @@ def from_np(cls, d: dict, device: str | torch.device = "cpu"):
     return cls(**kw)
 
 
+# the hybrid's map arena (HybridOdometry attributes of both packages)
+HYBRID_ARENA = ("_pt_Xw", "_pt_desc", "_pt_level", "_pt_valid", "_pt_last_seen", "_pt_gen",
+                "_pt_mapid")
+
+
+def _u32(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def hybrid_state(odo) -> dict:
+    """A HybridOdometry's indirect state as numpy (works on either
+    package's object): the map arena, the indirect keyframe ring, the
+    relocalization store, and the vocabulary's words and idf (None before
+    the first indirect keyframe). Descriptor words are uint32."""
+    d = {k: np.array(getattr(odo, k)) for k in HYBRID_ARENA}
+    d["_pt_desc"] = _u32(d["_pt_desc"])
+    d["ind_kfs"] = [{k: np.array(v) for k, v in kf.items()} for kf in odo._ind_kfs]
+    d["kf_store"] = {kf: {k: _u32(v).copy() if k == "desc" else np.array(v)
+                          for k, v in st.items()} for kf, st in odo._kf_store.items()}
+    voc = odo._kfdb.voc if odo._kfdb is not None else None
+    d["vocabulary"] = None if voc is None else {
+        "words": np.array(voc.words).view(np.uint32), "idf": np.array(voc.idf, np.float32)}
+    return d
+
+
+def load_hybrid_state(odo, d: dict) -> None:
+    """Set a port HybridOdometry's indirect state from `hybrid_state`'s
+    dict (of either package). The relocalization index is rebuilt from the
+    store at its next query."""
+    from libcml_tpu_torch.models.indirect.bow import BinaryVocabulary, KeyframeDatabase
+
+    for k in HYBRID_ARENA:
+        setattr(odo, k, np.array(d[k]))
+    odo._pt_desc = odo._pt_desc.view(np.int32)
+    odo._map_dev = None
+    odo._ind_kfs = [{k: (int(v) if np.ndim(v) == 0 else np.array(v)) for k, v in kf.items()}
+                    for kf in d["ind_kfs"]]
+    odo._kf_store = {int(kf): {k: v.view(np.int32).copy() if k == "desc" else np.array(v)
+                               for k, v in st.items()} for kf, st in d["kf_store"].items()}
+    voc = d["vocabulary"]
+    odo._kfdb = None if voc is None else KeyframeDatabase(
+        BinaryVocabulary(voc["words"], voc["idf"]))
+    odo._kfdb_pending = list(odo._kf_store)
+
+
 def to_np(obj: Any):
     """Dataclass of tensors (nested) -> dict of numpy arrays; tensors ->
     numpy; anything else unchanged."""

@@ -1,5 +1,5 @@
 """Feature matcher suite: batched Hamming matching with ratio / orientation /
-window / projection / epipolar constraints.
+window / projection / epipolar constraints, and the VFC outlier filter.
 
 PyTorch port of libcml_tpu/models/indirect/matching.py (the reference's
 matcher stack: BoWTracker.cpp:112 trackByBoW, :291 trackForInitialization,
@@ -161,3 +161,59 @@ def match_epipolar(desc_q, uv_q, valid_q, desc_t, uv_t, valid_t, F01: torch.Tens
     idx, dist, ok = _resolve_from_desc(desc_q, desc_t, valid_q, valid_t, pair,
                                        max_dist, ratio)
     return MatchResult(idx=idx, dist=dist, valid=ok, num=torch.sum(ok))
+
+
+def vfc_filter(uv_q: torch.Tensor, uv_t: torch.Tensor, valid: torch.Tensor, iters: int = 30,
+               gamma_init: float = 0.9, beta: float = 1.0, lam: float = 3.0,
+               tau: float = 0.75, n_ctrl: int = 16) -> torch.Tensor:
+    """Vector Field Consensus (reference: VFC.h:55, process VFC.h:124): EM
+    over a Gaussian-RBF vector field fit to the match displacement field;
+    matches whose displacement disagrees with the smooth field are outliers.
+    The field uses n_ctrl control points taken from the valid matches
+    (subset of regressors), so each M-step is a fixed (C, C) solve. Returns
+    the refined validity mask."""
+    N = uv_q.shape[0]
+    w0 = valid.float()
+    nv = torch.clamp(torch.sum(w0), min=1.0)
+
+    def norm(a):
+        # zero-mean, unit-std over the valid set (VFC.h:124)
+        mu = torch.sum(a * w0[:, None], dim=0) / nv
+        sd = torch.sqrt(torch.sum(torch.sum((a - mu) ** 2, -1) * w0) / nv)
+        return (a - mu) / torch.clamp(sd, min=1e-6)
+
+    x = norm(uv_q.float())
+    yn = norm(uv_t.float()) - x                          # displacement field
+
+    # control points: a strided subset of the valid matches, valid first in
+    # index order (the stable argsort of ~valid)
+    C = min(n_ctrl, N)
+    order = torch.sort((~valid).to(torch.int32), stable=True).indices
+    ctrl = x[order[:: max(1, N // C)][:C]]
+
+    def kmat(a, b):
+        return torch.exp(-beta * torch.sum((a[:, None, :] - b[None, :, :]) ** 2, dim=-1))
+
+    K_xc = kmat(x, ctrl)                                 # (N, C)
+    K_cc = kmat(ctrl, ctrl)                              # (C, C)
+    eye = torch.eye(C, dtype=x.dtype, device=x.device)
+    p = w0
+    gamma = torch.full((), gamma_init, dtype=x.dtype, device=x.device)
+    sigma2 = torch.full((), 0.05, dtype=x.dtype, device=x.device)
+    for _ in range(iters):
+        # M-step: weighted ridge fit of the coefficients A (C, 2); both
+        # regularization floors keep the wide-RBF system solvable in f32
+        W = p * w0
+        lhs = K_xc.T @ (W[:, None] * K_xc) + lam * torch.clamp(sigma2, min=1e-2) * K_cc \
+            + 1e-4 * eye
+        rhs = K_xc.T @ (W[:, None] * yn)
+        A, _ = torch.linalg.solve_ex(lhs, rhs)
+        r2 = torch.sum((yn - K_xc @ A) ** 2, dim=-1)
+        sw = torch.clamp(torch.sum(W), min=1.0)
+        sigma2 = torch.clamp(torch.sum(W * r2) / (2.0 * sw), min=1e-3)
+        # E-step: inlier posterior against a uniform outlier component over
+        # the ~unit-variance normalized displacement domain (area 10)
+        num = gamma * torch.exp(-r2 / (2.0 * sigma2)) / (2.0 * math.pi * sigma2)
+        p = num / (num + (1.0 - gamma) / 10.0 + 1e-30)
+        gamma = torch.clamp(torch.sum(p * w0) / sw, 0.05, 0.95)
+    return valid & (p > tau)

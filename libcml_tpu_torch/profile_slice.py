@@ -5,8 +5,11 @@
 Runs sequential DirectOdometry on chip_smoke.py's workload (libcml_tpu_torch/
 workload.py: 640x480, bench.py's configuration) for 40 frames, profiling the
 last 10, then profiles 10 frames of the hybrid's tracking programs
-(_project_match_pnp + _local_map_pass2 against the 4096-slot map). For each
-window it prints one JSON line: wall milliseconds per frame, the device's
+(_project_match_pnp + _local_map_pass2 against the 4096-slot map), then runs
+bench.py's sequential HybridOdometry for 40 frames, profiling the last 10
+(its stages carry the names of the hybrid's stats timers: time_orb,
+time_pnp, time_ind_post, time_mixed_ba, time_local_ba). For each window it
+prints one JSON line: wall milliseconds per frame, the device's
 busy share (summed device time of kernels, copies and fills over wall time),
 kernel launches and host-to-device synchronizations per frame, the kernels
 and the host operators that take the most time, and a per-stage breakdown.
@@ -35,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.models.direct import ba, tracker
 from libcml_tpu_torch.models.indirect import matching
+from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
 
@@ -43,13 +47,27 @@ WINDOW = 10                  # frames in each profiled window
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
             "cudaEventSynchronize")
 LAUNCH_OPS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-# (module, function name) of each stage, outermost first
+# (module or class, function name, stage name) of each stage, outermost
+# first; the hybrid's stages are named after the stats timers around them
+HYB = hybrid.HybridOdometry
 STAGES = (
-    (odometry, "track"), (odometry, "track_multi"), (tracker, "evaluate_residuals"),
-    (tracker, "se3_exp"), (odometry, "trace_immatures_rows"),
-    (odometry, "_kf_insert_and_ba"), (odometry, "_activate_and_clear"),
-    (odometry, "_refresh_after_kf"), (ba, "_marg_pieces"), (ba, "marg_host_schur"),
-    (hybrid, "match_projection"), (matching, "hamming_resolve"), (hybrid, "solve_pnp"),
+    (odometry, "track", "track"), (odometry, "track_multi", "track_multi"),
+    (tracker, "evaluate_residuals", "evaluate_residuals"), (tracker, "se3_exp", "se3_exp"),
+    (odometry, "trace_immatures_rows", "trace_immatures_rows"),
+    (odometry, "_kf_insert_and_ba", "_kf_insert_and_ba"),
+    (odometry, "_activate_and_clear", "_activate_and_clear"),
+    (odometry, "_refresh_after_kf", "_refresh_after_kf"),
+    (ba, "_marg_pieces", "_marg_pieces"), (ba, "marg_host_schur", "marg_host_schur"),
+    (hybrid, "_extract", "time_orb"), (hybrid, "_project_match_pnp", "time_pnp"),
+    (hybrid, "_local_map_pass2", "_local_map_pass2"),
+    (HYB, "_indirect_postprocess", "time_ind_post"),
+    (hybrid, "_epipolar_triangulate", "_epipolar_triangulate"),
+    (HYB, "_dispatch_mixed_window_ba", "time_mixed_ba"),
+    (HYB, "_complete_mixed_window_ba", "time_mixed_ba"),
+    (HYB, "_dispatch_indirect_local_ba", "time_local_ba"),
+    (HYB, "_complete_indirect_local_ba", "time_local_ba"),
+    (hybrid, "match_projection", "match_projection"),
+    (matching, "hamming_resolve", "hamming_resolve"), (hybrid, "solve_pnp", "solve_pnp"),
 )
 
 
@@ -62,8 +80,8 @@ def _span(name, fn):
 
 def instrument() -> None:
     """Wrap every stage function in a named span (profiling windows only)."""
-    for mod, name in STAGES:
-        setattr(mod, name, _span(name, getattr(mod, name)))
+    for owner, attr, name in STAGES:
+        setattr(owner, attr, _span(name, getattr(owner, attr)))
 
 
 def _is_span(name: str) -> bool:
@@ -180,6 +198,23 @@ def main() -> int:
         wall = time.perf_counter() - t0
     res = summarize(prof, "hybrid_tracking", WINDOW, wall, args.out)
     res["card"] = card
+    print(json.dumps(res))
+
+    default_vocabulary()                    # built (or loaded) outside the window
+    odo = wl.hybrid_odometry(cam)
+    for i in range(start):
+        odo.process(imgs[i], float(i))
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(start, FRAMES):
+            odo.process(imgs[i], float(i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = summarize(prof, "hybrid", WINDOW, wall, args.out)
+    res["card"] = card
+    res["indirect_keyframes_in_window"] = sum(
+        start <= f < FRAMES for f in odo.sheet.stat("time_ind_post").series()[0])
     print(json.dumps(res))
     return 0
 

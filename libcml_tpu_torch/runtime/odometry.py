@@ -70,6 +70,27 @@ def _rss_mb() -> float:
         return 0.0
 
 
+def host_fetch(tensors) -> list:
+    """numpy copies of `tensors` (a sequence of tensors or None) in ONE
+    device-to-host transfer: their bytes are packed into one flat uint8
+    tensor on the device, copied once and split on the host."""
+    live = [t for t in tensors if t is not None]
+    if not live:
+        return [None] * len(tensors)
+    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in live]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        nbytes = t.numel() * t.element_size()
+        np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[off:off + nbytes].view(np_dtype).reshape(tuple(t.shape)).copy())
+        off += nbytes
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Device programs
 # ---------------------------------------------------------------------------
@@ -101,6 +122,7 @@ def _frame_step(
     T_curr: SE3,
     T_prev: SE3,
     T_seed: SE3 | None,
+    use_seed: torch.Tensor | None,
     recent_rows: torch.Tensor,
     ab_init: torch.Tensor,
     cfg: DirectConfig,
@@ -109,7 +131,11 @@ def _frame_step(
     suspect test + conditional multi-hypothesis battery, pose-ok gating,
     world-pose composition, and immature tracing.
 
-    Returns (immature', T_world, T_rel, ab, scalars (27,) on the host):
+    `T_seed` (the hybrid's PnP pose) joins the recovery battery where the
+    device scalar `use_seed` is true (a torch.where selection, no host read);
+    otherwise the battery gets the motion-model prediction twice.
+
+    Returns (immature', T_world, T_rel, ab, scalars (27,) on the device):
         scalars = [num_valid, saturated, flow, energy, ok, suspect,
                    cov_rot_diag x3, kf_score, n_ref, T_rel.R (9),
                    T_rel.t (3), ab (2), motion_dt, motion_ang]
@@ -119,7 +145,8 @@ def _frame_step(
     T_init = T_pred_world.compose(kf_T.inverse())
     T_zero = T_curr.compose(kf_T.inverse())
     # an external seed (the hybrid's PnP pose) joins the recovery battery
-    T_seed_rel = T_init if T_seed is None else T_seed.compose(kf_T.inverse())
+    T_seed_rel = T_init if T_seed is None else se3_select(
+        use_seed, T_seed.compose(kf_T.inverse()), T_init)
     ab0 = ab_init
 
     res0 = track(grad_pyr, cam, ref, T_init, ab0, cfg)
@@ -170,7 +197,7 @@ def _frame_step(
         T_rel.t.reshape(-1).to(f),
         res.ab.reshape(-1).to(f),
         torch.stack([mo_dt, mo_ang]).to(f),
-    ]).cpu().numpy()
+    ])
     return immature, T_world, T_rel, res.ab, scalars
 
 
@@ -546,9 +573,11 @@ class DirectOdometry:
                                              ok, self.cfg)
         self._n_ref = max(int(torch.sum(self._tracker_ref.valid[0])), 1)
 
-    def _track_frame(self, pyr, img, timestamp, T_seed: SE3 | None = None) -> dict:
+    def _track_frame(self, pyr, img, timestamp, T_seed: SE3 | None = None,
+                     use_seed: torch.Tensor | None = None) -> dict:
         """Per-frame tracking (_frame_step), then the keyframe/failure state
-        machine on its scalar bundle."""
+        machine on its scalar bundle. A subclass may hand in a seed pose and
+        gate it with a device scalar `use_seed` (default: used)."""
         cfg, cam = self.cfg, self.cam
         # complete the previous keyframe's async marginalization once its
         # pieces are >= 2 frames old (a deterministic completion point)
@@ -562,11 +591,13 @@ class DirectOdometry:
         ab_init = torch.zeros(2, dtype=torch.float32, device=self.device)
         if a0:
             ab_init[0] = a0
+        if T_seed is not None and use_seed is None:
+            use_seed = torch.ones((), dtype=torch.bool, device=self.device)
         with self.sheet.timer("time_track").frame(self.frame_idx):
             imm2, T_world, T_rel, ab, scalars = _frame_step(
                 pyr, cam, self._tracker_ref, self._immature,
                 self._window.ba.T, self._window.ba.frame_valid,
-                self._kf_T, self._T_curr, self._T_prev, T_seed,
+                self._kf_T, self._T_curr, self._T_prev, T_seed, use_seed,
                 self._recent_rows, ab_init, cfg,
             )
         self._immature = imm2
@@ -578,6 +609,7 @@ class DirectOdometry:
             "scalars": scalars, "kf_id": self._kf_id,
             "exposure": exp, "gt": self._cur_gt,
         }
+        entry.update(self._entry_extras())
         out = self._finalize_frame(entry)
         self.stats.append(out)
         return out
@@ -588,7 +620,9 @@ class DirectOdometry:
         (reference: the scalar tail of Hybrid.cpp:167 processFrame)."""
         cfg = self.cfg
         fidx, timestamp, pyr = entry["frame_idx"], entry["ts"], entry["pyr"]
-        sc = entry["scalars"]
+        sc = entry.get("scalars_np")   # a subclass may have fetched the bundle
+        if sc is None:                 # together with its own results
+            sc = entry["scalars"].cpu().numpy()
         rel_R = sc[11:20].reshape(3, 3).astype(np.float64)
         rel_t = sc[20:23].astype(np.float64)
         num_valid = int(sc[0])
@@ -639,6 +673,12 @@ class DirectOdometry:
         for k in ("flow", "energy", "num_valid", "saturated"):
             self.sheet.push(k, fidx, out[k])
         return out
+
+    def _entry_extras(self) -> dict:
+        """Subclass hook: extra device handles to carry in a frame's entry
+        (the hybrid stashes its ORB features and PnP results here for its
+        scalar tail in _finalize_frame)."""
+        return {}
 
     # -- failure handling -----------------------------------------------------
 
@@ -804,3 +844,11 @@ class DirectOdometry:
         if self._window is not None:
             self._sync_kf_poses()
         self.map.export_results(out_dir, prefix)
+
+    def save_state(self, path: str) -> None:
+        """Checkpoints are not ported yet (the JAX package's save_state)."""
+        raise NotImplementedError("checkpoints are not ported yet")
+
+    def load_state(self, path: str) -> None:
+        """Checkpoints are not ported yet (the JAX package's load_state)."""
+        raise NotImplementedError("checkpoints are not ported yet")

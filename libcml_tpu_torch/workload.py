@@ -2,13 +2,16 @@
 
 One synthetic sequence at 640x480 (fx = fy = 520, cx, cy at the centre, as
 benchmarks/export_kitti.py:144-159 sets them), DirectOdometry with
-bench.py's configuration, and the hybrid's per-frame tracking programs
+bench.py's configuration, the hybrid's per-frame tracking programs
 (ORB 512 per level x 3 levels, a MAP_CAP-slot map built from frame 0's
-corners). Keeping it in one place means the profile describes the smoke's
-workload and nothing else.
+corners), bench.py's sequential HybridOdometry, and the blackout-and-return
+relocalization run. Keeping it in one place means the profile describes the
+smoke's workload and nothing else.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -88,6 +91,37 @@ def projection_match_inputs(map_: HybridMap, cam: PinholeCamera, traj, f: OrbFea
     vis, pair, _ = projection_pair_mask(Xw, valid, level, T_pred, cam, f.uv, f.level,
                                         radius=15.0)
     return desc, vis, f.desc, f.valid, pair
+
+
+def hybrid_odometry(cam: PinholeCamera, cfg: DirectConfig = BENCH_CFG,
+                    dev: torch.device | str | None = None) -> hybrid.HybridOdometry:
+    """bench.py's sequential hybrid (bench.py:74-77): HybridOdometry with
+    `cfg` and ORB 512 per level x 3 levels, on the card unless `dev` says
+    otherwise."""
+    return hybrid.HybridOdometry(cam, cfg, orb_budget=ORB_BUDGET, orb_levels=ORB_LEVELS,
+                                 device=dev)
+
+
+# the relocalization run (tests/test_recovery.py:13-28): LOST after two
+# failed frames, a restart only after three frames of grace
+RELOC_CFG = dataclasses.replace(BENCH_CFG, max_track_fails=2, lost_grace_frames=3)
+# frames tracked, viewpoint revisited, black frames. The reference test
+# tracks 14 frames and revisits viewpoint 8 at 160x120; at 640x480 with
+# bench.py's configuration the first indirect keyframe comes at frame 8 and
+# holds no map point (its triangulation has no earlier keyframe), so
+# viewpoint 8 retrieves a keyframe with nothing to hand to EPnP. Viewpoint
+# 20 of 24 tracked frames is the same test one stored keyframe later.
+RELOC_SEEN, RELOC_VIEW, RELOC_BLACK = 24, 20, 4
+
+
+def relocalization_frames(frames) -> list[tuple[int, np.ndarray]]:
+    """tests/test_recovery.py:75-114 on this sequence: (viewpoint index or
+    -1 for black, image) for RELOC_SEEN tracked frames, RELOC_BLACK black
+    frames, then viewpoint RELOC_VIEW three times."""
+    imgs = [f[0].cpu().numpy() for f in frames[:RELOC_SEEN]]
+    black = np.zeros_like(imgs[0])
+    return ([(i, img) for i, img in enumerate(imgs)] + [(-1, black)] * RELOC_BLACK
+            + [(RELOC_VIEW, imgs[RELOC_VIEW])] * 3)
 
 
 def track_frame(map_: HybridMap, cam: PinholeCamera, traj, f: OrbFeatures, i: int,

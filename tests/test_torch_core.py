@@ -26,6 +26,11 @@ import libcml_tpu_torch.core.lie as tlie
 import libcml_tpu_torch.ops.image as timg
 from libcml_tpu_torch import _device
 
+# The suite runs in several worker processes that share a few cores: one
+# torch thread each, since with torch's default thread pool per process the
+# workers' spinning threads slow each other down many times over.
+torch.set_num_threads(1)
+
 PORT = pathlib.Path(tlie.__file__).resolve().parents[1]
 ROOT = PORT.parent
 

@@ -48,6 +48,11 @@ from libcml_tpu_torch.models.direct.config import DirectConfig as TCfg
 from libcml_tpu_torch.models.direct.selector import select_points as tselect
 from libcml_tpu_torch.ops.image import build_gradient_pyramid as tpyr
 
+# The suite runs in several worker processes that share a few cores: one
+# torch thread each, since with torch's default thread pool per process the
+# workers' spinning threads slow each other down many times over.
+torch.set_num_threads(1)
+
 CAM_ARGS = (110.0, 110.0, 79.5, 59.5, 160, 120)
 CFG_KW = dict(num_levels=3, max_points=256, points_per_kf=64, init_points=256,
               max_frames=4, tracker_iters=8, init_iters=12, ba_iters=4)

@@ -44,6 +44,11 @@ from libcml_tpu_torch.core.lie import SE3 as TSE3
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops.image import build_pyramid as tbuild_pyramid
 
+# The suite runs in several worker processes that share a few cores: one
+# torch thread each, since with torch's default thread pool per process the
+# workers' spinning threads slow each other down many times over.
+torch.set_num_threads(1)
+
 CAM_ARGS = (110.0, 110.0, 79.5, 59.5, 160, 120)
 BUDGET, LEVELS = 128, 3
 

@@ -38,6 +38,11 @@ from libcml_tpu_torch.models.direct.config import DirectConfig as TCfg
 from libcml_tpu_torch.models.indirect.orb import OrbFeatures
 from libcml_tpu_torch.runtime.odometry import DirectOdometry as TOdo
 
+# The suite runs in several worker processes that share a few cores: one
+# torch thread each, since with torch's default thread pool per process the
+# workers' spinning threads slow each other down many times over.
+torch.set_num_threads(1)
+
 CAM_ARGS = (110.0, 110.0, 79.5, 59.5, 160, 120)
 # the small-scale odometry configuration of the reference's recovery tests
 CFG_KW = dict(num_levels=3, max_points=1024, points_per_kf=256, init_points=256,
