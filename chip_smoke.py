@@ -31,27 +31,52 @@ Phases (any failure exits non-zero, and no result line is printed):
      20 again (tests/test_recovery.py's run, one stored keyframe later:
      workload.py says why); it must relocalize within 3 frames, within 0.15
      of frame 20's earlier estimate.
+  7. the entry points: the corridor of the port's bench (data/corridor.py),
+     its first 60 frames written at 640x480 as a KITTI layout by the port's
+     writer, then `libcml_tpu_torch.cli.main` on it with presets/modslam.yaml
+     (ORB 800 per level: the kernel meets 4096x2400): the five-file export,
+     stats.csv and run.json, ATE < 0.1, no lost segment, kernel launches,
+     and the first match_projection resolution of the run as a real-input
+     kernel case.
+  8. repeatability and resume, on that sequence read back through
+     KittiCapture: bench.py's hybrid over 30 frames twice (the second saves
+     its state before frame 20 and goes on), then a fresh instance loads the
+     file and runs frames 20-29; trajectories, map arena and modes must be
+     bit-identical, and the same for DirectOdometry (trajectory and window).
+     The card's checkpoint must load into an instance on the CPU. Before it,
+     a probe runs the hybrid and the direct path under
+     torch.use_deterministic_algorithms(True, warn_only=True) and lists the
+     operations torch warns about.
 Then phase 2's real-input cases captured in phases 5 and 6 (the first
 keyframe's epipolar band, a relocalization match_descriptors call), held to
 the plain version exactly; the phases' results, the card's name and power
-limit, the kernel table ({"kernels": [...]}: launches of phase 5, the main
-path, with each path's count beside them; times and bound of the phase-4
-masks case, cold), and the result line {"ok": true, "device": {...}} last.
+limit, the kernel table ({"kernels": [...]}: launches of the main path's
+runs, phases 5, 7 and 8, with each path's count beside them; times and bound
+of the phase-4 masks case, cold), and the result line
+{"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
 import torch
 
+from libcml_tpu_torch import cli
 from libcml_tpu_torch import workload as wl
+from libcml_tpu_torch.data import corridor
+from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.models.indirect import matching
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
@@ -580,6 +605,185 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     return res
 
 
+# -- phases 7 and 8 -------------------------------------------------------------
+
+CLI_FRAMES = 60
+CLI_PRESET = "presets/modslam.yaml"
+EXPORT_FILES = ("result_tum.txt", "result_kitti.txt", "result.csv", "result_gt_tum.txt",
+                "result_gt_kitti.txt", "stats.csv", "run.json")
+CLI_CASE = "4096x2400 real match_projection (phase 7, modslam preset)"
+
+
+def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
+    """Phase 7: the corridor written by the port's writer, then the CLI on it
+    with the modslam preset. Returns (result, the sequence directory)."""
+    t0 = time.perf_counter()
+    seq = corridor.write_sequence(os.path.join(work, "kitti"), CLI_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    out_dir = os.path.join(work, "cli_out")
+    log_path = os.path.join(work, "cli.log")
+    sites.capture_at = {"_project_match_pnp"}
+    sites.launches.clear()
+    sites.calls.clear()
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        rc = cli.main(["-d", seq, "-c", CLI_PRESET, "-r", out_dir, "-f", "all", "-z"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hm.hamming_resolve_cuda.launches
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    missing = [n for n in EXPORT_FILES if not os.path.isfile(os.path.join(out_dir, n))]
+    run = {}
+    if os.path.isfile(os.path.join(out_dir, "run.json")):
+        with open(os.path.join(out_dir, "run.json")) as f:
+            run = json.load(f)
+    res = {"phase": "entry_points", "frames": run.get("frames"), "rc": rc,
+           "sequence_write_s": write_s, "cli_wall_s": wall, "fps": run.get("fps"),
+           "ate": run.get("ate_rmse"), "rpe": run.get("rpe_rmse"),
+           "segments": run.get("segments"), "device": run.get("device"),
+           "missing_files": missing, "stat_lines": sum(l.startswith("STAT ") for l in lines),
+           "cli_tail": [l for l in lines if not l.startswith("STAT ")][-4:],
+           "kernel_launches": launches, "launches_per_site": dict(sites.launches),
+           "calls_per_site": dict(sites.calls)}
+    print(json.dumps(res))
+    require(rc == 0 and not missing, f"the CLI failed (rc {rc}, missing {missing})")
+    require(run.get("frames") == CLI_FRAMES, f"the CLI ran {run.get('frames')} frames")
+    ate = run.get("ate_rmse", float("nan"))
+    require(np.isfinite(ate) and ate < 0.1, f"CLI ATE {ate} >= 0.1")
+    require(run.get("segments") == 0, "the CLI run lost tracking")
+    require(launches > 0, "the CLI run launched no Hamming kernel")
+    require("_project_match_pnp" in sites.captured, "no match_projection captured")
+    shape = (sites.captured["_project_match_pnp"][0].shape[0],
+             sites.captured["_project_match_pnp"][2].shape[0])
+    require(shape == (4096, 2400), f"the modslam preset's match_projection is {shape}")
+    return res, seq
+
+
+def _same(a, b) -> bool:
+    """Bit-identical: numpy arrays, tensors, lists of either."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _snapshot(odo) -> dict:
+    """What two runs must agree on bit for bit."""
+    require(odo._window is not None, "the run never initialized")
+    _, est = odo.trajectory_c2w()
+    out = {"trajectory": est}
+    if isinstance(odo, hybrid.HybridOdometry):
+        out.update(pt_valid=odo._pt_valid.copy(), pt_Xw=odo._pt_Xw.copy(),
+                   mode_history=list(odo.mode_history))
+    else:
+        ba = odo._window.ba
+        out.update(idepth=ba.idepth, point_valid=ba.point_valid, T_R=ba.T.R, T_t=ba.T.t)
+    return out
+
+
+REPEAT_FRAMES, SAVE_AT = 30, 20
+
+
+def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
+    """Run `make()` over the frames twice (the second saves its state before
+    frame SAVE_AT and goes on), then a fresh instance from the file over
+    frames SAVE_AT..: everything in _snapshot must be bit-identical. The
+    file must also load into an instance on the CPU."""
+    ckpt = os.path.join(work, f"{name}.ckpt")
+    hm.hamming_resolve_cuda.launches = 0
+    t0 = time.perf_counter()
+    a = make("cuda")
+    for i, img in enumerate(imgs):
+        a.process(img, i * 0.1)
+    snap_a = _snapshot(a)
+    b = make("cuda")
+    for i, img in enumerate(imgs):
+        if i == SAVE_AT:
+            pending = getattr(b, "_pending_marg", None) is not None
+            b.save_state(ckpt)
+        b.process(img, i * 0.1)
+    snap_b = _snapshot(b)
+    c = make("cuda")
+    c.load_state(ckpt)
+    loaded_R = c._window.ba.T.R.cpu()
+    for i in range(SAVE_AT, len(imgs)):
+        c.process(imgs[i], i * 0.1)
+    snap_c = _snapshot(c)
+    torch.cuda.synchronize()
+    launches = hm.hamming_resolve_cuda.launches
+    wall = time.perf_counter() - t0
+    cpu = make("cpu")
+    cpu.load_state(ckpt)
+    cpu_ok = (cpu._window.ba.T.R.device.type == "cpu"
+              and torch.equal(cpu._window.ba.T.R, loaded_R))
+    repeat = {k: _same(snap_a[k], snap_b[k]) for k in snap_a}
+    resume = {k: _same(snap_a[k], snap_c[k]) for k in snap_a}
+    res = {"phase": f"repeat_resume_{name}", "frames": len(imgs), "save_at": SAVE_AT,
+           "pending_marg_at_save": pending, "repeat_identical": repeat,
+           "resume_identical": resume, "cpu_load": cpu_ok,
+           "max_abs_traj_diff_repeat": float(np.abs(snap_a["trajectory"]
+                                                    - snap_b["trajectory"]).max()),
+           "max_abs_traj_diff_resume": float(np.abs(snap_a["trajectory"]
+                                                    - snap_c["trajectory"]).max()),
+           "kernel_launches": launches, "wall_s": wall}
+    print(json.dumps(res))
+    require(all(repeat.values()), f"{name}: two runs differ: {repeat}")
+    require(all(resume.values()), f"{name}: the resumed run differs: {resume}")
+    require(cpu_ok, f"{name}: the card's checkpoint did not load on the CPU")
+    return res
+
+
+def determinism_probe(cam, imgs) -> dict:
+    """The hybrid (24 frames, its direct spine included) and the direct path
+    (12 frames) under torch.use_deterministic_algorithms(True,
+    warn_only=True): the distinct warnings torch raises, with their counts.
+    It names the operations torch knows to be order-dependent on CUDA and
+    has no deterministic form of; the ones it has a form of switch silently,
+    and phase 8's bit-identity checks catch those."""
+    seen: Counter = Counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            odo = wl.hybrid_odometry(cam, dev="cuda")
+            for i, img in enumerate(imgs[:24]):
+                odo.process(img, i * 0.1)
+            odo = DirectOdometry(cam, wl.BENCH_CFG)
+            for i, img in enumerate(imgs[:12]):
+                odo.process(img, i * 0.1)
+            torch.cuda.synchronize()
+        for w in caught:
+            seen[str(w.message).splitlines()[0][:160]] += 1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res = {"phase": "determinism_probe", "warnings": dict(seen)}
+    print(json.dumps(res))
+    return res
+
+
+def repeatability_phase(seq: str, work: str) -> dict:
+    """Phase 8 on the phase-7 sequence, read back through KittiCapture."""
+    cap = KittiCapture(seq)
+    cam = cap.calibration.pinhole
+    imgs = []
+    for frame in cap.frames():
+        if len(imgs) == REPEAT_FRAMES:
+            break
+        imgs.append(frame.image)
+    t0 = time.perf_counter()
+    probe = determinism_probe(cam, imgs)
+    probe_s = time.perf_counter() - t0
+    hyb = repeat_and_resume(lambda d: wl.hybrid_odometry(cam, dev=d), imgs, work, "hybrid")
+    direct = repeat_and_resume(lambda d: DirectOdometry(cam, wl.BENCH_CFG, device=d), imgs,
+                               work, "direct")
+    return {"probe": probe, "probe_s": probe_s, "hybrid": hyb, "direct": direct}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -628,14 +832,32 @@ def main() -> int:
         rows.append(row)
         max_err = max(max_err, row["max_abs_err"])
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        with CallSites() as sites:
+            t0 = time.perf_counter()
+            entry, seq = entry_points_phase(dev, work, sites)
+            print(f"phase 7 (entry points) {time.perf_counter() - t0:.1f} s")
+        row = kernel_case(CLI_CASE, sites.captured["_project_match_pnp"], card, popc_rate)
+        rows.append(row)
+        max_err = max(max_err, row["max_abs_err"])
+        t0 = time.perf_counter()
+        repeat = repeatability_phase(seq, work)
+        print(f"phase 8 (repeatability and resume) {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
+    cli_row = next(r for r in rows if r["case"] == CLI_CASE)
+    by_path = {"hybrid": full["kernel_launches"], "cli_modslam": entry["kernel_launches"],
+               "repeat_resume_hybrid": repeat["hybrid"]["kernel_launches"]}
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",
         "source": "libcml_tpu_torch/csrc/hamming_match.cu",
         "replaces": "libcml_tpu/ops/pallas_match.py:107",
-        "launches": full["kernel_launches"],
-        "launches_by_path": {"hybrid_tracking": hyb["launches"], "hybrid": full["kernel_launches"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": {**by_path, "hybrid_tracking": hyb["launches"],
                              "relocalization": reloc["kernel_launches"]},
         "launches_per_hybrid_frame": full["kernel_launches_per_frame"],
         "max_abs_err": max_err,
@@ -644,9 +866,13 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "case_4096x2400": {k: cli_row[k] for k in ("kernel_ms", "kernel_warm_ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "bound_share",
+                                                   "live_entries")},
     }]
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
-                      "relocalization": reloc}))
+                      "relocalization": reloc, "entry_points": entry,
+                      "repeatability": repeat}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

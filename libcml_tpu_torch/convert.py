@@ -29,6 +29,8 @@ from libcml_tpu_torch.models.direct.tracker import TrackerRef
 from libcml_tpu_torch.models.direct.window import Window
 from libcml_tpu_torch.models.indirect.matching import MatchResult
 from libcml_tpu_torch.models.indirect.orb import OrbFeatures
+# the hybrid's map arena (HybridOdometry attributes of both packages)
+from libcml_tpu_torch.runtime.hybrid import HYBRID_ARENA
 
 # dataclass fields that hold another dataclass
 _NESTED = {
@@ -67,11 +69,6 @@ def from_np(cls, d: dict, device: str | torch.device = "cpu"):
         sub = _NESTED.get((cls, f.name))
         kw[f.name] = from_np(sub, v, device) if sub is not None else tensor(v, device)
     return cls(**kw)
-
-
-# the hybrid's map arena (HybridOdometry attributes of both packages)
-HYBRID_ARENA = ("_pt_Xw", "_pt_desc", "_pt_level", "_pt_valid", "_pt_last_seen", "_pt_gen",
-                "_pt_mapid")
 
 
 def _u32(a) -> np.ndarray:

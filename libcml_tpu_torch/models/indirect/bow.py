@@ -128,9 +128,10 @@ class BinaryVocabulary:
         """L1-normalized tf-idf BoW vector (W,), dense on the device."""
         _, idf = self._on(desc.device)
         wid = self.assign(desc, valid)
-        tf = torch.zeros((self.num_words,), dtype=torch.float32, device=desc.device)
-        tf = tf.index_add(0, torch.clamp(wid, min=0).long(), valid.float())
-        v = tf * idf
+        # term counts in integers: exact whatever order the device adds them
+        tf = torch.zeros((self.num_words,), dtype=torch.int32, device=desc.device)
+        tf = tf.index_add(0, torch.clamp(wid, min=0).long(), valid.to(torch.int32))
+        v = tf.float() * idf
         return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)
 
 

@@ -7,8 +7,10 @@ localOptimize: local keyframes + fixed frames, Huber on the chi2, 5 + 10
 iterations with a chi2 prune between them). The graph is flat observation
 arrays (frame, point, pixel) with validity masks. One linearization is one
 batched sweep of (K, 2, 6) pose and (K, 2, 3) point Jacobians, summed into
-the frame and point blocks with index_add; the point blocks (3x3 each) are
-inverted in a batch and eliminated, leaving a dense (6M, 6M) camera system.
+the frame and point blocks through fixed group tables (`segments`: the same
+sums on every run, where float atomics would not be); the point blocks (3x3
+each) are inverted in a batch and eliminated, leaving a dense (6M, 6M)
+camera system.
 The LM loop is fixed-length with accept/reject by torch.where, so no
 iteration reads the host.
 """
@@ -82,19 +84,56 @@ def ba_energy(prob: IndirectBAProblem, cam: PinholeCamera) -> torch.Tensor:
     return torch.sum(torch.where(active, e, torch.zeros_like(e)))
 
 
-def _sum_into(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """(n, ...) sums of `values` (K, ...) grouped by `index` (K,)."""
-    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+def segments(index: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, C) table of the positions k of `index` (K,) in each group 0..n-1,
+    in increasing order, padded with K; C is the largest group. Built once
+    per problem (one host read, C), it turns every grouped sum of an LM
+    step into a gather and a sum over a fixed-length axis: the same additions
+    in the same order on every run, where a float index_add on CUDA adds in
+    the order its atomics land."""
+    K = index.shape[0]
+    dev = index.device
+    order = torch.argsort(index, stable=True)
+    key = index[order]
+    counts = torch.bincount(index, minlength=n)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(K, device=dev) - start[key]
+    C = int(counts.max()) if K else 0
+    table = torch.full((n, max(C, 1)), K, dtype=torch.long, device=dev)
+    table[key, rank] = order
+    return table
+
+
+def _sum_into(table: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """(n, ...) sums of `values` (K, ...) over the groups of `table`
+    (segments), each group's terms added in a fixed order."""
+    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    return padded[table].sum(dim=1)
+
+
+@dataclasses.dataclass
+class Groups:
+    """The observations' groups for the grouped sums of ba_step: by frame,
+    by point and by (frame, point) pair."""
+
+    frame: torch.Tensor
+    point: torch.Tensor
+    pair: torch.Tensor
+
+
+def group_observations(prob: IndirectBAProblem) -> Groups:
+    M, N = prob.T.t.shape[0], prob.Xw.shape[0]
+    f, p = prob.obs_frame.long(), prob.obs_point.long()
+    return Groups(frame=segments(f, M), point=segments(p, N), pair=segments(f * N + p, M * N))
 
 
 def ba_step(prob: IndirectBAProblem, cam: PinholeCamera,
-            lam: torch.Tensor) -> IndirectBAProblem:
+            lam: torch.Tensor, groups: Groups | None = None) -> IndirectBAProblem:
     """One LM iteration with Schur elimination of the point block."""
     M, N = prob.T.t.shape[0], prob.Xw.shape[0]
     D = M * 6
     dev = prob.Xw.device
-    f, p = prob.obs_frame.long(), prob.obs_point.long()
+    g = groups if groups is not None else group_observations(prob)
 
     r, Xc, active = _residuals(prob, cam)
     chi2 = _chi2(r, prob.obs_sigma2)
@@ -106,12 +145,12 @@ def ba_step(prob: IndirectBAProblem, cam: PinholeCamera,
 
     Jc_w = J_c * w[:, None, None]
     Jp_w = J_p * w[:, None, None]
-    H_cc = _sum_into(M, f, Jc_w.transpose(1, 2) @ J_c)                  # (M, 6, 6)
-    b_c = _sum_into(M, f, (Jc_w.transpose(1, 2) @ r[..., None])[..., 0])  # (M, 6)
-    H_pp = _sum_into(N, p, Jp_w.transpose(1, 2) @ J_p)                  # (N, 3, 3)
-    b_p = _sum_into(N, p, (Jp_w.transpose(1, 2) @ r[..., None])[..., 0])  # (N, 3)
+    H_cc = _sum_into(g.frame, Jc_w.transpose(1, 2) @ J_c)                  # (M, 6, 6)
+    b_c = _sum_into(g.frame, (Jc_w.transpose(1, 2) @ r[..., None])[..., 0])  # (M, 6)
+    H_pp = _sum_into(g.point, Jp_w.transpose(1, 2) @ J_p)                  # (N, 3, 3)
+    b_p = _sum_into(g.point, (Jp_w.transpose(1, 2) @ r[..., None])[..., 0])  # (N, 3)
     # cross blocks W[m, n] = sum_k J_c^T w J_p over the observations of (m, n)
-    W = _sum_into(M * N, f * N + p, Jc_w.transpose(1, 2) @ J_p).reshape(M, N, 6, 3)
+    W = _sum_into(g.pair, Jc_w.transpose(1, 2) @ J_p).reshape(M, N, 6, 3)
 
     # LM damping + a small guard, then the batched 3x3 inverse
     eye3 = torch.eye(3, dtype=H_pp.dtype, device=dev)
@@ -175,11 +214,13 @@ def run_local_ba(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int 
     package accepts it: ba_energy masks the non-finite residuals, so the
     NaN state scores 0 (ROADMAP.md section 3)."""
 
+    groups = group_observations(prob)
+
     def lm_loop(prob, iters):
         E = ba_energy(prob, cam)
         lam = torch.full((), 1e-5, dtype=torch.float32, device=prob.Xw.device)
         for _ in range(iters):
-            cand = ba_step(prob, cam, lam)
+            cand = ba_step(prob, cam, lam, groups)
             E_new = ba_energy(cand, cam)
             accept = (E_new < E) & torch.isfinite(cand.Xw).all() & torch.isfinite(cand.T.t).all() \
                 & torch.isfinite(cand.T.R).all()

@@ -29,8 +29,9 @@ decisions; Relocalization.cpp).
     bootstrap.
 
 Every Hamming match on these paths resolves through the hand-written CUDA
-kernel on the card (models/indirect/matching._resolve_from_desc). The
-pipelined and staged-postprocess modes and checkpoints are not ported.
+kernel on the card (models/indirect/matching._resolve_from_desc). A run
+saves and resumes its full state (save_state / load_state). The pipelined
+and staged-postprocess modes are not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +85,9 @@ MAP_CAP = 4096
 KF_RING = 6          # local-BA keyframe count (covisibility-selected)
 KF_HISTORY = 48      # indirect keyframes kept for covisibility selection
 OBS_PER_KF = 1024
+# the map arena's host arrays (HybridOdometry attributes)
+HYBRID_ARENA = ("_pt_Xw", "_pt_desc", "_pt_level", "_pt_valid", "_pt_last_seen", "_pt_gen",
+                "_pt_mapid")
 
 
 def _extract(img: torch.Tensor, budget: int, levels: int):
@@ -700,6 +704,52 @@ class HybridOdometry(DirectOdometry):
                 move_poses=(st["ba_mode"] == Mode.INDIRECT))
             if lb is not None:
                 self._complete_indirect_local_ba(lb, host_fetch(refs))
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def _ckpt_extra(self) -> dict:
+        """The indirect state, as the JAX package's _ckpt_extra keeps it,
+        plus what this port's next frames read besides: the last finalized
+        mode, the decisions' and the checker's windows, and the second
+        local-map pass in flight (dispatched at this frame, consumed in the
+        next one's finalize). The keyframe postprocess runs to its end inside
+        a frame, so none of it is in flight at a checkpoint."""
+        extra = super()._ckpt_extra()
+        extra.update({
+            "pt_arrays": {k: getattr(self, k).copy() for k in HYBRID_ARENA},
+            "ind_kfs": self._ind_kfs,
+            "kf_store": self._kf_store,
+            "last_kf": (None if self._last_kf_feats is None else
+                        (self._last_kf_feats, self._last_kf_T, self._last_kf_idx)),
+            "ref_kf_tracked": self._ref_kf_tracked,
+            "mode_history": self.mode_history,
+            "last_mode": self._last_mode,
+            "pass2": self._pass2,
+            "last_pass2": self._last_pass2,
+            "decisions": (self.pose_decision, self.ba_decision, self.checker),
+        })
+        return extra
+
+    def _ckpt_restore_extra(self, extra: dict) -> None:
+        super()._ckpt_restore_extra(extra)
+        for k, v in extra["pt_arrays"].items():
+            setattr(self, k, v)
+        self._ind_kfs = extra["ind_kfs"]
+        self._kf_store = extra["kf_store"]
+        if extra["last_kf"] is not None:
+            self._last_kf_feats, self._last_kf_T, self._last_kf_idx = extra["last_kf"]
+        self._ref_kf_tracked = extra["ref_kf_tracked"]
+        self.mode_history = extra["mode_history"]
+        self._last_mode = extra["last_mode"]
+        self._pass2 = extra["pass2"]
+        self._last_pass2 = extra["last_pass2"]
+        self.pose_decision, self.ba_decision, self.checker = extra["decisions"]
+        self._map_dev = None
+        # the BoW retrieval index is rebuilt from the keyframe store with the
+        # port's vocabulary; its adds wait for the first query, as they do
+        # in an uninterrupted run
+        self._kfdb = KeyframeDatabase(default_vocabulary()) if self._kf_store else None
+        self._kfdb_pending = list(self._kf_store)
 
     # -- relocalization ------------------------------------------------------
 

@@ -20,6 +20,10 @@ form of the reference's deform graph, Frame.cpp:51-92).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import pickle
+
 import numpy as np
 import torch
 
@@ -89,6 +93,45 @@ def host_fetch(tensors) -> list:
         out.append(flat[off:off + nbytes].view(np_dtype).reshape(tuple(t.shape)).copy())
         off += nbytes
     return out
+
+
+class OnDevice:
+    """A device tensor's value in a checkpoint: a numpy array that
+    `to_device` turns back into a tensor on the loading instance's device."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, array: np.ndarray):
+        self.array = array
+
+
+def _map_tree(obj, leaf):
+    """`obj` with `leaf` applied to every tensor and OnDevice inside its
+    dicts, lists, tuples and dataclasses (copied, never changed in place)."""
+    if isinstance(obj, (torch.Tensor, OnDevice)):
+        return leaf(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tree(v, leaf) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_map_tree(v, leaf) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = copy.copy(obj)
+        for f in dataclasses.fields(obj):
+            object.__setattr__(out, f.name, _map_tree(getattr(obj, f.name), leaf))
+        return out
+    return obj
+
+
+def to_host(obj):
+    """Every tensor in `obj` as an OnDevice numpy array (one device-to-host
+    copy each)."""
+    return _map_tree(obj, lambda t: OnDevice(t.detach().cpu().numpy()))
+
+
+def to_device(obj, device: torch.device):
+    """Every OnDevice array (and tensor) in `obj` as a tensor on `device`."""
+    return _map_tree(obj, lambda a: torch.as_tensor(
+        a.array if isinstance(a, OnDevice) else a).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -845,10 +888,64 @@ class DirectOdometry:
             self._sync_kf_poses()
         self.map.export_results(out_dir, prefix)
 
+    # -- checkpoint / resume --------------------------------------------------
+
+    _CKPT_SCALARS = (
+        "state", "frame_idx", "segments", "stopped", "_anchor_kf",
+        "_kf_slot", "_kf_id", "_frames_since_kf", "_track_fails",
+        "_lost_frames", "_fid2map", "_first_ts", "_win_count",
+        "_kf_exposure",
+    )
+    _CKPT_PYTREES = (
+        "_window", "_immature", "_init_state", "_first_pyr", "_kf_pyr",
+        "_kf_grad0_prev", "_kf_T", "_kf_ab", "_T_prev", "_T_curr",
+        "_restart_anchor", "_recent_rows",
+    )
+
+    def _ckpt_extra(self) -> dict:
+        """State beyond the JAX package's scalar and pytree lists that the
+        next frames read. The tracker reference rides along: rebuilt from a
+        window that a completed marginalization has changed since, it would
+        differ from the one the uninterrupted run tracks against."""
+        return {"tracker_ref": self._tracker_ref, "n_ref": self._n_ref,
+                "last_track_ab": getattr(self, "_last_track_ab", None),
+                "stats": self.stats}
+
+    def _ckpt_restore_extra(self, extra: dict) -> None:
+        self._tracker_ref = extra["tracker_ref"]
+        self._n_ref = extra["n_ref"]
+        if extra["last_track_ab"] is not None:
+            self._last_track_ab = extra["last_track_ab"]
+        self.stats = extra["stats"]
+
     def save_state(self, path: str) -> None:
-        """Checkpoints are not ported yet (the JAX package's save_state)."""
-        raise NotImplementedError("checkpoints are not ported yet")
+        """Serialize the full SLAM state (arenas, window, map, host scalars)
+        so a run can resume mid-sequence and continue exactly as the
+        uninterrupted run. The file holds numpy arrays and this package's
+        own Python objects only (device tensors as `OnDevice` arrays), so a
+        state saved on the card loads on the CPU and the other way round.
+        An in-flight asynchronous marginalization rides along as it is and
+        completes at the frame the uninterrupted run completes it."""
+        payload = {
+            "scalars": {k: getattr(self, k, None) for k in self._CKPT_SCALARS},
+            "pytrees": {k: getattr(self, k, None) for k in self._CKPT_PYTREES},
+            "map": self.map,
+            "extra": self._ckpt_extra(),
+            "pending_marg": self._pending_marg,
+        }
+        with open(path, "wb") as f:
+            pickle.dump(to_host(payload), f)
 
     def load_state(self, path: str) -> None:
-        """Checkpoints are not ported yet (the JAX package's load_state)."""
-        raise NotImplementedError("checkpoints are not ported yet")
+        """Restore a checkpoint written by save_state into this instance
+        (which must share cam and cfg), every array on this instance's
+        device. Unpickling runs code: load only files save_state wrote."""
+        with open(path, "rb") as f:
+            payload = to_device(pickle.load(f), self.device)
+        for k, v in payload["scalars"].items():
+            setattr(self, k, v)
+        for k, v in payload["pytrees"].items():
+            setattr(self, k, v)
+        self.map = payload["map"]
+        self._pending_marg = payload["pending_marg"]
+        self._ckpt_restore_extra(payload["extra"])

@@ -545,10 +545,13 @@ def test_unported_hybrid_modes_raise(tmp_path):
     for kw in (dict(pipelined=True), dict(staged_indpost=True)):
         with pytest.raises(NotImplementedError):
             thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu", **kw)
+    # checkpoints are ported (tests/test_torch_checkpoint.py): a fresh
+    # instance's state round-trips
     odo = thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu")
-    for fn in (odo.save_state, odo.load_state):
-        with pytest.raises(NotImplementedError):
-            fn(str(tmp_path / "ckpt"))
+    odo.save_state(str(tmp_path / "ckpt"))
+    back = thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu")
+    back.load_state(str(tmp_path / "ckpt"))
+    assert (back.frame_idx, back.state, back._window) == (-1, "INIT_FIRST", None)
 
 
 def test_hybrid_defaults_to_the_card():
