@@ -39,20 +39,40 @@ Phases (any failure exits non-zero, and no result line is printed):
      and the first match_projection resolution of the run as a real-input
      kernel case.
   8. repeatability and resume, on that sequence read back through
-     KittiCapture: bench.py's hybrid over 30 frames twice (the second saves
-     its state before frame 20 and goes on), then a fresh instance loads the
-     file and runs frames 20-29; trajectories, map arena and modes must be
+     KittiCapture: bench.py's hybrid over 24 frames twice (the second saves
+     its state before frame 16 and goes on), then a fresh instance loads the
+     file and runs frames 16-23; trajectories, map arena and modes must be
      bit-identical, and the same for DirectOdometry (trajectory and window).
      The card's checkpoint must load into an instance on the CPU. Before it,
      a probe runs the hybrid and the direct path under
      torch.use_deterministic_algorithms(True, warn_only=True) and lists the
      operations torch warns about.
-Then phase 2's real-input cases captured in phases 5 and 6 (the first
-keyframe's epipolar band, a relocalization match_descriptors call), held to
-the plain version exactly; the phases' results, the card's name and power
-limit, the kernel table ({"kernels": [...]}: launches of the main path's
-runs, phases 5, 7 and 8, with each path's count beside them; times and bound
-of the phase-4 masks case, cold), and the result line
+  9. the pipelined direct mode (DirectOdometry(pipelined=True), the lag-1
+     finalize) on phase 3's frames: fps, ATE < 0.1, no lost segment, its
+     keyframe frames beside phase 3's, and the host's stream/event syncs and
+     memcpys a frame of both modes (torch.profiler, frames 15-19 of a fresh
+     run each).
+ 10. the hybrid pipelined (every keyframe postprocess tick staged over later
+     frames) and sequential with staged BA ticks (staged_indpost=True), each
+     on phase 5's 60 frames: ATE < 0.1, no lost segment, an indirect keyframe
+     event that triangulated and completed its local BA through the ticks,
+     a tick that ran after its keyframe's frame, nothing left in flight, and
+     the kernel's launches per call site; the pipelined run's first
+     keyframe-postprocess match_projection with a live map row (whose
+     results the staged tick reads) becomes a real-input kernel case.
+ 11. CalibSlam on 24 frames rendered through radtan distortion (k1 -0.12,
+     k2 0.02, yaw 0.02 a frame): the fitted k1 negative and the fitted remap
+     closer to the true one than the identity; then DirectOdometry on phase
+     3's frames initialized from a depth-prior callable that returns the
+     renderer's inverse depth (ATE < 0.1).
+Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
+keyframe's epipolar band, a relocalization match_descriptors call, the
+staged tick's match_projection), held to the plain version exactly; the
+phases' results, the card's name and power limit, the kernel table
+({"kernels": [...]}: launches of the paths' runs, phases 5, 7, 8, 10 and 11,
+each counted from 0 just before its run and read just after, with each
+path's count beside them; times and bound of the phase-4 masks case, cold,
+and of the staged-tick case), and the result line
 {"ok": true, "device": {...}} last.
 """
 
@@ -351,8 +371,8 @@ def direct_phase(dev, cam, traj, frames) -> dict:
     res = {"phase": "direct", "frames": len(imgs), "fps": len(imgs) / wall,
            "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
            "wall_s": wall, "ate": ate, "segments": odo.segments, "lost_frames": lost,
-           "keyframes": kf, "host_ms_per_stage": host_ms,
-           "kernel_launches": {"hamming_resolve": launches}}
+           "keyframes": kf, "keyframe_frames": _keyframe_frames(odo),
+           "host_ms_per_stage": host_ms, "kernel_launches": {"hamming_resolve": launches}}
     print(json.dumps(res))
     require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
@@ -417,6 +437,7 @@ class CallSites:
         self.calls = Counter()
         self.captured: dict[str, tuple] = {}
         self.capture_at: set[str] = set()
+        self.capture_live = False    # capture only a call with a live query row
         self._site: str | None = None
         self._saved = {name: getattr(hybrid, name) for name in CALL_SITES}
         self._resolve = matching.hamming_resolve
@@ -434,7 +455,8 @@ class CallSites:
         return run
 
     def _capture(self, *args):
-        if self._site in self.capture_at and self._site not in self.captured:
+        if (self._site in self.capture_at and self._site not in self.captured
+                and (not self.capture_live or bool(args[1].any()))):
             self.captured[self._site] = tuple(None if a is None else a.clone() for a in args)
         return self._resolve(*args)
 
@@ -686,7 +708,7 @@ def _snapshot(odo) -> dict:
     return out
 
 
-REPEAT_FRAMES, SAVE_AT = 30, 20
+REPEAT_FRAMES, SAVE_AT = 24, 16
 
 
 def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
@@ -784,6 +806,231 @@ def repeatability_phase(seq: str, work: str) -> dict:
     return {"probe": probe, "probe_s": probe_s, "hybrid": hyb, "direct": direct}
 
 
+# -- phases 9 to 11 ------------------------------------------------------------
+
+# CUDA runtime calls that make the host wait for the device, and copies
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy")
+SYNC_WINDOW = range(15, 20)      # frames profiled for the host waits of a mode
+
+
+def host_waits(make, imgs) -> dict:
+    """Stream/event syncs and memcpys a frame (torch.profiler's CUDA runtime
+    calls) of a fresh `make()` run over SYNC_WINDOW (it holds a keyframe of
+    phase 3), after the frames before it; the window's end includes the
+    in-flight frame's finalize."""
+    odo = make()
+    for i in range(SYNC_WINDOW.start):
+        odo.process(imgs[i], float(i))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in SYNC_WINDOW:
+            odo.process(imgs[i], float(i))
+        torch.cuda.synchronize()
+    counts = Counter()
+    for e in prof.events():
+        if e.device_type.name == "CPU" and e.name in SYNC_CALLS + COPY_CALLS:
+            counts[e.name] += 1
+    n = len(SYNC_WINDOW)
+    return {"syncs_per_frame": sum(counts[k] for k in SYNC_CALLS) / n,
+            "memcpys_per_frame": sum(counts[k] for k in COPY_CALLS) / n,
+            "calls_per_frame": {k: v / n for k, v in counts.items()}}
+
+
+def _keyframe_frames(odo) -> list[int]:
+    return [int(f) for f in odo.sheet.stat("time_keyframe").series()[0]]
+
+
+def timed_run(odo, imgs) -> dict:
+    """Drive `odo` over the frames on the card: wall and steady clocks, the
+    kernel launches of the run (counted from 0), lost frames."""
+    lost = 0
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    t0 = time.perf_counter()
+    t_steady = t0
+    for i, img in enumerate(imgs):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        out = odo.process(img, float(i))
+        lost += int(out.get("state") == "LOST")
+    _, est = odo.trajectory_c2w()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    return {"wall_s": t_end - t0, "fps": len(imgs) / (t_end - t0),
+            "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
+            "kernel_launches": hm.hamming_resolve_cuda.launches, "lost_frames": lost,
+            "est": est}
+
+
+def pipelined_direct_phase(cam, traj, frames, direct: dict) -> dict:
+    """Phase 9: DirectOdometry(pipelined=True) on phase 3's frames."""
+    imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
+    odo = DirectOdometry(cam, wl.BENCH_CFG, pipelined=True)
+    run = timed_run(odo, imgs)
+    ate = ate_rmse(run.pop("est")[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
+    waits = {"sequential": host_waits(lambda: DirectOdometry(cam, wl.BENCH_CFG), imgs),
+             "pipelined": host_waits(lambda: DirectOdometry(cam, wl.BENCH_CFG, pipelined=True),
+                                     imgs)}
+    res = {"phase": "pipelined_direct", "frames": len(imgs), **run, "ate": ate,
+           "segments": odo.segments, "keyframe_frames": _keyframe_frames(odo),
+           "sequential_keyframe_frames": direct["keyframe_frames"],
+           "sequential_ate": direct["ate"], "sequential_steady_fps": direct["steady_fps"],
+           "host_waits": waits}
+    print(json.dumps(res))
+    require(np.isfinite(ate) and ate < 0.1, f"pipelined direct ATE {ate} >= 0.1")
+    require(odo.segments == 0 and run["lost_frames"] == 0, "pipelined direct lost tracking")
+    return res
+
+
+def watch_events(odo) -> tuple[Counter, Counter, set]:
+    """watch_hybrid for the staged postprocess: the points each keyframe
+    event triangulated and whether its local BA completed are booked to the
+    event (the in-flight tick's frame) whichever frame its ticks run in.
+    Returns (event counts, points triangulated by event, events whose local
+    BA completed)."""
+    ev = Counter()
+    tri, lba = Counter(), set()
+
+    def wrap(name, after):
+        fn = getattr(odo, name)
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            after(*args)
+            return out
+        setattr(odo, name, run)
+
+    def added(Xw, desc, level, ok):
+        tri[odo._indpost["frame_idx"]] += int(np.sum(ok))
+        ev["triangulated"] += int(np.sum(ok))
+
+    def local(lb, fetched):
+        if np.isfinite(fetched[0]).all():
+            lba.add(odo._indpost["frame_idx"])
+            ev["local_ba"] += 1
+
+    wrap("_add_map_points", added)
+    wrap("_complete_indirect_local_ba", local)
+    wrap("_complete_mixed_window_ba", lambda *_: ev.update(mixed_ba=1))
+    return ev, tri, lba
+
+
+STAGED_CASE = "4096x1536 real staged-tick match_projection (phase 10, pipelined hybrid)"
+STAGED_FRAMES = 60          # phase 5's 60 frames
+
+
+def staged_hybrid_phase(cam, traj, frames, sites: CallSites, mode: str) -> dict:
+    """Phase 10: the hybrid pipelined (every postprocess tick staged) or
+    sequential with staged BA ticks, on phase 5's frames."""
+    kw = {"pipelined": True} if mode == "pipelined" else {"staged_indpost": True}
+    odo = hybrid.HybridOdometry(cam, wl.BENCH_CFG, orb_budget=wl.ORB_BUDGET,
+                                orb_levels=wl.ORB_LEVELS, **kw)
+    ev, tri, lba = watch_events(odo)
+    imgs = [f[0].cpu().numpy() for f in frames[:STAGED_FRAMES]]
+    sites.capture_at = {"_map_projection_match"}
+    sites.capture_live = True
+    sites.launches.clear()
+    sites.calls.clear()
+    run = timed_run(odo, imgs)
+    ate = ate_rmse(run.pop("est")[:, :3, 3], gt_centres(traj[:STAGED_FRAMES]), with_scale=True)
+    events = [int(f) for f in odo.sheet.stat("time_ind_post").series()[0]]
+    ticks = [int(f) for f in odo.sheet.stat("time_ind_tick").series()[0]]
+    ok_kf = sorted(f for f in lba if tri[f] > 0)
+    n = len(imgs)
+    res = {"phase": f"hybrid_{mode}", "frames": n, **run, "ate": ate, "segments": odo.segments,
+           "keyframe_frames": _keyframe_frames(odo), "indirect_keyframe_events": events,
+           "tick_frames": ticks, "map_points": int(odo._pt_valid.sum()),
+           "triangulated": ev["triangulated"], "mixed_ba": ev["mixed_ba"],
+           "local_ba": ev["local_ba"], "events_triangulated_and_local_ba": ok_kf,
+           "modes": dict(Counter(odo.mode_history)),
+           "kernel_launches_per_frame": run["kernel_launches"] / n,
+           "launches_per_site": dict(sites.launches), "calls_per_site": dict(sites.calls)}
+    print(json.dumps(res))
+    require(np.isfinite(ate) and ate < 0.1, f"{mode} hybrid ATE {ate} >= 0.1")
+    require(odo.segments == 0 and run["lost_frames"] == 0, f"{mode} hybrid lost tracking")
+    require(ok_kf, f"{mode} hybrid: no indirect keyframe triangulated and completed a local BA")
+    require(odo._indpost is None, f"{mode} hybrid: a postprocess tick left in flight")
+    require(run["kernel_launches"] == sum(sites.launches.values()),
+            "kernel launched outside the call sites")
+    for site in CALL_SITES[:4]:
+        require(sites.launches[site] > 0, f"the {mode} hybrid launched no kernel at {site}")
+    later = [t for t in ticks if t not in events]
+    require(later, f"{mode} hybrid: no postprocess tick ran after its keyframe's frame")
+    return res
+
+
+CALIB_FRAMES = 24
+CALIB_K1, CALIB_K2 = -0.12, 0.02
+
+
+def calib_phase(cam, traj, frames) -> dict:
+    """Phase 11: CalibSlam on frames rendered through radtan distortion, and
+    DirectOdometry initialized from a depth-prior callable."""
+    from libcml_tpu_torch.core.camera import build_remap, invert_distortion, radtan_distort
+    from libcml_tpu_torch.data.synthetic import SyntheticScene, forward_trajectory
+    from libcml_tpu_torch.runtime.calib import CalibSlam
+
+    def distort(xn):
+        return radtan_distort(xn, CALIB_K1, CALIB_K2, 0.0, 0.0)
+
+    sc = SyntheticScene.default(cam, seed=3)
+    sc_d = SyntheticScene(sc.planes, cam, tex3d=sc.tex3d,
+                          undistort_xn=lambda xn: invert_distortion(distort, xn))
+    calib_traj = forward_trajectory(CALIB_FRAMES, step=0.08, yaw_rate=0.02)
+    t0 = time.perf_counter()
+    imgs = [sc_d.render_device(R, t, "cuda")[0].cpu().numpy() for R, t in calib_traj]
+    render_s = time.perf_counter() - t0
+    odo = CalibSlam(cam, wl.BENCH_CFG, orb_budget=wl.ORB_BUDGET, orb_levels=wl.ORB_LEVELS)
+    run = timed_run(odo, imgs)
+    est = run.pop("est")
+    ate = ate_rmse(est[:, :3, 3], gt_centres(calib_traj), with_scale=True)
+    params = odo.fit_distortion()
+    require(params is not None, "CalibSlam harvested too few correspondences")
+    cal = odo.finalize()
+    true_remap = build_remap(cam, np.asarray(cam.K()), distort)
+    H, W = cam.height, cam.width
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    sl = np.s_[H // 6: -H // 6, W // 6: -W // 6]
+    err_fit = float(np.linalg.norm(cal.remap[sl] - true_remap[sl], axis=-1).mean())
+    err_id = float(np.linalg.norm(np.stack([u, v], -1)[sl] - true_remap[sl], axis=-1).mean())
+
+    # the depth prior: the renderer's inverse depth of the first frame
+    prior_calls = []
+
+    def prior(image, frame_idx, path):
+        prior_calls.append(frame_idx)
+        return frames[0][1].cpu().numpy()
+
+    direct = DirectOdometry(cam, wl.BENCH_CFG, depth_prior=prior)
+    d_imgs = [f[0].cpu().numpy() for f in frames[:CALIB_FRAMES]]
+    direct.process(d_imgs[0], 0.0)
+    seeded = direct._init_state.idepth.cpu().numpy()
+    for i, img in enumerate(d_imgs[1:], 1):
+        direct.process(img, float(i))
+    _, d_est = direct.trajectory_c2w()
+    d_ate = ate_rmse(d_est[:, :3, 3], gt_centres(traj[:len(d_imgs)]), with_scale=True)
+    res = {"phase": "calib", "frames": len(imgs), "render_s": render_s, **run, "ate": ate,
+           "segments": odo.segments, "fitted": [float(p) for p in params],
+           "true": [CALIB_K1, CALIB_K2, 0.0, 0.0],
+           "geometric_correspondences": int(sum(len(a) for a in odo._geo_Xc)),
+           "remap_err_px": err_fit, "identity_err_px": err_id,
+           "prior": {"calls": prior_calls, "seeded_idepth_std": float(np.std(seeded)),
+                     "frames": len(d_imgs), "ate": d_ate, "segments": direct.segments,
+                     "state": direct.state}}
+    print(json.dumps(res))
+    require(params[0] < 0, f"fitted k1 {params[0]} is not negative")
+    require(err_fit < err_id, f"the fitted remap ({err_fit} px) is no closer than the identity "
+            f"({err_id} px)")
+    require(prior_calls == [0] and np.std(seeded) > 0.01,
+            "the depth prior did not seed the initializer")
+    require(direct.state == "TRACKING" and direct.segments == 0 and d_ate < 0.1,
+            f"DirectOdometry from the prior: {direct.state}, ATE {d_ate}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -847,10 +1094,34 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    t0 = time.perf_counter()
+    pipe_direct = pipelined_direct_phase(cam, traj, frames, direct)
+    print(f"phase 9 (pipelined direct) {time.perf_counter() - t0:.1f} s")
+    staged = {}
+    with CallSites() as sites:
+        for mode in ("pipelined", "staged"):
+            t0 = time.perf_counter()
+            staged[mode] = staged_hybrid_phase(cam, traj, frames, sites, mode)
+            print(f"phase 10 (hybrid {mode}) {time.perf_counter() - t0:.1f} s")
+            if mode == "pipelined":
+                require("_map_projection_match" in sites.captured,
+                        "no staged-tick match_projection captured")
+                row = kernel_case(STAGED_CASE, sites.captured["_map_projection_match"], card,
+                                  popc_rate)
+                rows.append(row)
+                max_err = max(max_err, row["max_abs_err"])
+    t0 = time.perf_counter()
+    calib = calib_phase(cam, traj, frames)
+    print(f"phase 11 (calib SLAM, depth prior) {time.perf_counter() - t0:.1f} s")
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
+    staged_row = next(r for r in rows if r["case"] == STAGED_CASE)
     by_path = {"hybrid": full["kernel_launches"], "cli_modslam": entry["kernel_launches"],
-               "repeat_resume_hybrid": repeat["hybrid"]["kernel_launches"]}
+               "repeat_resume_hybrid": repeat["hybrid"]["kernel_launches"],
+               "hybrid_pipelined": staged["pipelined"]["kernel_launches"],
+               "hybrid_staged": staged["staged"]["kernel_launches"],
+               "calib_slam": calib["kernel_launches"]}
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",
@@ -869,10 +1140,17 @@ def main() -> int:
         "case_4096x2400": {k: cli_row[k] for k in ("kernel_ms", "kernel_warm_ms", "plain_ms",
                                                    "bound_ms", "bound_by", "bound_share",
                                                    "live_entries")},
+        "case_staged_tick": {k: staged_row[k] for k in ("kernel_ms", "kernel_warm_ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "bound_share", "live_entries",
+                                                        "max_abs_err")},
+        "launches_per_site": {m: staged[m]["launches_per_site"] for m in staged},
     }]
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
-                      "repeatability": repeat}))
+                      "repeatability": repeat, "pipelined_direct": pipe_direct,
+                      "hybrid_pipelined": staged["pipelined"],
+                      "hybrid_staged": staged["staged"], "calib": calib}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,15 @@
 """The headline benchmark on the port: bench.py's run over the synthetic
 corridor, read from disk through the port's KITTI loader.
 
-    python -m libcml_tpu_torch.bench [--frames 500] [--mode direct|hybrid|both]
+    python -m libcml_tpu_torch.bench [--frames 500] [--mode direct|hybrid|both] [--pipelined]
 
 It renders the corridor (libcml_tpu_torch/data/corridor.py, at 640x480) into
 libcml_tpu_torch/_build/kitti_synth/sequences/04 when the frames are not
 there yet, reads it back through KittiCapture, and runs bench.py's run_mode
-(bench.py:61-108): its DirectConfig, sequential DirectOdometry and/or
-HybridOdometry (ORB 512 per level x 3 levels), WARMUP frames before the
+(bench.py:61-108): its DirectConfig, DirectOdometry and/or HybridOdometry
+(ORB 512 per level x 3 levels), sequential unless `--pipelined` (the lag-1
+finalize; the pipelined hybrid stages its keyframe postprocess over later
+frames, runtime/hybrid.py), WARMUP frames before the
 steady clock starts, and the same ATE alignment. It runs on the CUDA card
 (`--device cpu` only when asked) and prints one JSON line with bench.py's
 keys, the card's name and power limit (nvidia-smi), and per mode: total
@@ -47,9 +49,10 @@ PROFILE_EVERY = 50  # error_profile's prefix step, in frames
 JUMP = 2.0          # error_profile: a step this many times the median is a jump
 # frames of the stats sheet's keyframe and back-end events, beside the jumps
 EVENTS = ("time_keyframe", "time_ind_post", "time_mixed_ba", "mixed_ba_rollback",
-          "time_local_ba")
+          "time_local_ba", "time_ind_tick")
 STAGES = ("time_preprocess", "time_orb", "time_pnp", "time_bundle_fetch", "time_track",
-          "time_keyframe", "time_ind_post", "time_mixed_ba", "time_local_ba")
+          "time_keyframe", "time_ind_post", "time_ind_tick", "time_mixed_ba",
+          "time_local_ba")
 
 
 def card() -> str | None:
@@ -101,8 +104,9 @@ def error_profile(frame_idx: np.ndarray, est_xyz: np.ndarray, gt_xyz: np.ndarray
 
 
 def run_mode(seq_dir: str, mode: str, frames: int, device: torch.device,
-             cfg: DirectConfig = CFG, out_dir: str | None = None) -> dict:
-    """bench.py's run_mode on the port: the first `frames` frames of the
+             cfg: DirectConfig = CFG, out_dir: str | None = None,
+             pipelined: bool = False) -> dict:
+    """bench.py's run_mode (with its `pipelined`) on the port: the first `frames` frames of the
     KITTI sequence at `seq_dir`, decoded before the clock starts; the
     trajectory goes to `out_dir`/<mode>_tum.txt when it is given."""
     from libcml_tpu_torch.runtime.hybrid import HybridOdometry
@@ -112,9 +116,9 @@ def run_mode(seq_dir: str, mode: str, frames: int, device: torch.device,
     cam = cap.calibration.pinhole
     n = min(frames, len(cap))
     if mode == "hybrid":
-        odo = HybridOdometry(cam, cfg, device=device)
+        odo = HybridOdometry(cam, cfg, pipelined=pipelined, device=device)
     else:
-        odo = DirectOdometry(cam, cfg, device=device)
+        odo = DirectOdometry(cam, cfg, pipelined=pipelined, device=device)
     imgs = []
     for frame in cap.frames():
         if len(imgs) == n:
@@ -140,6 +144,7 @@ def run_mode(seq_dir: str, mode: str, frames: int, device: torch.device,
         "total_s": t_end - t0,
         "frames": n,
         "segments": odo.segments,
+        "pipelined": pipelined,
         "host_ms_per_stage": {name: statistics.mean(odo.sheet.stat(name).series()[1])
                               for name in STAGES if odo.sheet.stat(name).series()[1]},
         "stage_calls": {name: len(odo.sheet.stat(name).series()[1]) for name in STAGES
@@ -169,6 +174,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="both", choices=["direct", "hybrid", "both"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="directory for each mode's trajectory")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="the lag-1 pipelined modes (bench.py's direct_pipelined / "
+                         "hybrid_pipelined)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -176,11 +184,13 @@ def main(argv=None) -> int:
     seq_dir = ensure_sequence(args.frames, dev)
     prepare_s = time.perf_counter() - t0
     modes = ["direct", "hybrid"] if args.mode == "both" else [args.mode]
-    details = {m: run_mode(seq_dir, m, args.frames, dev, out_dir=args.out) for m in modes}
+    details = {m: run_mode(seq_dir, m, args.frames, dev, out_dir=args.out,
+                           pipelined=args.pipelined) for m in modes}
 
     first = details[modes[0]]
+    tag = "_pipelined" if args.pipelined else ""
     result = {
-        "metric": f"{modes[0]}_measured_fps_640x480_2048pts_{first['frames']}f",
+        "metric": f"{modes[0]}{tag}_measured_fps_640x480_2048pts_{first['frames']}f",
         "value": first["steady_fps"],
         "unit": "frames/s",
         "vs_baseline": (first["steady_fps"] / REF_FPS

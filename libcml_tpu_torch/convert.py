@@ -122,3 +122,88 @@ def to_np(obj: Any):
     if isinstance(obj, (tuple, list)):
         return type(obj)(to_np(x) for x in obj)
     return obj
+
+
+def _arr(x) -> np.ndarray:
+    """A tensor or any array (a JAX one included) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def pending_entries(odo) -> list[dict]:
+    """The host fields of a pipelined run's in-flight frames (either
+    package): frame index, timestamp, keyframe reference, exposure, ground
+    truth, and the scalar bundle as numpy."""
+    return [{"frame_idx": int(e["frame_idx"]), "ts": float(e["ts"]), "kf_id": e["kf_id"],
+             "exposure": e.get("exposure"), "gt": e.get("gt"),
+             "scalars": _arr(e["scalars"])} for e in odo._pending]
+
+
+def _tick_refs(refs) -> list:
+    """A tick's result tensors as a flat list (the JAX package nests the
+    triangulation's in a tuple at the end)."""
+    out = []
+    for r in refs:
+        if isinstance(r, (tuple, list)):
+            out.extend(r)
+        else:
+            out.append(r)
+    return out
+
+
+def staged_tick(odo) -> dict | None:
+    """A hybrid's in-flight staged postprocess tick (either package) as
+    numpy: its phase, the frame it was dispatched in, the event's frame,
+    timestamp and window keyframe, whether it triangulated, its BA mode once
+    decided, and the device results the tick reads next. None when no tick
+    is in flight."""
+    st = odo._indpost
+    if st is None:
+        return None
+    d = {k: st.get(k) for k in ("phase", "tick_born", "frame_idx", "timestamp", "kf_id",
+                                "has_tri", "ba_mode")}
+    d["refs"] = [_arr(r) for r in _tick_refs(odo._indpost_refs_raw(st))]
+    if st["phase"] == "match":
+        d["feats"] = {f.name: _arr(getattr(st["feats"], f.name))
+                      for f in dataclasses.fields(st["feats"])}
+        d["T_new"] = {"R": _arr(st["T_new_dev"].R), "t": _arr(st["T_new_dev"].t)}
+    return d
+
+
+def load_staged_tick(odo, d: dict) -> None:
+    """Put a match-phase tick from `staged_tick` (of either package) in
+    flight on a port HybridOdometry: its next tick reads these results. The
+    BA phases hold the window and ring state of the run they came from and
+    are not carried."""
+    if d["phase"] != "match":
+        raise ValueError(f"only a match-phase tick is carried, not {d['phase']!r}")
+    dev = odo.device
+    odo._indpost = {
+        "phase": "match", "tick_born": d["tick_born"], "frame_idx": d["frame_idx"],
+        "timestamp": d["timestamp"], "kf_id": d["kf_id"], "has_tri": bool(d["has_tri"]),
+        "feats": from_np(OrbFeatures, d["feats"], dev),
+        "T_new_dev": from_np(SE3, d["T_new"], dev),
+        "fetch_refs": [tensor(a, dev) for a in d["refs"]],
+    }
+
+
+CALIB_HARVEST = ("_geo_Xc", "_geo_uv", "_pho")
+
+
+def calib_harvest(odo) -> dict:
+    """A CalibSlam's harvested correspondences (either package) as numpy:
+    the geometric (camera-frame points, observed pixels) and the
+    photometric pairs (reference intensity, new intensity, exposure ratio,
+    valid)."""
+    return {"_geo_Xc": [np.array(a) for a in odo._geo_Xc],
+            "_geo_uv": [np.array(a) for a in odo._geo_uv],
+            "_pho": [(np.array(a), np.array(b), float(e), np.array(ok))
+                     for a, b, e, ok in odo._pho]}
+
+
+def load_calib_harvest(odo, d: dict) -> None:
+    """Set a port CalibSlam's harvest from `calib_harvest`'s dict, so its
+    fits run on the same correspondences."""
+    for k in CALIB_HARVEST:
+        setattr(odo, k, list(d[k]))

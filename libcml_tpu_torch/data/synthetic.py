@@ -225,10 +225,11 @@ class SyntheticScene:
         """`render` evaluated on `device` in float64 (same rays, z-buffer,
         volumetric shading and box filter; the numpy renderer takes seconds
         per VGA frame, this a few milliseconds on a GPU). Volumetric-texture
-        scenes without a lens model only. Returns (image, idepth) as (H, W)
-        float32 tensors on `device`."""
-        if self.tex3d is None or self.undistort_xn is not None:
-            raise ValueError("render_device supports volumetric, undistorted scenes")
+        scenes only; a lens model's undistorted ray directions are computed
+        once per grid on the host, as `render` computes them. Returns (image,
+        idepth) as (H, W) float32 tensors on `device`."""
+        if self.tex3d is None:
+            raise ValueError("render_device supports volumetric-texture scenes")
         img_hi, _ = self._render_grid_device(R_w2c, t_w2c, supersample, device)
         H, W = self.cam.height, self.cam.width
         s = supersample
@@ -245,6 +246,9 @@ class SyntheticScene:
         v, u = torch.meshgrid(v, u, indexing="ij")
         x = (u - float(cam.cx)) / float(cam.fx)
         y = (v - float(cam.cy)) / float(cam.fy)
+        if self.undistort_xn is not None:
+            xn = torch.as_tensor(self._undistorted_grid(s)).to(device)
+            x, y = xn[..., 0], xn[..., 1]
         rays = torch.stack([x, y, torch.ones_like(x)], dim=-1)
         R = torch.as_tensor(np.asarray(R_w2c, np.float64)).to(device)
         t = torch.as_tensor(np.asarray(t_w2c, np.float64)).to(device)
@@ -268,6 +272,21 @@ class SyntheticScene:
         idepth = torch.where(torch.isfinite(best_z), 1.0 / torch.clamp(best_z, min=1e-6),
                              torch.zeros_like(best_z))
         return img, idepth
+
+
+    def _undistorted_grid(self, s: int) -> np.ndarray:
+        """The lens model's true viewing directions (H*s, W*s, 2) of the
+        sub-pixel grid, as `_render_grid` computes them (cached per s)."""
+        cache = self.__dict__.setdefault("_xn_cache", {})
+        if s not in cache:
+            cam = self.cam
+            u = (np.arange(cam.width * s, dtype=np.float64) + 0.5) / s - 0.5
+            v = (np.arange(cam.height * s, dtype=np.float64) + 0.5) / s - 0.5
+            u, v = np.meshgrid(u, v)
+            cache[s] = self.undistort_xn(np.stack([(u - float(cam.cx)) / float(cam.fx),
+                                                   (v - float(cam.cy)) / float(cam.fy)],
+                                                  axis=-1))
+        return cache[s]
 
 
 def forward_trajectory(n_frames: int, step: float = 0.12, yaw_rate: float = 0.004):

@@ -28,10 +28,18 @@ decisions; Relocalization.cpp).
   - While the direct initializer has not converged: the ORB two-view
     bootstrap.
 
+The keyframe postprocess is three ticks (the match and bookkeeping, the
+mixed BA with keyframe culling, the local BA), each consuming the device
+results of the one before. Sequentially they all run inside the keyframe's
+own frame; with `staged_indpost` the first runs there and the two BA ticks
+ride later frames' bundle transfers, TICK_LAG frames after their dispatch;
+the pipelined mode (`pipelined=True`, the direct spine's lag-1 finalize)
+stages all three.
+
 Every Hamming match on these paths resolves through the hand-written CUDA
 kernel on the card (models/indirect/matching._resolve_from_desc). A run
-saves and resumes its full state (save_state / load_state). The pipelined
-and staged-postprocess modes are not ported.
+saves and resumes its full state (save_state / load_state), in-flight frames
+and tick included.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from libcml_tpu_torch.ops.image import build_pyramid
 from libcml_tpu_torch.runtime.checker import CameraChecker
 from libcml_tpu_torch.runtime.odometry import (
     DirectOdometry,
+    HostCopy,
     _preprocess,
     _working_rho_range,
     host_fetch,
@@ -227,15 +236,22 @@ def _t(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 class HybridOdometry(DirectOdometry):
     """MOD-SLAM: the DirectOdometry spine + indirect map, tracking, local BA
-    and relocalization. Sequential mode only."""
+    and relocalization."""
+
+    # Hartley-Sturm correction before the keyframe triangulation (CalibSlam
+    # turns it off: on raw distorted frames it would bias the distortion fit)
+    optimal_triangulation = True
 
     def __init__(self, cam: PinholeCamera, cfg: DirectConfig | None = None,
                  dcfg: DecisionConfig | None = None, orb_budget: int = 512,
                  orb_levels: int = 3, enable_indirect: bool = True,
                  staged_indpost: bool = False, **kw):
-        if staged_indpost:
-            raise NotImplementedError("the staged indirect postprocess is not ported yet")
         super().__init__(cam, cfg, **kw)
+        # stage the keyframe postprocess's BA ticks over later frames; the
+        # pipelined mode stages all three ticks (the JAX package's gate at
+        # runtime/hybrid.py:817 completes them at once when only pipelined is
+        # set, against its own comment at :257-258; not copied)
+        self.staged_indpost = staged_indpost or self.pipelined
         self.dcfg = dcfg or DecisionConfig()
         self.orb_budget = orb_budget
         self.orb_levels = orb_levels
@@ -277,6 +293,7 @@ class HybridOdometry(DirectOdometry):
         self._last_mode: str = Mode.DIRECT   # latest finalized mode (gates the
                                              # next frame's PnP seeding)
         self._pending_extras: dict | None = None
+        self._indpost: dict | None = None    # in-flight staged postprocess tick
         self._pass2: dict | None = None      # second local-map pass dispatched
                                              # at the refined pose, consumed in
                                              # the NEXT frame's finalize
@@ -458,25 +475,41 @@ class HybridOdometry(DirectOdometry):
         self._pending_extras = None
         return extras
 
+    def _stage_bundle(self, entry: dict):
+        # an indirect frame's bundle is staged by _prepack_next, together
+        # with the second pass and the staged tick it is fetched with
+        if "feats" not in entry:
+            super()._stage_bundle(entry)
+
     def _finalize_frame(self, entry: dict) -> dict:
         """The hybrid's scalar tail: one host transfer of the frame's
-        scalars, PnP bundle and the previous frame's second pass -> mode
-        decision -> PnP takeover -> checker / decision pushes -> the indirect
-        keyframe postprocess (reference: Hybrid.cpp:167 processFrame's tail +
-        indirectPostprocess, Hybrid.cpp:286)."""
+        scalars, PnP bundle, the previous frame's second pass and the staged
+        postprocess tick's results -> mode decision -> PnP takeover ->
+        checker / decision pushes -> the indirect keyframe postprocess
+        (reference: Hybrid.cpp:167 processFrame's tail + indirectPostprocess,
+        Hybrid.cpp:286). In pipelined mode the transfer was started at the
+        end of the previous finalize (_prepack_next) and is long done."""
         fidx, timestamp = entry["frame_idx"], entry["ts"]
         feats = entry.get("feats")
         if feats is not None and "scalars_np" not in entry:
+            want, layout = self._bundle_want(entry)
+            pre = entry.pop("_prepack", None)
+            if pre is None or not pre.same(want):
+                pre = HostCopy(want)
             p2 = self._pass2
             with self.sheet.timer("time_bundle_fetch").frame(fidx):
-                sc, pb, pmv, p2mv, p2b = host_fetch([
-                    entry["scalars"], entry.get("pnp_bundle"), entry.get("pnp_mvalid"),
-                    p2["mvalid"] if p2 else None, p2["bundle"] if p2 else None])
-            entry["scalars_np"] = sc
-            if pb is not None:
-                entry["pnp_np"] = (pb, pmv)
-            if p2 is not None:
-                self._consume_pass2(p2, p2mv, p2b)
+                got = pre.result()
+            has_pnp, n_ip, has_p2 = layout
+            entry["scalars_np"] = got[0]
+            k = 1
+            if has_pnp:
+                entry["pnp_np"] = (got[1], got[2])
+                k = 3
+            if n_ip is not None:
+                self._tick_indpost(got[k:k + n_ip])
+                k += n_ip
+            if has_p2:
+                self._consume_pass2(p2, got[k], got[k + 1])
         out = super()._finalize_frame(entry)
         if feats is None:
             return out
@@ -504,8 +537,9 @@ class HybridOdometry(DirectOdometry):
         if (mode == Mode.INDIRECT and pnp_ok and not out["ok"]
                 and self.checker.plausible_values(*pnp_motion)):
             # direct refinement failed; the PnP pose stands on its own when
-            # it is motion-plausible (CameraChecker)
-            self._complete_pending_marg()
+            # it is motion-plausible (CameraChecker). The in-flight frames
+            # land first: their prediction chain rode the failed pose
+            self._flush_pending()
             pnp_T = entry["pnp_T"]
             self._T_curr = pnp_T
             self._T_prev = pnp_T
@@ -551,7 +585,36 @@ class HybridOdometry(DirectOdometry):
                                        feats.desc, feats.uv, feats.level, feats.valid)
             self._pass2 = {"mvalid": mv2, "bundle": b2, "frame_idx": fidx}
         self._cull_map_points()
+        self._prepack_next()
         return out
+
+    def _bundle_want(self, entry: dict, at_frame: int | None = None):
+        """The tensors one frame's finalize reads, in transfer order: its
+        scalars, its PnP bundle and match validity, the staged tick's
+        results, the second pass's; and the layout (PnP present, number of
+        tick tensors or None, second pass present)."""
+        want = [entry["scalars"]]
+        has_pnp = "pnp_bundle" in entry
+        if has_pnp:
+            want += [entry["pnp_bundle"], entry["pnp_mvalid"]]
+        ip = self._indpost_fetch_refs(at_frame=at_frame)
+        if ip is not None:
+            want += ip
+        p2 = self._pass2
+        if p2:
+            want += [p2["mvalid"], p2["bundle"]]
+        return want, (has_pnp, None if ip is None else len(ip), bool(p2))
+
+    def _prepack_next(self):
+        """Start the transfer of the NEXT pending frame's bundle now, while
+        its device work is queued ahead of the next frame's dispatches."""
+        if not self._pending:
+            return
+        nxt = self._pending[0]
+        if "feats" not in nxt or "scalars_np" in nxt:
+            return
+        want, _ = self._bundle_want(nxt, at_frame=self.frame_idx + 1)
+        nxt["_prepack"] = HostCopy(want)
 
     def _consume_pass2(self, p2: dict, mvalid: np.ndarray, b: np.ndarray):
         """Land a completed second local-map pass: refresh the points'
@@ -570,44 +633,117 @@ class HybridOdometry(DirectOdometry):
 
     def _indirect_postprocess(self, feats, timestamp, T_pose: SE3 | None = None,
                               frame_idx: int | None = None):
-        """Keyframe indirect mapping (reference: indirectMap,
-        indirect/Mapping.cpp:19 + bundleAdjustmentDecision), in order:
-        triangulation against the previous indirect keyframe and the map's
-        projection match, then the host bookkeeping (_indpost_match), the
-        mixed BA and keyframe culling (_indpost_ba), and the local BA
-        (_indpost_local). `T_pose` is the pose of an INDIRECT-ONLY keyframe
+        """Keyframe indirect mapping, dispatch half (reference: indirectMap,
+        indirect/Mapping.cpp:19 + bundleAdjustmentDecision): triangulation
+        against the previous indirect keyframe and the map's projection
+        match. Three ticks follow (_tick_indpost): the host bookkeeping and
+        the BA decision (_indpost_match), the mixed BA and keyframe culling
+        (_indpost_ba), the local BA (_indpost_local). Sequentially they all
+        run now; staged, the first runs now and the BA ticks later; pipelined,
+        all three later. `T_pose` is the pose of an INDIRECT-ONLY keyframe
         (a frame that is not a direct-window keyframe)."""
         if frame_idx is None:
             frame_idx = self.frame_idx
+        self._complete_indpost()   # the previous event's ticks land first
         T_new = T_pose if T_pose is not None else self._kf_T
-        tri = ()
+        tri = []
         if self._last_kf_feats is not None:
             f0, T0 = self._last_kf_feats, self._last_kf_T
             m0, X0, ok, t_norm = _epipolar_triangulate(
                 f0.desc, f0.uv, f0.valid, f0.angle,
                 feats.desc, feats.uv, feats.valid, feats.angle,
-                T_new, T0, self.cam)
-            tri = (t_norm, X0, ok, f0.desc, f0.level, T0.R, T0.t, m0.idx, m0.dist)
+                T_new, T0, self.cam, optimal=self.optimal_triangulation)
+            tri = [t_norm, X0, ok, f0.desc, f0.level, T0.R, T0.t, m0.idx, m0.dist]
         Xw_d, desc_d, valid_d, level_d = self._map_device()
         m = _map_projection_match(Xw_d, desc_d, valid_d, level_d, T_new, self.cam, feats)
-        fetched = host_fetch([m.valid, m.idx, m.dist, m.num, feats.desc, feats.uv,
-                              feats.level, feats.valid, T_new.R, T_new.t, *tri])
-        st = {"feats": feats, "frame_idx": frame_idx, "timestamp": timestamp,
-              "kf_id": self._kf_id if T_pose is None else -1, "T_new_dev": T_new}
-        self._indpost_match(st, fetched[:10], fetched[10:] or None)
-        self._indpost_ba(st)
-        self._indpost_local(st)
+        self._indpost = {
+            "phase": "match", "tick_born": self.frame_idx, "feats": feats,
+            "frame_idx": frame_idx, "timestamp": timestamp,
+            "kf_id": self._kf_id if T_pose is None else -1, "T_new_dev": T_new,
+            "fetch_refs": [m.valid, m.idx, m.dist, m.num, feats.desc, feats.uv,
+                           feats.level, feats.valid, T_new.R, T_new.t, *tri],
+            "has_tri": bool(tri),
+        }
+        if not self.staged_indpost:
+            self._complete_indpost()
+        elif not self.pipelined:
+            # staged sequential: the bookkeeping tick lands now (the next
+            # frame's PnP needs the fresh map); the BA ticks stay staged
+            self._tick_indpost()
 
-    def _indpost_match(self, st: dict, fetched: list, tri_np: list | None):
-        """Point insertion, search-and-fuse, descriptor refresh, the
-        observation ring, the relocalization store, covisibility, and the BA
-        decision."""
+    def _make_keyframe(self, *a, **kw):
+        """A direct keyframe changes the window: the in-flight ticks (a mixed
+        BA swapped the window optimistically) land first."""
+        self._complete_indpost()
+        super()._make_keyframe(*a, **kw)
+
+    def _flush_pending(self) -> list[dict]:
+        outs = super()._flush_pending()
+        self._complete_indpost()
+        return outs
+
+    # -- staged postprocess ticks --------------------------------------------
+
+    # frames a staged tick's device work gets before its results are read
+    # with a frame's bundle (a freshly dispatched BA would block that read)
+    TICK_LAG = 2
+
+    def _indpost_fetch_refs(self, at_frame: int | None = None):
+        """The tensors the in-flight tick reads, or None when there is no
+        tick or its work is younger than TICK_LAG frames (`at_frame`: as of
+        that frame; the bundle prepack runs one frame early)."""
+        st = self._indpost
+        if st is None:
+            return None
+        fidx = self.frame_idx if at_frame is None else at_frame
+        if fidx - st.get("tick_born", -10) < self.TICK_LAG:
+            return None
+        return self._indpost_refs_raw(st)
+
+    @staticmethod
+    def _indpost_refs_raw(st: dict) -> list:
+        if st["phase"] == "match":
+            return st["fetch_refs"]
+        if st["phase"] == "ba":
+            return st.get("mx_refs") or []
+        return st.get("lb_refs") or []
+
+    def _tick_indpost(self, fetched: list | None = None):
+        """Advance the in-flight postprocess by one tick. `fetched` is the
+        tick's results when they came with a frame's bundle; None reads them
+        now (a forced completion, which skips the TICK_LAG wait)."""
+        st = self._indpost
+        if st is None:
+            return
+        if fetched is None:
+            fetched = host_fetch(self._indpost_refs_raw(st))
+        # stamped with the frame the tick runs in (the event's own frame is
+        # st["frame_idx"]), so the sheet shows where the ticks landed
+        with self.sheet.timer("time_ind_tick").frame(self.frame_idx):
+            if st["phase"] == "match":
+                self._indpost_match(st, fetched)
+            elif st["phase"] == "ba":
+                self._indpost_ba(st, fetched)
+            else:
+                self._indpost_local(st, fetched)
+        if self._indpost is st:
+            # the next tick's work was dispatched just now
+            st["tick_born"] = self.frame_idx
+
+    def _complete_indpost(self):
+        while self._indpost is not None:
+            self._tick_indpost()
+
+    def _indpost_match(self, st: dict, fetched: list):
+        """Tick 1: point insertion, search-and-fuse, descriptor refresh, the
+        observation ring, the relocalization store, covisibility, the BA
+        decision, and the mixed BA's dispatch when it is chosen."""
         feats = st["feats"]
         frame_idx = st["frame_idx"]
-        mv, midx, mdist, m_num, fdesc, fuv, flevel, fvalid, Tn_R, Tn_t = fetched
+        mv, midx, mdist, m_num, fdesc, fuv, flevel, fvalid, Tn_R, Tn_t = fetched[:10]
 
-        if tri_np is not None:
-            t_norm, X0, ok_np, d0, l0, R0, t0, m0_idx, m0_dist = tri_np
+        if st["has_tri"]:
+            t_norm, X0, ok_np, d0, l0, R0, t0, m0_idx, m0_dist = fetched[10:]
             if float(t_norm) > 1e-4:
                 Xw = (X0 - t0) @ R0                      # X_w = R0^T (X0 - t0)
                 slots, src = self._add_map_points(Xw, d0, l0, ok_np)
@@ -675,6 +811,7 @@ class HybridOdometry(DirectOdometry):
         self._last_kf_T = st["T_new_dev"]
         self._last_kf_idx = frame_idx
         self._add_reloc_keyframe(midx, pt_idx, fdesc, fvalid, fuv, kf_id=frame_idx)
+        self._on_indirect_kf(k)
 
         st["ba_mode"] = self.ba_decision.decide(
             num_indirect_points=int(self._pt_valid.sum()),
@@ -682,38 +819,52 @@ class HybridOdometry(DirectOdometry):
             num_robust=int(np.sum(mdist < 50)),
             saturated_ratio=self.stats[-1].get("saturated", 0.0) if self.stats else 0.0,
         )
-
-    def _indpost_ba(self, st: dict):
-        """The mixed BA when the decision distrusts the photometric window
-        (reference: bundleAdjustmentDecision -> BAINDIRECT), then redundant
-        keyframe culling."""
+        # the mixed BA when the decision distrusts the photometric window
+        # (reference: bundleAdjustmentDecision -> BAINDIRECT)
+        st["mx"] = st["mx_refs"] = None
         if self.cfg.mixed_ba and (self.cfg.mixed_always or st["ba_mode"] == Mode.INDIRECT):
-            with self.sheet.timer("time_mixed_ba").frame(st["frame_idx"]):
-                mx, refs = self._dispatch_mixed_window_ba()
-                if mx is not None:
-                    self._complete_mixed_window_ba(mx, host_fetch(refs))
-        self._cull_redundant_keyframes()
+            with self.sheet.timer("time_mixed_ba").frame(frame_idx):
+                st["mx"], st["mx_refs"] = self._dispatch_mixed_window_ba()
+        st["phase"] = "ba"
 
-    def _indpost_local(self, st: dict):
-        """The local reprojection BA: points are always refined; the ring's
-        POSES move only when the BA decision picked the indirect backend."""
-        if len(self._ind_kfs) < 3:
-            return
-        with self.sheet.timer("time_local_ba").frame(st["frame_idx"]):
-            lb, refs = self._dispatch_indirect_local_ba(
-                move_poses=(st["ba_mode"] == Mode.INDIRECT))
-            if lb is not None:
-                self._complete_indirect_local_ba(lb, host_fetch(refs))
+    def _on_indirect_kf(self, k: dict) -> None:
+        """Subclass hook: a new indirect keyframe's observation record just
+        landed (CalibSlam harvests its correspondences here)."""
+
+    def _indpost_ba(self, st: dict, fetched: list):
+        """Tick 2: complete the mixed BA (write-back or rollback), cull
+        redundant keyframes, dispatch the local BA: points are always
+        refined; the ring's POSES move only when the BA decision picked the
+        indirect backend."""
+        if st["mx"] is not None:
+            with self.sheet.timer("time_mixed_ba").frame(st["frame_idx"]):
+                self._complete_mixed_window_ba(st["mx"], fetched)
+        self._cull_redundant_keyframes()
+        st["lb"] = st["lb_refs"] = None
+        if len(self._ind_kfs) >= 3:
+            with self.sheet.timer("time_local_ba").frame(st["frame_idx"]):
+                st["lb"], st["lb_refs"] = self._dispatch_indirect_local_ba(
+                    move_poses=(st["ba_mode"] == Mode.INDIRECT))
+        st["phase"] = "local"
+
+    def _indpost_local(self, st: dict, fetched: list):
+        """Tick 3: the local BA's write-back; the event is done."""
+        if st["lb"] is not None:
+            with self.sheet.timer("time_local_ba").frame(st["frame_idx"]):
+                self._complete_indirect_local_ba(st["lb"], fetched)
+        self._indpost = None
 
     # -- checkpoint / resume -------------------------------------------------
 
     def _ckpt_extra(self) -> dict:
         """The indirect state, as the JAX package's _ckpt_extra keeps it,
         plus what this port's next frames read besides: the last finalized
-        mode, the decisions' and the checker's windows, and the second
-        local-map pass in flight (dispatched at this frame, consumed in the
-        next one's finalize). The keyframe postprocess runs to its end inside
-        a frame, so none of it is in flight at a checkpoint."""
+        mode, the decisions' and the checker's windows, the second local-map
+        pass in flight (dispatched at this frame, consumed in the next one's
+        finalize), and a staged postprocess tick in flight (the JAX package
+        completes it before saving, which changes the run that saved). The
+        tick's references into live state (the local BA's ring entries, the
+        mixed BA's window swap) are saved as what they point at."""
         extra = super()._ckpt_extra()
         extra.update({
             "pt_arrays": {k: getattr(self, k).copy() for k in HYBRID_ARENA},
@@ -727,8 +878,34 @@ class HybridOdometry(DirectOdometry):
             "pass2": self._pass2,
             "last_pass2": self._last_pass2,
             "decisions": (self.pose_decision, self.ba_decision, self.checker),
+            "indpost": self._indpost_for_ckpt(),
         })
         return extra
+
+    def _indpost_for_ckpt(self) -> dict | None:
+        st = self._indpost
+        if st is None:
+            return None
+        st = dict(st)
+        if st.get("mx") is not None:
+            st["mx"] = {**st["mx"], "window_swapped": self._window.ba is st["mx"]["new_ba"]}
+        if st.get("lb") is not None:
+            pos = {id(k): i for i, k in enumerate(self._ind_kfs)}
+            st["lb"] = {**st["lb"], "kfs": [pos.get(id(k), k) for k in st["lb"]["kfs"]]}
+        return st
+
+    def _indpost_from_ckpt(self, st: dict | None) -> dict | None:
+        if st is None:
+            return None
+        if st.get("mx") is not None:
+            mx = dict(st["mx"])
+            if mx.pop("window_swapped"):
+                mx["new_ba"] = self._window.ba
+            st["mx"] = mx
+        if st.get("lb") is not None:
+            st["lb"]["kfs"] = [self._ind_kfs[k] if isinstance(k, int) else k
+                               for k in st["lb"]["kfs"]]
+        return st
 
     def _ckpt_restore_extra(self, extra: dict) -> None:
         super()._ckpt_restore_extra(extra)
@@ -744,6 +921,7 @@ class HybridOdometry(DirectOdometry):
         self._pass2 = extra["pass2"]
         self._last_pass2 = extra["last_pass2"]
         self.pose_decision, self.ba_decision, self.checker = extra["decisions"]
+        self._indpost = self._indpost_from_ckpt(extra.get("indpost"))
         self._map_dev = None
         # the BoW retrieval index is rebuilt from the keyframe store with the
         # port's vocabulary; its adds wait for the first query, as they do
@@ -790,6 +968,7 @@ class HybridOdometry(DirectOdometry):
         RANSAC absolute pose -> restart the window anchored at the recovered
         pose, keeping the indirect map (reference: Relocalization candidates
         + EPnP.h:129; the failure loop of Hybrid.cpp:214-222)."""
+        self._complete_indpost()   # settle the keyframe store first
         if not self._kf_store:
             return False
         self._drain_kfdb()
@@ -836,6 +1015,8 @@ class HybridOdometry(DirectOdometry):
         (reference: Map reset on restart, AbstractSlam.cpp:98-104)."""
         keep_map = self._reloc_restart
         self._reloc_restart = False
+        # the in-flight tick and second pass refer to the state torn down here
+        self._indpost = None
         self._pass2 = None
         self._last_pass2 = None
         super()._restart_segment(pyr, timestamp, anchor)
@@ -960,8 +1141,10 @@ class HybridOdometry(DirectOdometry):
         self._win_host = (fids, fvalid, R, t)
         self._win_host_ref = mx["new_ba"]
         self._sync_kf_poses()
-        # tracking continuity snaps to the refreshed keyframe pose
-        self._T_curr = self._kf_T
+        # tracking continuity snaps to the refreshed keyframe pose (pipelined
+        # frames already extend past it)
+        if not self._pending:
+            self._T_curr = self._kf_T
 
         # refined points back to the world: X_w = R_h^T (unproject - t_h)
         host, map_slots = mx["host"], mx["map_slots"]

@@ -1,7 +1,7 @@
 """Direct (DSO-style) visual odometry runtime: the per-frame driver loop.
 
-PyTorch port of libcml_tpu/runtime/odometry.py in its sequential mode (the
-reference's Hybrid direct path + AbstractSlam run loop:
+PyTorch port of libcml_tpu/runtime/odometry.py, sequential and pipelined
+(the reference's Hybrid direct path + AbstractSlam run loop:
 src/cml/slam/modslam/Hybrid.cpp:90 run, :167 processFrame,
 direct/Mapping.cpp:47 directMap, direct/Tracking.cpp:4 directNeedNewKeyFrame).
 
@@ -11,7 +11,10 @@ runtime's device over fixed-capacity arenas; the host owns the scalar state
 machine (init/track/keyframe decisions), the f64 marginalization algebra and
 trajectory bookkeeping. The JAX package's per-frame `lax.cond`s (recovery
 battery, pose-gated tracing) are host branches here: the frame step reads
-one small bundle of scalars from the device per frame.
+one small bundle of scalars from the device per frame. In pipelined mode
+that bundle's copy starts when the frame is dispatched and the state
+machine reads it one frame later; a keyframe tracks the frame in flight
+again against its fresh reference (_retrack_step).
 
 Non-keyframe poses are stored RELATIVE to their reference keyframe and
 composed with the keyframe's final optimized pose at export (the one-anchor
@@ -74,25 +77,57 @@ def _rss_mb() -> float:
         return 0.0
 
 
+class HostCopy:
+    """A device-to-host copy of several tensors (None allowed) in ONE
+    transfer, started now and read later: their bytes are packed into one
+    flat uint8 tensor on the device and copied without blocking into pinned
+    host memory behind a CUDA event; `result()` waits on the event and splits
+    the buffer into numpy arrays. This is the pipelined modes' lag: a frame's
+    bundle is queued at dispatch and read one frame later, when it is long
+    done. On the CPU the copy is immediate."""
+
+    def __init__(self, tensors):
+        self.refs = list(tensors)
+        live = [t for t in self.refs if t is not None]
+        self._event = None
+        if not live:
+            self._buf = None
+            return
+        flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                          for t in live])
+        if flat.is_cuda:
+            self._buf = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+            self._buf.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = flat.clone()
+
+    def result(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        flat = None if self._buf is None else self._buf.numpy()
+        out, off = [], 0
+        for t in self.refs:
+            if t is None:
+                out.append(None)
+                continue
+            nbytes = t.numel() * t.element_size()
+            np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+            out.append(flat[off:off + nbytes].view(np_dtype).reshape(tuple(t.shape)).copy())
+            off += nbytes
+        return out
+
+    def same(self, tensors) -> bool:
+        """Whether this copy was taken of exactly these tensor objects."""
+        tensors = list(tensors)
+        return len(tensors) == len(self.refs) and all(a is b for a, b in zip(tensors, self.refs))
+
+
 def host_fetch(tensors) -> list:
     """numpy copies of `tensors` (a sequence of tensors or None) in ONE
-    device-to-host transfer: their bytes are packed into one flat uint8
-    tensor on the device, copied once and split on the host."""
-    live = [t for t in tensors if t is not None]
-    if not live:
-        return [None] * len(tensors)
-    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
-                      for t in live]).cpu().numpy()
-    out, off = [], 0
-    for t in tensors:
-        if t is None:
-            out.append(None)
-            continue
-        nbytes = t.numel() * t.element_size()
-        np_dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(flat[off:off + nbytes].view(np_dtype).reshape(tuple(t.shape)).copy())
-        off += nbytes
-    return out
+    device-to-host transfer (HostCopy, read at once)."""
+    return HostCopy(tensors).result()
 
 
 class OnDevice:
@@ -219,6 +254,14 @@ def _frame_step(
         immature = trace_immatures_rows(immature, recent_rows, ba_T, ba_frame_valid,
                                         grad_pyr[0], T_world, cam, cfg)
 
+    scalars = _scalar_bundle(res, pose_ok_t, suspect_t, T_world, T_rel, T_curr, ref, cam, cfg)
+    return immature, T_world, T_rel, res.ab, scalars
+
+
+def _scalar_bundle(res, pose_ok_t, suspect_t, T_world: SE3, T_rel: SE3, T_from: SE3, ref,
+                   cam: PinholeCamera, cfg: DirectConfig) -> torch.Tensor:
+    """A tracked frame's (27,) scalar bundle (see _frame_step); the motion
+    magnitudes are measured from `T_from`."""
     cov_rot = torch.diagonal(res.cov_pose)[3:6]
     # resolution-normalized keyframe score (reference:
     # direct/Tracking.cpp:28-41; a is log-scale so |a| == |log ratio|)
@@ -227,11 +270,11 @@ def _frame_step(
     kf_score = ((cfg.kf_shift_weight_t * flow_t + cfg.kf_shift_weight_rt * res.flow) / wh
                 + cfg.kf_affine_weight * torch.abs(res.ab[0]))
     n_ref = torch.sum(ref.valid[0]).float()
-    mo_R = T_world.R @ T_curr.R.T
+    mo_R = T_world.R @ T_from.R.T
     mo_ang = torch.arccos(torch.clamp((torch.trace(mo_R) - 1.0) / 2.0, -1.0, 1.0))
-    mo_dt = torch.linalg.norm(T_world.t - mo_R @ T_curr.t)
+    mo_dt = torch.linalg.norm(T_world.t - mo_R @ T_from.t)
     f = torch.float32
-    scalars = torch.cat([
+    return torch.cat([
         torch.stack([res.num_valid.to(f), res.saturated.to(f), res.flow.to(f),
                      res.energy.to(f), pose_ok_t.to(f), suspect_t.to(f)]),
         cov_rot.to(f),
@@ -241,7 +284,39 @@ def _frame_step(
         res.ab.reshape(-1).to(f),
         torch.stack([mo_dt, mo_ang]).to(f),
     ])
-    return immature, T_world, T_rel, res.ab, scalars
+
+
+def _retrack_step(grad_pyr, cam: PinholeCamera, ref, kf_T: SE3, T_world_prev: SE3,
+                  ab_init: torch.Tensor, ab_shift: torch.Tensor, cfg: DirectConfig):
+    """Re-track ONE in-flight pipelined frame against a just-created
+    keyframe's fresh reference. At lag 1 a frame dispatched before the
+    keyframe event tracked the OLD reference; tracking it again against the
+    new one (its first-dispatch world pose as the start) makes the pipelined
+    mode tracking-equivalent to the sequential one. Its immature trace from
+    the first dispatch stands and is not repeated. The same suspect test and
+    recovery battery as _frame_step guard it. Returns (T_world, T_rel, ab,
+    scalars) in _frame_step's bundle layout."""
+    T_init = T_world_prev.compose(kf_T.inverse())
+    ab_init = ab_init - ab_shift        # rebase ab onto the NEW reference frame
+    res0 = track(grad_pyr, cam, ref, T_init, ab_init, cfg)
+    finite0 = torch.all(torch.isfinite(res0.T_ji.t))
+    suspect_t = (
+        (res0.num_valid < 24)
+        | (res0.saturated >= 0.5 * cfg.fail_saturated)
+        | ~finite0
+    )
+    res = track_multi(grad_pyr, cam, ref, motion_hypotheses(T_init, T_init), ab_init,
+                      cfg) if bool(suspect_t) else res0
+    finite = torch.all(torch.isfinite(res.T_ji.t)) & torch.all(torch.isfinite(res.T_ji.R))
+    pose_ok_t = (res.num_valid >= 24) & finite & (res.saturated < cfg.fail_saturated)
+    T_world = se3_select(
+        pose_ok_t,
+        res.T_ji.compose(kf_T).normalized(),
+        T_world_prev.normalized(),
+    )
+    T_rel = T_world.compose(kf_T.inverse())
+    scalars = _scalar_bundle(res, pose_ok_t, suspect_t, T_world, T_rel, kf_T, ref, cam, cfg)
+    return T_world, T_rel, res.ab, scalars
 
 
 def _window_points_in_frame(window: win_mod.Window, slot, cam: PinholeCamera,
@@ -379,12 +454,8 @@ class DirectOdometry:
                  cfg: DirectConfig | None = None, depth_prior=None,
                  pipelined: bool = False, mesh=None,
                  device: str | torch.device | None = None):
-        if pipelined:
-            raise NotImplementedError("pipelined mode is not ported yet")
         if mesh is not None:
             raise NotImplementedError("mesh-sharded BA is not ported yet")
-        if depth_prior is not None:
-            raise NotImplementedError("the depth-prior initialization is not ported yet")
         self.device = resolve_device(device)
         dev = self.device
         # a full Calibration carries the rectification remap + photometric
@@ -400,6 +471,14 @@ class DirectOdometry:
             self._calib_dev = (None, None, None)
         self.cam = cam
         self.cfg = cfg or DirectConfig()
+        # optional inverse-depth prior for initialization (models/direct/prior.py;
+        # reference: Hybrid.cpp:469-473): (image, frame_idx, path) -> (H, W) | None
+        self.depth_prior = depth_prior
+        # pipelined mode: a frame's scalar bundle is read one frame late (a
+        # HostCopy started at dispatch), so the card has the next frame queued
+        # before the host waits; process() then reports the PREVIOUS frame
+        self.pipelined = pipelined
+        self._pending: list[dict] = []
         self._pending_marg = None     # in-flight async marginalization
         self._win_count = 0           # host mirror of window occupancy
         self._n_ref = 1
@@ -521,7 +600,7 @@ class DirectOdometry:
             if rss > self.cfg.memory_limit_mb:
                 log.important("memory limit exceeded (%.0f MB > %d MB): stopping",
                               rss, self.cfg.memory_limit_mb)
-                self._complete_pending_marg()
+                self._flush_pending()
                 self.stopped = True
                 return {"state": "STOPPED", "memory_mb": rss}
         self._cur_gt = gt_pose_c2w
@@ -539,7 +618,14 @@ class DirectOdometry:
             return {"state": "STOPPED"}
 
         if self.state == "INIT_FIRST":
-            self._init_state = set_first(pyr, self.cam, self.cfg)
+            prior = None
+            if self.depth_prior is not None:
+                # no image path here, as in the JAX package: a prior that
+                # needs one (PrecomputedDepthPrior) returns None
+                p = self.depth_prior(image, self.frame_idx, None)
+                if p is not None and p.shape == (self.cam.height, self.cam.width):
+                    prior = torch.as_tensor(np.asarray(p, np.float32)).to(self.device)
+            self._init_state = set_first(pyr, self.cam, self.cfg, prior_idepth=prior)
             self._first_pyr = pyr
             self._first_ts = timestamp
             self.state = "INIT"
@@ -653,9 +739,35 @@ class DirectOdometry:
             "exposure": exp, "gt": self._cur_gt,
         }
         entry.update(self._entry_extras())
+        if self.pipelined:
+            self._stage_bundle(entry)
+            self._pending.append(entry)
+            if len(self._pending) > 1:
+                out = self._finalize_frame(self._pending.pop(0))
+                self.stats.append(out)
+                # fall back to lag 0 when tracking shows stress (a failed pose
+                # or the recovery battery fired), so the state machine acts on
+                # fresh state; healthy frames keep the pipeline full
+                if not out.get("ok", True) or out.get("suspect", False):
+                    self._flush_pending()
+                return out
+            return {"state": "TRACKING", "ok": True, "kf": False, "pending": True}
         out = self._finalize_frame(entry)
         self.stats.append(out)
         return out
+
+    def _stage_bundle(self, entry: dict):
+        """Start the copy of a pipelined frame's scalar bundle to the host
+        (read one frame later, in _finalize_frame)."""
+        entry["_copy"] = HostCopy([entry["scalars"]])
+
+    def _fetch_scalars(self, entry: dict) -> np.ndarray:
+        """A frame's scalar bundle on the host: from the copy started at
+        dispatch when there is one, else read now."""
+        cp = entry.get("_copy")
+        if cp is not None and cp.same([entry["scalars"]]):
+            return cp.result()[0]
+        return host_fetch([entry["scalars"]])[0]
 
     def _finalize_frame(self, entry: dict) -> dict:
         """Consume one frame's results: record the pose, run the failure
@@ -665,7 +777,7 @@ class DirectOdometry:
         fidx, timestamp, pyr = entry["frame_idx"], entry["ts"], entry["pyr"]
         sc = entry.get("scalars_np")   # a subclass may have fetched the bundle
         if sc is None:                 # together with its own results
-            sc = entry["scalars"].cpu().numpy()
+            sc = self._fetch_scalars(entry)
         rel_R = sc[11:20].reshape(3, 3).astype(np.float64)
         rel_t = sc[20:23].astype(np.float64)
         num_valid = int(sc[0])
@@ -683,6 +795,15 @@ class DirectOdometry:
             log.warn("direct tracking failed (%d valid points, fail #%d)",
                      num_valid, self._track_fails)
             if self._track_fails >= cfg.max_track_fails:
+                # record (but do not act on) the in-flight frames so the
+                # trajectory stays complete, then drop them: the segment is over
+                for e in self._pending:
+                    e_sc = self._fetch_scalars(e)
+                    self._record(e["ts"], e["kf_id"],
+                                 (e_sc[11:20].reshape(3, 3).astype(np.float64),
+                                  e_sc[20:23].astype(np.float64)),
+                                 frame_idx=e["frame_idx"], gt=e.get("gt"))
+                self._pending.clear()
                 return self._on_tracking_lost(pyr, timestamp)
 
         self._frames_since_kf += 1
@@ -690,7 +811,10 @@ class DirectOdometry:
         # tracked-point-ratio rule (reference: direct/Tracking.cpp:28-41)
         kf_score = float(sc[9])
         n_ref = max(int(sc[10]), 1)
-        need_kf = pose_ok and (
+        # a pipelined frame tracked against a reference that a keyframe has
+        # replaced since carries a stale flow score: it must not keyframe
+        stale_ref = entry["kf_id"] != self._kf_id
+        need_kf = pose_ok and not stale_ref and (
             cfg.kf_flow_weight * kf_score > cfg.kf_flow_threshold
             or self._frames_since_kf >= 8
             or num_valid < cfg.kf_point_ratio * n_ref
@@ -720,8 +844,20 @@ class DirectOdometry:
     def _entry_extras(self) -> dict:
         """Subclass hook: extra device handles to carry in a frame's entry
         (the hybrid stashes its ORB features and PnP results here for its
-        scalar tail in _finalize_frame)."""
+        scalar tail in _finalize_frame, one frame later in pipelined mode)."""
         return {}
+
+    def _flush_pending(self) -> list[dict]:
+        """Finalize every in-flight pipelined frame (end of stream, or before
+        a consumer that needs the whole trajectory), then complete the
+        pending marginalization."""
+        outs = []
+        while self._pending:
+            out = self._finalize_frame(self._pending.pop(0))
+            self.stats.append(out)
+            outs.append(out)
+        self._complete_pending_marg()
+        return outs
 
     # -- failure handling -----------------------------------------------------
 
@@ -762,6 +898,7 @@ class DirectOdometry:
         """Restart the map in a fresh segment anchored at `anchor`: the
         current frame becomes the new first frame."""
         self.segments += 1
+        self._pending.clear()
         self._pending_marg = None
         self._win_count = 0
         self._recent_rows = torch.full_like(self._recent_rows, -1)
@@ -820,10 +957,25 @@ class DirectOdometry:
             self.map.set_keyframe(i)
             self.map.f_group[i] |= np.uint32(self.map.groups.frame_group("DIRECTKEYFRAME"))
         # tracking continuity: current pose snaps to the optimized KF pose
-        self._T_curr = self._kf_T
+        # (pipelined frames already extend past it)
+        if not self._pending:
+            self._T_curr = self._kf_T
         self._tracker_ref, self._immature = _refresh_after_kf(
             window, self._kf_slot, pyr, self._immature, cam, cfg)
         self._push_recent_row(self._kf_slot)
+        if self._pending:
+            # pipelined mode: the frames dispatched before this event tracked
+            # the OLD reference; track them again against the fresh one and
+            # rebase the motion-model chain on the refreshed poses
+            T_prev_w = self._kf_T
+            for e in self._pending:
+                T_w, T_r, ab2, sc = _retrack_step(e["pyr"], cam, self._tracker_ref,
+                                                  self._kf_T, e["T_world"], e["ab"], ab, cfg)
+                self._T_prev = T_prev_w
+                e.update(T_world=T_w, T_rel=T_r, ab=ab2, scalars=sc, kf_id=self._kf_id)
+                self._stage_bundle(e)
+                T_prev_w = T_w
+            self._T_curr = T_prev_w
 
         # window full after the insert: start the ASYNC marginalization now
         # (reference order — BA, then tryMarginalize, direct/Mapping.cpp:47)
@@ -869,21 +1021,21 @@ class DirectOdometry:
     def trajectory_c2w(self) -> tuple[np.ndarray, np.ndarray]:
         """(timestamps (N,), poses (N, 4, 4) camera-to-world) from the map
         (deform-composed with the final optimized keyframe poses)."""
-        self._complete_pending_marg()
+        self._flush_pending()
         if self._window is not None:
             self._sync_kf_poses()
         return self.map.trajectory_c2w()
 
     def live_error(self) -> dict | None:
         """Scale-corrected ATE/RPE against stored groundtruth, from the map."""
-        self._complete_pending_marg()
+        self._flush_pending()
         if self._window is not None:
             self._sync_kf_poses()
         return self.map.refresh_error_from_groundtruth()
 
     def export_results(self, out_dir: str, prefix: str = "result"):
         """Five-file trajectory export via the map."""
-        self._complete_pending_marg()
+        self._flush_pending()
         if self._window is not None:
             self._sync_kf_poses()
         self.map.export_results(out_dir, prefix)
@@ -925,13 +1077,18 @@ class DirectOdometry:
         own Python objects only (device tensors as `OnDevice` arrays), so a
         state saved on the card loads on the CPU and the other way round.
         An in-flight asynchronous marginalization rides along as it is and
-        completes at the frame the uninterrupted run completes it."""
+        completes at the frame the uninterrupted run completes it; so do the
+        pipelined mode's in-flight frames (the JAX package finalizes them
+        before it saves, which changes the run that saved), without their
+        host copies, which the resumed run reads anew."""
         payload = {
             "scalars": {k: getattr(self, k, None) for k in self._CKPT_SCALARS},
             "pytrees": {k: getattr(self, k, None) for k in self._CKPT_PYTREES},
             "map": self.map,
             "extra": self._ckpt_extra(),
             "pending_marg": self._pending_marg,
+            "pending": [{k: v for k, v in e.items() if not k.startswith("_")}
+                        for e in self._pending],
         }
         with open(path, "wb") as f:
             pickle.dump(to_host(payload), f)
@@ -948,4 +1105,5 @@ class DirectOdometry:
             setattr(self, k, v)
         self.map = payload["map"]
         self._pending_marg = payload["pending_marg"]
+        self._pending = payload.get("pending", [])   # absent in older checkpoints
         self._ckpt_restore_extra(payload["extra"])

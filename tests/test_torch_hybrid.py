@@ -541,10 +541,16 @@ def test_local_ba_on_reference_state_matches(hybrid_runs, monkeypatch):
     assert np.abs(odo._pt_Xw - before).max() > 0
 
 
-def test_unported_hybrid_modes_raise(tmp_path):
+def test_unported_hybrid_modes_raise(tmp_path, seq):
+    """Both modes that raised before they were ported (pipelined=True and
+    staged_indpost=True) construct and take frames; tests/test_torch_pipelined.py
+    holds them to the JAX package."""
     for kw in (dict(pipelined=True), dict(staged_indpost=True)):
-        with pytest.raises(NotImplementedError):
-            thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu", **kw)
+        odo = thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu", **ORB, **kw)
+        assert odo.staged_indpost
+        for i in range(2):
+            out = odo.process(seq["imgs"][i], float(i))
+        assert out["state"] == "INIT" and odo.frame_idx == 1
     # checkpoints are ported (tests/test_torch_checkpoint.py): a fresh
     # instance's state round-trips
     odo = thyb.HybridOdometry(TCAM, TCfg(**CFG_KW), device="cpu")

@@ -115,8 +115,7 @@ def test_direct_odometry_defaults_to_the_card():
             TOdo(cam, cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(pipelined=True), dict(mesh=object()),
-                                dict(depth_prior=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError):
         TOdo(TCam.make(*CAM_ARGS), TCfg(**CFG_KW), device="cpu", **kw)
