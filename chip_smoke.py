@@ -65,15 +65,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      closer to the true one than the identity; then DirectOdometry on phase
      3's frames initialized from a depth-prior callable that returns the
      renderer's inverse depth (ATE < 0.1).
+ 12. sharded BA and the last modules: DirectOdometry(mesh=make_mesh()) and
+     the hybrid with the same mesh (a world of one, NCCL) on phase 3's and
+     phase 5's 60 frames; trajectories, windows and maps bit-identical to
+     phases 3 and 5 (a world of one is the unsharded arithmetic plus
+     identity collectives); fps and the all-reduces and all-gathers a frame.
+     Then orb.match_ratio on frames 0 and 1's real ORB features (1536x1536):
+     idx_b and good equal to its plain version on the card, one launch, and
+     its resolution as a phase-2 kernel case.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
-staged tick's match_projection), held to the plain version exactly; the
-phases' results, the card's name and power limit, the kernel table
-({"kernels": [...]}: launches of the paths' runs, phases 5, 7, 8, 10 and 11,
-each counted from 0 just before its run and read just after, with each
-path's count beside them; times and bound of the phase-4 masks case, cold,
-and of the staged-tick case), and the result line
-{"ok": true, "device": {...}} last.
+staged tick's match_projection) and 12 (match_ratio), held to the plain
+version exactly; the phases' results, the card's name and power limit, the
+kernel table ({"kernels": [...]}: launches of the paths' runs, phases 5, 7,
+8, 10, 11 and 12, each counted from 0 just before its run and read just
+after, with each path's count beside them; times and bound of the phase-4
+masks case, cold, and of the staged-tick and match_ratio cases), and the
+result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -92,15 +100,17 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from libcml_tpu_torch import cli
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.data import corridor
 from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
-from libcml_tpu_torch.models.indirect import matching
+from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.ops import hamming_match as hm
+from libcml_tpu_torch.parallel.sharding import make_mesh
 from libcml_tpu_torch.runtime import hybrid
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
 
@@ -340,7 +350,7 @@ def kernel_case(name: str, args, card: str, popc_rate: float) -> dict:
 # -- phases 3 and 4 -----------------------------------------------------------
 
 
-def direct_phase(dev, cam, traj, frames) -> dict:
+def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     odo = DirectOdometry(cam, wl.BENCH_CFG)         # default device: the card
     imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
     gt = []
@@ -376,7 +386,7 @@ def direct_phase(dev, cam, traj, frames) -> dict:
     print(json.dumps(res))
     require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
-    return res
+    return res, _snapshot(odo)
 
 
 def hybrid_phase(dev, cam, traj, frames) -> dict:
@@ -528,7 +538,7 @@ def watch_hybrid(odo) -> Counter:
     return ev
 
 
-def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
+def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     voc = default_vocabulary()
     voc_s = time.perf_counter() - t0
@@ -587,7 +597,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     # match_descriptors the relocalization of phase 6)
     for site in CALL_SITES[:4]:
         require(sites.launches[site] > 0, f"the hybrid launched no kernel at {site}")
-    return res
+    return res, _snapshot(odo)
 
 
 def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
@@ -1031,6 +1041,67 @@ def calib_phase(cam, traj, frames) -> dict:
     return res
 
 
+# -- phase 12 ---------------------------------------------------------------------
+
+RATIO_CASE = "1536x1536 real match_ratio (phase 12, frames 0-1 ORB)"
+
+
+def sharded_phase(cam, traj, frames, direct_snap: dict, hybrid_snap: dict) -> dict:
+    """Phase 12: DirectOdometry and HybridOdometry with mesh=make_mesh() (a
+    world of one, NCCL) on phase 3's and phase 5's frames: bit-identical to
+    the unsharded runs, with fps and the collectives a frame."""
+    mesh = make_mesh()
+    require(dist.get_backend() == "nccl" and mesh.world_size == 1,
+            f"mesh: {dist.get_backend()} over {mesh.world_size} ranks")
+    imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
+    out = {"phase": "sharded", "backend": dist.get_backend(), "world_size": mesh.world_size,
+           "device": str(mesh.device)}
+    for name, make, want in (
+            ("direct", lambda: DirectOdometry(cam, wl.BENCH_CFG, mesh=mesh), direct_snap),
+            ("hybrid", lambda: wl.hybrid_odometry(cam, mesh=mesh), hybrid_snap)):
+        odo = make()
+        mesh.all_reduces = mesh.all_gathers = 0
+        run = timed_run(odo, imgs)
+        ate = ate_rmse(run.pop("est")[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
+        got = _snapshot(odo)
+        same = {k: _same(want[k], got[k]) for k in want}
+        n = len(imgs)
+        out[name] = {**run, "frames": n, "ate": ate, "segments": odo.segments,
+                     "identical_to_unsharded": same,
+                     "all_reduces": mesh.all_reduces, "all_gathers": mesh.all_gathers,
+                     "all_reduces_per_frame": mesh.all_reduces / n,
+                     "all_gathers_per_frame": mesh.all_gathers / n}
+        require(all(same.values()), f"sharded {name} differs from the unsharded run: {same}")
+        require(mesh.all_reduces > 0, f"sharded {name}: no all-reduce ran")
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    require(out["hybrid"]["kernel_launches"] > 0, "the sharded hybrid launched no kernel")
+    return out
+
+
+def match_ratio_phase(frames, card: str, popc_rate: float) -> tuple[dict, dict]:
+    """Phase 12's match_ratio: frames 0 and 1's real ORB features on the card
+    against the plain version on the card (idx_b and good exactly), and the
+    resolution it runs as a phase-2 kernel case."""
+    f0, f1 = wl.extract(frames[0]), wl.extract(frames[1])
+    torch.cuda.synchronize()
+    hm.hamming_resolve_cuda.launches = 0
+    idx_b, good = orb.match_ratio(f0.desc, f1.desc, f0.valid, f1.valid)
+    torch.cuda.synchronize()
+    launches = hm.hamming_resolve_cuda.launches
+    want = orb.ratio_gate(hm.hamming_resolve_plain(f0.desc, f0.valid, f1.desc, f1.valid),
+                          f0.valid)
+    equal = torch.equal(idx_b, want[0]) and torch.equal(good, want[1])
+    res = {"phase": "match_ratio", "N": f0.desc.shape[0], "M": f1.desc.shape[0],
+           "good": int(good.sum()), "launches": launches, "equal_to_plain": equal}
+    print(json.dumps(res))
+    require(equal, "match_ratio on the card differs from its plain version")
+    require(launches == 1, f"match_ratio launched the kernel {launches} times")
+    require(int(good.sum()) > 0, "match_ratio matched nothing between frames 0 and 1")
+    row = kernel_case(RATIO_CASE, (f0.desc, f0.valid, f1.desc, f1.valid, None), card, popc_rate)
+    return res, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1057,7 +1128,7 @@ def main() -> int:
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    direct = direct_phase(dev, cam, traj, frames)
+    direct, direct_snap = direct_phase(dev, cam, traj, frames)
     print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1066,7 +1137,7 @@ def main() -> int:
 
     with CallSites() as sites:
         t0 = time.perf_counter()
-        full = full_hybrid_phase(dev, cam, traj, frames, sites)
+        full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
         print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         reloc = relocalization_phase(dev, cam, traj, frames, sites)
@@ -1114,14 +1185,24 @@ def main() -> int:
     calib = calib_phase(cam, traj, frames)
     print(f"phase 11 (calib SLAM, depth prior) {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    sharded = sharded_phase(cam, traj, frames, direct_snap, hybrid_snap)
+    ratio, row = match_ratio_phase(frames, card, popc_rate)
+    rows.append(row)
+    max_err = max(max_err, row["max_abs_err"])
+    print(f"phase 12 (sharded BA, match_ratio) {time.perf_counter() - t0:.1f} s")
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
     staged_row = next(r for r in rows if r["case"] == STAGED_CASE)
+    ratio_row = next(r for r in rows if r["case"] == RATIO_CASE)
     by_path = {"hybrid": full["kernel_launches"], "cli_modslam": entry["kernel_launches"],
                "repeat_resume_hybrid": repeat["hybrid"]["kernel_launches"],
                "hybrid_pipelined": staged["pipelined"]["kernel_launches"],
                "hybrid_staged": staged["staged"]["kernel_launches"],
-               "calib_slam": calib["kernel_launches"]}
+               "calib_slam": calib["kernel_launches"],
+               "sharded_hybrid": sharded["hybrid"]["kernel_launches"],
+               "match_ratio": ratio["launches"]}
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",
@@ -1144,13 +1225,17 @@ def main() -> int:
                                                         "plain_ms", "bound_ms", "bound_by",
                                                         "bound_share", "live_entries",
                                                         "max_abs_err")},
+        "case_match_ratio": {k: ratio_row[k] for k in ("kernel_ms", "kernel_warm_ms", "plain_ms",
+                                                       "bound_ms", "bound_by", "bound_share",
+                                                       "live_entries", "max_abs_err")},
         "launches_per_site": {m: staged[m]["launches_per_site"] for m in staged},
     }]
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
                       "hybrid_pipelined": staged["pipelined"],
-                      "hybrid_staged": staged["staged"], "calib": calib}))
+                      "hybrid_staged": staged["staged"], "calib": calib,
+                      "sharded": sharded, "match_ratio": ratio}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

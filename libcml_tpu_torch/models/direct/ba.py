@@ -18,6 +18,10 @@ DSOBundleAdjustment.h:35 marginalizeFrame, :48 computeNullspaces).
   - Marginalization folds a frame into a dense prior (H_m, b_m) over the
     window slots; the runtime does that algebra in host float64
     (`marginalize_frame_f64`), as the reference does it in double.
+  - With a `mesh` (parallel/sharding.py), each rank sweeps its block of
+    point rows; the point sums are all-reduced, the terms every rank holds
+    whole are added once after, and the inverse-depth steps are
+    all-gathered. Without one, nothing of that runs.
 
 State layout (F = frame slots, P = point slots):
   frames : T (F), ab (F, 2), FEJ copies, delta (F, 8), valid (F,)
@@ -46,6 +50,7 @@ from libcml_tpu_torch.models.direct.residuals import (
     proj_jacobian,
 )
 from libcml_tpu_torch.ops.image import bilinear_stack
+from libcml_tpu_torch.parallel.sharding import Mesh, local_rows
 
 _D = 8  # per-frame state dim: [v(3), w(3), a, b]
 
@@ -292,14 +297,21 @@ def _assemble(
     return H_dense, b_full, H_rho, b_rho, H_xr
 
 
-def _schur_reduce(H, b, H_rho, b_rho, H_xr, lam, point_valid):
-    """Eliminate the (diagonal) idepth block with LM damping."""
+def _schur_terms(H_rho, b_rho, H_xr, lam, point_valid):
+    """The (diagonal) idepth block's Schur corrections with LM damping: the
+    point sums to subtract from the camera system, and the damped block."""
     one = torch.ones_like(H_rho)
     H_rho_d = torch.where(point_valid, H_rho * (1.0 + lam) + 1e-10, one)
     scale = torch.where(point_valid, 1.0 / H_rho_d, torch.zeros_like(H_rho))
-    H_sc = H - torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
-    b_sc = b - torch.einsum("pd,p->d", H_xr, b_rho * scale)
-    return H_sc, b_sc, H_rho_d
+    H_corr = torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
+    b_corr = torch.einsum("pd,p->d", H_xr, b_rho * scale)
+    return H_corr, b_corr, H_rho_d
+
+
+def _schur_reduce(H, b, H_rho, b_rho, H_xr, lam, point_valid):
+    """Eliminate the (diagonal) idepth block with LM damping."""
+    H_corr, b_corr, H_rho_d = _schur_terms(H_rho, b_rho, H_xr, lam, point_valid)
+    return H - H_corr, b - b_corr, H_rho_d
 
 
 def _ab_flat(ab: torch.Tensor) -> torch.Tensor:
@@ -462,12 +474,16 @@ def indirect_energy(state: BAState, ind: IndirectFactors, cam: PinholeCamera,
 
 
 def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-                 cfg: DirectConfig, ind: IndirectFactors | None = None) -> torch.Tensor:
+                 cfg: DirectConfig, ind: IndirectFactors | None = None,
+                 mesh: Mesh | None = None) -> torch.Tensor:
     """The exact functional the solver minimizes (photometric + prior +
     affine anchors + the optional mixed-BA reprojection terms), for
-    accept/reject consistency."""
-    lin = linearize(state, images, cam, cfg)
+    accept/reject consistency. With a mesh the photometric sum is the
+    ranks' partial sums, all-reduced."""
+    lin = linearize(local_rows(state, mesh), images, cam, cfg)
     e_photo = torch.sum(lin.energy)
+    if mesh is not None:
+        (e_photo,) = mesh.all_reduce(e_photo)
     delta_flat = state.delta.reshape(-1)
     e_prior = torch.dot(state.b_m, delta_flat) + 0.5 * torch.dot(
         delta_flat, state.H_m @ delta_flat)
@@ -482,15 +498,23 @@ def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
 
 
 def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-            cfg: DirectConfig, lam: torch.Tensor, ind: IndirectFactors | None = None):
+            cfg: DirectConfig, lam: torch.Tensor, ind: IndirectFactors | None = None,
+            mesh: Mesh | None = None):
     """One LM iteration: linearize, Schur-solve, back-substitute idepths.
     With `ind`, the mixed-BA reprojection factors join the normal equations
     and their idepths are Schur-eliminated alongside the photometric ones.
+    With a mesh, this rank's point rows only; one all-reduce of the point
+    sums, one all-gather of the idepth steps (`lin` holds this rank's rows).
     Returns (new_state, lin), or (new_state, new_ind, lin) with `ind`."""
     F = state.num_frames
     D = F * _D
-    lin = linearize(state, images, cam, cfg)
-    H, b, H_rho, b_rho, H_xr = _assemble(lin, state, cfg)
+    rows = local_rows(state, mesh)
+    lin = linearize(rows, images, cam, cfg)
+    H, b, H_rho, b_rho, H_xr = _assemble(lin, rows, cfg)
+    H_corr, b_corr, H_rho_d = _schur_terms(H_rho, b_rho, H_xr, lam, rows.point_valid)
+    if mesh is not None:
+        H, b, H_corr, b_corr = mesh.all_reduce(H, b, H_corr, b_corr)
+    # the terms every rank holds whole join after the reduction (once)
     if ind is not None:
         Hi, bi, Hi_rho, bi_rho, Hi_xr, _, _ = _assemble_indirect(state, ind, cam, cfg)
         H = H + Hi
@@ -505,8 +529,7 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     H = H + torch.diag(diag_prior)
     b = b + b_prior
 
-    H_sc, b_sc, H_rho_d = _schur_reduce(H, b, H_rho, b_rho, H_xr, lam,
-                                        state.point_valid)
+    H_sc, b_sc = H - H_corr, b - b_corr
     if ind is not None:
         H_sc, b_sc, Hi_rho_d = _schur_reduce(H_sc, b_sc, Hi_rho, bi_rho, Hi_xr, lam,
                                              ind.point_valid)
@@ -523,7 +546,9 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     dx = dx - N @ coeff
 
     d_rho = (b_rho - H_xr @ dx) / H_rho_d
-    d_rho = torch.where(state.point_valid, d_rho, torch.zeros_like(d_rho))
+    d_rho = torch.where(rows.point_valid, d_rho, torch.zeros_like(d_rho))
+    if mesh is not None:
+        d_rho = mesh.all_gather_rows(d_rho)
 
     dx_f = dx.reshape(F, _D)
     dx_f = torch.where(state.frame_valid[:, None], dx_f, torch.zeros_like(dx_f))
@@ -554,15 +579,16 @@ def _select_state(accept: torch.Tensor, a: BAState, b: BAState) -> BAState:
 
 
 def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-           cfg: DirectConfig) -> tuple[BAState, torch.Tensor]:
+           cfg: DirectConfig, mesh: Mesh | None = None) -> tuple[BAState, torch.Tensor]:
     """Fixed-iteration LM loop with accept/reject (reference:
     DSOBundleAdjustment::run, energy-based step control). The accept test
-    stays on the device: no host read per iteration."""
-    E = total_energy(state, images, cam, cfg)
+    stays on the device: no host read per iteration. With a mesh, every
+    rank runs it on the same state and ends with the same state."""
+    E = total_energy(state, images, cam, cfg, mesh=mesh)
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=E.device)
     for _ in range(cfg.ba_iters):
-        cand, _ = ba_step(state, images, cam, cfg, lam)
-        E_new = total_energy(cand, images, cam, cfg)
+        cand, _ = ba_step(state, images, cam, cfg, lam, mesh=mesh)
+        E_new = total_energy(cand, images, cam, cfg, mesh=mesh)
         accept = E_new < E
         state = _select_state(accept, cand, state)
         E = torch.where(accept, E_new, E)
@@ -572,17 +598,19 @@ def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
 
 
 def run_ba_mixed(state: BAState, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
-                 ind: IndirectFactors) -> tuple[BAState, IndirectFactors, torch.Tensor]:
+                 ind: IndirectFactors, mesh: Mesh | None = None,
+                 ) -> tuple[BAState, IndirectFactors, torch.Tensor]:
     """Joint photometric + indirect-reprojection LM over the window — the
     mixed bundle adjustment (reference: DSOBundleAdjustment.cpp:2674
     addIndirectToProblem + joint Schur solve). run_ba's accept/reject loop
     with the reprojection terms in the normal equations and the energy; the
-    indirect idepths ride along."""
-    E = total_energy(state, images, cam, cfg, ind)
+    indirect idepths ride along. With a mesh only the photometric points are
+    split: every rank holds and sweeps the indirect factors whole."""
+    E = total_energy(state, images, cam, cfg, ind, mesh=mesh)
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=E.device)
     for _ in range(cfg.ba_iters):
-        cand, cand_i, _ = ba_step(state, images, cam, cfg, lam, ind)
-        E_new = total_energy(cand, images, cam, cfg, cand_i)
+        cand, cand_i, _ = ba_step(state, images, cam, cfg, lam, ind, mesh=mesh)
+        E_new = total_energy(cand, images, cam, cfg, cand_i, mesh=mesh)
         accept = E_new < E
         state = _select_state(accept, cand, state)
         ind = ind.replace(idepth=torch.where(accept, cand_i.idepth, ind.idepth))
@@ -623,14 +651,20 @@ def refresh_fej(state: BAState) -> BAState:
 
 
 def update_residual_status(state: BAState, images: torch.Tensor,
-                           cam: PinholeCamera, cfg: DirectConfig) -> BAState:
+                           cam: PinholeCamera, cfg: DirectConfig,
+                           mesh: Mesh | None = None) -> BAState:
     """Deactivate residuals whose energy exceeds the outlier threshold and
-    points left with no active residual at all."""
-    lin = linearize(state, images, cam, cfg)
+    points left with no active residual at all. With a mesh each rank
+    decides its rows and the rows are all-gathered."""
+    rows = local_rows(state, mesh)
+    lin = linearize(rows, images, cam, cfg)
     good = lin.active & (lin.energy < cfg.outlier_energy)
-    res_active = state.res_active & (good | ~lin.active)
+    res_active = rows.res_active & (good | ~lin.active)
     n_good = torch.sum(good, dim=1)
-    point_valid = state.point_valid & (n_good >= 1)
+    point_valid = rows.point_valid & (n_good >= 1)
+    if mesh is not None:
+        both = mesh.all_gather_rows(torch.cat([res_active, point_valid[:, None]], dim=1))
+        res_active, point_valid = both[:, :-1], both[:, -1]
     return state.replace(res_active=res_active, point_valid=point_valid)
 
 
@@ -768,18 +802,23 @@ def marginalize_frame(
 
 
 def _marg_pieces(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-                 cfg: DirectConfig, slot):
+                 cfg: DirectConfig, slot, mesh: Mesh | None = None):
     """Device half of f64 marginalization: linearize the points hosted in
     `slot`, FEJ-shift the residuals, and contract the (P, F, 8, ...) tensors
     down to the small normal-equation pieces. The point-Schur CORRECTION is
     contracted here, but the cancellation-sensitive subtraction
     H_pts - H_corr (both ~1e10, their difference along the scale direction
-    ~1e6) is left to the host in f64."""
-    hosted, marg_state, lin, r0 = _fej_shifted(state, images, cam, cfg, slot)
+    ~1e6) is left to the host in f64. With a mesh each rank contracts its
+    rows and the four point sums are all-reduced."""
+    hosted, marg_state, lin, r0 = _fej_shifted(local_rows(state, mesh), images, cam, cfg,
+                                               slot)
     H_pts, b_pts, H_rho, b_rho, H_xr = _assemble(lin, marg_state, cfg, r_shift=r0)
     scale = torch.where(hosted, 1.0 / (H_rho + 1e-12), torch.zeros_like(H_rho))
     H_corr = torch.einsum("pd,p,pe->de", H_xr, scale, H_xr)
     b_corr = H_xr.T @ (b_rho * scale)
+    if mesh is not None:
+        H_pts, b_pts, H_corr, b_corr = mesh.all_reduce(H_pts, b_pts, H_corr, b_corr)
+        hosted = state.point_valid & (state.host == slot)
     return (H_pts, b_pts, H_corr, b_corr, hosted,
             state.T.R, state.T.t, state.frame_valid, state.delta,
             state.ab_fej, state.H_m, state.b_m)

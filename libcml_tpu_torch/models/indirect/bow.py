@@ -1,9 +1,9 @@
 """Bag-of-binary-words vocabulary, BoW vectors and relocalization retrieval.
 
-PyTorch port of libcml_tpu/models/indirect/bow.py without its DBoW2 text
-I/O (the reference's DBoW2 TemplatedVocabulary.h / TemplatedDatabase.h /
-ScoringObject.cpp L1 scoring, and Relocalization.{h,cpp}:10 candidate
-retrieval). DBoW2's tree is kept only as the training procedure
+PyTorch port of libcml_tpu/models/indirect/bow.py (the reference's DBoW2
+TemplatedVocabulary.h / TemplatedDatabase.h / ScoringObject.cpp L1 scoring,
+and Relocalization.{h,cpp}:10 candidate retrieval), with its DBoW2 text
+export and load. DBoW2's tree is kept only as the training procedure
 (hierarchical k-medians over binary strings, host numpy, copied as it is);
 word lookup is one Hamming argmin of the descriptors against the leaf words
 on the tensors' device. The inverted file stays a host structure.
@@ -169,6 +169,86 @@ def default_vocabulary(cache: str | Path | None = None) -> BinaryVocabulary:
     voc.save(tmp)
     tmp.replace(path)       # atomic: a concurrent reader never sees a partial file
     return voc
+
+
+# ---------------------------------------------------------------------------
+# DBoW2 text-format export (vocabulary interchange with the reference)
+# ---------------------------------------------------------------------------
+
+
+def export_dbow2_text(descriptors: np.ndarray, path: str | Path, k: int = 10, depth: int = 4,
+                      iters: int = 8, seed: int = 0) -> int:
+    """Train a hierarchical vocabulary and write it in DBoW2's text format,
+    loadable by the reference binary (reference:
+    features/bow/TemplatedVocabulary.h:1318 loadFromText — header
+    "k L scoring weighting", then one node per line:
+    "parent isLeaf b0..b31 weight", node ids assigned in line order with
+    parents always emitted before children). Host numpy, the JAX package's
+    export line for line: the same descriptors give a byte-identical file.
+    Returns the leaf count. Scoring 0 = L1_NORM, weighting 0 = TF_IDF (DBoW2
+    enums)."""
+    rng = np.random.default_rng(seed)
+    bits = _unpack_bits(np.asarray(descriptors).view(np.uint32))
+    n_total = len(bits)
+
+    # nodes: list of (parent_id, is_leaf, bits(256,), weight)
+    nodes: list[tuple[int, int, np.ndarray, float]] = []
+
+    def cluster(idx: np.ndarray, level: int, parent: int) -> None:
+        sub = bits[idx]
+        if level == depth or len(idx) <= k:
+            if len(idx) == 0:
+                return
+            centroid = _majority(sub, np.ones(len(idx)))
+            idf = float(np.log(n_total / max(len(idx), 1)))
+            nodes.append((parent, 1, centroid, max(idf, 1e-3)))
+            return
+        centers = sub[rng.choice(len(sub), size=min(k, len(sub)), replace=False)].copy()
+        assign = np.zeros(len(sub), np.int64)
+        for _ in range(iters):
+            d = (sub[:, None, :] != centers[None, :, :]).sum(axis=2)
+            assign = d.argmin(axis=1)
+            for c in range(len(centers)):
+                m = assign == c
+                if m.any():
+                    centers[c] = _majority(sub[m], np.ones(m.sum()))
+        for c in range(len(centers)):
+            m = assign == c
+            if not m.any():
+                continue
+            my_id = len(nodes) + 1           # root is implicit node 0
+            nodes.append((parent, 0, centers[c], 0.0))
+            cluster(idx[m], level + 1, my_id)
+
+    cluster(np.arange(n_total), 0, 0)
+
+    n_leaves = 0
+    with open(path, "w") as f:
+        f.write(f"{k} {depth} 0 0\n")
+        for parent, is_leaf, b, w in nodes:
+            by = np.packbits(b.astype(np.uint8))
+            f.write(f"{parent} {is_leaf} " + " ".join(str(int(x)) for x in by) + f" {w:.6f}\n")
+            n_leaves += is_leaf
+    return n_leaves
+
+
+def load_dbow2_text(path: str | Path) -> BinaryVocabulary:
+    """Load a DBoW2 text vocabulary's LEAF words as a flat BinaryVocabulary
+    (assignment is one Hamming argmin over the leaves, so the interior tree
+    nodes are not needed)."""
+    leaves = []
+    idf = []
+    with open(path) as f:
+        f.readline()
+        for line in f:
+            tok = line.split()
+            if len(tok) != 35:
+                continue
+            if int(tok[1]) == 1:
+                by = np.array([int(x) for x in tok[2:34]], np.uint8)
+                leaves.append(by.view(">u4").astype(np.uint32))
+                idf.append(float(tok[34]))
+    return BinaryVocabulary(np.stack(leaves), np.asarray(idf, np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -185,3 +185,44 @@ def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """(N, 8) x (M, 8) 32-bit words -> (N, M) int32 Hamming distances."""
     x = torch.bitwise_xor(da[:, None, :], db[None, :, :])
     return torch.sum(popcount32(x), dim=-1, dtype=torch.int32)
+
+
+# the reference's masked distance in match_ratio (libcml_tpu/models/indirect/orb.py:199)
+_RATIO_MASKED = 10_000
+
+
+def match_ratio(da: torch.Tensor, db: torch.Tensor, valid_a: torch.Tensor,
+                valid_b: torch.Tensor, max_dist: int = 50, ratio: float = 0.75,
+                mutual: bool = True):
+    """Ratio-tested (optionally mutual) nearest-neighbour Hamming matching
+    (reference: libcml_tpu/models/indirect/orb.py:189, BoWTracker.cpp:112).
+    Returns (idx_b (N,) int32 match for each a, good (N,) bool).
+
+    Resolved by `ops.hamming_match.hamming_resolve`: the hand-written kernel
+    for CUDA tensors (no distance matrix is written), its plain version for
+    CPU tensors. The kernel's d1, d2, idx and col_row are the reference's
+    best, second, idx_b and back; its masked entries count 257 where the
+    reference's count 10000, so a 257 is read as the reference's 10000 (a
+    row with one live column has no second)."""
+    # imported here: ops.hamming_match imports this module
+    from libcml_tpu_torch.ops.hamming_match import hamming_resolve
+
+    return ratio_gate(hamming_resolve(da, valid_a, db, valid_b), valid_a, max_dist, ratio,
+                      mutual)
+
+
+def ratio_gate(resolved, valid_a: torch.Tensor, max_dist: int = 50, ratio: float = 0.75,
+               mutual: bool = True):
+    """match_ratio's gates on a Hamming resolution (d1, d2, idx, col_row),
+    the kernel's or its plain version's."""
+    from libcml_tpu_torch.ops.hamming_match import MASKED
+
+    d1, d2, idx_b, back = resolved
+    big = torch.full_like(d1, _RATIO_MASKED)
+    best = torch.where(d1 == MASKED, big, d1)
+    second = torch.where(d2 == MASKED, big, d2)
+    good = (best <= max_dist) & (best <= ratio * second) & valid_a
+    if mutual:
+        rows = torch.arange(d1.shape[0], dtype=torch.int32, device=d1.device)
+        good = good & (back[idx_b.long()] == rows)
+    return idx_b, good

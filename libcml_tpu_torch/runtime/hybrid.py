@@ -211,17 +211,17 @@ def _map_projection_match(Xw, desc_p, valid_p, level_p, T: SE3, cam: PinholeCame
 
 
 def _mixed_ba_dispatch(ba, images, cam: PinholeCamera, cfg: DirectConfig,
-                       ind: ba_mod.IndirectFactors, kf_slot: int):
+                       ind: ba_mod.IndirectFactors, kf_slot: int, mesh=None):
     """The mixed-BA device half: joint photometric + reprojection solve,
     re-anchored linearization point, refined host-frame points, the
     promoted keyframe's pose, and the window's PHOTOMETRIC energy before and
     after (the caller rolls the solve back when it traded too much
     photometric energy for reprojection energy: a photometrically degraded
     window is the tracking reference and collapses tracking)."""
-    E_photo0 = ba_mod.total_energy(ba, images, cam, cfg)
-    new_ba, new_ind, E = ba_mod.run_ba_mixed(ba, images, cam, cfg, ind)
+    E_photo0 = ba_mod.total_energy(ba, images, cam, cfg, mesh=mesh)
+    new_ba, new_ind, E = ba_mod.run_ba_mixed(ba, images, cam, cfg, ind, mesh)
     new_ba = ba_mod.relinearize(new_ba)
-    E_photo1 = ba_mod.total_energy(new_ba, images, cam, cfg)
+    E_photo1 = ba_mod.total_energy(new_ba, images, cam, cfg, mesh=mesh)
     Xh = cam.unproject(new_ind.uv, new_ind.idepth)
     return new_ba, new_ind.point_valid, E, Xh, new_ba.T.index(kf_slot), E_photo0, E_photo1
 
@@ -423,9 +423,10 @@ class HybridOdometry(DirectOdometry):
         window, slot1 = win_mod.add_keyframe(window, pyr[0], T_rel.compose(anchor), zero_ab,
                                              self.frame_idx)
         window = win_mod.add_points(window, slot0, uv0, idepth0, ok, cfg)
-        new_ba, _ = ba_mod.run_ba(window.ba, window.images, cam, cfg)
-        new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg)
+        new_ba, _ = ba_mod.run_ba(window.ba, window.images, cam, cfg, self.mesh)
+        new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg, self.mesh)
         self._window = window.replace(ba=new_ba)
+        self._place_on_mesh()
 
         self._kf_slot = int(slot1)
         self._kf_id = self.frame_idx
@@ -745,7 +746,10 @@ class HybridOdometry(DirectOdometry):
         if st["has_tri"]:
             t_norm, X0, ok_np, d0, l0, R0, t0, m0_idx, m0_dist = fetched[10:]
             if float(t_norm) > 1e-4:
-                Xw = (X0 - t0) @ R0                      # X_w = R0^T (X0 - t0)
+                # X_w = R0^T (X0 - t0) on the accepted rows only: the
+                # others may hold NaN, and _add_map_points keeps ok rows only
+                Xw = np.zeros_like(X0)
+                Xw[ok_np] = (X0[ok_np] - t0) @ R0
                 slots, src = self._add_map_points(Xw, d0, l0, ok_np)
                 if slots is not None:
                     # the creating keyframe OBSERVES its new points: the
@@ -1112,7 +1116,7 @@ class HybridOdometry(DirectOdometry):
             return None, None
         w = self._window
         new_ba, piv, E, Xh_dev, kf_T, Ep0, Ep1 = _mixed_ba_dispatch(
-            w.ba, w.images, self.cam, self.cfg, ind, self._kf_slot)
+            w.ba, w.images, self.cam, self.cfg, ind, self._kf_slot, self.mesh)
         self._window = w.replace(ba=new_ba)
         # the promoted keyframe's pose may have moved: refresh the handle and
         # the tracker reference

@@ -61,6 +61,7 @@ from libcml_tpu_torch.ops.image import (
     build_gradient_pyramid,
     remap_image,
 )
+from libcml_tpu_torch.parallel import sharding
 from libcml_tpu_torch.runtime.stats import StatsSheet
 from libcml_tpu_torch.utils import logging as log
 
@@ -365,7 +366,8 @@ def _working_rho_range(ba: ba_mod.BAState, cfg: DirectConfig):
 
 
 def _kf_insert_and_ba(window: win_mod.Window, grad0, T_new: SE3, ab_kf, ab_rel,
-                      frame_id, cam: PinholeCamera, cfg: DirectConfig):
+                      frame_id, cam: PinholeCamera, cfg: DirectConfig,
+                      mesh: sharding.Mesh | None = None):
     """Insert keyframe + run windowed photometric BA + outlier ejection.
     Returns the window, the slot, the BA energy, and the new keyframe's
     OPTIMIZED pose and absolute (a, b)."""
@@ -373,8 +375,8 @@ def _kf_insert_and_ba(window: win_mod.Window, grad0, T_new: SE3, ab_kf, ab_rel,
     window, slot = win_mod.add_keyframe(window, grad0, T_new, ab_new, frame_id)
     # fresh Jacobians once per keyframe event (prior shifted exactly)
     window = window.replace(ba=ba_mod.relinearize(window.ba))
-    new_ba, energy = ba_mod.run_ba(window.ba, window.images, cam, cfg)
-    new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg)
+    new_ba, energy = ba_mod.run_ba(window.ba, window.images, cam, cfg, mesh)
+    new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg, mesh)
     return window.replace(ba=new_ba), slot, energy, new_ba.T.index(slot), ab_new
 
 
@@ -446,18 +448,27 @@ class DirectOdometry:
     Usage:
         odo = DirectOdometry(cam, cfg)            # on the CUDA card
         odo = DirectOdometry(cam, cfg, device="cpu")
+        odo = DirectOdometry(cam, cfg, mesh=make_mesh())   # point-sharded BA
         for ts, img in frames: odo.process(img, ts)
         poses = odo.trajectory_c2w()
+
+    With a mesh (parallel/sharding.py) every rank runs this same loop on the
+    same frames; the window BA, the outlier pass and the marginalization's
+    point sums split the point rows over the ranks, and the state stays
+    identical on every rank.
     """
 
     def __init__(self, cam: PinholeCamera | Calibration,
                  cfg: DirectConfig | None = None, depth_prior=None,
                  pipelined: bool = False, mesh=None,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded BA is not ported yet")
         self.device = resolve_device(device)
         dev = self.device
+        if mesh is not None:
+            if not isinstance(mesh, sharding.Mesh):
+                raise TypeError(f"mesh must be a parallel.sharding.Mesh, not {type(mesh)}")
+            mesh.check_device(dev)
+        self.mesh = mesh
         # a full Calibration carries the rectification remap + photometric
         # response/vignette, applied on the device to every incoming frame
         if isinstance(cam, Calibration):
@@ -668,9 +679,10 @@ class DirectOdometry:
             window, pyr[0], ist.T.compose(anchor), ist.ab, self.frame_idx)
         # activate the initializer's points, hosted in slot0
         window = win_mod.add_points(window, slot0, ist.uv, ist.idepth, ist.valid[0], cfg)
-        new_ba, _ = ba_mod.run_ba(window.ba, window.images, cam, cfg)
-        new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg)
+        new_ba, _ = ba_mod.run_ba(window.ba, window.images, cam, cfg, self.mesh)
+        new_ba = ba_mod.update_residual_status(new_ba, window.images, cam, cfg, self.mesh)
         self._window = window.replace(ba=new_ba)
+        self._place_on_mesh()
 
         self._kf_slot = int(slot1)
         self._kf_id = self.frame_idx
@@ -939,7 +951,7 @@ class DirectOdometry:
             ab = torch.as_tensor(np.asarray(
                 getattr(self, "_last_track_ab", np.zeros(2, np.float32)))).to(self.device)
         window, slot, energy, T_kf, ab_new = _kf_insert_and_ba(
-            window, pyr[0], T_new, self._kf_ab, ab, frame_idx, cam, cfg)
+            window, pyr[0], T_new, self._kf_ab, ab, frame_idx, cam, cfg, self.mesh)
 
         self._window = window
         self._win_count += 1
@@ -988,6 +1000,15 @@ class DirectOdometry:
             torch.full((1,), int(slot), dtype=torch.int32, device=self.device),
             self._recent_rows[:-1]])
 
+    def _place_on_mesh(self):
+        """Check the window's BA state against the mesh's layout and place it
+        on the mesh's device (no-op without a mesh). Called where a window
+        is created or restored, as the JAX package shards it there."""
+        if self.mesh is None or self._window is None:
+            return
+        self._window = self._window.replace(
+            ba=sharding.shard_ba_state(self._window.ba, self.mesh))
+
     # -- asynchronous marginalization -----------------------------------------
 
     def _start_async_marg(self):
@@ -997,7 +1018,7 @@ class DirectOdometry:
         window = self._window
         slot_dev = win_mod.choose_marginalization_slot(window, self._kf_slot)
         pieces = ba_mod._marg_pieces(window.ba, window.images, self.cam, self.cfg,
-                                     slot_dev)
+                                     slot_dev, self.mesh)
         self._pending_marg = (pieces, slot_dev, self.frame_idx)
 
     def _complete_pending_marg(self, min_age: int = 0):
@@ -1107,3 +1128,4 @@ class DirectOdometry:
         self._pending_marg = payload["pending_marg"]
         self._pending = payload.get("pending", [])   # absent in older checkpoints
         self._ckpt_restore_extra(payload["extra"])
+        self._place_on_mesh()

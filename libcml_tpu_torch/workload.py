@@ -94,12 +94,12 @@ def projection_match_inputs(map_: HybridMap, cam: PinholeCamera, traj, f: OrbFea
 
 
 def hybrid_odometry(cam: PinholeCamera, cfg: DirectConfig = BENCH_CFG,
-                    dev: torch.device | str | None = None) -> hybrid.HybridOdometry:
+                    dev: torch.device | str | None = None, mesh=None) -> hybrid.HybridOdometry:
     """bench.py's sequential hybrid (bench.py:74-77): HybridOdometry with
     `cfg` and ORB 512 per level x 3 levels, on the card unless `dev` says
-    otherwise."""
+    otherwise; its window BA point-sharded over `mesh` when one is given."""
     return hybrid.HybridOdometry(cam, cfg, orb_budget=ORB_BUDGET, orb_levels=ORB_LEVELS,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
 
 
 # the relocalization run (tests/test_recovery.py:13-28): LOST after two

@@ -16,6 +16,7 @@ import io
 import json
 import os
 import sys
+import time
 import zipfile
 
 import jax.numpy as jnp
@@ -321,6 +322,46 @@ def test_prefetcher_ordered_and_corrected(tmp_path):
     assert [i for i, _ in got] == list(range(9))
     for (_, img), arr in zip(got, arrs):
         np.testing.assert_allclose(img, arr.astype(np.float32) * 4.0, rtol=1e-5)
+
+
+class _FailingCapture:
+    """A capture of 9 frames whose frame `fail_at` cannot be read."""
+
+    def __init__(self, fail_at):
+        self.fail_at = fail_at
+
+    def __len__(self):
+        return 9
+
+    def _load(self, i):
+        if i == self.fail_at:
+            raise OSError(f"cannot decode frame {i}")
+        return i
+
+
+@pytest.mark.parametrize("fail_at", [0, 4, 8])
+def test_capture_load_error_reaches_the_consumer(fail_at):
+    """A frame that fails to load raises in the consumer after the frames
+    before it; its prefetch thread ends. The JAX package ends the stream
+    there as if the data had run out (libcml_tpu/data/capture.py:70), a
+    fault the port does not copy."""
+    import threading
+
+    cap = type("Cap", (_FailingCapture, tcap.AbstractCapture), {})(fail_at)
+    got = []
+    with pytest.raises(OSError, match=f"cannot decode frame {fail_at}"):
+        for frame in cap.frames(prefetch=2):
+            got.append(frame)
+    assert got == list(range(fail_at))
+    deadline = time.monotonic() + 10.0
+    while any(t.name == "capture-prefetch" for t in threading.enumerate()):
+        assert time.monotonic() < deadline, "the prefetch thread did not end"
+        time.sleep(0.01)
+    ref = type("Cap", (_FailingCapture, jcap.AbstractCapture), {})(fail_at)
+    assert list(ref.frames(prefetch=2)) == list(range(fail_at))
+    # a capture that loads every frame still ends normally
+    ok = type("Cap", (_FailingCapture, tcap.AbstractCapture), {})(-1)
+    assert list(ok.frames(prefetch=2)) == list(range(9))
 
 
 # -- the corridor: renderer and KITTI writer -----------------------------------------

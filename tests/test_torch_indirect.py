@@ -353,6 +353,110 @@ def test_cuda_kernel_matches_plain(cuda, name):
         assert torch.equal(g, w)
 
 
+# -- orb.match_ratio ------------------------------------------------------------------
+
+
+def _flip_bits(words: np.ndarray, n: int, rng) -> np.ndarray:
+    """A copy of one (8,) uint32 descriptor with `n` of its bits flipped."""
+    bits = np.unpackbits(words.astype(">u4").view(np.uint8))
+    bits[rng.choice(256, n, replace=False)] ^= 1
+    return np.packbits(bits).view(">u4").astype(np.uint32)
+
+
+def _ratio_case(name):
+    """(da, db, valid_a, valid_b, kwargs) for match_ratio."""
+    rng = np.random.default_rng(7)
+    if name == "shift":
+        # tests/test_indirect.py:85: ORB of a smoothed random image and of
+        # the same image shifted by 5 px, extracted by the JAX package
+        from scipy.ndimage import convolve
+
+        base = convolve(rng.uniform(0, 255, (120, 160)).astype(np.float32), np.ones((3, 3)) / 9.0)
+        feats = [jax.device_get(jorb.extract_orb(jbuild_pyramid(jnp.asarray(im), 2),
+                                                 budget_per_level=128, threshold=8.0))
+                 for im in (base, np.roll(base, (0, 5), axis=(0, 1)))]
+        return feats[0].desc, feats[1].desc, feats[0].valid, feats[1].valid, {}
+    N, M = 40, 70
+    da = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
+    db = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+    va, vb = rng.random(N) > 0.2, rng.random(M) > 0.2
+    if name in ("masked", "masked_no_mutual"):
+        # near copies so that matches pass the gates; masked rows and columns
+        for i in range(0, N, 2):
+            da[i] = _flip_bits(db[(3 * i) % M], int(rng.integers(0, 60)), rng)
+        return da, db, va, vb, {} if name == "masked" else {"mutual": False}
+    if name in ("one_live_column", "one_live_column_mutual"):
+        # one live column: no second distance, where the reference counts
+        # 10000 and the kernel 257 (the ratio gate of max_dist 200 sees the
+        # difference for best distances in (0.75 * 257, 200])
+        vb = np.zeros(M, bool)
+        vb[3] = True
+        va = np.ones(N, bool)
+        for i, n in enumerate((150, 190, 193, 195, 199, 200, 201, 230)):
+            da[i] = _flip_bits(db[3], n, rng)
+        return da, db, va, vb, {"max_dist": 200, "mutual": name.endswith("mutual")}
+    if name == "no_live_column":
+        # every column masked: each row's best is column 0 and each column's
+        # best row is row 0; only a gate wide enough for the masked distance
+        # lets row 0 through
+        return da, db, np.ones(N, bool), np.zeros(M, bool), {"max_dist": 20000, "ratio": 1.0}
+    if name == "no_live_row":
+        return da, db, np.zeros(N, bool), np.ones(M, bool), {"max_dist": 20000, "ratio": 1.0}
+    # ties: duplicate columns, duplicate rows, exact copies
+    db[10] = db[20] = db[30] = da[5]
+    db[40:50] = db[1]
+    da[6] = da[7] = _flip_bits(db[2], 3, rng)
+    da[8] = db[1]
+    va[:] = vb[:] = True
+    vb[20] = False
+    return da, db, va, vb, {"ratio": 1.0}
+
+
+RATIO_CASES = ["shift", "masked", "masked_no_mutual", "one_live_column",
+               "one_live_column_mutual", "no_live_column", "no_live_row", "ties"]
+
+
+@pytest.mark.parametrize("name", RATIO_CASES)
+def test_match_ratio_matches_reference(name):
+    """orb.match_ratio against the JAX package's: idx_b and good exactly,
+    masked rows and columns, one live column, no live row or column, ties
+    and mutual=False included."""
+    da, db, va, vb, kw = _ratio_case(name)
+    want = jorb.match_ratio(jnp.asarray(da), jnp.asarray(db), jnp.asarray(va),
+                            jnp.asarray(vb), **kw)
+    got = torb.match_ratio(_t(da), _t(db), _t(va), _t(vb), **kw)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    np.testing.assert_array_equal(_np(got[0]), _np(want[0]), err_msg="idx_b")
+    np.testing.assert_array_equal(_np(got[1]), _np(want[1]), err_msg="good")
+    if name == "shift":
+        assert int(_np(want[1]).sum()) >= 10
+    if name == "one_live_column":
+        # the rows at 193-200 bits pass only because a 257 reads as "no second"
+        np.testing.assert_array_equal(_np(got[1])[:8], [1, 1, 1, 1, 1, 1, 0, 0])
+
+
+def test_match_ratio_has_no_fallback():
+    """match_ratio resolves through hamming_resolve: the plain version for
+    CPU tensors, the kernel for CUDA tensors, and nothing for any other
+    device."""
+    da, db, va, vb, _ = _ratio_case("masked")
+    args = [_t(x).to("meta") for x in (da, db, va, vb)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        torb.match_ratio(*args)
+
+
+@pytest.mark.parametrize("name", RATIO_CASES)
+def test_match_ratio_cuda_matches_plain(cuda, name):
+    da, db, va, vb, kw = _ratio_case(name)
+    before = hm.hamming_resolve_cuda.launches
+    got = torb.match_ratio(*(_t(x).to(cuda) for x in (da, db, va, vb)), **kw)
+    torch.cuda.synchronize()
+    assert hm.hamming_resolve_cuda.launches == before + 1
+    want = torb.match_ratio(*(_t(x) for x in (da, db, va, vb)), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 # -- matchers -------------------------------------------------------------------------
 
 

@@ -117,7 +117,9 @@ def test_direct_odometry_defaults_to_the_card():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """Every mode is ported; a mesh that is not a parallel.sharding.Mesh is
+    refused (tests/test_torch_sharding.py runs the real one)."""
+    with pytest.raises(TypeError, match="Mesh"):
         TOdo(TCam.make(*CAM_ARGS), TCfg(**CFG_KW), device="cpu", **kw)
 
 
