@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the hand-written kernel from the sources in this checkout.
+  1. build the three hand-written kernels (csrc/hamming_match.cu,
+     track_lm.cu, pnp_lm.cu) from the sources in this checkout, one nvcc
+     each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -73,15 +75,37 @@ Phases (any failure exits non-zero, and no result line is printed):
      Then orb.match_ratio on frames 0 and 1's real ORB features (1536x1536):
      idx_b and good equal to its plain version on the card, one launch, and
      its resolution as a phase-2 kernel case.
+ 13. the LM kernels: track_lm (the tracker's coarse-to-fine LM, one launch
+     a solve) and pnp_lm (motion-only PnP, one launch a solve) against their
+     plain forms on the card (track_lm.parity, pnp_lm.parity: outputs within
+     PARITY_TOL, and a start whose steps differ, or a match classified
+     otherwise, only where its first differing decision sits within
+     DECISION_TOL of its threshold; every such case is printed) on inputs
+     captured in phases 3, 5 and 6: two `track` launches of phase 3, the
+     recovery battery about the first (15 starts, an exact tie among them),
+     the first battery the runs made, phase 5's two PnP passes of one frame
+     (`_project_match_pnp`, `_local_map_pass2`), relocalization's EPnP refine,
+     and the all-invalid cases; one launch a call (counted and profiled),
+     cold and warm ms (median of 30), the plain form's ms (median of 5), the
+     bound (bytes or f32 operations of the steps actually run) and its
+     share. Then `track` on the card with every point invalid (finite, no
+     valid point, zero energy), `track_multi` (2 track_lm launches), and
+     the host waits of a track, track_multi and PnP call, which must be
+     none (no sync, no copy).
+Every phase from 3 on reports the LM kernels' launches of its run (counted
+from 0 just before it and read just after); phase 3 must launch track_lm on
+every tracked frame, phase 4 pnp_lm twice a frame, phases 5 and 7 both.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection) and 12 (match_ratio), held to the plain
 version exactly; the phases' results, the card's name and power limit, the
-kernel table ({"kernels": [...]}: launches of the paths' runs, phases 5, 7,
-8, 10, 11 and 12, each counted from 0 just before its run and read just
-after, with each path's count beside them; times and bound of the phase-4
-masks case, cold, and of the staged-tick and match_ratio cases), and the
-result line {"ok": true, "device": {...}} last.
+kernel table ({"kernels": [...]}: for hamming_resolve the launches of the
+paths' runs, phases 5, 7, 8, 10, 11 and 12, each counted from 0 just before
+its run and read just after, with each path's count beside them; times and
+bound of the phase-4 masks case, cold, and of the staged-tick and
+match_ratio cases; for track_lm and pnp_lm the launches of every path's run
+and the times and bound of phase 13's first case, each case beside them),
+and the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -107,15 +131,21 @@ from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.data import corridor
 from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
+from libcml_tpu_torch.core.lie import SE3
+from libcml_tpu_torch.models.direct import tracker
 from libcml_tpu_torch.models.indirect import matching, orb
+from libcml_tpu_torch.models.indirect import pnp as pnp_mod
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.ops import hamming_match as hm
+from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
 from libcml_tpu_torch.parallel.sharding import make_mesh
-from libcml_tpu_torch.runtime import hybrid
+from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
 
 # published H100 SXM memory rate at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
+# published H100 SXM float32 rate outside the tensor cores at 700 W
+F32_FLOP_PER_S = 67e12
 # population count issues 16 per clock and SM on sm_90 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0); the
 # XOR and the adds of an entry go to the 64-per-clock integer pipe and take
@@ -129,6 +159,22 @@ HYBRID_FRAMES = range(1, 21)
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# the LM kernels' wrappers, whose launch counts each path's run reports
+LM_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (just before a path's run)."""
+    hm.hamming_resolve_cuda.launches = 0
+    for fn in LM_KERNELS.values():
+        fn.launches = 0
+
+
+def lm_launches() -> dict:
+    """The LM kernels' launch counts since the last reset_launches()."""
+    return {name: fn.launches for name, fn in LM_KERNELS.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -356,7 +402,7 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     gt = []
     kf = lost = 0
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for i, img in enumerate(imgs):
         if i == WARMUP:
@@ -368,7 +414,8 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     wall = t_end - t0
-    launches = hm.hamming_resolve_cuda.launches   # the direct path runs no kernel yet
+    launches = hm.hamming_resolve_cuda.launches   # the direct path runs no Hamming kernel
+    lm = lm_launches()
     for R, t in traj[:N_DIRECT]:
         M = np.eye(4)
         M[:3, :3], M[:3, 3] = R, t
@@ -382,9 +429,12 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
            "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
            "wall_s": wall, "ate": ate, "segments": odo.segments, "lost_frames": lost,
            "keyframes": kf, "keyframe_frames": _keyframe_frames(odo),
-           "host_ms_per_stage": host_ms, "kernel_launches": {"hamming_resolve": launches}}
+           "host_ms_per_stage": host_ms,
+           "kernel_launches": {"hamming_resolve": launches, **lm}}
     print(json.dumps(res))
     require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
+    require(lm["track_lm"] >= len(imgs) - WARMUP and lm["pnp_lm"] == 0,
+            f"the direct path's LM launches {lm}")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
     return res, _snapshot(odo)
 
@@ -393,10 +443,11 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
     map_, n_map = wl.build_map(cam, traj, frames, dev)
     feats = {i: wl.extract(frames[i]) for i in HYBRID_FRAMES}
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     per_frame = []
     for i in HYBRID_FRAMES:
         before = hm.hamming_resolve_cuda.launches
+        pnp_before = pnp_lm.pnp_lm_cuda.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res, bundle, bundle2 = wl.track_frame(map_, cam, traj, feats[i], i, dev)
@@ -407,19 +458,22 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
         t_err = float(np.linalg.norm(res.T.t.cpu().numpy() - t_gt))
         r_err = float(np.arccos(np.clip((np.trace(R_est @ R_gt.T) - 1) / 2, -1, 1)))
         launched = hm.hamming_resolve_cuda.launches - before
+        pnp_launched = pnp_lm.pnp_lm_cuda.launches - pnp_before
         row = {"frame": i, "matches": int(b1[0]), "inliers": int(b1[1]),
                "pass2_matches": int(b2[0]), "pass2_inliers": int(b2[1]),
-               "t_err": t_err, "r_err": r_err, "ms": ms, "kernel_launches": launched}
+               "t_err": t_err, "r_err": r_err, "ms": ms, "kernel_launches": launched,
+               "pnp_lm_launches": pnp_launched}
         per_frame.append(row)
         print(json.dumps(row))
         require(launched == 2, f"frame {i}: {launched} kernel launches, expected 2")
+        require(pnp_launched == 2, f"frame {i}: {pnp_launched} PnP kernel launches, expected 2")
         require(b1[2] > 0.5 and b1[1] >= 12 and b2[1] >= 12,
                 f"frame {i}: PnP failed ({b1[1]} / {b2[1]} inliers)")
         require(t_err < 0.04 and r_err < 0.01,
                 f"frame {i}: pose error {t_err:.4f} / {r_err:.4f} rad out of budget")
     launches = hm.hamming_resolve_cuda.launches
     res = {"phase": "hybrid_tracking", "frames": len(per_frame), "map_points": n_map,
-           "launches": launches,
+           "launches": launches, "lm_launches": lm_launches(),
            "ms_per_frame": statistics.median(r["ms"] for r in per_frame),
            "min_inliers": min(r["inliers"] for r in per_frame),
            "max_t_err": max(r["t_err"] for r in per_frame),
@@ -549,7 +603,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     kf = lost = 0
     sites.capture_at = {"_epipolar_triangulate"}
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     sites.launches.clear()
     sites.calls.clear()
     t0 = time.perf_counter()
@@ -563,6 +617,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = hm.hamming_resolve_cuda.launches
+    lm = lm_launches()
     wall = t_end - t0
     _, est = odo.trajectory_c2w()
     ate = ate_rmse(est[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
@@ -586,9 +641,11 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
                ev["kf_launches"] / max(ev["indirect_keyframes"], 1),
            "launches_per_site": dict(sites.launches),
            "launches_per_site_per_frame": {k: v / n for k, v in sites.launches.items()},
-           "calls_per_site": dict(sites.calls), "host_ms_per_stage": host_ms}
+           "calls_per_site": dict(sites.calls), "host_ms_per_stage": host_ms,
+           "lm_launches": lm, "lm_launches_per_frame": {k: v / n for k, v in lm.items()}}
     print(json.dumps(res))
     require(np.isfinite(ate) and ate < 0.1, f"hybrid ATE {ate} >= 0.1")
+    require(lm["track_lm"] > 0 and lm["pnp_lm"] > 0, f"the hybrid's LM launches {lm}")
     require(odo.segments == 0 and lost == 0, "hybrid lost tracking")
     require(ev["ok_kf"] >= 1, "no indirect keyframe triangulated points and completed a local BA")
     require(launches == sum(sites.launches.values()),
@@ -605,7 +662,7 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     seq = wl.relocalization_frames(frames)
     sites.capture_at = {"match_descriptors"}
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     sites.launches.clear()
     sites.calls.clear()
     states, at, view_before = [], None, None
@@ -623,6 +680,7 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hm.hamming_resolve_cuda.launches
+    lm = lm_launches()
     require(at is not None, f"never relocalized (states {states})")
     _, est = odo.trajectory_c2w()
     err = float(np.linalg.norm(est[-1, :3, 3] - view_before))
@@ -630,7 +688,8 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
            "black_frames": wl.RELOC_BLACK, "error": err, "states": states,
            "segments": odo.segments, "map_points": int(odo._pt_valid.sum()),
            "stored_keyframes": len(odo._kf_store), "wall_s": wall,
-           "kernel_launches": launches, "launches_per_site": dict(sites.launches)}
+           "kernel_launches": launches, "launches_per_site": dict(sites.launches),
+           "lm_launches": lm}
     print(json.dumps(res))
     require(err < 0.15, f"relocalized pose off by {err:.3f}")
     require(sites.launches["match_descriptors"] >= 1, "relocalization ran no descriptor match")
@@ -659,13 +718,14 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
     sites.launches.clear()
     sites.calls.clear()
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with open(log_path, "w") as log, contextlib.redirect_stdout(log):
         rc = cli.main(["-d", seq, "-c", CLI_PRESET, "-r", out_dir, "-f", "all", "-z"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hm.hamming_resolve_cuda.launches
+    lm = lm_launches()
     with open(log_path) as f:
         lines = f.read().splitlines()
     missing = [n for n in EXPORT_FILES if not os.path.isfile(os.path.join(out_dir, n))]
@@ -680,8 +740,9 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
            "missing_files": missing, "stat_lines": sum(l.startswith("STAT ") for l in lines),
            "cli_tail": [l for l in lines if not l.startswith("STAT ")][-4:],
            "kernel_launches": launches, "launches_per_site": dict(sites.launches),
-           "calls_per_site": dict(sites.calls)}
+           "calls_per_site": dict(sites.calls), "lm_launches": lm}
     print(json.dumps(res))
+    require(lm["track_lm"] > 0 and lm["pnp_lm"] > 0, f"the CLI run's LM launches {lm}")
     require(rc == 0 and not missing, f"the CLI failed (rc {rc}, missing {missing})")
     require(run.get("frames") == CLI_FRAMES, f"the CLI ran {run.get('frames')} frames")
     ate = run.get("ate_rmse", float("nan"))
@@ -727,7 +788,7 @@ def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
     frames SAVE_AT..: everything in _snapshot must be bit-identical. The
     file must also load into an instance on the CPU."""
     ckpt = os.path.join(work, f"{name}.ckpt")
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     a = make("cuda")
     for i, img in enumerate(imgs):
@@ -748,6 +809,7 @@ def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
     snap_c = _snapshot(c)
     torch.cuda.synchronize()
     launches = hm.hamming_resolve_cuda.launches
+    lm = lm_launches()
     wall = time.perf_counter() - t0
     cpu = make("cpu")
     cpu.load_state(ckpt)
@@ -762,7 +824,7 @@ def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
                                                     - snap_b["trajectory"]).max()),
            "max_abs_traj_diff_resume": float(np.abs(snap_a["trajectory"]
                                                     - snap_c["trajectory"]).max()),
-           "kernel_launches": launches, "wall_s": wall}
+           "kernel_launches": launches, "lm_launches": lm, "wall_s": wall}
     print(json.dumps(res))
     require(all(repeat.values()), f"{name}: two runs differ: {repeat}")
     require(all(resume.values()), f"{name}: the resumed run differs: {resume}")
@@ -857,7 +919,7 @@ def timed_run(odo, imgs) -> dict:
     kernel launches of the run (counted from 0), lost frames."""
     lost = 0
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     t_steady = t0
     for i, img in enumerate(imgs):
@@ -871,8 +933,8 @@ def timed_run(odo, imgs) -> dict:
     t_end = time.perf_counter()
     return {"wall_s": t_end - t0, "fps": len(imgs) / (t_end - t0),
             "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
-            "kernel_launches": hm.hamming_resolve_cuda.launches, "lost_frames": lost,
-            "est": est}
+            "kernel_launches": hm.hamming_resolve_cuda.launches, "lm_launches": lm_launches(),
+            "lost_frames": lost, "est": est}
 
 
 def pipelined_direct_phase(cam, traj, frames, direct: dict) -> dict:
@@ -1085,7 +1147,7 @@ def match_ratio_phase(frames, card: str, popc_rate: float) -> tuple[dict, dict]:
     resolution it runs as a phase-2 kernel case."""
     f0, f1 = wl.extract(frames[0]), wl.extract(frames[1])
     torch.cuda.synchronize()
-    hm.hamming_resolve_cuda.launches = 0
+    reset_launches()
     idx_b, good = orb.match_ratio(f0.desc, f1.desc, f0.valid, f1.valid)
     torch.cuda.synchronize()
     launches = hm.hamming_resolve_cuda.launches
@@ -1102,6 +1164,302 @@ def match_ratio_phase(frames, card: str, popc_rate: float) -> tuple[dict, dict]:
     return res, row
 
 
+# -- phase 13 ----------------------------------------------------------------------
+
+# arithmetic a point costs in each sweep, counted from the kernels' sources
+# (an FMA as 2): track_lm.cu's energy sweep (unproject, transform, project,
+# bilinear of 3 channels, residual, Huber, cap), linear sweep (that, the
+# 2x6 projection Jacobian, the 8-vector J and the 44 sums) and statistics
+# sweep (the linear sweep without b, a rotation-only warp, 5 sums); pnp_lm.cu's
+# linear sweep (transform, project, chi2, Huber weight, 2x6 J, 27 sums and
+# the robust energy), energy sweep (two transforms and projections),
+# re-classification and final sweep
+TRACK_ENERGY_FLOPS, TRACK_LINEAR_FLOPS, TRACK_STATS_FLOPS = 73, 253, 265
+PNP_LINEAR_FLOPS, PNP_ENERGY_FLOPS, PNP_RECLASS_FLOPS, PNP_FINAL_FLOPS = 227, 64, 32, 219
+TRACK_FROM = 12     # phase 3's track launches kept for phase 13: two from this one on
+PNP_FROM = 20       # phase 5's PnP launches: a frame's two passes from this one on
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+class LMCapture:
+    """Keeps (cloned) the inputs of chosen calls while the paths run: two
+    single-start track_lm launches from launch `start["track_lm"]` on (counted
+    from arming), a frame's two solve_pnp passes from launch
+    `start["pnp_lm"]` on (pass 1, `_project_match_pnp`, and the launch right
+    after it, pass 2, `_local_map_pass2`, named by the active CallSites), the
+    first track_lm launch of more than one start (a recovery battery), the
+    first solve_pnp launch off the map arena (relocalization's EPnP refine),
+    and the odometry's first `track` call from `start["track_lm"]` on."""
+
+    def __init__(self):
+        self.saved: dict[str, list] = {"track_lm": [], "pnp_lm": [], "battery": [],
+                                       "epnp_refine": [], "track": []}
+        self.start: dict[str, int | None] = {"track_lm": None, "pnp_lm": None}
+        self.count = Counter()
+        self.sites: CallSites | None = None
+        self._orig = (tracker.track_lm_cuda, pnp_mod.pnp_lm_cuda, odometry.track)
+
+    def arm(self, name: str, start: int) -> None:
+        self.count[name] = 0
+        self.start[name] = start
+
+    def _armed(self, name: str, k: int) -> bool:
+        return self.start[name] is not None and k >= self.start[name]
+
+    def _track_lm(self, *args):
+        k = self.count["track_lm"]
+        self.count["track_lm"] += 1
+        got = self.saved["track_lm"]
+        if self._armed("track_lm", k) and len(got) < 2 and args[7].shape[0] == 1:
+            got.append((k, _clone(args)))
+        if args[7].shape[0] > 1 and not self.saved["battery"]:
+            self.saved["battery"].append(_clone(args))
+        return self._orig[0](*args)
+
+    def _pnp_lm(self, *args):
+        k = self.count["pnp_lm"]
+        self.count["pnp_lm"] += 1
+        site = None if self.sites is None else self.sites._site
+        got = self.saved["pnp_lm"]
+        if self._armed("pnp_lm", k) and len(got) < 2:
+            pair = len(got) == 1 and k == got[0][0] + 1 and site == "_local_map_pass2"
+            if not pair:
+                got.clear()
+            if pair or site == "_project_match_pnp":
+                got.append((k, site, _clone(args)))
+        if args[0].shape[0] != hybrid.MAP_CAP and not self.saved["epnp_refine"]:
+            self.saved["epnp_refine"].append(_clone(args))
+        return self._orig[1](*args)
+
+    def _track(self, *args, **kw):
+        if not self.saved["track"] and self._armed("track_lm", self.count["track_lm"]):
+            self.saved["track"].append(_clone(args))
+        return self._orig[2](*args, **kw)
+
+    def __enter__(self):
+        tracker.track_lm_cuda, pnp_mod.pnp_lm_cuda = self._track_lm, self._pnp_lm
+        odometry.track = self._track
+        return self
+
+    def __exit__(self, *exc):
+        tracker.track_lm_cuda, pnp_mod.pnp_lm_cuda, odometry.track = self._orig
+
+
+def _texels(grad: torch.Tensor, cam, uv, idepth, R, t) -> int:
+    """Distinct texels the bilinear sampler gathers for the points warped by
+    each pose (R (B, 3, 3), t (B, 3)), as ops/image.py clamps them."""
+    H, W = grad.shape[0], grad.shape[1]
+    X = cam.unproject(uv, idepth)
+    Xj = torch.einsum("bij,pj->bpi", R, X) + t[:, None]
+    uvj, _ = cam.project(Xj)
+    x0 = torch.nan_to_num(torch.clamp(torch.floor(uvj[..., 0]), 0, W - 2), nan=0.0).long()
+    y0 = torch.nan_to_num(torch.clamp(torch.floor(uvj[..., 1]), 0, H - 2), nan=0.0).long()
+    base = (y0 * W + x0).reshape(-1)
+    ids = torch.cat([base, base + 1, base + W, base + W + 1])
+    return int(torch.unique(ids).numel())
+
+
+def track_bound(args, got) -> tuple[float, str, dict]:
+    """Least time of one track_lm call, in ms: the larger of its bytes over
+    the HBM rate and its arithmetic over the f32 rate. Bytes: each level's
+    point data and idepth read once, the texels gathered at the final pose
+    of every hypothesis (12 bytes each), the starts, and the outputs written
+    once; arithmetic: the sweeps the iterations actually run (and track's
+    statistics sweep when the call runs it)."""
+    grads, cams, uv, color, weight, valid, idepth, R0, t0, ab0, abc, cfg = args[:12]
+    stats = len(args) > 12 and args[12]
+    L, P, B = len(grads), idepth.numel(), R0.shape[0]
+    its = got[4].long().cpu()
+    texels = sum(_texels(grads[l], cams[l], uv[l], idepth, got[0], got[1]) for l in range(L))
+    nbytes = (L * P * (8 + 4 + 4 + 1) + P * 4 + 12 * texels + B * 14 * 4 + 8
+              + B * 15 * 4 + B * L * 4 + B * L * cfg.tracker_iters * 12
+              + (B * (4 * 4 + 8 + 36 * 4) if stats else 0))
+    flops = P * float((TRACK_ENERGY_FLOPS * (1 + its) + TRACK_LINEAR_FLOPS * its).sum()
+                      + (B * TRACK_STATS_FLOPS if stats else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops, "texels": texels,
+              "steps": its.tolist() if B <= 2 else int(its.sum())}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def pnp_bound(args) -> tuple[float, str, dict]:
+    """Least time of one pnp_lm call, in ms: matches, starts and outputs
+    read or written once; the sweeps of rounds x iters steps, the
+    re-classifications and the final sweep."""
+    Xw, rounds, iters = args[0], args[7], args[8]
+    N = Xw.shape[0]
+    nbytes = N * (12 + 8 + 1 + 4) + 48 + N + 48 + 8 + 144 + 4 + rounds * iters * 8
+    flops = float(N * (rounds * iters * (PNP_LINEAR_FLOPS + PNP_ENERGY_FLOPS)
+                       + rounds * PNP_RECLASS_FLOPS + PNP_FINAL_FLOPS))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def _lm_times(kernel, plain, bound: float) -> dict:
+    """A kernel's launches a call (torch.profiler), cold and warm times
+    (median of 30), the plain form's (median of 5) and the share of its
+    bound that the cold time reaches."""
+    host, device_ops = launches_per_call(kernel)
+    ms = cuda_ms(kernel)
+    return {"kernel_ms": ms, "kernel_warm_ms": cuda_ms(kernel, cold=False),
+            "plain_ms": cuda_ms(plain, reps=5, warmup=1), "launches_per_call": host,
+            "device_ops_per_call": device_ops, "bound_share": bound / ms}
+
+
+def track_case(name: str, args, card: str) -> dict:
+    """One phase-13 tracker case: the kernel against track_levels_plain on
+    the card (track_lm.parity), one launch a call, its times and bound."""
+    before = track_lm.track_lm_cuda.launches
+    got = track_lm.track_lm_cuda(*args)
+    torch.cuda.synchronize()
+    calls = track_lm.track_lm_cuda.launches - before
+    want = tracker.track_levels_plain(*args)
+    rep = track_lm.parity(got, want, args[11])
+    bound, by, detail = track_bound(args, got)
+    row = {"case": name, "B": args[7].shape[0], "levels": len(args[0]), "P": args[6].numel(),
+           "stats": got[6] is not None,
+           "parity": rep, "steps": got[4].cpu().tolist() if args[7].shape[0] <= 2 else None,
+           "plain_steps": want[4].cpu().tolist() if args[7].shape[0] <= 2 else None,
+           **_lm_times(lambda: track_lm.track_lm_cuda(*args),
+                       lambda: tracker.track_levels_plain(*args), bound),
+           "bound_ms": bound, "bound_by": by, "bound_detail": detail,
+           "max_abs_err": max(rep["max_err"]["R"], rep["max_err"]["t"]), "card": card}
+    print(json.dumps(row))
+    for c in rep["diverged"]:
+        print(f"  {name}: hypothesis {c['hypothesis']} took steps {c['steps']} against the "
+              f"plain form's {c['plain_steps']}: first differing decision {c}")
+    require(calls == 1 and row["launches_per_call"] == 1,
+            f"{name}: {calls} counted / {row['launches_per_call']} profiled launches a call")
+    require(rep["ok"], f"track_lm != plain on {name}: {rep}")
+    require(row["bound_share"] <= 1.0, f"{name}: under its bound: the bound is wrong")
+    return row
+
+
+def pnp_case(name: str, args, card: str) -> dict:
+    """One phase-13 PnP case: the kernel against pnp_lm_plain on the card
+    (pnp_lm.parity), one launch a call, its times and bound."""
+    before = pnp_lm.pnp_lm_cuda.launches
+    got = pnp_lm.pnp_lm_cuda(*args)
+    torch.cuda.synchronize()
+    calls = pnp_lm.pnp_lm_cuda.launches - before
+    want = pnp_mod.pnp_lm_plain(*args)
+    rep = pnp_lm.parity(got, want, *args[:4], args[6])
+    bound, by, detail = pnp_bound(args)
+    row = {"case": name, "N": args[0].shape[0], "valid": int(args[2].sum()),
+           "inliers": int(got[3]), "plain_inliers": int(want[3]), "parity": rep,
+           **_lm_times(lambda: pnp_lm.pnp_lm_cuda(*args),
+                       lambda: pnp_mod.pnp_lm_plain(*args), bound),
+           "bound_ms": bound, "bound_by": by, "bound_detail": detail,
+           "max_abs_err": max(rep["max_err"]["R"], rep["max_err"]["t"]), "card": card}
+    print(json.dumps(row))
+    if rep["first_step_differing"] or rep["classes_differing"]:
+        print(f"  {name}: differs at a decision: {rep['first_step_differing']}, "
+              f"classes {rep['classes_differing']}")
+    require(calls == 1 and row["launches_per_call"] == 1,
+            f"{name}: {calls} counted / {row['launches_per_call']} profiled launches a call")
+    require(rep["ok"], f"pnp_lm != plain on {name}: {rep}")
+    require(row["bound_share"] <= 1.0, f"{name}: under its bound: the bound is wrong")
+    return row
+
+
+def _syncs(fn) -> dict:
+    """Host waits, copies and enqueued device operations of one call of
+    `fn` (torch.profiler), less those of profiling an empty call (the
+    profiler synchronizes the device when it stops)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def count(f) -> Counter:
+        f()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            f()
+        return Counter(e.name for e in prof.events()
+                       if e.device_type.name == "CPU" and e.name in SYNC_CALLS + COPY_CALLS
+                       + ENQUEUE_CALLS)
+
+    counts = count(fn)
+    counts.subtract(count(lambda: None))
+    return {"syncs": sum(counts[k] for k in SYNC_CALLS),
+            "memcpys": sum(counts[k] for k in COPY_CALLS),
+            "enqueues": sum(counts[k] for k in ENQUEUE_CALLS)}
+
+
+def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
+    """Phase 13: the two LM kernels against their plain forms on the card, at
+    inputs captured in phases 3, 5 and 6, and the all-invalid cases; the
+    public track / track_multi on a captured frame (the all-invalid probe
+    finite; host waits a call)."""
+    require(len(cap.saved["track_lm"]) == 2, "phase 3's track calls not captured")
+    require(len(cap.saved["pnp_lm"]) == 2, "phase 5's two PnP passes of a frame not captured")
+    require(cap.saved["track"], "no odometry track call captured")
+    t_rows, p_rows = [], []
+    for k, args in cap.saved["track_lm"]:
+        t_rows.append(track_case(f"track, phase-3 launch {k} ({len(args[0])} levels, B 1)",
+                                 args, card))
+    # the recovery battery of _frame_step about the first captured start:
+    # motion_hypotheses(T_init, T_zero = T_init, T_extra = T_init), the two
+    # coarse levels (starts 0, 5 and 6 identical: an exact energy tie)
+    k0, args = cap.saved["track_lm"][0]
+    T0 = SE3(R=args[7][0], t=args[8][0])
+    H = tracker.motion_hypotheses(T0, T0, T_extra=T0)
+    B = H.t.shape[0]
+    battery = (*(a[:2] for a in args[:6]), args[6], H.R.contiguous(), H.t.contiguous(),
+               args[9][:1].expand(B, 2).contiguous(), args[10], args[11], False)
+    row = track_case(f"track_multi battery about phase-3 launch {k0} (2 levels, B {B})",
+                     battery, card)
+    E = tracker.track_levels_plain(*battery)[3]
+    row["tie"] = {"E0": float(E[0]), "E5": float(E[5]), "E6": float(E[6])}
+    t_rows.append(row)
+    if cap.saved["battery"]:
+        t_rows.append(track_case("track_multi battery, the first run in phases 3-6",
+                                 cap.saved["battery"][0], card))
+    dead = (*args[:5], [torch.zeros_like(v) for v in args[5]], *args[6:])
+    t_rows.append(track_case("track, all points invalid", dead, card))
+    for (k, site, args), name in zip(cap.saved["pnp_lm"], ("pass 1", "pass 2")):
+        p_rows.append(pnp_case(f"solve_pnp {name} ({site}), phase-5 launch {k} "
+                               f"(N {args[0].shape[0]})", args, card))
+    args = cap.saved["pnp_lm"][0][2]
+    p_rows.append(pnp_case("solve_pnp, all matches invalid",
+                           (*args[:2], torch.zeros_like(args[2]), *args[3:]), card))
+    if cap.saved["epnp_refine"]:
+        args = cap.saved["epnp_refine"][0]
+        p_rows.append(pnp_case(f"EPnP refine, phase 6 (N {args[0].shape[0]})", args, card))
+
+    # the public entry points on the captured frame, on the card
+    grad_pyr, cam, ref, T_init, ab0, cfg = cap.saved["track"][0]
+    probe = tracker.track(grad_pyr, cam, ref.replace(valid=torch.zeros_like(ref.valid)),
+                          T_init, ab0, cfg)
+    finite = bool(torch.isfinite(probe.T_ji.t).all() and torch.isfinite(probe.T_ji.R).all())
+    require(finite and int(probe.num_valid) == 0 and float(probe.energy) == 0.0,
+            "the all-invalid probe is not finite on the card")
+    Hs = tracker.motion_hypotheses(T_init, T_init, T_extra=T_init)
+    before = track_lm.track_lm_cuda.launches
+    tracker.track_multi(grad_pyr, cam, ref, Hs, ab0, cfg)
+    torch.cuda.synchronize()
+    multi_launches = track_lm.track_lm_cuda.launches - before
+    public = {"all_invalid_finite": finite, "track_multi_launches": multi_launches,
+              "track": _syncs(lambda: tracker.track(grad_pyr, cam, ref, T_init, ab0, cfg)),
+              "track_multi": _syncs(lambda: tracker.track_multi(grad_pyr, cam, ref, Hs, ab0,
+                                                                cfg)),
+              "solve_pnp": _syncs(lambda: pnp_lm.pnp_lm_cuda(*cap.saved["pnp_lm"][0][2]))}
+    print(json.dumps({"phase": "lm_public", **public}))
+    require(multi_launches == 2, f"track_multi made {multi_launches} track_lm launches")
+    for name in ("track", "track_multi", "solve_pnp"):
+        require(public[name]["syncs"] == 0 and public[name]["memcpys"] == 0,
+                f"{name} waits for the device: {public[name]}")
+    return t_rows, p_rows, public
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1111,9 +1469,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    path, secs, log = hm.build(verbose=True)
-    print(f"built hamming_resolve: {path.name} in {secs:.1f} s")
-    print(log.strip())
+    t0 = time.perf_counter()
+    for path, secs, log in kernel_build.build_many(kernel_build.SOURCES, verbose=True):
+        print(f"built {path.name} in {secs:.1f} s")
+        print(log.strip())
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
 
     t0 = time.perf_counter()
     cam, traj, frames = wl.render_frames(dev, N_DIRECT)
@@ -1127,21 +1487,25 @@ def main() -> int:
     rows, max_err = kernel_vs_plain(dev, card, popc_rate, phase4_args)
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    direct, direct_snap = direct_phase(dev, cam, traj, frames)
-    print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    hyb = hybrid_phase(dev, cam, traj, frames)
-    print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
-
-    with CallSites() as sites:
+    with LMCapture() as cap:
+        cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
-        full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
-        print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
+        direct, direct_snap = direct_phase(dev, cam, traj, frames)
+        print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
+
         t0 = time.perf_counter()
-        reloc = relocalization_phase(dev, cam, traj, frames, sites)
-        print(f"phase 6 (relocalization) {time.perf_counter() - t0:.1f} s")
+        hyb = hybrid_phase(dev, cam, traj, frames)
+        print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
+
+        cap.arm("pnp_lm", PNP_FROM)
+        with CallSites() as sites:
+            cap.sites = sites
+            t0 = time.perf_counter()
+            full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
+            print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            reloc = relocalization_phase(dev, cam, traj, frames, sites)
+            print(f"phase 6 (relocalization) {time.perf_counter() - t0:.1f} s")
     real = {"_epipolar_triangulate": "1536x1536 first keyframe's epipolar band (phase 5)",
             "match_descriptors": "1536x1536 relocalization match_descriptors (phase 6)"}
     for site, name in real.items():
@@ -1192,6 +1556,10 @@ def main() -> int:
     max_err = max(max_err, row["max_abs_err"])
     print(f"phase 12 (sharded BA, match_ratio) {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    t_rows, p_rows, lm_public = lm_phase(cap, card)
+    print(f"phase 13 (LM kernels) {time.perf_counter() - t0:.1f} s")
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
     staged_row = next(r for r in rows if r["case"] == STAGED_CASE)
@@ -1230,12 +1598,41 @@ def main() -> int:
                                                        "live_entries", "max_abs_err")},
         "launches_per_site": {m: staged[m]["launches_per_site"] for m in staged},
     }]
+    runs = {"direct": direct["kernel_launches"], "hybrid": full["lm_launches"],
+            "relocalization": reloc["lm_launches"], "cli_modslam": entry["lm_launches"],
+            "repeat_resume_hybrid": repeat["hybrid"]["lm_launches"],
+            "repeat_resume_direct": repeat["direct"]["lm_launches"],
+            "direct_pipelined": pipe_direct["lm_launches"],
+            "hybrid_pipelined": staged["pipelined"]["lm_launches"],
+            "hybrid_staged": staged["staged"]["lm_launches"],
+            "calib_slam": calib["lm_launches"],
+            "sharded_direct": sharded["direct"]["lm_launches"],
+            "sharded_hybrid": sharded["hybrid"]["lm_launches"]}
+    keys = ("kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "launches_per_call", "max_abs_err")
+    for name, source, replaces, rows in (
+            ("track_lm", "libcml_tpu_torch/csrc/track_lm.cu",
+             "libcml_tpu/models/direct/tracker.py:118", t_rows),
+            ("pnp_lm", "libcml_tpu_torch/csrc/pnp_lm.cu",
+             "libcml_tpu/models/indirect/pnp.py:64", p_rows)):
+        by_path = {k: v[name] for k, v in runs.items() if v[name]}
+        if name == "pnp_lm":
+            by_path["hybrid_tracking"] = hyb["lm_launches"]["pnp_lm"]
+        main_row = rows[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
                       "hybrid_pipelined": staged["pipelined"],
                       "hybrid_staged": staged["staged"], "calib": calib,
-                      "sharded": sharded, "match_ratio": ratio}))
+                      "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,10 @@ Same SLAM model, same numpy inputs, same outputs and the same state layout
 plain PyTorch functions on tensors with an explicit `device` everywhere.
 The one hand-written TPU kernel of the JAX package (the fused masked-Hamming
 match resolution) is a hand-written CUDA kernel here
-(`ops/hamming_match.py`, `csrc/hamming_match.cu`).
+(`ops/hamming_match.py`, `csrc/hamming_match.cu`), and so are the JAX
+package's two device LM loops, the direct tracker's (`ops/track_lm.py`,
+`csrc/track_lm.cu`) and motion-only PnP's (`ops/pnp_lm.py`,
+`csrc/pnp_lm.cu`).
 
 Device rule: entry points run on the CUDA card unless the caller passes
 `device="cpu"`; without CUDA they raise instead of carrying on on the CPU

@@ -5,15 +5,16 @@ DSOTracker: src/cml/optimization/dso/DSOTracker.cpp:15 optimize, :421-470
 8x8 Hessian accumulation, :93-100 LM damping + solve). Each LM iteration is
 one batched residual sweep over the whole point arena per pyramid level.
 
-The JAX package ends a level with `lax.while_loop` on a `done` flag. Here the
-loop runs at most `tracker_iters` times with every update masked by `~done`
-(so a finished level is frozen exactly as the while loop leaves it) and stops
-as soon as `done` holds, at the cost of one host read per iteration. Running
-all `tracker_iters` iterations instead needs no read but spends ~480 kernel
-launches on each iteration it would have skipped. In one A/B on an H100 the
-two gave the same trajectory, and their frame rates differed by less than
-repeated runs of either (PERF.md): unresolved, so the read stays.
-`track_multi` runs its hypotheses one after another, each with its own reads.
+The JAX package runs each level's LM as a `lax.while_loop` on a device
+`done` flag and vmaps the hypotheses of `track_multi`. Here, on the card,
+`track` runs its levels and `track_multi` its coarse battery (grid = the
+hypotheses) as one launch each of a hand-written kernel (ops/track_lm.py,
+csrc/track_lm.cu) that ends every level on the device; the battery's winner
+is picked by `torch.argmin` on the device. No host read sits inside the
+loops; `track`'s statistics sweep at level 0 runs in the same launch. On
+the CPU `track_levels_plain` runs the same schedule (each level at most
+`tracker_iters` iterations, stopping when `done` holds) and
+`track_stats_plain` the statistics.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from libcml_tpu_torch.models.direct.residuals import (
     rel_pose_jacobian,
 )
 from libcml_tpu_torch.ops.image import bilinear
+from libcml_tpu_torch.ops.track_lm import track_lm_cuda
 
 
 @dataclasses.dataclass
@@ -114,7 +116,7 @@ def _solve_scaled(H: torch.Tensor, b: torch.Tensor, lam: torch.Tensor,
     return dx * s
 
 
-def _track_level(
+def _track_level_plain(
     grad_j: torch.Tensor,
     cam_l: PinholeCamera,
     uv: torch.Tensor,
@@ -127,7 +129,9 @@ def _track_level(
     cfg: DirectConfig,
     ab_center: torch.Tensor | None = None,
 ):
-    """At most cfg.tracker_iters LM iterations at one pyramid level."""
+    """At most cfg.tracker_iters LM iterations at one pyramid level.
+    Returns (T, ab, E, steps run, trace (tracker_iters, 3): each step's E,
+    E_new and |dx|, NaN past the last step)."""
     dev = uv.device
     weight = torch.where(valid[:, None], weight, torch.zeros_like(weight))
 
@@ -148,7 +152,9 @@ def _track_level(
     E = total_energy(T0, ab0)
     lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(cfg.tracker_iters):
+    trace = torch.full((cfg.tracker_iters, 3), float("nan"), device=dev)
+    it = -1
+    for it in range(cfg.tracker_iters):
         ev = evaluate_residuals(
             grad_j, cam_l, uv, idepth, color, weight, T, ab[0], ab[1],
             huber_k=cfg.huber_intensity, cutoff=cfg.tracker_cutoff,
@@ -165,6 +171,7 @@ def _track_level(
         ab_new = ab - dx[6:]
         E_new = total_energy(T_new, ab_new)
         accept = E_new < E
+        E_before = E
         step = ~done
         take = accept & step
         T = se3_select(take, T_new, T)
@@ -174,12 +181,64 @@ def _track_level(
                               torch.clamp(lam * 4.0, max=1e2))
         lam = torch.where(step, lam_new, lam)
         # convergence early-exit (reference: DSOTracker.cpp:101-110)
-        done_now = (accept & (torch.linalg.norm(dx) < cfg.tracker_converge_eps)) | (
+        step_norm = torch.linalg.norm(dx)
+        trace[it] = torch.stack([E_before, E_new, step_norm])
+        done_now = (accept & (step_norm < cfg.tracker_converge_eps)) | (
             ~accept & (lam_new >= 1e2 - 1e-6))
         done = done | (step & done_now)
         if bool(done):
             break
-    return T, ab, E
+    return T, ab, E, it + 1, trace
+
+
+def track_levels_plain(grads, cams, uv, color, weight, valid, idepth: torch.Tensor,
+                       R0: torch.Tensor, t0: torch.Tensor, ab0: torch.Tensor,
+                       ab_center: torch.Tensor, cfg: DirectConfig, stats: bool = False):
+    """The plain PyTorch form of the tracker kernel (ops/track_lm.py,
+    csrc/track_lm.cu), with its arguments and outputs: per hypothesis b,
+    _track_level_plain over the listed levels in turn from (R0[b], t0[b],
+    ab0[b]). Returns (R (B, 3, 3), t (B, 3), ab (B, 2), E (B,), steps run
+    (B, levels) int32, trace (B, levels, tracker_iters, 3), stats): with
+    `stats`, track_stats_plain at the last level from each result, each
+    output with a leading B; else None."""
+    out, st = [], []
+    for h in range(R0.shape[0]):
+        T, ab = SE3(R=R0[h], t=t0[h]), ab0[h]
+        E = torch.zeros((), dtype=torch.float32, device=ab0.device)
+        its, traces = [], []
+        for l in range(len(grads)):
+            T, ab, E, it, trace = _track_level_plain(
+                grads[l], cams[l], uv[l], idepth, color[l], weight[l], valid[l], T, ab, cfg,
+                ab_center=ab_center)
+            its.append(it)
+            traces.append(trace)
+        out.append((T.R, T.t, ab, E, torch.tensor(its, dtype=torch.int32, device=ab0.device),
+                    torch.stack(traces)))
+        if stats:
+            st.append(track_stats_plain(grads[-1], cams[-1], uv[-1], idepth, color[-1],
+                                        weight[-1], valid[-1], T, ab, cfg))
+    stacked = tuple(torch.stack(x) for x in zip(*out))
+    return (*stacked, tuple(torch.stack(x) for x in zip(*st)) if stats else None)
+
+
+def _track_levels(new_grad_pyr, cam0: PinholeCamera, ref: TrackerRef, levels,
+                  R0: torch.Tensor, t0: torch.Tensor, ab0: torch.Tensor,
+                  ab_center: torch.Tensor, cfg: DirectConfig, stats: bool = False):
+    """The LM of `levels` (in order) for the B hypotheses (R0, t0, ab0), and
+    with `stats` track's statistics at the last level: one kernel launch for
+    CUDA tensors, track_levels_plain for CPU tensors. Returns
+    track_levels_plain's tuple."""
+    args = ([new_grad_pyr[l] for l in levels], [cam0.level(l) for l in levels],
+            [ref.uv[l] for l in levels], [ref.color[l] for l in levels],
+            [ref.weight[l] for l in levels], [ref.valid[l] for l in levels])
+    rest = (ref.idepth, R0, t0, ab0, ab_center)
+    if R0.is_cuda:
+        return track_lm_cuda([g.contiguous() for g in args[0]], args[1],
+                             *([x.contiguous() for x in xs] for xs in args[2:]),
+                             *(x.contiguous() for x in rest), cfg, stats)
+    if R0.device.type == "cpu":
+        return track_levels_plain(*args, *rest, cfg, stats)
+    raise ValueError(f"tracker: unsupported device {R0.device}")
 
 
 def motion_hypotheses(T_pred: SE3, T_zero: SE3, n_rot: int = 8,
@@ -219,25 +278,23 @@ def track_multi(
     every hypothesis at the TWO coarsest levels, pick the winner by achieved
     energy (first on ties, as argmin), then finish the standard coarse-to-fine
     track from it. Each hypothesis runs with its own early exit, as under the
-    JAX package's vmap."""
+    JAX package's vmap; on the card the battery is one kernel launch."""
     L = len(new_grad_pyr)
     levels = [min(L - 1, 1), 0] if L == 1 else [L - 1, L - 2]
+    B = T_inits.t.shape[0]
+    R, t, ab, E, _, _, _ = _track_levels(new_grad_pyr, cam0, ref, levels, T_inits.R,
+                                         T_inits.t, ab_init.expand(B, 2), ab_init, cfg)
+    T_best, ab_best = _best_hypothesis(R, t, ab, E)
+    return track(new_grad_pyr, cam0, ref, T_best, ab_best, cfg)
 
-    Ts, abs_, Es = [], [], []
-    for h in range(T_inits.t.shape[0]):
-        T, ab = T_inits.index(h), ab_init
-        E = torch.zeros((), dtype=torch.float32, device=ab_init.device)
-        for l in levels:
-            T, ab, E = _track_level(
-                new_grad_pyr[l], cam0.level(l), ref.uv[l], ref.idepth,
-                ref.color[l], ref.weight[l], ref.valid[l], T, ab, cfg,
-                ab_center=ab_init,
-            )
-        Ts.append(T)
-        abs_.append(ab)
-        Es.append(E)
-    best = int(torch.argmin(torch.stack(Es)))
-    return track(new_grad_pyr, cam0, ref, Ts[best], abs_[best], cfg)
+
+def _best_hypothesis(R: torch.Tensor, t: torch.Tensor, ab: torch.Tensor,
+                     E: torch.Tensor) -> tuple[SE3, torch.Tensor]:
+    """The start of least energy, the first of a tie as jnp.argmin, picked
+    and gathered on the device (no host read). Returns (pose, ab)."""
+    best = torch.argmin(E).reshape(1)
+    return (SE3(R=R.index_select(0, best)[0], t=t.index_select(0, best)[0]),
+            ab.index_select(0, best)[0])
 
 
 def track(
@@ -249,54 +306,54 @@ def track(
     cfg: DirectConfig,
 ) -> TrackResult:
     """Track a new frame against the reference keyframe point set,
-    coarse-to-fine, then one statistics sweep at level 0."""
+    coarse-to-fine, then one statistics sweep at level 0 (on the card all of
+    it one kernel launch)."""
     num_levels = len(new_grad_pyr)
-    T, ab = T_init, ab_init
-    for l in range(num_levels - 1, -1, -1):
-        T, ab, _ = _track_level(
-            new_grad_pyr[l], cam0.level(l),
-            ref.uv[l], ref.idepth, ref.color[l], ref.weight[l], ref.valid[l],
-            T, ab, cfg, ab_center=ab_init,
-        )
+    R, t, ab, _, _, _, st = _track_levels(new_grad_pyr, cam0, ref,
+                                          range(num_levels - 1, -1, -1), T_init.R[None],
+                                          T_init.t[None], ab_init[None], ab_init, cfg,
+                                          stats=True)
+    energy, num_valid, cov_pose, flow, flow_no_trans, saturated = (x[0] for x in st)
+    return TrackResult(T_ji=SE3(R=R[0], t=t[0]), ab=ab[0], energy=energy,
+                       num_valid=num_valid, cov_pose=cov_pose, flow=flow,
+                       flow_no_trans=flow_no_trans, saturated=saturated)
 
-    cam_l0 = cam0.level(0)
-    w0 = torch.where(ref.valid[0][:, None], ref.weight[0],
-                     torch.zeros_like(ref.weight[0]))
+
+def track_stats_plain(grad0: torch.Tensor, cam_l0: PinholeCamera, uv: torch.Tensor,
+                      idepth: torch.Tensor, color: torch.Tensor, weight: torch.Tensor,
+                      valid: torch.Tensor, T: SE3, ab: torch.Tensor, cfg: DirectConfig):
+    """track's statistics sweep at level 0 from the tracked (T, ab): (energy,
+    num_valid, cov_pose (6, 6), flow, flow_no_trans, saturated)."""
+    w0 = torch.where(valid[:, None], weight, torch.zeros_like(weight))
     ev = evaluate_residuals(
-        new_grad_pyr[0], cam_l0, ref.uv[0], ref.idepth, ref.color[0], w0,
+        grad0, cam_l0, uv, idepth, color, w0,
         T, ab[0], ab[1], huber_k=cfg.huber_intensity, cutoff=cfg.tracker_cutoff,
         pattern=PATTERN_CENTER,
     )
-    ok = ev.valid & ref.valid[0]
+    ok = ev.valid & valid
     n = torch.clamp(torch.sum(ok), min=1)
 
-    J = rel_pose_jacobian(ev, ref.color[0])
+    J = rel_pose_jacobian(ev, color)
     H, _, _ = gauss_newton_system(J, ev.r, ev.w)
     H = H + 1e-6 * torch.eye(8, dtype=H.dtype, device=H.device)
     cov_full, _ = torch.linalg.inv_ex(H)
     cov_pose = cov_full[:6, :6]
 
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
-    flow_sq = torch.sum((ev.uv_j - ref.uv[0]) ** 2, dim=-1)
+    flow_sq = torch.sum((ev.uv_j - uv) ** 2, dim=-1)
     flow = torch.sqrt(torch.sum(torch.where(ok, flow_sq, zero)) / n)
     # rotation-only flow: warp with translation zeroed
     T_rot = SE3(R=T.R, t=torch.zeros_like(T.t))
     ev_rot = evaluate_residuals(
-        new_grad_pyr[0], cam_l0, ref.uv[0], ref.idepth, ref.color[0], w0,
+        grad0, cam_l0, uv, idepth, color, w0,
         T_rot, ab[0], ab[1], huber_k=cfg.huber_intensity, cutoff=cfg.tracker_cutoff,
         pattern=PATTERN_CENTER,
     )
-    flow_rot_sq = torch.sum((ev_rot.uv_j - ref.uv[0]) ** 2, dim=-1)
+    flow_rot_sq = torch.sum((ev_rot.uv_j - uv) ** 2, dim=-1)
     flow_no_trans = torch.sqrt(torch.sum(torch.where(ok, flow_rot_sq, zero)) / n)
 
     # saturation = residuals pinned at the hard cutoff
     sat_r = torch.abs(ev.r[:, 0]) >= 0.98 * cfg.tracker_cutoff
     saturated = torch.sum(ok & sat_r) / n
-
-    return TrackResult(
-        T_ji=T, ab=ab,
-        energy=torch.sum(torch.where(ok, ev.energy, zero)) / n,
-        num_valid=torch.sum(ok),
-        cov_pose=cov_pose, flow=flow, flow_no_trans=flow_no_trans,
-        saturated=saturated,
-    )
+    energy = torch.sum(torch.where(ok, ev.energy, zero)) / n
+    return energy, torch.sum(ok), cov_pose, flow, flow_no_trans, saturated

@@ -5,7 +5,9 @@ IndirectCameraOptimizer, src/cml/optimization/g2o/
 IndirectCameraOptimizer.cpp:4,201 — 4 rounds x 10 LM iterations with chi2
 outlier re-classification between rounds, 6x6 pose covariance). Every edge
 is unary, so the normal equations are one (N, 2, 6) Jacobian batch reduced
-by einsum; the accept/reject tests stay on the device.
+by einsum (`pnp_lm_plain`); the accept/reject tests stay on the device. On
+the card the whole solve is one launch of a hand-written kernel
+(ops/pnp_lm.py, csrc/pnp_lm.cu).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from libcml_tpu_torch.core.camera import PinholeCamera
 from libcml_tpu_torch.core.lie import SE3, se3_exp, se3_select, skew
+from libcml_tpu_torch.ops.pnp_lm import pnp_lm_cuda
 
 _CHI2_2D = 5.991  # 95% chi2 with 2 dof (the reference's threshold)
 
@@ -58,27 +61,22 @@ def _robust_energy(chi2: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(ok, e, torch.zeros_like(e)))
 
 
-def solve_pnp(
-    Xw: torch.Tensor,          # (N, 3) world points
-    uv: torch.Tensor,          # (N, 2) observed pixels
-    valid: torch.Tensor,       # (N,) candidate mask
-    T_init: SE3,
-    cam: PinholeCamera,
-    sigma2: torch.Tensor | float = 1.0,   # per-match measurement variance (px^2)
-    rounds: int = 4,
-    iters_per_round: int = 10,
-) -> PnPResult:
-    """Motion-only PnP with per-round chi2 outlier reclassification."""
+def pnp_lm_plain(Xw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
+                 sigma2: torch.Tensor, R0: torch.Tensor, t0: torch.Tensor,
+                 cam: PinholeCamera, rounds: int, iters: int):
+    """The plain PyTorch form of the PnP kernel (ops/pnp_lm.py,
+    csrc/pnp_lm.cu): the same arguments (sigma2 (N,)) and outputs (R, t,
+    inlier, num_inliers, cov, chi2, trace (rounds, iters, 2): each step's E
+    and E_new)."""
     dev = Xw.device
-    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32)
-    sigma2 = (sigma2 if sigma2.device == dev else sigma2.to(dev)).expand(Xw.shape[:1])
     w_meas = 1.0 / sigma2
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
-    T, inlier = T_init, valid
+    T, inlier = SE3(R=R0, t=t0), valid
+    trace = []
     for _ in range(rounds):
         lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
-        for _ in range(iters_per_round):
+        for _ in range(iters):
             r, Xc, z_ok = _residuals(T, Xw, uv, cam)
             ok = inlier & z_ok
             chi2 = torch.sum(r * r, -1) * w_meas
@@ -100,6 +98,7 @@ def solve_pnp(
             T = se3_select(accept, T_new, T)
             lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
                               torch.clamp(lam * 4.0, max=1e3))
+            trace.append(torch.stack([E, E_new]))
         # re-classify on the UN-robustified chi2 (reference does exactly this
         # between its 4 optimize() calls)
         r, _, z_ok = _residuals(T, Xw, uv, cam)
@@ -113,7 +112,37 @@ def solve_pnp(
     cov, _ = torch.linalg.inv_ex(H)
     chi2 = torch.sum(torch.where(inlier, torch.sum(r * r, -1) * w_meas,
                                  torch.zeros_like(w_meas)))
-    return PnPResult(T=T, inlier=inlier, num_inliers=torch.sum(inlier), cov=cov, chi2=chi2)
+    trace = (torch.stack(trace) if trace else torch.zeros((0, 2), device=dev)).reshape(
+        rounds, iters, 2)
+    return T.R, T.t, inlier, torch.sum(inlier), cov, chi2, trace
+
+
+def solve_pnp(
+    Xw: torch.Tensor,          # (N, 3) world points
+    uv: torch.Tensor,          # (N, 2) observed pixels
+    valid: torch.Tensor,       # (N,) candidate mask
+    T_init: SE3,
+    cam: PinholeCamera,
+    sigma2: torch.Tensor | float = 1.0,   # per-match measurement variance (px^2)
+    rounds: int = 4,
+    iters_per_round: int = 10,
+) -> PnPResult:
+    """Motion-only PnP with per-round chi2 outlier reclassification: the
+    kernel (one launch, no host read) for CUDA tensors, `pnp_lm_plain` for
+    CPU tensors."""
+    dev = Xw.device
+    sigma2 = torch.as_tensor(sigma2, dtype=torch.float32)
+    sigma2 = (sigma2 if sigma2.device == dev else sigma2.to(dev)).expand(Xw.shape[:1])
+    args = (Xw, uv, valid, sigma2, T_init.R, T_init.t)
+    if dev.type == "cuda":
+        out = pnp_lm_cuda(*(x.contiguous() for x in args), cam, rounds, iters_per_round)
+    elif dev.type == "cpu":
+        out = pnp_lm_plain(*args, cam, rounds, iters_per_round)
+    else:
+        raise ValueError(f"solve_pnp: unsupported device {dev}")
+    R, t, inlier, num_inliers, cov, chi2, _ = out
+    return PnPResult(T=SE3(R=R, t=t), inlier=inlier, num_inliers=num_inliers, cov=cov,
+                     chi2=chi2)
 
 
 def triangulate_linear(uv0: torch.Tensor, uv1: torch.Tensor, T_10: SE3,

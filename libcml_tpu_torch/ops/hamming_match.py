@@ -19,77 +19,28 @@ row, and the best row per column (mutual cross-check). A masked entry counts
                          falls back: a kernel that fails to build or launch
                          raises.
 
-The kernel is compiled with nvcc on first use into `_build/` beside this
-package (a shared library with a plain C interface, bound with ctypes).
+The kernel is compiled with nvcc on first use (ops/kernel_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from libcml_tpu_torch.models.indirect.orb import hamming_matrix
+from libcml_tpu_torch.ops import kernel_build as kb
+from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 MASKED = 257  # > the largest Hamming distance over 256 bits
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hamming_match.cu"
-BUILD_DIR = _PKG / "_build"
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SOURCE = kb.CSRC / "hamming_match.cu"
 
 
-class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused the kernel source."""
+def build(verbose: bool = False):
+    """Compile the kernel if its library is missing (kernel_build.build_many)."""
+    return kb.build_many([SOURCE], verbose)[0]
 
-
-class KernelLaunchError(RuntimeError):
-    """The CUDA launch returned an error."""
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def library_path() -> Path:
-    """The shared library's path, keyed by the source's content hash."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libhamming_match-{digest}.so"
-
-
-def build(verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile the kernel if its library is missing. Returns (library path,
-    seconds spent compiling (0.0 when already built), compiler output —
-    ptxas register/shared-memory report when `verbose`)."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: concurrent builders never see a partial file
-    return lib, seconds, proc.stdout + proc.stderr
-
-
-_LIB: ctypes.CDLL | None = None
 
 # the kernel's work units (csrc/hamming_match.cu): rows per row group and the
 # most columns per column chunk, with and without a pair mask
@@ -102,16 +53,8 @@ COL_INIT = MASKED << 32          # an untouched column key: (257, row 0)
 
 
 def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.hamming_resolve_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 8)
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+    return kb.load(SOURCE, "hamming_resolve_launch",
+                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
 
 
 def plan(N: int, M: int, has_pair: bool, sms: int) -> tuple[int, int, int]:
@@ -144,17 +87,6 @@ def _scratch(dev: torch.device, stream: int, M: int, n_tickets: int):
     return cols, tickets
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, dtype: torch.dtype, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def hamming_resolve_cuda(desc_q: torch.Tensor, mask_q: torch.Tensor,
                          desc_t: torch.Tensor, mask_t: torch.Tensor,
                          pair_mask: torch.Tensor | None = None):
@@ -169,12 +101,12 @@ def hamming_resolve_cuda(desc_q: torch.Tensor, mask_q: torch.Tensor,
     N, M = desc_q.shape[0], desc_t.shape[0]
     if N == 0 or M == 0:
         raise ValueError("hamming_resolve_cuda needs at least one query and one train row")
-    _check("desc_q", desc_q, (N, 8), torch.int32, dev)
-    _check("mask_q", mask_q, (N,), torch.bool, dev)
-    _check("desc_t", desc_t, (M, 8), torch.int32, dev)
-    _check("mask_t", mask_t, (M,), torch.bool, dev)
+    kb.check_tensor("desc_q", desc_q, (N, 8), torch.int32, dev)
+    kb.check_tensor("mask_q", mask_q, (N,), torch.bool, dev)
+    kb.check_tensor("desc_t", desc_t, (M, 8), torch.int32, dev)
+    kb.check_tensor("mask_t", mask_t, (M,), torch.bool, dev)
     if pair_mask is not None:
-        _check("pair_mask", pair_mask, (N, M), torch.bool, dev)
+        kb.check_tensor("pair_mask", pair_mask, (N, M), torch.bool, dev)
     if desc_q.data_ptr() % 16 or desc_t.data_ptr() % 16:
         raise ValueError("descriptors must be 16-byte aligned")
     lib = _library()

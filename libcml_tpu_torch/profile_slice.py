@@ -18,7 +18,9 @@ spans for the profiled windows only; a stage's numbers include the stages
 nested in it. A stage's device time is that of the work its CUDA runtime
 calls enqueued, matched by their correlation ids, so a kernel launched
 through ctypes (the hand-written kernels) counts as well as one launched by
-a torch operator. A Chrome trace of each window goes under `--out`. Needs a
+a torch operator; `track_lm` and `pnp_lm` are the LM kernels' launches
+(inside `track`, `track_multi` and `solve_pnp`). A Chrome trace of each
+window goes under `--out`. Needs a
 CUDA card; exits non-zero without one.
 """
 
@@ -37,7 +39,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.models.direct import ba, tracker
-from libcml_tpu_torch.models.indirect import matching
+from libcml_tpu_torch.models.indirect import matching, pnp
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
@@ -52,6 +54,7 @@ LAUNCH_OPS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 HYB = hybrid.HybridOdometry
 STAGES = (
     (odometry, "track", "track"), (odometry, "track_multi", "track_multi"),
+    (tracker, "track_lm_cuda", "track_lm"),
     (tracker, "evaluate_residuals", "evaluate_residuals"), (tracker, "se3_exp", "se3_exp"),
     (odometry, "trace_immatures_rows", "trace_immatures_rows"),
     (odometry, "_kf_insert_and_ba", "_kf_insert_and_ba"),
@@ -68,6 +71,7 @@ STAGES = (
     (HYB, "_complete_indirect_local_ba", "time_local_ba"),
     (hybrid, "match_projection", "match_projection"),
     (matching, "hamming_resolve", "hamming_resolve"), (hybrid, "solve_pnp", "solve_pnp"),
+    (pnp, "pnp_lm_cuda", "pnp_lm"),
 )
 
 
