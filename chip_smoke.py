@@ -6,8 +6,9 @@ Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
   1. build the three hand-written kernels (csrc/hamming_match.cu,
-     track_lm.cu, pnp_lm.cu) from the sources in this checkout, one nvcc
-     each, all started together.
+     track_lm.cu, pnp_lm.cu) from the sources in this checkout, and the two
+     LM kernels with the non-portable cluster size of 16 (measured in phase
+     13 only), one nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -85,13 +86,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      recovery battery about the first (15 starts, an exact tie among them),
      the first battery the runs made, phase 5's two PnP passes of one frame
      (`_project_match_pnp`, `_local_map_pass2`), relocalization's EPnP refine,
-     and the all-invalid cases; one launch a call (counted and profiled),
-     cold and warm ms (median of 30), the plain form's ms (median of 5), the
-     bound (bytes or f32 operations of the steps actually run) and its
-     share. Then `track` on the card with every point invalid (finite, no
-     valid point, zero energy), `track_multi` (2 track_lm launches), and
-     the host waits of a track, track_multi and PnP call, which must be
-     none (no sync, no copy).
+     the all-invalid cases, and a `track` and a PnP pass with every point
+     three times (past the points a thread holds in registers); one launch
+     a call (counted and profiled), cold and warm ms (median of 30),
+     microseconds an LM step, the plain form's ms (median of 5), the bound
+     (bytes or f32 operations of the steps actually run) and its share. Then
+     `track` on the card with every point invalid (finite, no valid point,
+     zero energy), `track_multi` (2 track_lm launches), and the host waits
+     of a track, track_multi and PnP call, which must be none (no sync, no
+     copy); the starts whose levels took other steps than the plain form,
+     counted; last, the kernels' cluster size (8) and the clusters the card
+     holds at once (cudaOccupancyMaxActiveClusters) beside those of 16, and
+     a `track`, a battery and a PnP pass timed with both sizes in turns.
 Every phase from 3 on reports the LM kernels' launches of its run (counted
 from 0 just before it and read just after); phase 3 must launch track_lm on
 every tracked frame, phase 4 pnp_lm twice a frame, phases 5 and 7 both.
@@ -1176,6 +1182,10 @@ def match_ratio_phase(frames, card: str, popc_rate: float) -> tuple[dict, dict]:
 # re-classification and final sweep
 TRACK_ENERGY_FLOPS, TRACK_LINEAR_FLOPS, TRACK_STATS_FLOPS = 73, 253, 265
 PNP_LINEAR_FLOPS, PNP_ENERGY_FLOPS, PNP_RECLASS_FLOPS, PNP_FINAL_FLOPS = 227, 64, 32, 219
+# the LM kernels built with the non-portable cluster size, timed beside the
+# kept one (lm_common.cuh: LM_CLUSTER)
+CS16 = ("LM_CLUSTER=16",)
+CS16_BUILDS = ((track_lm.SOURCE, CS16), (pnp_lm.SOURCE, CS16))
 TRACK_FROM = 12     # phase 3's track launches kept for phase 13: two from this one on
 PNP_FROM = 20       # phase 5's PnP launches: a frame's two passes from this one on
 
@@ -1305,13 +1315,15 @@ def pnp_bound(args) -> tuple[float, str, dict]:
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
-def _lm_times(kernel, plain, bound: float) -> dict:
+def _lm_times(kernel, plain, bound: float, steps: int) -> dict:
     """A kernel's launches a call (torch.profiler), cold and warm times
-    (median of 30), the plain form's (median of 5) and the share of its
-    bound that the cold time reaches."""
+    (median of 30), microseconds an LM step (cold, over the `steps` of the
+    longest start), the plain form's time (median of 5) and the share of
+    its bound that the cold time reaches."""
     host, device_ops = launches_per_call(kernel)
     ms = cuda_ms(kernel)
     return {"kernel_ms": ms, "kernel_warm_ms": cuda_ms(kernel, cold=False),
+            "us_per_step": ms * 1e3 / max(steps, 1),
             "plain_ms": cuda_ms(plain, reps=5, warmup=1), "launches_per_call": host,
             "device_ops_per_call": device_ops, "bound_share": bound / ms}
 
@@ -1331,7 +1343,8 @@ def track_case(name: str, args, card: str) -> dict:
            "parity": rep, "steps": got[4].cpu().tolist() if args[7].shape[0] <= 2 else None,
            "plain_steps": want[4].cpu().tolist() if args[7].shape[0] <= 2 else None,
            **_lm_times(lambda: track_lm.track_lm_cuda(*args),
-                       lambda: tracker.track_levels_plain(*args), bound),
+                       lambda: tracker.track_levels_plain(*args), bound,
+                       int(got[4].sum(-1).max())),
            "bound_ms": bound, "bound_by": by, "bound_detail": detail,
            "max_abs_err": max(rep["max_err"]["R"], rep["max_err"]["t"]), "card": card}
     print(json.dumps(row))
@@ -1358,7 +1371,7 @@ def pnp_case(name: str, args, card: str) -> dict:
     row = {"case": name, "N": args[0].shape[0], "valid": int(args[2].sum()),
            "inliers": int(got[3]), "plain_inliers": int(want[3]), "parity": rep,
            **_lm_times(lambda: pnp_lm.pnp_lm_cuda(*args),
-                       lambda: pnp_mod.pnp_lm_plain(*args), bound),
+                       lambda: pnp_mod.pnp_lm_plain(*args), bound, args[7] * args[8]),
            "bound_ms": bound, "bound_by": by, "bound_detail": detail,
            "max_abs_err": max(rep["max_err"]["R"], rep["max_err"]["t"]), "card": card}
     print(json.dumps(row))
@@ -1394,6 +1407,35 @@ def _syncs(fn) -> dict:
             "enqueues": sum(counts[k] for k in ENQUEUE_CALLS)}
 
 
+def cluster_16(cases: dict) -> dict:
+    """The kept cluster size (8) against 16, the non-portable size: the
+    clusters the card holds at once for both, and cold ms of each case in
+    turns (8, 16, 16, 8) with 16's parity. 16 would replace 8 only where it
+    is faster in every case; the kernels keep 8."""
+    out = {"kept": {"track_lm": track_lm.cluster_info(), "pnp_lm": pnp_lm.cluster_info()}}
+    with kernel_build.variant(track_lm.SOURCE, CS16), kernel_build.variant(pnp_lm.SOURCE, CS16):
+        out["cluster_16"] = {"track_lm": track_lm.cluster_info(), "pnp_lm": pnp_lm.cluster_info()}
+    for name, args in cases.items():
+        is_track = len(args) > 9
+        fn = track_lm.track_lm_cuda if is_track else pnp_lm.pnp_lm_cuda
+        ms = {8: [], 16: []}
+        for size in (8, 16, 16, 8):
+            with contextlib.ExitStack() as st:
+                if size == 16:
+                    for src in (track_lm.SOURCE, pnp_lm.SOURCE):
+                        st.enter_context(kernel_build.variant(src, CS16))
+                ms[size].append(cuda_ms(lambda: fn(*args)))
+                if size == 16 and len(ms[16]) == 1:
+                    got = fn(*args)
+                    ok = (track_lm.parity(got, tracker.track_levels_plain(*args), args[11])
+                          if is_track else pnp_lm.parity(got, pnp_mod.pnp_lm_plain(*args),
+                                                         *args[:4], args[6]))["ok"]
+        out[name] = {"ms_8": ms[8], "ms_16": ms[16], "parity_16": ok,
+                     "faster_16": max(ms[16]) < min(ms[8])}
+    print(json.dumps({"phase": "lm_cluster_size", **out}))
+    return out
+
+
 def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
     """Phase 13: the two LM kernels against their plain forms on the card, at
     inputs captured in phases 3, 5 and 6, and the all-invalid cases; the
@@ -1425,12 +1467,19 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
                                  cap.saved["battery"][0], card))
     dead = (*args[:5], [torch.zeros_like(v) for v in args[5]], *args[6:])
     t_rows.append(track_case("track, all points invalid", dead, card))
+    # every point three times (P 6144): the points past those a thread
+    # holds in registers are read from memory each sweep
+    tripled = (*args[:2], *([torch.cat([v] * 3) for v in a] for a in args[2:6]),
+               torch.cat([args[6]] * 3), *args[7:])
+    t_rows.append(track_case("track, every point three times (P 6144)", tripled, card))
     for (k, site, args), name in zip(cap.saved["pnp_lm"], ("pass 1", "pass 2")):
         p_rows.append(pnp_case(f"solve_pnp {name} ({site}), phase-5 launch {k} "
                                f"(N {args[0].shape[0]})", args, card))
     args = cap.saved["pnp_lm"][0][2]
     p_rows.append(pnp_case("solve_pnp, all matches invalid",
                            (*args[:2], torch.zeros_like(args[2]), *args[3:]), card))
+    p_rows.append(pnp_case("solve_pnp, every match three times (N 12288)",
+                           (*(torch.cat([v] * 3) for v in args[:4]), *args[4:]), card))
     if cap.saved["epnp_refine"]:
         args = cap.saved["epnp_refine"][0]
         p_rows.append(pnp_case(f"EPnP refine, phase 6 (N {args[0].shape[0]})", args, card))
@@ -1452,11 +1501,24 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
               "track_multi": _syncs(lambda: tracker.track_multi(grad_pyr, cam, ref, Hs, ab0,
                                                                 cfg)),
               "solve_pnp": _syncs(lambda: pnp_lm.pnp_lm_cuda(*cap.saved["pnp_lm"][0][2]))}
+    # starts whose levels took other steps than the plain form, over the
+    # captured converging cases (the all-invalid ones take the same steps)
+    converging = [r for r in t_rows if not any(w in r["case"] for w in ("invalid", "three"))]
+    public["starts_taking_other_steps"] = {
+        "starts": sum(r["B"] for r in converging),
+        "differ": sum(len(r["parity"]["diverged"]) for r in converging)}
     print(json.dumps({"phase": "lm_public", **public}))
+    print(f"phase 13: {public['starts_taking_other_steps']['differ']} of "
+          f"{public['starts_taking_other_steps']['starts']} starts took other steps than "
+          "the plain form; microseconds an LM step: "
+          + ", ".join(f"{r['case']} {r['us_per_step']:.3f}" for r in t_rows + p_rows))
     require(multi_launches == 2, f"track_multi made {multi_launches} track_lm launches")
     for name in ("track", "track_multi", "solve_pnp"):
         require(public[name]["syncs"] == 0 and public[name]["memcpys"] == 0,
                 f"{name} waits for the device: {public[name]}")
+    public["cluster_size"] = cluster_16({"track": cap.saved["track_lm"][0][1],
+                                         "battery": battery,
+                                         "pnp pass 1": cap.saved["pnp_lm"][0][2]})
     return t_rows, p_rows, public
 
 
@@ -1470,7 +1532,8 @@ def main() -> int:
     print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    for path, secs, log in kernel_build.build_many(kernel_build.SOURCES, verbose=True):
+    for path, secs, log in kernel_build.build_many(kernel_build.SOURCES + CS16_BUILDS,
+                                                   verbose=True):
         print(f"built {path.name} in {secs:.1f} s")
         print(log.strip())
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -1608,8 +1671,8 @@ def main() -> int:
             "calib_slam": calib["lm_launches"],
             "sharded_direct": sharded["direct"]["lm_launches"],
             "sharded_hybrid": sharded["hybrid"]["lm_launches"]}
-    keys = ("kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
-            "launches_per_call", "max_abs_err")
+    keys = ("kernel_ms", "kernel_warm_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "launches_per_call", "max_abs_err")
     for name, source, replaces, rows in (
             ("track_lm", "libcml_tpu_torch/csrc/track_lm.cu",
              "libcml_tpu/models/direct/tracker.py:118", t_rows),
@@ -1625,7 +1688,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "us_per_step": main_row["us_per_step"],
+            "cluster": lm_public["cluster_size"]["kept"][name],
             "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,

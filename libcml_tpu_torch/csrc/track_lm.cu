@@ -1,5 +1,5 @@
-// Coarse-to-fine photometric LM of the direct tracker, one launch a solve,
-// for Hopper (sm_90a).
+// Coarse-to-fine photometric LM of the direct tracker, one launch a solve
+// and one thread block cluster a start, for Hopper (sm_90a).
 //
 // Replaces the JAX package's device program for the tracker's LM:
 // `_track_level` (libcml_tpu/models/direct/tracker.py:118, its
@@ -8,35 +8,63 @@
 // PyTorch form is `track_levels_plain` in
 // libcml_tpu_torch/models/direct/tracker.py.
 //
-// One block a hypothesis (grid = B) runs every listed level in turn, each
-// the complete level loop:
-//   E0 = mean capped Huber energy at (T0, ab0) over the valid, in-bounds
-//   points; then at most `iters` times: one sweep at (T, ab) giving the
-//   8-dof normal equations (36 H sums, 8 b sums; single-pixel residual,
-//   Huber x gradient weight with the hard cutoff, rel_pose_jacobian), the
-//   affine prior [0]*6 + [1e-1, 1e-3] about ab_center, the scaled damped
-//   8x8 solve with partial pivoting (one warp), T_new = exp(-dx[:6]) o T,
-//   ab_new = ab - dx[6:], one energy sweep at (T_new, ab_new), accept if
-//   E_new < E, lambda x0.5 (floor 1e-7) or x4 (cap 1e2), and the level ends
-//   on the device when an accepted step is below eps or lambda saturates.
-// No value goes to the host inside the loop. Outputs: T, ab and E of every
-// hypothesis, the iterations each level ran, and each step's decision
-// values (E, E_new, |dx|; NaN past the last step), by which a test tells a
-// decision that sits at its threshold. For `track` (stats != 0) the same
-// launch then runs track's statistics sweep at the finest level (the
-// covariance through the 8x8 inverse of H + 1e-6 I, flow, rotation-only
-// flow, saturation, energy, num_valid: tracker.py's track_stats_plain).
+// One cluster of CS (lm::CLUSTER, 8) blocks of 256 threads a hypothesis
+// (grid = B x CS) runs every listed level in turn, each the complete level
+// loop of the plain form: E0 = mean capped Huber energy at (T0, ab0) over
+// the valid, in-bounds points; then at most `iters` times the 8-dof normal
+// equations at (T, ab) (36 H sums, 8 b sums; single-pixel residual, Huber x
+// gradient weight with the hard cutoff, rel_pose_jacobian), the affine
+// prior [0]*6 + [1e-1, 1e-3] about ab_center, the scaled damped 8x8 solve
+// with partial pivoting, T_new = exp(-dx[:6]) o T, ab_new = ab - dx[6:],
+// the energy at (T_new, ab_new), accept if E_new < E, lambda x0.5 (floor
+// 1e-7) or x4 (cap 1e2), and the level ends on the device when an accepted
+// step is below eps or lambda saturates. No value goes to the host inside
+// the loop. Outputs: T, ab and E of every hypothesis, the iterations each
+// level ran, and each step's decision values (E, E_new, |dx|; NaN past the
+// last step), by which a test tells a decision that sits at its threshold.
+// For `track` (stats != 0) the same launch then runs track's statistics
+// sweep at the finest level (the covariance through the 8x8 inverse of H +
+// 1e-6 I, flow, rotation-only flow, saturation, energy, num_valid:
+// tracker.py's track_stats_plain).
 //
-// What bounds it on the H100: not bytes or operations (a level sweep reads
-// ~30 KB of point data and 4 bilinear texels a point, a few MFLOP in all)
-// but latency: every LM step is two dependent sweeps, each ending in a block
-// reduction, then a serial 8x8 solve, and the next step needs the last
-// one's pose. One block a solve leaves most of the 132 SMs idle (one for
-// `track`, 14-15 for `track_multi`'s battery), so it is latency-bound;
-// spreading a solve over a thread block cluster is later work. The design
-// keeps every step on chip: the pose, lambda and the flags live in shared
-// memory, the reductions are warp shuffles then shared memory, and the
-// solve runs in registers of one warp.
+// What bounds it on the H100: not bytes or operations (a level reads ~30 KB
+// of point data and 4 bilinear texels a point a sweep, a few MFLOP in all)
+// but latency: each LM step is a sweep over the points ending in a
+// reduction, then a serial 8x8 solve, and the next step needs the pose this
+// one chose. The design shortens that chain in three ways.
+// - One sweep a step. The sweep at (T_new, ab_new) sums E_new and, from the
+//   same per-point values, the normal equations there (44 sums and the
+//   count). On accept they are the next step's system; on reject the block
+//   keeps the system of T, which a sweep at the unchanged T would give bit
+//   for bit (the per-point arithmetic is the same code). Each level's first
+//   sweep, at T0, sums E0 and T0's system. A track at steps (10, 10, 5, 3)
+//   makes 33 sweeps (the plain form's schedule: 61).
+// - A cluster a start. Thread g = rank x 256 + tid owns points g, g + 2048,
+//   ... (one a thread at P = 2048) and loads their constants (the
+//   back-projected point, color, masked weight, validity) into registers
+//   once a level; a sweep only projects and gathers the 2x2x3 texels. Each
+//   block reduces in its fixed order, one cluster barrier a step, then
+//   every block sums the CS partials in rank order from distributed shared
+//   memory and runs the same solve and decision: all blocks hold the same
+//   bits and leave the loop together, with no broadcast, atomic or grid
+//   sync. A battery of 15 starts is 120 blocks on the 132 SMs.
+// - The serial tail. The 8x8 solve is one warp's, a column a lane
+//   (lm_common.cuh warp_solve): every lane finds each pivot from its own copy
+//   of the pivot column, swaps and updates its own column, and scales the
+//   multipliers by the pivot's reciprocal, so no row moves between lanes and
+//   no lane takes a division's slow path alone (the earlier design kept a row
+//   a lane and shuffled the pivot row and every swap); the pivot rule stays
+//   torch.linalg.solve's (the first row of largest magnitude). A block's
+//   reduction trades values between lanes by recursive halving (31 shuffles
+//   for 32 sums instead of 160) with the same pairs as a shuffle tree.
+//   se3_exp_compose is unchanged.
+// A build with -DLM_PROFILE prints the clocks of each stage of the steps
+// (tools/lm_ab.py --profile).
+// The cluster's size is a compile-time constant (LM_CLUSTER, 8, the
+// portable size) given to the launch as its cluster dimension; a build
+// with -DLM_CLUSTER=16 serves only to measure the non-portable size. A card
+// without cluster support (before sm_90) refuses the launch, and the
+// wrapper raises.
 //
 // Arithmetic follows the plain version's formulas and clamps (ops/image.py
 // bilinear, core/camera.py project/unproject, residuals.py proj_jacobian);
@@ -44,18 +72,25 @@
 // products and sums into FMAs, so results agree to f32 rounding, not bits.
 
 #include <cstdint>
+#include <cstdio>
 #include <cuda_runtime.h>
 
 #include "lm_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
+constexpr int CS = lm::CLUSTER;
+constexpr int STRIDE = CS * THREADS;   // points apart that one thread owns
+constexpr int KREG = 2;                // points a thread holds in registers
 constexpr int MAX_LEVELS = 8;
-constexpr int NH = 36;          // the upper triangle of the 8x8 H
-constexpr int NLIN = NH + 8;    // + b
-constexpr int NSTAT = NH + 5;   // + count, energy, flow, rotation flow, saturated
+constexpr int NH = 36;                 // the upper triangle of the 8x8 H
+constexpr int NB = NH + 8;             // + b
+constexpr int NS = NB + 2;             // + energy, count
+constexpr int NSTAT = NH + 5;          // + count, energy, flow, rotation flow, saturated
 
 struct Level {
   const float* grad;            // (H, W, 3): value, gx, gy
@@ -96,6 +131,42 @@ struct Pose {
   float R[9], t[3], a, b, s_ji;
 };
 
+__device__ __forceinline__ Pose make_pose(const float* R, const float* t, const float* ab) {
+  Pose T;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) T.R[i] = R[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) T.t[i] = t[i];
+  T.a = ab[0];
+  T.b = ab[1];
+  T.s_ji = expf(T.a);
+  return T;
+}
+
+// A point's constants over a level: its host pixel, the back-projected
+// point (core/camera.py unproject), color, the weight masked by the
+// reference's validity, and that validity.
+struct PointConst {
+  float u, v, Xi[3], color, wm;
+  bool valid;
+};
+
+__device__ __forceinline__ PointConst load_point(const Level& L, const Args& a, int p) {
+  PointConst c;
+  c.u = __ldg(L.uv + 2 * p);
+  c.v = __ldg(L.uv + 2 * p + 1);
+  const float x = (c.u - L.cx) / L.fx;
+  const float y = (c.v - L.cy) / L.fy;
+  const float depth = 1.0f / lm::clamp_min(__ldg(a.idepth + p), 1e-12f);
+  c.Xi[0] = x * depth;
+  c.Xi[1] = y * depth;
+  c.Xi[2] = 1.0f * depth;
+  c.color = __ldg(L.color + p);
+  c.valid = L.valid[p];
+  c.wm = c.valid ? __ldg(L.weight + p) : 0.0f;
+  return c;
+}
+
 // The bilinear sample of ops/image.py at (x, y): base pixel clamped to
 // [0, W-2] x [0, H-2] (a NaN coordinate to pixel 0), fractions to [0, 1].
 __device__ __forceinline__ void bilinear3(const float* img, int W, int H, float x, float y,
@@ -118,27 +189,18 @@ __device__ __forceinline__ void bilinear3(const float* img, int W, int H, float 
 
 // One point of residuals.evaluate_residuals (PATTERN_CENTER) at `T`: the
 // point in the target frame, its validity (in front, 2 px inside), the
-// residual, robust weight and energy. `wm` is the weight masked by the
-// reference's validity.
+// residual, robust weight and energy.
 struct PointEval {
-  float Xi[3], X[3], u, v, uj, vj, g[2], r, w, energy;
+  float X[3], uj, vj, g[2], r, w, energy;
   bool valid;
 };
 
 __device__ __forceinline__ PointEval eval_point(const Level& L, const Args& a, const Pose& T,
-                                                int p, float wm) {
+                                                const PointConst& c) {
   PointEval e;
-  e.u = __ldg(L.uv + 2 * p);
-  e.v = __ldg(L.uv + 2 * p + 1);
-  const float x = (e.u - L.cx) / L.fx;
-  const float y = (e.v - L.cy) / L.fy;
-  const float depth = 1.0f / lm::clamp_min(__ldg(a.idepth + p), 1e-12f);
-  e.Xi[0] = x * depth;
-  e.Xi[1] = y * depth;
-  e.Xi[2] = 1.0f * depth;
 #pragma unroll
   for (int i = 0; i < 3; ++i)
-    e.X[i] = (T.R[3 * i] * e.Xi[0] + T.R[3 * i + 1] * e.Xi[1] + T.R[3 * i + 2] * e.Xi[2])
+    e.X[i] = (T.R[3 * i] * c.Xi[0] + T.R[3 * i + 1] * c.Xi[1] + T.R[3 * i + 2] * c.Xi[2])
              + T.t[i];
   const float z = e.X[2];
   const float iz = 1.0f / (fabsf(z) < 1e-12f ? 1e-12f : z);
@@ -150,40 +212,21 @@ __device__ __forceinline__ PointEval eval_point(const Level& L, const Args& a, c
   bilinear3(L.grad, L.W, L.H, e.uj, e.vj, s);
   e.g[0] = s[1];
   e.g[1] = s[2];
-  e.r = (s[0] - T.b) - T.s_ji * __ldg(L.color + p);
+  e.r = (s[0] - T.b) - T.s_ji * c.color;
   const float ar = fabsf(e.r);
-  float w = (ar <= a.huber_k ? 1.0f : a.huber_k / lm::clamp_min(ar, 1e-12f)) * wm;
+  float w = (ar <= a.huber_k ? 1.0f : a.huber_k / lm::clamp_min(ar, 1e-12f)) * c.wm;
   float en = ar <= a.huber_k ? 0.5f * e.r * e.r : a.huber_k * (ar - a.half_k);
   if (ar > a.cutoff) w = 0.0f;
   en = lm::clamp_max(en, a.cap);
   e.w = e.valid ? w : 0.0f;
-  e.energy = e.valid ? wm * en : 0.0f;
+  e.energy = e.valid ? c.wm * en : 0.0f;
   return e;
-}
-
-__device__ __forceinline__ float masked_weight(const Level& L, int p) {
-  return L.valid[p] ? __ldg(L.weight + p) : 0.0f;
-}
-
-// total_energy: the mean energy over the points valid in the sweep and in
-// the reference (sum, count) -> out[0], out[1].
-__device__ void energy_sweep(const Level& L, const Args& a, const Pose& T, float* red,
-                             float* out) {
-  float acc[2] = {0.0f, 0.0f};
-  for (int p = threadIdx.x; p < a.P; p += THREADS) {
-    const PointEval e = eval_point(L, a, T, p, masked_weight(L, p));
-    if (e.valid && L.valid[p]) {
-      acc[0] += e.energy;
-      acc[1] += 1.0f;
-    }
-  }
-  lm::block_sum<2, WARPS>(acc, red, out);
 }
 
 // rel_pose_jacobian of one point: (2x3 projection Jacobian) x [I | -skew(X)]
 // against the sampled gradient, then d/da, d/db.
 __device__ __forceinline__ void point_jacobian(const Level& L, const Pose& T, const PointEval& e,
-                                               int p, float J[8]) {
+                                               float color, float J[8]) {
   const float x = e.X[0], y = e.X[1], z = e.X[2];
   const float iz = 1.0f / lm::clamp_min(z, 1e-8f);
   const float iz2 = iz * iz;
@@ -197,14 +240,14 @@ __device__ __forceinline__ void point_jacobian(const Level& L, const Pose& T, co
     const float jv = A[1][0] * Bm[0][c] + A[1][1] * Bm[1][c] + A[1][2] * Bm[2][c];
     J[c] = e.g[0] * ju + e.g[1] * jv;
   }
-  J[6] = -T.s_ji * __ldg(L.color + p);
+  J[6] = -T.s_ji * color;
   J[7] = -1.0f;
 }
 
 // The weighted Gauss-Newton sums of one point: H's upper triangle row by
 // row into acc[0..35], and when `with_b` b into acc[36..43].
-template <bool with_b>
-__device__ __forceinline__ void add_normal(float* acc, const float J[8], float w, float r) {
+template <bool with_b, int N>
+__device__ __forceinline__ void add_normal(float (&acc)[N], const float J[8], float w, float r) {
   int k = 0;
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
@@ -215,227 +258,283 @@ __device__ __forceinline__ void add_normal(float* acc, const float J[8], float w
   }
 }
 
-// The normal equations: rel_pose_jacobian + gauss_newton_system -> out[0..43].
-__device__ void linear_sweep(const Level& L, const Args& a, const Pose& T, float* red,
-                             float* out) {
-  float acc[NLIN];
-#pragma unroll
-  for (int i = 0; i < NLIN; ++i) acc[i] = 0.0f;
-  for (int p = threadIdx.x; p < a.P; p += THREADS) {
-    const PointEval e = eval_point(L, a, T, p, masked_weight(L, p));
-    float J[8];
-    point_jacobian(L, T, e, p, J);
-    add_normal<true>(acc, J, e.w, e.r);
+// A point's share of a step's sweep: the normal equations (rel_pose_jacobian
+// + gauss_newton_system), then over the points valid in the sweep and the
+// reference the energy and their count (total_energy).
+__device__ __forceinline__ void add_step(const Level& L, const Args& a, const Pose& T,
+                                         const PointConst& c, float (&acc)[NS]) {
+  const PointEval e = eval_point(L, a, T, c);
+  float J[8];
+  point_jacobian(L, T, e, c.color, J);
+  add_normal<true>(acc, J, e.w, e.r);
+  if (e.valid && c.valid) {
+    acc[NB] += e.energy;
+    acc[NB + 1] += 1.0f;
   }
-  lm::block_sum<NLIN, WARPS>(acc, red, out);
 }
 
-// track's statistics sweep at the finest level: H without prior (36), then
-// over the points valid in the sweep and the reference their count, energy,
-// squared flow, squared rotation-only flow (the warp with t = 0) and the
-// residuals at 0.98 x the cutoff -> out[0..40].
-__device__ void stats_sweep(const Level& L, const Args& a, const Pose& T, float* red,
-                            float* out) {
-  float acc[NSTAT];
+// track's statistics of a point at the finest level: H without prior (36),
+// then over the points valid in the sweep and the reference their count,
+// energy, squared flow, squared rotation-only flow (the warp with t = 0)
+// and the residuals at 0.98 x the cutoff.
+__device__ __forceinline__ void add_stats(const Level& L, const Args& a, const Pose& T,
+                                          const PointConst& c, float (&acc)[NSTAT]) {
+  const PointEval e = eval_point(L, a, T, c);
+  float J[8];
+  point_jacobian(L, T, e, c.color, J);
+  add_normal<false>(acc, J, e.w, e.r);
+  if (e.valid && c.valid) {
+    float Xr[3];
 #pragma unroll
-  for (int i = 0; i < NSTAT; ++i) acc[i] = 0.0f;
-  for (int p = threadIdx.x; p < a.P; p += THREADS) {
-    const PointEval e = eval_point(L, a, T, p, masked_weight(L, p));
-    float J[8];
-    point_jacobian(L, T, e, p, J);
-    add_normal<false>(acc, J, e.w, e.r);
-    if (e.valid && L.valid[p]) {
-      float Xr[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        Xr[i] = (T.R[3 * i] * e.Xi[0] + T.R[3 * i + 1] * e.Xi[1] + T.R[3 * i + 2] * e.Xi[2])
-                + 0.0f;
-      const float izr = 1.0f / (fabsf(Xr[2]) < 1e-12f ? 1e-12f : Xr[2]);
-      const float du = e.uj - e.u, dv = e.vj - e.v;
-      const float dur = (L.fx * Xr[0] * izr + L.cx) - e.u;
-      const float dvr = (L.fy * Xr[1] * izr + L.cy) - e.v;
-      acc[NH] += 1.0f;
-      acc[NH + 1] += e.energy;
-      acc[NH + 2] += du * du + dv * dv;
-      acc[NH + 3] += dur * dur + dvr * dvr;
-      acc[NH + 4] += fabsf(e.r) >= a.sat_r ? 1.0f : 0.0f;
-    }
+    for (int i = 0; i < 3; ++i)
+      Xr[i] = (T.R[3 * i] * c.Xi[0] + T.R[3 * i + 1] * c.Xi[1] + T.R[3 * i + 2] * c.Xi[2])
+              + 0.0f;
+    const float izr = 1.0f / (fabsf(Xr[2]) < 1e-12f ? 1e-12f : Xr[2]);
+    const float du = e.uj - c.u, dv = e.vj - c.v;
+    const float dur = (L.fx * Xr[0] * izr + L.cx) - c.u;
+    const float dvr = (L.fy * Xr[1] * izr + L.cy) - c.v;
+    acc[NH] += 1.0f;
+    acc[NH + 1] += e.energy;
+    acc[NH + 2] += du * du + dv * dv;
+    acc[NH + 3] += dur * dur + dvr * dvr;
+    acc[NH + 4] += fabsf(e.r) >= a.sat_r ? 1.0f : 0.0f;
   }
-  lm::block_sum<NSTAT, WARPS>(acc, red, out);
 }
 
-__global__ void __launch_bounds__(THREADS) track_lm_kernel(const __grid_constant__ Args a) {
-  __shared__ float red[WARPS * NLIN];
-  __shared__ float sums[NLIN];
-  __shared__ float tri[8 * 16], sol[64];
+// A sweep of thread g over its points in index order: those held in
+// registers, then (P > KREG x STRIDE only) the rest loaded from memory.
+template <int N, typename F>
+__device__ __forceinline__ void sweep(const Level& L, const Args& a, const PointConst (&pc)[KREG],
+                                      int g, float (&acc)[N], F add) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KREG; ++k)
+    if (g + k * STRIDE < a.P) add(pc[k], acc);
+  for (int p = g + KREG * STRIDE; p < a.P; p += STRIDE) add(load_point(L, a, p), acc);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_constant__ Args a) {
+  __shared__ float red[WARPS * NS];
+  __shared__ float part[2 * NS];
+  __shared__ float sys[2][NS];      // sys[cur]: the system of the accepted state
   __shared__ Level L;
   __shared__ float R[9], t[3], ab[2], Rn[9], tn[3], abn[2];
   __shared__ float E, lam, step_norm;
-  __shared__ int it, done;
-  const int h = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  __shared__ float st[NSTAT];
+  __shared__ int it, cur, run;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int h = blockIdx.x / CS, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = rank * THREADS + tid;
+  const bool writer = rank == 0;    // every block holds the same state; one writes it
+  const float ac0 = a.ab_center[0], ac1 = a.ab_center[1];
+  const float sc = a.s[lane < 8 ? lane : 7];   // warp 0's solve: lane c's column scale
+  int buf = 0;
   if (tid < 9) R[tid] = a.R0[h * 9 + tid];
   if (tid < 3) t[tid] = a.t0[h * 3 + tid];
   if (tid < 2) ab[tid] = a.ab0[h * 2 + tid];
-  const float ac0 = a.ab_center[0], ac1 = a.ab_center[1];
+  if (tid == 0) cur = 0;
+#ifdef LM_PROFILE
+  // a measurement build: thread 0's clocks a stage of the LM steps (0 the
+  // barrier closing a step, 1 the sweep, 2-4 cluster_sum's stages, 5 the
+  // decision, 9 the system's columns, 6 the solve, 7 T_new; 8 outside the
+  // steps), printed by block 0
+  long long prof_t = clock64(), prof[10] = {};
+  auto mark = [&](int i) {
+    if (tid == 0) {
+      const long long now = clock64();
+      prof[i] += now - prof_t;
+      prof_t = now;
+    }
+  };
+#else
+  const lm::NoMark mark;
+#endif
 
+  // warp 0: the damped scaled solve of sys[cur] at lambda (_solve_scaled on
+  // H + diag(prior), b + prior * (0, ab - ab_center)), lane c < 8 building
+  // column c, lane 8 the right-hand side; then T_new = exp(-dx[:6]) o T and
+  // ab_new = ab - dx[6:] (lane 0 writes them)
+  auto solve_step = [&]() {
+    const float* S = sys[cur];
+    const float lm_ = lam;
+    const int c = lane < 8 ? lane : 7;   // lanes past 8 read column 7, unused
+    float col[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float prior = r == 6 ? 1e-1f : (r == 7 ? 1e-3f : 0.0f);
+      const int i = r < c ? r : c, j = r < c ? c : r;
+      float hv = S[i * 8 - i * (i - 1) / 2 + (j - i)];
+      if (c == r) hv = hv + prior;
+      const float v = (hv * a.s[r]) * sc;
+      const float dab = r == 6 ? ab[0] - ac0 : (r == 7 ? ab[1] - ac1 : 0.0f);
+      const float rhs = (S[NH + r] + prior * dab) * a.s[r];
+      col[r] = lane >= 8 ? rhs : (c == r ? (v + lm_ * v) + 1e-8f : v);
+    }
+    float x[8];
+    mark(9);
+    lm::warp_solve<8, 1>(col, x);
+    mark(6);
+    if (lane == 0) {
+      float dx[8], nrm = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        dx[i] = x[i] * a.s[i];
+        nrm += dx[i] * dx[i];
+      }
+      step_norm = sqrtf(nrm);
+      const float xi[6] = {-dx[0], -dx[1], -dx[2], -dx[3], -dx[4], -dx[5]};
+      float Rl[9], tl[3];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) Rl[i] = R[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) tl[i] = t[i];
+      lm::se3_exp_compose(xi, Rl, tl);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) Rn[i] = Rl[i];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) tn[i] = tl[i];
+      abn[0] = ab[0] - dx[6];
+      abn[1] = ab[1] - dx[7];
+    }
+    mark(7);
+  };
+
+  PointConst pc[KREG];
   for (int li = 0; li < a.n_levels; ++li) {
     if (tid == 0) L = a.lv[li];
     __syncthreads();
-    Pose T;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) T.R[i] = R[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) T.t[i] = t[i];
-    T.a = ab[0];
-    T.b = ab[1];
-    T.s_ji = expf(T.a);
-    energy_sweep(L, a, T, red, sums);
-    if (tid == 0) {
-      E = sums[0] / lm::clamp_min(sums[1], 1.0f);
-      lam = 1e-4f;
-      it = 0;
-      done = 0;
+    for (int k = 0; k < KREG; ++k)
+      if (g + k * STRIDE < a.P) pc[k] = load_point(L, a, g + k * STRIDE);
+    {
+      // the level's first sweep at (T0, ab0): E0 and T0's system
+      const Pose T = make_pose(R, t, ab);
+      float acc[NS];
+      sweep(L, a, pc, g, acc,
+            [&](const PointConst& c, float (&ac)[NS]) { add_step(L, a, T, c, ac); });
+      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1]);
+      buf ^= 1;
+      if (warp == 0) {
+        const int nxt = cur ^ 1;
+        __syncwarp();   // every lane has read cur
+        if (lane == 0) {
+          cur = nxt;
+          E = sys[nxt][NB] / lm::clamp_min(sys[nxt][NB + 1], 1.0f);
+          lam = 1e-4f;
+          it = 0;
+          run = a.iters > 0;
+        }
+        __syncwarp();
+        if (run) solve_step();
+      }
     }
     __syncthreads();
-    while (it < a.iters && !done) {
-      // T and ab are the accepted state (shared), read by every thread
-#pragma unroll
-      for (int i = 0; i < 9; ++i) T.R[i] = R[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) T.t[i] = t[i];
-      T.a = ab[0];
-      T.b = ab[1];
-      T.s_ji = expf(T.a);
-      linear_sweep(L, a, T, red, sums);
-      if (tid < 32) {
-        // _solve_scaled on H + diag(prior), b + prior * (0, ab - ab_center);
-        // lane r builds row r
-        float row[9];
-        const int r = lane < 8 ? lane : 0;
-        float sr = 0.0f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sr = i == r ? a.s[i] : sr;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int i = r < c ? r : c, j = r < c ? c : r;
-          float hv = sums[i * 8 - i * (i - 1) / 2 + (j - i)];
-          if (c == r) hv = hv + (r == 6 ? 1e-1f : (r == 7 ? 1e-3f : 0.0f));
-          const float v = (hv * sr) * a.s[c];
-          row[c] = c == r ? (v + lam * v) + 1e-8f : v;
-        }
-        const float prior = r == 6 ? 1e-1f : (r == 7 ? 1e-3f : 0.0f);
-        const float dab = r == 6 ? ab[0] - ac0 : (r == 7 ? ab[1] - ac1 : 0.0f);
-        row[8] = (sums[NH + r] + prior * dab) * sr;
-        if (lane >= 8) {
-#pragma unroll
-          for (int c = 0; c < 9; ++c) row[c] = 0.0f;
-        }
-        lm::warp_solve<8, 1>(row, tri, sol);
-        if (lane == 0) {
-          float dx[8], nrm = 0.0f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            dx[i] = sol[i] * a.s[i];
-            nrm += dx[i] * dx[i];
-          }
-          step_norm = sqrtf(nrm);
-          const float xi[6] = {-dx[0], -dx[1], -dx[2], -dx[3], -dx[4], -dx[5]};
-#pragma unroll
-          for (int i = 0; i < 9; ++i) Rn[i] = R[i];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) tn[i] = t[i];
-          lm::se3_exp_compose(xi, Rn, tn);
-          abn[0] = ab[0] - dx[6];
-          abn[1] = ab[1] - dx[7];
-        }
-      }
-      __syncthreads();
-      Pose Tn;
-#pragma unroll
-      for (int i = 0; i < 9; ++i) Tn.R[i] = Rn[i];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) Tn.t[i] = tn[i];
-      Tn.a = abn[0];
-      Tn.b = abn[1];
-      Tn.s_ji = expf(Tn.a);
-      energy_sweep(L, a, Tn, red, sums);
-      if (tid == 0) {
-        const float E_new = sums[0] / lm::clamp_min(sums[1], 1.0f);
+    mark(8);
+    while (run) {
+      mark(0);
+      // one sweep at (T_new, ab_new): E_new and the system there
+      const Pose Tn = make_pose(Rn, tn, abn);
+      float acc[NS];
+      sweep(L, a, pc, g, acc,
+            [&](const PointConst& c, float (&ac)[NS]) { add_step(L, a, Tn, c, ac); });
+      mark(1);
+      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1], mark);
+      buf ^= 1;
+      if (warp == 0) {
+        const int nxt = cur ^ 1;
+        const float E_new = sys[nxt][NB] / lm::clamp_min(sys[nxt][NB + 1], 1.0f);
         const bool accept = E_new < E;
-        float* tr = a.trace + (((size_t)h * a.n_levels + li) * a.iters + it) * 3;
-        tr[0] = E;
-        tr[1] = E_new;
-        tr[2] = step_norm;
-        if (accept) {
-#pragma unroll
-          for (int i = 0; i < 9; ++i) R[i] = Rn[i];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) t[i] = tn[i];
-          ab[0] = abn[0];
-          ab[1] = abn[1];
-          E = E_new;
-        }
         const float lam_new = accept ? lm::clamp_min(lam * 0.5f, 1e-7f)
                                      : lm::clamp_max(lam * 4.0f, 1e2f);
-        lam = lam_new;
         // 1e2 - 1e-6 in f32 is 100
-        done = (accept && step_norm < a.eps) || (!accept && lam_new >= 100.0f);
-        it += 1;
+        const bool done = (accept && step_norm < a.eps) || (!accept && lam_new >= 100.0f);
+        __syncwarp();
+        if (lane == 0) {
+          if (writer) {
+            float* tr = a.trace + (((size_t)h * a.n_levels + li) * a.iters + it) * 3;
+            tr[0] = E;
+            tr[1] = E_new;
+            tr[2] = step_norm;
+          }
+          if (accept) {
+#pragma unroll
+            for (int i = 0; i < 9; ++i) R[i] = Rn[i];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) t[i] = tn[i];
+            ab[0] = abn[0];
+            ab[1] = abn[1];
+            E = E_new;
+            cur = nxt;
+          }
+          lam = lam_new;
+          it += 1;
+          run = !done && it < a.iters;
+        }
+        __syncwarp();
+        mark(5);
+        if (run) solve_step();
       }
       __syncthreads();
     }
-    if (tid == 0) {
+    if (writer && tid == 0) {
       a.it_out[h * a.n_levels + li] = it;
       float* tr = a.trace + ((size_t)h * a.n_levels + li) * a.iters * 3;
       for (int i = it * 3; i < a.iters * 3; ++i) tr[i] = __int_as_float(0x7fc00000);   // NaN
     }
-    __syncthreads();
   }
-  if (tid < 9) a.R_out[h * 9 + tid] = R[tid];
-  if (tid < 3) a.t_out[h * 3 + tid] = t[tid];
-  if (tid < 2) a.ab_out[h * 2 + tid] = ab[tid];
-  if (tid == 0) a.E_out[h] = E;
-  if (!a.stats) return;
-
-  // track's statistics sweep at the last level (the finest), at the result
-  Pose T;
+  if (writer) {
+    if (tid < 9) a.R_out[h * 9 + tid] = R[tid];
+    if (tid < 3) a.t_out[h * 3 + tid] = t[tid];
+    if (tid < 2) a.ab_out[h * 2 + tid] = ab[tid];
+    if (tid == 0) a.E_out[h] = E;
+  }
+  if (a.stats) {
+    // track's statistics sweep at the last level (the finest), at the result
+    const Pose T = make_pose(R, t, ab);
+    float acc[NSTAT];
+    sweep(L, a, pc, g, acc,
+          [&](const PointConst& c, float (&ac)[NSTAT]) { add_stats(L, a, T, c, ac); });
+    lm::cluster_sum<NSTAT, WARPS>(acc, red, part, buf, st);
+    if (warp == 0 && writer) {
+      // inv(H + 1e-6 I)[:6, :6]: lane 8 + j solves against the unit column j
+      const int c = lane;
+      float col[8];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) T.R[i] = R[i];
+      for (int r = 0; r < 8; ++r) {
+        if (c < 8) {
+          const int i = r < c ? r : c, j = r < c ? c : r;
+          const float hv = st[i * 8 - i * (i - 1) / 2 + (j - i)];
+          col[r] = c == r ? hv + 1e-6f : hv;
+        } else {
+          col[r] = r == c - 8 ? 1.0f : 0.0f;
+        }
+      }
+      float x[8];
+      lm::warp_solve<8, 6>(col, x);
+      if (lane >= 8 && lane < 14) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i) T.t[i] = t[i];
-  T.a = ab[0];
-  T.b = ab[1];
-  T.s_ji = expf(T.a);
-  stats_sweep(L, a, T, red, sums);
-  if (tid < 32) {
-    // inv(H + 1e-6 I): the warp solves against the identity
-    float row[16];
-    const int r = lane < 8 ? lane : 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int i = r < c ? r : c, j = r < c ? c : r;
-      const float hv = sums[i * 8 - i * (i - 1) / 2 + (j - i)];
-      row[c] = c == r ? hv + 1e-6f : hv;
-      row[8 + c] = c == r ? 1.0f : 0.0f;
-    }
-    if (lane >= 8) {
-#pragma unroll
-      for (int c = 0; c < 16; ++c) row[c] = 0.0f;
-    }
-    lm::warp_solve<8, 8>(row, tri, sol);
-    if (lane < 6) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) a.cov_out[h * 36 + lane * 6 + c] = sol[lane * 8 + c];
-    }
-    if (lane == 0) {
-      const float n = lm::clamp_min(sums[NH], 1.0f);
-      a.stat_out[h * 4 + 0] = sums[NH + 1] / n;
-      a.stat_out[h * 4 + 1] = sqrtf(sums[NH + 2] / n);
-      a.stat_out[h * 4 + 2] = sqrtf(sums[NH + 3] / n);
-      a.stat_out[h * 4 + 3] = sums[NH + 4] / n;
-      a.nvalid_out[h] = (long long)sums[NH];
+        for (int i = 0; i < 6; ++i) a.cov_out[h * 36 + i * 6 + lane - 8] = x[i];
+      }
+      if (lane == 0) {
+        const float n = lm::clamp_min(st[NH], 1.0f);
+        a.stat_out[h * 4 + 0] = st[NH + 1] / n;
+        a.stat_out[h * 4 + 1] = sqrtf(st[NH + 2] / n);
+        a.stat_out[h * 4 + 2] = sqrtf(st[NH + 3] / n);
+        a.stat_out[h * 4 + 3] = st[NH + 4] / n;
+        a.nvalid_out[h] = (long long)st[NH];
+      }
     }
   }
+#ifdef LM_PROFILE
+  if (tid == 0 && rank == 0 && h == 0)
+    printf("track_lm stage clocks: barrier %lld sweep %lld block_sum %lld cluster_sync %lld "
+           "gather %lld decide %lld columns %lld solve %lld pose %lld other %lld\n",
+           prof[0], prof[1], prof[2], prof[3], prof[4], prof[5], prof[9], prof[6], prof[7],
+           prof[8]);
+#endif
+  // no block leaves while another may still read its partials
+  lm::cluster_barrier();
 }
 
 }  // namespace
@@ -490,6 +589,14 @@ extern "C" int track_lm_launch(int n_levels, const void* const* grad, const int*
   a.nvalid_out = static_cast<long long*>(nvalid_out);
   a.cov_out = static_cast<float*>(cov_out);
   if (stats && (!stat_out || !nvalid_out || !cov_out)) return (int)cudaErrorInvalidValue;
-  track_lm_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return (int)lm::launch_clusters(track_lm_kernel, B, THREADS,
+                                  static_cast<cudaStream_t>(stream), nullptr, a);
+}
+
+// The cluster's size (blocks a solve) and how many such clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters). Returns the query's
+// cudaError_t.
+extern "C" int track_lm_cluster_info(int* cluster, int* max_active) {
+  *cluster = CS;
+  return (int)lm::launch_clusters(track_lm_kernel, 1, THREADS, nullptr, max_active, Args{});
 }

@@ -1,10 +1,11 @@
 """Motion-only PnP as one CUDA kernel launch a solve.
 
   pnp_lm_cuda   hand-written sm_90a kernel (csrc/pnp_lm.cu): the whole of
-                `solve_pnp` in one block (rounds x LM steps with the chi2
-                Huber weight, the re-classification after each round, the
-                covariance over the final inliers); no host read inside the
-                solve. It replaces the JAX package's `solve_pnp` program
+                `solve_pnp` on one thread block cluster, one sweep a step
+                (rounds x LM steps with the chi2 Huber weight, the
+                re-classification after each round, the covariance over the
+                final inliers); no host read inside the solve. It
+                replaces the JAX package's `solve_pnp` program
                 (libcml_tpu/models/indirect/pnp.py:64, its nested lax.scan).
 
 Its plain PyTorch form, the CPU path and the yardstick on the card, is
@@ -92,6 +93,12 @@ def pnp_lm_cuda(Xw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
 
 
 pnp_lm_cuda.launches = 0
+
+
+def cluster_info(device: torch.device | None = None) -> dict:
+    """The kernel's cluster size (blocks a solve) and how many such clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    return kb.cluster_info(SOURCE, "pnp_lm_cluster_info", device)
 
 
 def parity(got, want, Xw: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,

@@ -2,8 +2,9 @@
 
   track_lm_cuda   hand-written sm_90a kernel (csrc/track_lm.cu): for B
                   starting poses, the complete LM loop of each listed pyramid
-                  level in turn, one block a hypothesis, ending every level on
-                  the device; no host read inside the loop. It replaces the
+                  level in turn, one thread block cluster a hypothesis and
+                  one sweep a step, ending every level on the device; no
+                  host read inside the loop. It replaces the
                   JAX package's `_track_level` while loop
                   (libcml_tpu/models/direct/tracker.py:118), chained by
                   `track` and vmapped by `track_multi`.
@@ -142,6 +143,12 @@ def track_lm_cuda(grads: Sequence[torch.Tensor], cams: Sequence[PinholeCamera],
 
 
 track_lm_cuda.launches = 0
+
+
+def cluster_info(device: torch.device | None = None) -> dict:
+    """The kernel's cluster size (blocks a solve) and how many such clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    return kb.cluster_info(SOURCE, "track_lm_cluster_info", device)
 
 
 def _decisions(trace: np.ndarray, steps: int) -> list[tuple[bool, bool]]:

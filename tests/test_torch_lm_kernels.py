@@ -1,17 +1,24 @@
 """The two LM kernels' plain forms held to the JAX package, their dispatch and
-wrapper checks, and the sum order of the kernels modelled on the CPU.
+wrapper checks, the kernels' schedule and sum order modelled on the CPU.
 
 The tracker's LM (`tracker.track_levels_plain`, the plain form of
 csrc/track_lm.cu) and motion-only PnP (`pnp.pnp_lm_plain`, the plain form of
 csrc/pnp_lm.cu) run here on the CPU against the JAX package's programs on
 inputs made with numpy from a seed (160x120, a few hundred points; PnP at
-N = 4096). The kernels cannot run here: their sum order (per-thread partial
-sums, a warp shuffle tree, the warps in order), their upper-triangle normal
-equations and their pivoted elimination are modelled in numpy and held to the
-plain forms within the tolerances phase 13 of chip_smoke.py applies on the
-card (`ops.track_lm.PARITY_TOL`, `ops.pnp_lm.PARITY_TOL`). The kernels
-themselves are held to the plain forms on the card by the tests at the end
-(skipped without CUDA) and by chip_smoke.py.
+N = 4096). The kernels cannot run here. Two models stand in for them:
+- their schedule, one sweep an LM step (the system at T_new summed with
+  E_new and kept on accept, the system of T kept on reject; PnP's E_new over
+  the step's ok(T), the re-classification merged into the next round's first
+  sweep and into the covariance sweep), written in torch with the plain
+  forms' own functions and held to the plain forms bit for bit;
+- their arithmetic order (each thread of a cluster of 8 blocks of 256 its
+  points in index order, a warp shuffle tree, the warps in order, the
+  blocks in rank order), their upper-triangle normal equations and their
+  pivoted elimination, in numpy, held to the plain forms within the
+  tolerances phase 13 of chip_smoke.py applies on the card
+  (`ops.track_lm.PARITY_TOL`, `ops.pnp_lm.PARITY_TOL`).
+The kernels themselves are held to the plain forms on the card by the tests
+at the end (skipped without CUDA) and by chip_smoke.py.
 """
 
 import jax
@@ -50,7 +57,7 @@ CFG_KW = dict(num_levels=3, max_points=256, points_per_kf=64, init_points=256,
               max_frames=4, tracker_iters=8, init_iters=12, ba_iters=4)
 JCAM, TCAM = JCam.make(*CAM_ARGS), TCam.make(*CAM_ARGS)
 JCFG, TCFG = JCfg(**CFG_KW), TCfg(**CFG_KW)
-THREADS, WARPS = 256, 8          # csrc/track_lm.cu and pnp_lm.cu
+THREADS, WARPS, CLUSTER = 256, 8, 8   # csrc/track_lm.cu, pnp_lm.cu, lm_common.cuh
 
 
 def _np(x):
@@ -287,46 +294,245 @@ def test_wrappers_reject_what_the_kernels_do_not_take(scene, what):
     assert track_lm.track_lm_cuda.launches == 0 and pnp_lm.pnp_lm_cuda.launches == 0
 
 
-# -- (e) the kernels' sum order and solve, modelled ---------------------------------------
+# -- (e) the kernels' schedule, modelled in torch ---------------------------------------
 
 
-def _blocked_sum(v: np.ndarray) -> np.ndarray:
-    """The kernels' block reduction of (P, k) f32 values: thread p % 256 sums
-    its points in order, a shuffle-down tree in each warp, then the warps'
-    partials in warp order (lm_common.cuh block_sum)."""
+def _one_sweep_level(grad, cam, uv, idepth, color, weight, valid, T, ab, cfg, ab_center):
+    """csrc/track_lm.cu's level schedule with the plain form's arithmetic:
+    one sweep at (T, ab) gives the energy and the normal equations there;
+    a step solves the kept system, and its one sweep at (T_new, ab_new)
+    gives E_new and the system there, kept on accept (the system of T kept
+    on reject). Returns _track_level_plain's tuple."""
+    wm = torch.where(valid[:, None], weight, torch.zeros_like(weight))
+    prior = torch.tensor((0.0,) * 6 + (1e-1, 1e-3))
+
+    def sweep(T, ab):
+        ev = evaluate_residuals(grad, cam, uv, idepth, color, wm, T, ab[0], ab[1],
+                                huber_k=cfg.huber_intensity, cutoff=cfg.tracker_cutoff,
+                                pattern=PATTERN_CENTER)
+        ok = ev.valid & valid
+        n = torch.clamp(torch.sum(ok), min=1)
+        E = torch.sum(torch.where(ok, ev.energy, torch.zeros_like(ev.energy))) / n
+        H, b, _ = ttrk.gauss_newton_system(rel_pose_jacobian(ev, color), ev.r, ev.w)
+        return E, H, b
+
+    E, H, b = sweep(T, ab)
+    lam = torch.full((), 1e-4, dtype=torch.float32)
+    trace = torch.full((cfg.tracker_iters, 3), float("nan"))
+    it = 0
+    while it < cfg.tracker_iters:
+        dx = ttrk._solve_scaled(H + torch.diag(prior),
+                                b + prior * torch.cat([torch.zeros(6), ab - ab_center]), lam, cfg)
+        T_new = ttrk.se3_exp(-dx[:6]).compose(T)
+        ab_new = ab - dx[6:]
+        E_new, H_new, b_new = sweep(T_new, ab_new)
+        accept = E_new < E
+        step_norm = torch.linalg.norm(dx)
+        trace[it] = torch.stack([E, E_new, step_norm])
+        T = ttrk.se3_select(accept, T_new, T)
+        ab = torch.where(accept, ab_new, ab)
+        E = torch.where(accept, E_new, E)
+        if bool(accept):
+            H, b = H_new, b_new
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7), torch.clamp(lam * 4.0, max=1e2))
+        it += 1
+        if bool((accept & (step_norm < cfg.tracker_converge_eps))
+                | (~accept & (lam >= 1e2 - 1e-6))):
+            break
+    return T, ab, E, it, trace
+
+
+def _one_sweep_track_levels(grads, cams, uv, color, weight, valid, idepth, R0, t0, ab0,
+                            ab_center, cfg):
+    """track_levels_plain's loop over starts and levels around
+    _one_sweep_level; its tuple without the statistics."""
+    out = []
+    for h in range(R0.shape[0]):
+        T, ab = TSE3(R=R0[h], t=t0[h]), ab0[h]
+        E = torch.zeros(())
+        its, traces = [], []
+        for l in range(len(grads)):
+            T, ab, E, it, trace = _one_sweep_level(grads[l], cams[l], uv[l], idepth, color[l],
+                                                   weight[l], valid[l], T, ab, cfg, ab_center)
+            its.append(it)
+            traces.append(trace)
+        out.append((T.R, T.t, ab, E, torch.tensor(its, dtype=torch.int32), torch.stack(traces)))
+    return (*(torch.stack(x) for x in zip(*out)), None)
+
+
+def _one_sweep_pnp(Xw, uv, valid, sigma2, R0, t0, cam, rounds, iters):
+    """csrc/pnp_lm.cu's schedule with the plain form's arithmetic: a round
+    opens with one sweep at T that re-classifies (after the first round) and
+    gives E, H and b over ok(T); each step solves the kept system, and its
+    one sweep at T_new gives E_new over the step's ok(T) and the system
+    over ok(T_new), kept on accept; the covariance sweep re-classifies last.
+    Returns pnp_lm_plain's tuple."""
+    chi2_2d = tpnp._CHI2_2D
+    w_meas = 1.0 / sigma2
+    eye6 = torch.eye(6)
+
+    def system(r, Xc, chi2, ok):
+        hub = torch.where(chi2 > chi2_2d, torch.sqrt(chi2_2d / torch.clamp(chi2, min=1e-12)),
+                          torch.ones_like(chi2))
+        w = torch.where(ok, w_meas * hub, torch.zeros_like(chi2))
+        J = tpnp._jacobian(Xc, cam)
+        return (torch.einsum("nud,n,nue->de", J, w, J), torch.einsum("nud,n,nu->d", J, w, r),
+                tpnp._robust_energy(chi2, ok))
+
+    T, inlier, trace = TSE3(R=R0, t=t0), valid, []
+    for rnd in range(rounds if iters > 0 else 0):
+        lam = torch.full((), 1e-4, dtype=torch.float32)
+        r, Xc, z_ok = tpnp._residuals(T, Xw, uv, cam)
+        chi2 = torch.sum(r * r, -1) * w_meas
+        if rnd > 0:
+            inlier = valid & z_ok & (chi2 < chi2_2d)
+        ok = inlier & z_ok
+        H, b, E = system(r, Xc, chi2, ok)
+        for _ in range(iters):
+            dx, _ = torch.linalg.solve_ex(H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye6, b)
+            T_new = tpnp.se3_exp(-dx).compose(T)
+            r, Xc, z_ok = tpnp._residuals(T_new, Xw, uv, cam)
+            chi2 = torch.sum(r * r, -1) * w_meas
+            E_new = tpnp._robust_energy(chi2, ok)
+            ok_new = inlier & z_ok
+            H_new, b_new, E_n = system(r, Xc, chi2, ok_new)
+            accept = E_new < E
+            trace.append(torch.stack([E, E_new]))
+            T = tpnp.se3_select(accept, T_new, T)
+            if bool(accept):
+                ok, H, b, E = ok_new, H_new, b_new, E_n
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                              torch.clamp(lam * 4.0, max=1e3))
+    r, Xc, z_ok = tpnp._residuals(T, Xw, uv, cam)
+    chi2 = torch.sum(r * r, -1) * w_meas
+    if rounds > 0:
+        inlier = valid & z_ok & (chi2 < chi2_2d)
+    J = tpnp._jacobian(Xc, cam)
+    w = torch.where(inlier, w_meas, torch.zeros_like(w_meas))
+    cov, _ = torch.linalg.inv_ex(torch.einsum("nud,n,nue->de", J, w, J) + 1e-6 * eye6)
+    chi2_sum = torch.sum(torch.where(inlier, chi2, torch.zeros_like(w_meas)))
+    trace = (torch.stack(trace) if trace else torch.zeros((0, 2))).reshape(rounds, iters, 2)
+    return T.R, T.t, inlier, torch.sum(inlier), cov, chi2_sum, trace
+
+
+def _assert_bits(got, want):
+    """Equal bit for bit, output by output (NaN where NaN)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = _np(g), _np(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        assert np.array_equal(g, w), i
+
+
+@pytest.mark.parametrize("case", ["battery", "all_invalid", "iters0"])
+def test_one_sweep_schedule_equals_track_levels_plain(scene, case):
+    """The tracker kernel's schedule (one sweep a step: the system at T_new
+    summed with E_new, T's system kept on reject) with the plain form's
+    arithmetic equals track_levels_plain bit for bit: the same decisions at
+    every step (the traces) and the same outputs. The battery's 15 starts
+    through three levels; every point invalid (every step rejected: E and
+    E_new are 0); tracker_iters 0 (each level only its first sweep)."""
+    _, Ht = _hypotheses(scene)
+    args = list(_level_args(scene, [2, 1, 0]))
+    cfg = TCFG
+    if case == "all_invalid":
+        args[5] = [torch.zeros_like(v) for v in args[5]]
+    if case == "iters0":
+        cfg = TCfg(**{**CFG_KW, "tracker_iters": 0})
+    ab0 = _t(np.tile(np.array([0.02, -1.5], np.float32), (15, 1)))
+    abc = _t(np.array([0.01, -1.0], np.float32))
+    rest = (scene["rt"].idepth, Ht.R, Ht.t, ab0, abc, cfg)
+    want = ttrk.track_levels_plain(*args, *rest)
+    got = _one_sweep_track_levels(*args, *rest)
+    _assert_bits(got[:6], want[:6])
+    trace, steps = _np(want[5]), _np(want[4])
+    if case == "battery":
+        assert (steps > 1).any() and (trace[..., 1] < trace[..., 0]).any()
+    elif case == "all_invalid":
+        # every level rejects every step it takes
+        assert (steps == cfg.tracker_iters).all()
+        assert not (trace[..., 1] < trace[..., 0]).any()
+    else:
+        assert trace.shape[2] == 0 and (steps == 0).all()
+
+
+@pytest.mark.parametrize("case", ["outliers", "all_invalid", "iters0", "rounds0"])
+def test_one_sweep_schedule_equals_pnp_lm_plain(case):
+    """The PnP kernel's schedule (one sweep a step: E_new over the step's
+    ok(T), the system at T_new over ok(T_new), T's system kept on reject; the
+    re-classification merged into the next round's first sweep and into the
+    covariance sweep) with the plain form's arithmetic equals pnp_lm_plain
+    bit for bit, N = 4096 with outliers and points behind the camera; every
+    match invalid (every step rejected); iters 0 (only the
+    re-classifications); rounds 0 (only the covariance)."""
+    Xw, uv, valid, s2, T0, _ = _pnp_problem(7)
+    if case == "all_invalid":
+        valid = np.zeros_like(valid)
+    rounds, iters = {"iters0": (4, 0), "rounds0": (0, 10)}.get(case, (4, 10))
+    args = (_t(Xw), _t(uv), _t(valid), _t(s2), _t(T0.R), _t(T0.t), TCam.make(*CAM_ARGS),
+            rounds, iters)
+    want = tpnp.pnp_lm_plain(*args)
+    _assert_bits(_one_sweep_pnp(*args), want)
+    accepted = _np(want[6][..., 1] < want[6][..., 0])
+    if case == "outliers":
+        assert accepted.any() and not accepted.all()
+    elif case == "all_invalid":
+        assert accepted.size == 40 and not accepted.any()
+
+
+# -- (f) the kernels' sum order and solve, modelled -------------------------------------
+
+
+def _cluster_sum(v: np.ndarray) -> np.ndarray:
+    """The kernels' cluster reduction of (P, k) f32 values: thread g of the
+    CLUSTER x 256 sums its points g, g + 2048, ... in order; in each block a
+    shuffle-down tree in each warp, then the warps' partials in warp order;
+    then the blocks' partials in rank order (lm_common.cuh cluster_sum)."""
     v = v.astype(np.float32)
     P, k = v.shape
-    acc = np.zeros((THREADS, k), np.float32)
-    for s in range(0, P, THREADS):
-        chunk = v[s:s + THREADS]
+    G = CLUSTER * THREADS
+    acc = np.zeros((G, k), np.float32)
+    for s in range(0, P, G):
+        chunk = v[s:s + G]
         acc[:len(chunk)] += chunk
-    w = acc.reshape(WARPS, 32, k)
+    w = acc.reshape(CLUSTER, WARPS, 32, k)
     for off in (16, 8, 4, 2, 1):
         w = w.copy()
-        w[:, :32 - off] = w[:, :32 - off] + w[:, off:]
-    out = w[0, 0].copy()
+        w[:, :, :32 - off] = w[:, :, :32 - off] + w[:, :, off:]
+    blocks = w[:, 0, 0].copy()
     for i in range(1, WARPS):
-        out = out + w[i, 0]
+        blocks = blocks + w[:, i, 0]
+    out = blocks[0].copy()
+    for r in range(1, CLUSTER):
+        out = out + blocks[r]
     return out
 
 
 def _lu_solve(A: np.ndarray, B: np.ndarray) -> np.ndarray:
     """lm_common.cuh warp_solve: elimination with partial pivoting (the
-    first row of largest magnitude), then back substitution, in f32."""
+    first row of largest magnitude; a NaN never displaces the diagonal), the
+    multipliers scaled by the pivot's reciprocal, then back substitution
+    multiplying by the pivots' reciprocals, in f32."""
     n = A.shape[0]
     M = np.concatenate([A, B], 1).astype(np.float32)
+    rcp = np.zeros(n, np.float32)
     for k in range(n):
-        p = k + int(np.argmax(np.abs(M[k:, k])))
+        p, best = k, abs(M[k, k])
+        for i in range(k + 1, n):
+            if abs(M[i, k]) > best:
+                p, best = i, abs(M[i, k])
         M[[k, p]] = M[[p, k]]
+        rcp[k] = np.float32(1.0) / M[k, k]
         for r in range(k + 1, n):
-            lr = np.float32(M[r, k] / M[k, k])
+            lr = np.float32(M[r, k] * rcp[k])
             M[r, k + 1:] = M[r, k + 1:] - lr * M[k, k + 1:]
     X = np.zeros_like(B, dtype=np.float32)
     for k in range(n - 1, -1, -1):
         s = M[k, n:].copy()
         for j in range(k + 1, n):
             s = s - M[k, j] * X[j]
-        X[k] = s / M[k, k]
+        X[k] = s * rcp[k]
     return X
 
 
@@ -337,50 +543,47 @@ def _upper(H: np.ndarray) -> np.ndarray:
 
 
 def _model_track_level(grad, cam, uv, idepth, color, weight, valid, R, t, ab, abc, cfg):
-    """csrc/track_lm.cu's level loop with the blocked sums and the warp solve
-    (per-point values from the plain residuals)."""
+    """csrc/track_lm.cu's level loop: one sweep a step (E and the system
+    from the same per-point values, the system of T kept on reject), the
+    cluster sums and the pivoted solve (per-point values from the plain
+    residuals)."""
     wm = torch.where(valid[:, None], weight, torch.zeros_like(weight))
     s = np.array([cfg.scale_trans] * 3 + [cfg.scale_rot] * 3 + [cfg.scale_a, cfg.scale_b],
                  np.float32)
 
-    def sweep(R, t, ab, lin):
+    def sweep(R, t, ab):
         ev = evaluate_residuals(grad, cam, uv, idepth, color, wm, TSE3(R=_t(R), t=_t(t)),
                                 torch.tensor(ab[0]), torch.tensor(ab[1]),
                                 huber_k=cfg.huber_intensity, cutoff=cfg.tracker_cutoff,
                                 pattern=PATTERN_CENTER)
         ok = _np(ev.valid & valid)
-        e = np.stack([np.where(ok, _np(ev.energy), 0.0), ok.astype(np.float32)], -1)
-        E = _blocked_sum(e)
-        E = np.float32(E[0] / max(E[1], np.float32(1.0)))
-        if not lin:
-            return E
         J = _np(rel_pose_jacobian(ev, color))[:, 0]
         jw = J * _np(ev.w)
         cols = [jw[:, d] * J[:, f] for d in range(8) for f in range(d, 8)]
         cols += [jw[:, d] * _np(ev.r)[:, 0] for d in range(8)]
-        sums = _blocked_sum(np.stack(cols, -1))
+        cols += [np.where(ok, _np(ev.energy), 0.0), ok.astype(np.float32)]
+        sums = _cluster_sum(np.stack(cols, -1))
         H = np.zeros((8, 8), np.float32)
         H[np.triu_indices(8)] = sums[:36]
-        return _upper(H), sums[36:]
+        return np.float32(sums[44] / max(sums[45], np.float32(1.0))), _upper(H), sums[36:44]
 
-    E = sweep(R, t, ab, False)
+    E, H, b = sweep(R, t, ab)
     lam, it = np.float32(1e-4), 0
     trace = np.full((cfg.tracker_iters, 3), np.nan, np.float32)
     prior = np.array([0.0] * 6 + [1e-1, 1e-3], np.float32)
     while it < cfg.tracker_iters:
-        H, b = sweep(R, t, ab, True)
-        H = H + np.diag(prior)
-        b = b + prior * np.concatenate([np.zeros(6, np.float32), ab - abc])
-        Hs = (H * s[:, None]) * s[None, :]
+        Hp = H + np.diag(prior)
+        bp = b + prior * np.concatenate([np.zeros(6, np.float32), ab - abc])
+        Hs = (Hp * s[:, None]) * s[None, :]
         Hs[np.diag_indices(8)] = (np.diag(Hs) + lam * np.diag(Hs)) + np.float32(1e-8)
-        dx = _lu_solve(Hs, (b * s)[:, None])[:, 0] * s
+        dx = _lu_solve(Hs, (bp * s)[:, None])[:, 0] * s
         Tn = ttrk.se3_exp(_t(-dx[:6])).compose(TSE3(R=_t(R), t=_t(t)))
         Rn, tn, abn = _np(Tn.R), _np(Tn.t), (ab - dx[6:]).astype(np.float32)
-        E_new = sweep(Rn, tn, abn, False)
+        E_new, H_new, b_new = sweep(Rn, tn, abn)
         accept = E_new < E
         trace[it] = (E, E_new, np.linalg.norm(dx))
         if accept:
-            R, t, ab, E = Rn, tn, abn, E_new
+            R, t, ab, E, H, b = Rn, tn, abn, E_new, H_new, b_new
         lam = np.float32(max(lam * 0.5, 1e-7) if accept else min(lam * 4.0, 1e2))
         it += 1
         if (accept and np.linalg.norm(dx) < cfg.tracker_converge_eps) or (
@@ -390,57 +593,68 @@ def _model_track_level(grad, cam, uv, idepth, color, weight, valid, R, t, ab, ab
 
 
 def _model_pnp(Xw, uv, valid, s2, R, t, rounds=4, iters=10):
-    """csrc/pnp_lm.cu with the blocked sums and the warp solve (per-point
-    values from the plain residuals and Jacobian)."""
+    """csrc/pnp_lm.cu: one sweep a step (E_new over the step's ok(T) and
+    the system at T_new over ok(T_new) from the same per-match values, T's
+    system kept on reject), the re-classification merged into the next
+    round's first sweep and into the covariance sweep, the cluster sums and
+    the pivoted solve (per-match values from the plain residuals and
+    Jacobian)."""
     cam = TCam.make(*CAM_ARGS)
     w_meas = (np.float32(1.0) / s2).astype(np.float32)
     chi2_2d = np.float32(5.991)
 
     def res(R, t):
         r, Xc, z_ok = tpnp._residuals(TSE3(R=_t(R), t=_t(t)), _t(Xw), _t(uv), cam)
-        return _np(r), Xc, _np(z_ok)
+        r = _np(r)
+        return r, _np(tpnp._jacobian(Xc, cam)), _np(z_ok), (r * r).sum(-1) * w_meas
 
     def robust(c):
         return np.minimum(c, chi2_2d * np.sqrt(np.maximum(c / chi2_2d, np.float32(1.0))))
 
+    def system(r, J, chi2, ok, ok_step):
+        """H, b, E over ok and E_new over ok_step (the step's mask)."""
+        hub = np.where(chi2 > chi2_2d, np.sqrt(chi2_2d / np.maximum(chi2, 1e-12)), 1.0)
+        w = np.where(ok, w_meas * hub, 0.0).astype(np.float32)
+        cols = [(J[:, 0, d] * w) * J[:, 0, e] + (J[:, 1, d] * w) * J[:, 1, e]
+                for d in range(6) for e in range(d, 6)]
+        cols += [(J[:, 0, d] * w) * r[:, 0] + (J[:, 1, d] * w) * r[:, 1] for d in range(6)]
+        cols += [np.where(ok, robust(chi2), 0.0), np.where(ok_step, robust(chi2), 0.0)]
+        sums = _cluster_sum(np.stack(cols, -1))
+        H = np.zeros((6, 6), np.float32)
+        H[np.triu_indices(6)] = sums[:21]
+        return _upper(H), sums[21:27], sums[27], sums[28]
+
     inlier, trace = valid.copy(), []
-    for _ in range(rounds):
+    for rnd in range(rounds if iters > 0 else 0):
         lam = np.float32(1e-4)
+        r, J, z_ok, chi2 = res(R, t)
+        if rnd > 0:
+            inlier = valid & z_ok & (chi2 < chi2_2d)
+        ok = inlier & z_ok
+        H, b, E, _ = system(r, J, chi2, ok, ok)
         for _ in range(iters):
-            r, Xc, z_ok = res(R, t)
-            ok = inlier & z_ok
-            chi2 = (r * r).sum(-1) * w_meas
-            hub = np.where(chi2 > chi2_2d, np.sqrt(chi2_2d / np.maximum(chi2, 1e-12)), 1.0)
-            w = np.where(ok, w_meas * hub, 0.0).astype(np.float32)
-            J = _np(tpnp._jacobian(Xc, cam))
-            cols = [(J[:, 0, d] * w) * J[:, 0, e] + (J[:, 1, d] * w) * J[:, 1, e]
-                    for d in range(6) for e in range(d, 6)]
-            cols += [(J[:, 0, d] * w) * r[:, 0] + (J[:, 1, d] * w) * r[:, 1] for d in range(6)]
-            cols += [np.where(ok, robust(chi2), 0.0)]
-            sums = _blocked_sum(np.stack(cols, -1))
-            H = np.zeros((6, 6), np.float32)
-            H[np.triu_indices(6)] = sums[:21]
-            H = _upper(H)
-            H[np.diag_indices(6)] = (np.diag(H) + lam * np.diag(H)) + np.float32(1e-8)
-            dx = _lu_solve(H, sums[21:27, None])[:, 0]
+            Hd = H.copy()
+            Hd[np.diag_indices(6)] = (np.diag(H) + lam * np.diag(H)) + np.float32(1e-8)
+            dx = _lu_solve(Hd, b[:, None])[:, 0]
             Tn = ttrk.se3_exp(_t(-dx)).compose(TSE3(R=_t(R), t=_t(t)))
-            rn, _, _ = res(_np(Tn.R), _np(Tn.t))
-            E_new = _blocked_sum(np.where(ok, robust((rn * rn).sum(-1) * w_meas), 0.0)[:, None])
-            trace.append((sums[27], E_new[0]))
-            if E_new[0] < sums[27]:
-                R, t = _np(Tn.R), _np(Tn.t)
+            Rn, tn = _np(Tn.R), _np(Tn.t)
+            r, J, z_ok, chi2 = res(Rn, tn)
+            ok_new = inlier & z_ok
+            H_new, b_new, E_n, E_new = system(r, J, chi2, ok_new, ok)
+            trace.append((E, E_new))
+            if E_new < E:
+                R, t, ok, H, b, E = Rn, tn, ok_new, H_new, b_new, E_n
                 lam = np.float32(max(lam * 0.5, 1e-9))
             else:
                 lam = np.float32(min(lam * 4.0, 1e3))
-        r, _, z_ok = res(R, t)
-        inlier = valid & z_ok & ((r * r).sum(-1) * w_meas < chi2_2d)
-    r, Xc, _ = res(R, t)
-    J = _np(tpnp._jacobian(Xc, cam))
+    r, J, z_ok, chi2 = res(R, t)
+    if rounds > 0:
+        inlier = valid & z_ok & (chi2 < chi2_2d)
     w = np.where(inlier, w_meas, 0.0).astype(np.float32)
     cols = [(J[:, 0, d] * w) * J[:, 0, e] + (J[:, 1, d] * w) * J[:, 1, e]
             for d in range(6) for e in range(d, 6)]
-    cols += [np.where(inlier, (r * r).sum(-1) * w_meas, 0.0)]
-    sums = _blocked_sum(np.stack(cols, -1))
+    cols += [np.where(inlier, chi2, 0.0), inlier.astype(np.float32)]
+    sums = _cluster_sum(np.stack(cols, -1))
     H = np.zeros((6, 6), np.float32)
     H[np.triu_indices(6)] = sums[:21]
     cov = _lu_solve(_upper(H) + np.float32(1e-6) * np.eye(6, dtype=np.float32),
@@ -450,8 +664,9 @@ def _model_pnp(Xw, uv, valid, s2, R, t, rounds=4, iters=10):
 
 
 def test_track_kernel_model_within_parity_tolerance(scene):
-    """The tracker kernel's arithmetic order (blocked sums, upper-triangle H,
-    pivoted warp solve) against the plain form's einsum order, through three
+    """The tracker kernel's schedule and arithmetic order (one sweep a step,
+    cluster sums, upper-triangle H, pivoted solve by reciprocals) against the plain form's
+    two sweeps a step in einsum order, through three
     levels from every start of the battery: within track_lm.parity's bounds,
     the one phase 13 of chip_smoke.py applies to the kernel on the card (a
     start whose steps differ must first differ at a decision within
@@ -483,7 +698,8 @@ def test_track_kernel_model_within_parity_tolerance(scene):
 
 
 def test_pnp_kernel_model_within_parity_tolerance():
-    """The PnP kernel's arithmetic order against the plain form's, N = 4096
+    """The PnP kernel's schedule and arithmetic order (one sweep a step, the
+    re-classification merged, cluster sums) against the plain form's, N = 4096
     with outliers and points behind the camera, three seeds: within
     pnp_lm.parity's bounds, as phase 13 applies them on the card."""
     for seed in (7, 8, 9):
