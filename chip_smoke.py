@@ -6,9 +6,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
   1. build the three hand-written kernels (csrc/hamming_match.cu,
-     track_lm.cu, pnp_lm.cu) from the sources in this checkout, and the two
-     LM kernels with the non-portable cluster size of 16 (measured in phase
-     13 only), one nvcc each, all started together.
+     track_lm.cu, pnp_lm.cu) from the sources in this checkout, one nvcc
+     each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -90,14 +89,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      three times (past the points a thread holds in registers); one launch
      a call (counted and profiled), cold and warm ms (median of 30),
      microseconds an LM step, the plain form's ms (median of 5), the bound
-     (bytes or f32 operations of the steps actually run) and its share. Then
+     (bytes, or f32 operations of the sweeps and systems the run's steps
+     need) and its share. Then
      `track` on the card with every point invalid (finite, no valid point,
      zero energy), `track_multi` (2 track_lm launches), and the host waits
      of a track, track_multi and PnP call, which must be none (no sync, no
      copy); the starts whose levels took other steps than the plain form,
      counted; last, the kernels' cluster size (8) and the clusters the card
-     holds at once (cudaOccupancyMaxActiveClusters) beside those of 16, and
-     a `track`, a battery and a PnP pass timed with both sizes in turns.
+     holds at once (cudaOccupancyMaxActiveClusters).
 Every phase from 3 on reports the LM kernels' launches of its run (counted
 from 0 just before it and read just after); phase 3 must launch track_lm on
 every tracked frame, phase 4 pnp_lm twice a frame, phases 5 and 7 both.
@@ -1182,10 +1181,6 @@ def match_ratio_phase(frames, card: str, popc_rate: float) -> tuple[dict, dict]:
 # re-classification and final sweep
 TRACK_ENERGY_FLOPS, TRACK_LINEAR_FLOPS, TRACK_STATS_FLOPS = 73, 253, 265
 PNP_LINEAR_FLOPS, PNP_ENERGY_FLOPS, PNP_RECLASS_FLOPS, PNP_FINAL_FLOPS = 227, 64, 32, 219
-# the LM kernels built with the non-portable cluster size, timed beside the
-# kept one (lm_common.cuh: LM_CLUSTER)
-CS16 = ("LM_CLUSTER=16",)
-CS16_BUILDS = ((track_lm.SOURCE, CS16), (pnp_lm.SOURCE, CS16))
 TRACK_FROM = 12     # phase 3's track launches kept for phase 13: two from this one on
 PNP_FROM = 20       # phase 5's PnP launches: a frame's two passes from this one on
 
@@ -1276,42 +1271,65 @@ def _texels(grad: torch.Tensor, cam, uv, idepth, R, t) -> int:
     return int(torch.unique(ids).numel())
 
 
+def _systems(trace: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """The normal equations an LM loop needs, from its per-step trace (...,
+    steps, >= 2: E, E_new) and the steps it ran (...): one at its start when
+    it takes a step, and one at each accepted pose a later step starts from.
+    After a rejected step the pose, and so its system, is the one held."""
+    n = trace.shape[-2]
+    acc = (trace[..., 1] < trace[..., 0]) & (torch.arange(n) < (steps[..., None] - 1))
+    return (steps > 0).long() + acc.long().sum(-1)
+
+
 def track_bound(args, got) -> tuple[float, str, dict]:
     """Least time of one track_lm call, in ms: the larger of its bytes over
     the HBM rate and its arithmetic over the f32 rate. Bytes: each level's
     point data and idepth read once, the texels gathered at the final pose
     of every hypothesis (12 bytes each), the starts, and the outputs written
-    once; arithmetic: the sweeps the iterations actually run (and track's
-    statistics sweep when the call runs it)."""
+    once. Arithmetic, from the kernel's trace: an energy sweep at each trial
+    pose (at the start of a level that takes no step, one at its pose), a
+    linear sweep (which includes the energy's work) for each system the
+    level needs (_systems), and track's statistics sweep when the call
+    runs it."""
     grads, cams, uv, color, weight, valid, idepth, R0, t0, ab0, abc, cfg = args[:12]
     stats = len(args) > 12 and args[12]
     L, P, B = len(grads), idepth.numel(), R0.shape[0]
     its = got[4].long().cpu()
+    systems = _systems(got[5].cpu(), its)
     texels = sum(_texels(grads[l], cams[l], uv[l], idepth, got[0], got[1]) for l in range(L))
     nbytes = (L * P * (8 + 4 + 4 + 1) + P * 4 + 12 * texels + B * 14 * 4 + 8
               + B * 15 * 4 + B * L * 4 + B * L * cfg.tracker_iters * 12
               + (B * (4 * 4 + 8 + 36 * 4) if stats else 0))
-    flops = P * float((TRACK_ENERGY_FLOPS * (1 + its) + TRACK_LINEAR_FLOPS * its).sum()
+    # E0 is the start's linear sweep's; an accepted pose's energy sweep is
+    # part of the linear sweep there
+    energy = its + (its == 0).long() - (systems - (its > 0).long())
+    flops = P * float((TRACK_ENERGY_FLOPS * energy + TRACK_LINEAR_FLOPS * systems).sum()
                       + (B * TRACK_STATS_FLOPS if stats else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     detail = {"bytes": nbytes, "flops": flops, "texels": texels,
-              "steps": its.tolist() if B <= 2 else int(its.sum())}
+              "steps": its.tolist() if B <= 2 else int(its.sum()),
+              "systems": systems.tolist() if B <= 2 else int(systems.sum())}
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
-def pnp_bound(args) -> tuple[float, str, dict]:
+def pnp_bound(args, got) -> tuple[float, str, dict]:
     """Least time of one pnp_lm call, in ms: matches, starts and outputs
-    read or written once; the sweeps of rounds x iters steps, the
-    re-classifications and the final sweep."""
+    read or written once. Arithmetic, from the kernel's trace: an energy
+    sweep at each trial pose, a linear sweep for each system a round needs
+    (_systems: its first step's, and the accepted poses a later step starts
+    from; the projection it shares with the energy at that pose counted
+    twice), the re-classifications and the final sweep."""
     Xw, rounds, iters = args[0], args[7], args[8]
     N = Xw.shape[0]
+    trace = got[6].cpu()
+    systems = int(_systems(trace, torch.full(trace.shape[:1], iters)).sum())
     nbytes = N * (12 + 8 + 1 + 4) + 48 + N + 48 + 8 + 144 + 4 + rounds * iters * 8
-    flops = float(N * (rounds * iters * (PNP_LINEAR_FLOPS + PNP_ENERGY_FLOPS)
+    flops = float(N * (systems * PNP_LINEAR_FLOPS + rounds * iters * PNP_ENERGY_FLOPS
                        + rounds * PNP_RECLASS_FLOPS + PNP_FINAL_FLOPS))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
-    detail = {"bytes": nbytes, "flops": flops}
+    detail = {"bytes": nbytes, "flops": flops, "systems": systems}
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
@@ -1367,7 +1385,7 @@ def pnp_case(name: str, args, card: str) -> dict:
     calls = pnp_lm.pnp_lm_cuda.launches - before
     want = pnp_mod.pnp_lm_plain(*args)
     rep = pnp_lm.parity(got, want, *args[:4], args[6])
-    bound, by, detail = pnp_bound(args)
+    bound, by, detail = pnp_bound(args, got)
     row = {"case": name, "N": args[0].shape[0], "valid": int(args[2].sum()),
            "inliers": int(got[3]), "plain_inliers": int(want[3]), "parity": rep,
            **_lm_times(lambda: pnp_lm.pnp_lm_cuda(*args),
@@ -1405,35 +1423,6 @@ def _syncs(fn) -> dict:
     return {"syncs": sum(counts[k] for k in SYNC_CALLS),
             "memcpys": sum(counts[k] for k in COPY_CALLS),
             "enqueues": sum(counts[k] for k in ENQUEUE_CALLS)}
-
-
-def cluster_16(cases: dict) -> dict:
-    """The kept cluster size (8) against 16, the non-portable size: the
-    clusters the card holds at once for both, and cold ms of each case in
-    turns (8, 16, 16, 8) with 16's parity. 16 would replace 8 only where it
-    is faster in every case; the kernels keep 8."""
-    out = {"kept": {"track_lm": track_lm.cluster_info(), "pnp_lm": pnp_lm.cluster_info()}}
-    with kernel_build.variant(track_lm.SOURCE, CS16), kernel_build.variant(pnp_lm.SOURCE, CS16):
-        out["cluster_16"] = {"track_lm": track_lm.cluster_info(), "pnp_lm": pnp_lm.cluster_info()}
-    for name, args in cases.items():
-        is_track = len(args) > 9
-        fn = track_lm.track_lm_cuda if is_track else pnp_lm.pnp_lm_cuda
-        ms = {8: [], 16: []}
-        for size in (8, 16, 16, 8):
-            with contextlib.ExitStack() as st:
-                if size == 16:
-                    for src in (track_lm.SOURCE, pnp_lm.SOURCE):
-                        st.enter_context(kernel_build.variant(src, CS16))
-                ms[size].append(cuda_ms(lambda: fn(*args)))
-                if size == 16 and len(ms[16]) == 1:
-                    got = fn(*args)
-                    ok = (track_lm.parity(got, tracker.track_levels_plain(*args), args[11])
-                          if is_track else pnp_lm.parity(got, pnp_mod.pnp_lm_plain(*args),
-                                                         *args[:4], args[6]))["ok"]
-        out[name] = {"ms_8": ms[8], "ms_16": ms[16], "parity_16": ok,
-                     "faster_16": max(ms[16]) < min(ms[8])}
-    print(json.dumps({"phase": "lm_cluster_size", **out}))
-    return out
 
 
 def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
@@ -1507,18 +1496,17 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
     public["starts_taking_other_steps"] = {
         "starts": sum(r["B"] for r in converging),
         "differ": sum(len(r["parity"]["diverged"]) for r in converging)}
+    # the cluster size and the clusters the card holds at once
+    public["cluster"] = {"track_lm": track_lm.cluster_info(), "pnp_lm": pnp_lm.cluster_info()}
     print(json.dumps({"phase": "lm_public", **public}))
     print(f"phase 13: {public['starts_taking_other_steps']['differ']} of "
           f"{public['starts_taking_other_steps']['starts']} starts took other steps than "
-          "the plain form; microseconds an LM step: "
+          f"the plain form; clusters {public['cluster']}; microseconds an LM step: "
           + ", ".join(f"{r['case']} {r['us_per_step']:.3f}" for r in t_rows + p_rows))
     require(multi_launches == 2, f"track_multi made {multi_launches} track_lm launches")
     for name in ("track", "track_multi", "solve_pnp"):
         require(public[name]["syncs"] == 0 and public[name]["memcpys"] == 0,
                 f"{name} waits for the device: {public[name]}")
-    public["cluster_size"] = cluster_16({"track": cap.saved["track_lm"][0][1],
-                                         "battery": battery,
-                                         "pnp pass 1": cap.saved["pnp_lm"][0][2]})
     return t_rows, p_rows, public
 
 
@@ -1532,8 +1520,7 @@ def main() -> int:
     print(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    for path, secs, log in kernel_build.build_many(kernel_build.SOURCES + CS16_BUILDS,
-                                                   verbose=True):
+    for path, secs, log in kernel_build.build_many(kernel_build.SOURCES, verbose=True):
         print(f"built {path.name} in {secs:.1f} s")
         print(log.strip())
     print(f"kernels built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -1689,7 +1676,7 @@ def main() -> int:
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "us_per_step": main_row["us_per_step"],
-            "cluster": lm_public["cluster_size"]["kept"][name],
+            "cluster": lm_public["cluster"][name],
             "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,

@@ -16,28 +16,19 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-// Blocks a solve. 8 is the portable cluster size; a build with
-// -DLM_CLUSTER=16 (the non-portable size) serves only to measure it.
-#ifndef LM_CLUSTER
-#define LM_CLUSTER 8
-#endif
-
 namespace lm {
 
 namespace cg = cooperative_groups;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CLUSTER = LM_CLUSTER;
+// Blocks a solve: 8, the portable cluster size (16, the non-portable one,
+// was no faster for a track and slower for a battery; PERF.md)
+constexpr int CLUSTER = 8;
 
 // torch.clamp(x, min=m) / clamp(x, max=m): a NaN stays NaN (fmaxf would
 // drop it)
 __device__ __forceinline__ float clamp_min(float x, float m) { return x < m ? m : x; }
 __device__ __forceinline__ float clamp_max(float x, float m) { return x > m ? m : x; }
-
-// No-op stage marks (a build with -DLM_PROFILE passes a clock64 recorder).
-struct NoMark {
-  __device__ __forceinline__ void operator()(int) const {}
-};
 
 // p ? a : b as one select instruction. Written as a ternary, the choice
 // between v[j] and v[j + H] below compiles to an index into v, which moves
@@ -94,12 +85,10 @@ __device__ __forceinline__ void cluster_barrier() {
 // sum never overwrites a partial another block still reads); one cluster
 // barrier; then warp 0 of every block sums the CLUSTER partials in rank order
 // (distributed shared memory) into `out` (N). Ends with `out` complete for
-// warp 0; the other warps read it only after a block barrier. `mark(s)` closes stage
-// s: 2 the block's reduction, 3 the cluster barrier, 4 the sum of the
-// partials.
-template <int N, int WARPS, typename Mark = NoMark>
+// warp 0; the other warps read it only after a block barrier.
+template <int N, int WARPS>
 __device__ __forceinline__ void cluster_sum(const float (&v)[N], float* red, float* part,
-                                            int buf, float* out, Mark mark = {}) {
+                                            int buf, float* out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -117,9 +106,7 @@ __device__ __forceinline__ void cluster_sum(const float (&v)[N], float* red, flo
     for (int w = 1; w < WARPS; ++w) s += red[w * N + i];
     mine[i] = s;
   }
-  mark(2);
   cluster_barrier();
-  mark(3);
   if (warp == 0) {
     for (int i = lane; i < N; i += 32) {
       float p[CLUSTER];
@@ -132,7 +119,6 @@ __device__ __forceinline__ void cluster_sum(const float (&v)[N], float* red, flo
     }
     __syncwarp();
   }
-  mark(4);
 }
 
 // Gaussian elimination with partial pivoting of an N x N system with R
@@ -209,11 +195,6 @@ __device__ __forceinline__ void warp_solve(float (&col)[N], float (&x)[N]) {
 template <typename... P, typename... A>
 inline cudaError_t launch_clusters(void (*kernel)(P...), int clusters, int threads,
                                    cudaStream_t stream, int* occupancy, A&&... args) {
-  if (CLUSTER > 8) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(clusters * CLUSTER);
   cfg.blockDim = dim3(threads);

@@ -43,9 +43,7 @@
 //   decision: no broadcast, atomic or grid sync.
 // - The serial tail: the 6x6 solve by one warp, a column a lane, with the
 //   pivot rule of torch.linalg.solve, and the block's reduction by recursive
-//   halving (lm_common.cuh); se3_exp_compose unchanged. A build with
-//   -DLM_PROFILE prints the clocks of each stage of the steps
-//   (tools/lm_ab.py --profile).
+//   halving (lm_common.cuh); se3_exp_compose unchanged.
 // Matches past KREG x 2048 a thread (N > 8192) are read from memory each
 // sweep, their inlier bit kept in the output buffer (each entry written and
 // read only by the thread that owns the match) and ok(T) recomputed at the
@@ -57,7 +55,6 @@
 // here, not the photometric tracker's 1e-8.
 
 #include <cstdint>
-#include <cstdio>
 #include <cuda_runtime.h>
 
 #include "lm_common.cuh"
@@ -245,22 +242,6 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
   }
   for (int n = g + KREG * STRIDE; n < a.N; n += STRIDE) a.inlier[n] = a.valid[n];
   __syncthreads();
-#ifdef LM_PROFILE
-  // a measurement build: thread 0's clocks a stage of the LM steps (0 the
-  // barrier closing a step, 1 the sweep, 2-4 cluster_sum's stages, 5 the
-  // decision, 9 the system's columns, 6 the solve, 7 T_new; 8 outside the
-  // steps), printed by block 0
-  long long prof_t = clock64(), prof[10] = {};
-  auto mark = [&](int i) {
-    if (tid == 0) {
-      const long long now = clock64();
-      prof[i] += now - prof_t;
-      prof_t = now;
-    }
-  };
-#else
-  const lm::NoMark mark;
-#endif
 
   // warp 0: the damped solve of sys[cur] at lambda, lane c < 6 building
   // column c, lane 6 the right-hand side; then T_new = exp(-dx) o T (lane 0
@@ -277,9 +258,7 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
       col[r] = lane >= 6 ? S[NH + r] : (c == r ? (h + lm_ * h) + 1e-8f : h);
     }
     float x[6];
-    mark(9);
     lm::warp_solve<6, 1>(col, x);
-    mark(6);
     if (lane == 0) {
       const float xi[6] = {-x[0], -x[1], -x[2], -x[3], -x[4], -x[5]};
       float Rl[9], tl[3];
@@ -293,7 +272,6 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
 #pragma unroll
       for (int i = 0; i < 3; ++i) tn[i] = tl[i];
     }
-    mark(7);
   };
 
   for (int round = 0; round < a.rounds && a.iters > 0; ++round) {
@@ -330,9 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
       }
       __syncthreads();
     }
-    mark(8);
     for (int step = 0; step < a.iters; ++step) {
-      mark(0);
       float Rm[9], tm[3], Rc[9], tc[3], acc[NS];
 #pragma unroll
       for (int i = 0; i < 9; ++i) Rm[i] = Rn[i];
@@ -358,8 +334,7 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
           step_match(a, Rm, tm, mn, in, ok, ok_new, acc);
         }
       }
-      mark(1);
-      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1], mark);
+      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1]);
       buf ^= 1;
       if (warp == 0) {
         const int nxt = cur ^ 1;
@@ -383,7 +358,6 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
           accepted = accept;
         }
         __syncwarp();
-        mark(5);
         if (step + 1 < a.iters) solve_step();
       }
       __syncthreads();
@@ -392,7 +366,6 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
         for (int k = 0; k < KREG; ++k) okT[k] = okN[k];
       }
     }
-    mark(8);
   }
 
   // the covariance sweep at the final pose (merging the last round's
@@ -445,13 +418,6 @@ __global__ void __launch_bounds__(THREADS, 1) pnp_lm_kernel(const __grid_constan
       a.num_inliers[0] = (long long)fin[NH + 1];
     }
   }
-#ifdef LM_PROFILE
-  if (tid == 0 && rank == 0)
-    printf("pnp_lm stage clocks: barrier %lld sweep %lld block_sum %lld cluster_sync %lld "
-           "gather %lld decide %lld columns %lld solve %lld pose %lld other %lld\n",
-           prof[0], prof[1], prof[2], prof[3], prof[4], prof[5], prof[9], prof[6], prof[7],
-           prof[8]);
-#endif
   // no block leaves while another may still read its partials
   lm::cluster_barrier();
 }

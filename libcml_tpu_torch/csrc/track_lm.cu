@@ -58,11 +58,8 @@
 //   reduction trades values between lanes by recursive halving (31 shuffles
 //   for 32 sums instead of 160) with the same pairs as a shuffle tree.
 //   se3_exp_compose is unchanged.
-// A build with -DLM_PROFILE prints the clocks of each stage of the steps
-// (tools/lm_ab.py --profile).
-// The cluster's size is a compile-time constant (LM_CLUSTER, 8, the
-// portable size) given to the launch as its cluster dimension; a build
-// with -DLM_CLUSTER=16 serves only to measure the non-portable size. A card
+// The cluster's size is a compile-time constant (lm::CLUSTER, 8, the
+// portable size) given to the launch as its cluster dimension. A card
 // without cluster support (before sm_90) refuses the launch, and the
 // wrapper raises.
 //
@@ -72,7 +69,6 @@
 // products and sums into FMAs, so results agree to f32 rounding, not bits.
 
 #include <cstdint>
-#include <cstdio>
 #include <cuda_runtime.h>
 
 #include "lm_common.cuh"
@@ -334,22 +330,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
   if (tid < 3) t[tid] = a.t0[h * 3 + tid];
   if (tid < 2) ab[tid] = a.ab0[h * 2 + tid];
   if (tid == 0) cur = 0;
-#ifdef LM_PROFILE
-  // a measurement build: thread 0's clocks a stage of the LM steps (0 the
-  // barrier closing a step, 1 the sweep, 2-4 cluster_sum's stages, 5 the
-  // decision, 9 the system's columns, 6 the solve, 7 T_new; 8 outside the
-  // steps), printed by block 0
-  long long prof_t = clock64(), prof[10] = {};
-  auto mark = [&](int i) {
-    if (tid == 0) {
-      const long long now = clock64();
-      prof[i] += now - prof_t;
-      prof_t = now;
-    }
-  };
-#else
-  const lm::NoMark mark;
-#endif
 
   // warp 0: the damped scaled solve of sys[cur] at lambda (_solve_scaled on
   // H + diag(prior), b + prior * (0, ab - ab_center)), lane c < 8 building
@@ -372,9 +352,7 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
       col[r] = lane >= 8 ? rhs : (c == r ? (v + lm_ * v) + 1e-8f : v);
     }
     float x[8];
-    mark(9);
     lm::warp_solve<8, 1>(col, x);
-    mark(6);
     if (lane == 0) {
       float dx[8], nrm = 0.0f;
 #pragma unroll
@@ -397,7 +375,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
       abn[0] = ab[0] - dx[6];
       abn[1] = ab[1] - dx[7];
     }
-    mark(7);
   };
 
   PointConst pc[KREG];
@@ -430,16 +407,13 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
       }
     }
     __syncthreads();
-    mark(8);
     while (run) {
-      mark(0);
       // one sweep at (T_new, ab_new): E_new and the system there
       const Pose Tn = make_pose(Rn, tn, abn);
       float acc[NS];
       sweep(L, a, pc, g, acc,
             [&](const PointConst& c, float (&ac)[NS]) { add_step(L, a, Tn, c, ac); });
-      mark(1);
-      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1], mark);
+      lm::cluster_sum<NS, WARPS>(acc, red, part, buf, sys[cur ^ 1]);
       buf ^= 1;
       if (warp == 0) {
         const int nxt = cur ^ 1;
@@ -472,7 +446,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
           run = !done && it < a.iters;
         }
         __syncwarp();
-        mark(5);
         if (run) solve_step();
       }
       __syncthreads();
@@ -526,13 +499,6 @@ __global__ void __launch_bounds__(THREADS, 1) track_lm_kernel(const __grid_const
       }
     }
   }
-#ifdef LM_PROFILE
-  if (tid == 0 && rank == 0 && h == 0)
-    printf("track_lm stage clocks: barrier %lld sweep %lld block_sum %lld cluster_sync %lld "
-           "gather %lld decide %lld columns %lld solve %lld pose %lld other %lld\n",
-           prof[0], prof[1], prof[2], prof[3], prof[4], prof[5], prof[9], prof[6], prof[7],
-           prof[8]);
-#endif
   // no block leaves while another may still read its partials
   lm::cluster_barrier();
 }

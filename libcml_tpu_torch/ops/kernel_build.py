@@ -4,13 +4,11 @@ Each source compiles with nvcc for sm_90a into a shared library with a plain
 C interface under `_build/` beside this package, named after the source and
 keyed by its content hash, at first use; the wrappers bind it with ctypes.
 Nothing here runs when a module is imported, so the CPU tests (no nvcc, no
-card) import every wrapper freely. A build with -D flags or from another
-tree's source (`variant`) serves only to measure one build against another.
+card) import every wrapper freely.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,35 +44,31 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: Path, defines: tuple[str, ...] = ()) -> Path:
-    """The shared library of `source` built with `defines` (NAME=VALUE, as
-    -D flags), keyed by the content hash of the source and of the csrc/
-    headers it includes (`#include "name.cuh"`)."""
+def library_path(source: Path) -> Path:
+    """The shared library of `source`, keyed by the content hash of the
+    source and of the csrc/ headers it includes (`#include "name.cuh"`)."""
     text = source.read_bytes()
     h = hashlib.sha256(text)
     for name in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
         h.update((source.parent / name.decode()).read_bytes())
-    tag = "".join(f"-{d.replace('=', '')}" for d in defines)
-    return BUILD_DIR / f"lib{source.stem}{tag}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_many(sources, verbose: bool = False) -> list[tuple[Path, float, str]]:
     """Compile every source whose library is missing, one nvcc process each,
-    all started together. A source is a path, or (path, defines) for a
-    variant build. Returns, per source, (library path, seconds its compile
-    took (0.0 when already built), compiler output — ptxas's register and
-    shared-memory report when `verbose`)."""
+    all started together. Returns, per source, (library path, seconds its
+    compile took (0.0 when already built), compiler output — ptxas's
+    register and shared-memory report when `verbose`)."""
     jobs = []
-    for item in sources:
-        source, defines = (item, ()) if isinstance(item, Path) else item
-        lib = library_path(source, defines)
+    for source in sources:
+        lib = library_path(source)
         if lib.exists():
             jobs.append((lib, None, None, None))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               *(f"-D{d}" for d in defines), "-o", str(tmp), str(source)]
+               "-o", str(tmp), str(source)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -90,43 +84,22 @@ def build_many(sources, verbose: bool = False) -> list[tuple[Path, float, str]]:
     return [(lib, seconds, stdout + stderr) for lib, _, _, stdout, stderr, seconds in done]
 
 
-_LIBS: dict[tuple[Path, tuple[str, ...]], ctypes.CDLL] = {}
-_VARIANT: dict[Path, tuple[Path, tuple[str, ...]]] = {}
+_LIBS: dict[Path, ctypes.CDLL] = {}
 
 
 def load(source: Path, symbol: str, argtypes: list) -> ctypes.CDLL:
-    """The library of `source` (built at first use; inside `variant`, the
-    variant's), with `symbol`'s argument types set and an int (cudaError_t)
-    result."""
-    key = _VARIANT.get(source, (source, ()))
-    lib = _LIBS.get(key)
+    """The library of `source` (built at first use), with `symbol`'s
+    argument types set and an int (cudaError_t) result."""
+    lib = _LIBS.get(source)
     if lib is None:
-        path, _, _ = build_many([key])[0]
+        path, _, _ = build_many([source])[0]
         lib = ctypes.CDLL(str(path))
-        _LIBS[key] = lib
+        _LIBS[source] = lib
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
-
-
-@contextlib.contextmanager
-def variant(source: Path, defines: tuple[str, ...] = (), build_from: Path | None = None):
-    """Within the block, the wrappers of `source` launch another build of
-    it: with `defines` (-D flags), or from `build_from` (the same kernel's
-    source in another tree, such as a parent commit unpacked beside this
-    one); for measuring one build against another on the same inputs. Never
-    used by the port's paths."""
-    before = _VARIANT.get(source)
-    _VARIANT[source] = (build_from or source, tuple(defines))
-    try:
-        yield
-    finally:
-        if before is None:
-            del _VARIANT[source]
-        else:
-            _VARIANT[source] = before
 
 
 def cluster_info(source: Path, symbol: str, device: torch.device | None = None) -> dict:

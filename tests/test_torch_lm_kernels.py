@@ -663,6 +663,34 @@ def _model_pnp(Xw, uv, valid, s2, R, t, rounds=4, iters=10):
             np.array(trace, np.float32).reshape(rounds, iters, 2))
 
 
+def _track_model_parity(scene, rep: int, starts) -> dict:
+    """track_lm.parity of the kernel's model against track_levels_plain
+    through three levels from `starts` of the battery, with every point
+    `rep` times."""
+    _, Ht = _hypotheses(scene)
+    args = tuple([torch.cat([v] * rep) if k > 1 else v for v in a]
+                 for k, a in enumerate(_level_args(scene, [2, 1, 0])))
+    idepth = torch.cat([scene["rt"].idepth] * rep)
+    ab0 = np.array([0.02, -1.5], np.float32)
+    abc = np.array([0.01, -1.0], np.float32)
+    outs = []
+    for h in starts:
+        R, t, ab = _np(Ht.R[h]), _np(Ht.t[h]), ab0
+        its, traces = [], []
+        for i in range(3):
+            grad, cam, uv, color, weight, valid = (a[i] for a in args)
+            R, t, ab, E, it, trace = _model_track_level(grad, cam, uv, idepth, color, weight,
+                                                        valid, R, t, ab, abc, TCFG)
+            its.append(it)
+            traces.append(trace)
+        outs.append((R, t, ab, np.float32(E), np.array(its, np.int32), np.stack(traces)))
+    model = (*(torch.from_numpy(np.stack(x)) for x in zip(*outs)), None)
+    sel = torch.tensor(starts)
+    want = ttrk.track_levels_plain(*args, idepth, Ht.R[sel], Ht.t[sel],
+                                   _t(np.tile(ab0, (len(starts), 1))), _t(abc), TCFG)
+    return track_lm.parity(model, want, TCFG)
+
+
 def test_track_kernel_model_within_parity_tolerance(scene):
     """The tracker kernel's schedule and arithmetic order (one sweep a step,
     cluster sums, upper-triangle H, pivoted solve by reciprocals) against the plain form's
@@ -670,31 +698,18 @@ def test_track_kernel_model_within_parity_tolerance(scene):
     levels from every start of the battery: within track_lm.parity's bounds,
     the one phase 13 of chip_smoke.py applies to the kernel on the card (a
     start whose steps differ must first differ at a decision within
-    DECISION_TOL of its threshold)."""
-    _, Ht = _hypotheses(scene)
-    args = _level_args(scene, [2, 1, 0])
-    ab0 = np.array([0.02, -1.5], np.float32)
-    abc = np.array([0.01, -1.0], np.float32)
-    outs = []
-    for h in range(15):
-        R, t, ab = _np(Ht.R[h]), _np(Ht.t[h]), ab0
-        its, traces = [], []
-        for i in range(3):
-            grad, cam, uv, color, weight, valid = (a[i] for a in args)
-            R, t, ab, E, it, trace = _model_track_level(grad, cam, uv, scene["rt"].idepth,
-                                                        color, weight, valid, R, t, ab, abc,
-                                                        TCFG)
-            its.append(it)
-            traces.append(trace)
-        outs.append((R, t, ab, np.float32(E), np.array(its, np.int32), np.stack(traces)))
-    model = (*(torch.from_numpy(np.stack(x)) for x in zip(*outs)), None)
-    want = ttrk.track_levels_plain(*args, scene["rt"].idepth, Ht.R, Ht.t,
-                                   _t(np.tile(ab0, (15, 1))), _t(abc), TCFG)
-    res = track_lm.parity(model, want, TCFG)
+    DECISION_TOL of its threshold). Then with every point 17 times (P 4352,
+    as phase 13's case past the registers makes it), from three starts: the
+    cluster sum spreads the points over all eight ranks, and a thread gets
+    more points than the KREG x 2048 it holds in registers."""
+    res = _track_model_parity(scene, 1, range(15))
     assert res["ok"], res
     # most starts take the same steps; the rest differ first at a decision
     # at its threshold
     assert len(res["diverged"]) <= 5, res
+    assert 17 * scene["rt"].idepth.numel() > 2 * CLUSTER * THREADS
+    res = _track_model_parity(scene, 17, (0, 6, 11))
+    assert res["ok"], res
 
 
 def test_pnp_kernel_model_within_parity_tolerance():
