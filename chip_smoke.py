@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the three hand-written kernels (csrc/hamming_match.cu,
-     track_lm.cu, pnp_lm.cu) from the sources in this checkout, one nvcc
-     each, all started together.
+  1. build the five hand-written kernels (csrc/hamming_match.cu,
+     track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu) from the sources in
+     this checkout, one nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -97,9 +97,32 @@ Phases (any failure exits non-zero, and no result line is printed):
      copy); the starts whose levels took other steps than the plain form,
      counted; last, the kernels' cluster size (8) and the clusters the card
      holds at once (cudaOccupancyMaxActiveClusters).
-Every phase from 3 on reports the LM kernels' launches of its run (counted
-from 0 just before it and read just after); phase 3 must launch track_lm on
-every tracked frame, phase 4 pnp_lm twice a frame, phases 5 and 7 both.
+ 14. the BA kernels: ba_sweep (the window BA's residual sweep, reduced to
+     the Schur-ready camera system, or the energy, or the residual status,
+     or the marginalization pieces) and ba_solve (the rest of an LM step)
+     against their plain forms on the card, on the inputs of every run_ba
+     call of phase 3 (the initial BA included), an all-invalid window and
+     ba_iters 0: E, T and idepth within bk.PARITY_TOL of run_ba_plain
+     (point_valid equal), each step's accept decision beside the plain
+     form's (a differing one within bk.DECISION_TOL of its threshold), the
+     launches of a run_ba (1 + 2 x ba_iters sweeps, ba_iters solves), and
+     update_residual_status on both forms at the plain result (res_active
+     and point_valid equal); every run_ba_mixed call of phase 5 against
+     run_ba_mixed_plain (E, T, idepth and the indirect idepths within
+     bk.MIXED_PARITY_TOL, the decisions compared alike, 1 + 3 x ba_iters
+     sweeps); each captured step's accept-test value from the same states
+     in float32 (plain, kernels) against float64 (the witness behind
+     bk.DECISION_TOL); phase 3's first _marg_pieces call (the four
+     sums within 1e-3, hosted equal); the system sweep's H - H_corr (the
+     kernel's float64 block partials and the plain form's float32) against
+     float64 from the same states; on the last window, the host waits
+     inside run_ba (none), cold and warm ms of a run_ba, a sweep and a solve,
+     the plain forms' ms, torch.linalg.solve_ex's ms on the damped system,
+     and each kernel's bound and share.
+Every phase from 3 on reports the LM and BA kernels' launches of its run
+(counted from 0 just before it and read just after); phase 3 must launch
+track_lm on every tracked frame and the BA kernels, phase 4 pnp_lm twice a
+frame, phases 5 and 7 both LM kernels.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection) and 12 (match_ratio), held to the plain
@@ -109,13 +132,15 @@ paths' runs, phases 5, 7, 8, 10, 11 and 12, each counted from 0 just before
 its run and read just after, with each path's count beside them; times and
 bound of the phase-4 masks case, cold, and of the staged-tick and
 match_ratio cases; for track_lm and pnp_lm the launches of every path's run
-and the times and bound of phase 13's first case, each case beside them),
-and the result line {"ok": true, "device": {...}} last.
+and the times and bound of phase 13's first case, each case beside them;
+for ba_sweep and ba_solve the launches of every path's run and phase 14's
+times and bounds), and the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -137,10 +162,11 @@ from libcml_tpu_torch.data import corridor
 from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.core.lie import SE3
-from libcml_tpu_torch.models.direct import tracker
+from libcml_tpu_torch.models.direct import ba, residuals, tracker
 from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect import pnp as pnp_mod
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
+from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
 from libcml_tpu_torch.parallel.sharding import make_mesh
@@ -166,8 +192,9 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# the LM kernels' wrappers, whose launch counts each path's run reports
-LM_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda}
+# the LM and BA kernels' wrappers, whose launch counts each path's run reports
+LM_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
+              "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda}
 
 
 def reset_launches() -> None:
@@ -440,6 +467,7 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
     require(lm["track_lm"] >= len(imgs) - WARMUP and lm["pnp_lm"] == 0,
             f"the direct path's LM launches {lm}")
+    require(lm["ba_sweep"] > 0 and lm["ba_solve"] > 0, f"the direct path's BA launches {lm}")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
     return res, _snapshot(odo)
 
@@ -1510,6 +1538,406 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
     return t_rows, p_rows, public
 
 
+# -- phase 14 ----------------------------------------------------------------------
+
+# arithmetic the sweep's function needs, in FMAs, counted from csrc/ba_sweep.cu:
+# a residual of an active pair (the pattern pixel's unprojection, transform,
+# projection and bounds, the 3-channel bilinear sample, residual, Huber
+# weight and energy, and the 14 sums of Z and zr); an active pair's FEJ
+# geometry (its relative transform, projection Jacobian, A_t, A_h, a, s0);
+# an active pair's share of the camera system (its 8x8 blocks on and above the
+# diagonal, 100 entries, each a form of at most 4 terms, and 16 gradient
+# entries); and, per valid point, the upper triangle of its Schur outer
+# product and its gradient correction
+BA_RESIDUAL_FMA, BA_PAIR_FEJ_FMA, BA_PAIR_SYSTEM_FMA = 40, 70, 100 * 4 + 16 * 2
+
+
+class BACapture:
+    """Keeps (cloned) the positional inputs of the BA calls that a run makes
+    (runtime/odometry.py and runtime/hybrid.py look up ba.run_ba,
+    ba._marg_pieces and ba.run_ba_mixed at call time): of every call of
+    each name in `every`, of the first call of each name in `first`. The
+    mesh (the last argument) is not kept: the captured runs are unsharded."""
+
+    ARGS = {"run_ba": 4, "_marg_pieces": 5, "run_ba_mixed": 5}
+
+    def __init__(self, every: tuple = (), first: tuple = ()):
+        self.calls: dict[str, list[tuple]] = {n: [] for n in (*every, *first)}
+        self._first = set(first)
+        self._orig = {n: getattr(ba, n) for n in self.calls}
+
+    def _wrap(self, name: str):
+        orig, seen = self._orig[name], self.calls[name]
+
+        def call(*args):
+            if name not in self._first or not seen:
+                seen.append(tuple(_clone_fields(a) for a in args[:self.ARGS[name]]))
+            return orig(*args)
+        return call
+
+    def __enter__(self):
+        for name in self.calls:
+            setattr(ba, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(ba, name, fn)
+
+
+def _map_fields(x, fn):
+    """A BAState or IndirectFactors with `fn` applied to every tensor (SE3
+    fields through R and t); any other tensor through `fn`; else x."""
+    if isinstance(x, (ba.BAState, ba.IndirectFactors)):
+        out = {}
+        for f in dataclasses.fields(x):
+            v = getattr(x, f.name)
+            out[f.name] = SE3(R=fn(v.R), t=fn(v.t)) if isinstance(v, SE3) else fn(v)
+        return type(x)(**out)
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def _clone_fields(x):
+    return _map_fields(x, torch.Tensor.clone)
+
+
+def _state64(x):
+    """The state (or factors) with every float tensor in float64 (masks and
+    indices kept)."""
+    return _map_fields(x, lambda v: v.double() if v.is_floating_point() else v)
+
+
+def ba_parity(got, E, want, E_want, tol: dict = bk.PARITY_TOL, idepth_i=None) -> dict:
+    """run_ba (run_ba_mixed) on the kernels against its plain form: the
+    largest errors, and whether they are within `tol`. `idepth_i`: the
+    mixed BA's indirect inverse depths, (kernels, plain), held like idepth."""
+    T = max(float((got.T.t - want.T.t).abs().max()), float((got.T.R - want.T.R).abs().max()))
+    pairs = [(got.idepth, want.idepth)] + ([] if idepth_i is None else [idepth_i])
+    over = [float(((g - w).abs() / (tol["idepth_abs"] + tol["idepth_rel"] * w.abs())).max())
+            for g, w in pairs]
+    err = {"E_rel": float((E - E_want).abs() / E_want.abs().clamp_min(1e-30)), "T": T,
+           "idepth_abs": float((got.idepth - want.idepth).abs().max()),
+           "idepth_over_bound": over[0]}
+    if idepth_i is not None:
+        err["idepth_indirect_abs"] = float((idepth_i[0] - idepth_i[1]).abs().max())
+        err["idepth_indirect_over_bound"] = over[1]
+    ok = (err["E_rel"] <= tol["E_rel"] and T <= tol["T"] and max(over) <= 1.0
+          and bool(torch.equal(got.point_valid, want.point_valid)))
+    return {"ok": ok, "max_err": err}
+
+
+def _decisions(trace_k: torch.Tensor, trace_p: list) -> dict:
+    """Each step's accept decision of the kernels and of the plain form, and
+    the first that differs with the plain form's margin |E_new - E| / E."""
+    k = trace_k.cpu().double()
+    p = torch.stack(trace_p).cpu().double() if trace_p else torch.zeros((0, 2))
+    acc_k, acc_p = (k[:, 1] < k[:, 0]).tolist(), (p[:, 1] < p[:, 0]).tolist()
+    out = {"kernel": acc_k, "plain": acc_p, "E_plain": p.tolist()}
+    j = next((i for i, (a, b) in enumerate(zip(acc_k, acc_p)) if a != b), None)
+    if j is not None:
+        margin = float(abs(p[j, 1] - p[j, 0]) / max(abs(float(p[j, 0])), 1e-30))
+        out["first_differing"] = {"step": j, "margin": margin,
+                                  "within": margin <= bk.DECISION_TOL["E_rel"]}
+    return out
+
+
+def _active_pairs(st, images, cam, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The active (point, target) pairs of the state and the distinct
+    texels their pattern pixels gather (ops/image.py's clamps)."""
+    lin = ba.linearize(st, images, cam, cfg)
+    host = st.host.long()
+    rel = ba._pairwise_rel(st.T)
+    Xp = cam.unproject(residuals.pattern_uv(st.uv), st.idepth[:, None])
+    Y = torch.einsum("pfij,pkj->pfki", rel.R[host], Xp) + rel.t[host][:, :, None, :]
+    uv, _ = cam.project(Y)
+    H, W = images.shape[1], images.shape[2]
+    x0 = torch.nan_to_num(torch.clamp(torch.floor(uv[..., 0]), 0, W - 2), nan=0.0).long()
+    y0 = torch.nan_to_num(torch.clamp(torch.floor(uv[..., 1]), 0, H - 2), nan=0.0).long()
+    f = torch.arange(st.num_frames, device=uv.device)[None, :, None].expand_as(x0)
+    base = ((f * H + y0) * W + x0)[lin.active]
+    texels = torch.unique(torch.cat([base, base + 1, base + W, base + W + 1]))
+    return lin.active, texels
+
+
+def sweep_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
+    """Least time of one system sweep, in ms: the larger of its bytes over the
+    HBM rate (the texels its active pairs gather, 12 bytes each; the point
+    and frame data read once; the system, Schur terms and per-point outputs
+    written once) and its arithmetic over the f32 rate (the FMAs above, as 2
+    operations each, for the active pairs and valid points of this state)."""
+    active, texels = _active_pairs(st, images, cam, cfg)
+    P, F = st.num_points, st.num_frames
+    D = 8 * F
+    pairs = int(active.sum())
+    valid = int(st.point_valid.sum())
+    nbytes = (12 * texels.numel() + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F)
+              + F * (2 * 48 + 2 * 8 + 32 + 1) + D * D * 4 + 4
+              + 2 * D * D * 4 + 2 * D * 4 + P * (4 + 4 + 4 * D) + 4)
+    fma = (pairs * (8 * BA_RESIDUAL_FMA + BA_PAIR_FEJ_FMA + BA_PAIR_SYSTEM_FMA)
+           + valid * (D * (D + 1) // 2 + D))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * fma / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": 2 * fma, "active_pairs": pairs, "residuals": 8 * pairs,
+              "texels": int(texels.numel()), "valid_points": valid}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def solve_bound(st) -> tuple[float, str, dict]:
+    """Least time of one solve, in ms: its inputs (the system and its Schur
+    terms, the prior, the state, the per-point rows) read once and its
+    outputs written once over the HBM rate, or its FMAs over the f32 rate:
+    an LU of the D x D system with one right-hand side (D^3 / 3 + D^2), the
+    back-substitution and the gauge projection (D^2 / 2 + 2D), and D a
+    valid point row."""
+    P, F = st.num_points, st.num_frames
+    D = 8 * F
+    valid = int(st.point_valid.sum())
+    nbytes = 3 * D * D * 4 + 3 * D * 4 + F * (48 + 8 + 32 + 1) + 4 + P * (4 * D + 4 + 4 + 1 + 4) \
+        + F * (48 + 8 + 32) + P * 4
+    fma = D ** 3 // 3 + D * D + D * D // 2 + 2 * D + valid * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * fma / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": 2 * fma, "valid_points": valid}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def ba_case(name: str, st, images, cam, cfg, card: str) -> dict:
+    """One phase-14 case: run_ba on the kernels against run_ba_plain on the
+    card (E, T, idepth within bk.PARITY_TOL, point_valid equal, the accept
+    decisions compared), its launches (1 + 2 x ba_iters sweeps, ba_iters
+    solves), and update_residual_status on both forms at the plain result
+    (res_active and point_valid equal)."""
+    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
+    trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
+    got, E = ba._run_ba_cuda(st, images, cam, cfg, None, trace=trace)
+    torch.cuda.synchronize()
+    launches = {"ba_sweep": bk.ba_sweep_cuda.launches - before[0],
+                "ba_solve": bk.ba_solve_cuda.launches - before[1]}
+    tr = []
+    want, E_want = ba.run_ba_plain(st, images, cam, cfg, trace=tr)
+    rep = ba_parity(got, E, want, E_want)
+    dec = _decisions(trace, tr)
+    s_k = ba.update_residual_status(want, images, cam, cfg)
+    s_p = ba.update_residual_status_plain(want, images, cam, cfg)
+    status = {"res_active": bool(torch.equal(s_k.res_active, s_p.res_active)),
+              "point_valid": bool(torch.equal(s_k.point_valid, s_p.point_valid)),
+              "residuals_dropped": int((want.res_active & ~s_p.res_active).sum())}
+    row = {"case": name, "frames_valid": int(st.frame_valid.sum()),
+           "points_valid": int(st.point_valid.sum()), "E": float(E), "E_plain": float(E_want),
+           "parity": rep, "decisions": dec, "status": status, "launches": launches,
+           "card": card}
+    print(json.dumps(row))
+    require(launches == {"ba_sweep": 1 + 2 * cfg.ba_iters, "ba_solve": cfg.ba_iters},
+            f"{name}: launches {launches}")
+    differ = dec.get("first_differing")
+    require(rep["ok"] or (differ is not None and differ["within"]),
+            f"run_ba kernels != plain on {name}: {rep} {dec}")
+    require(differ is None or differ["within"], f"{name}: a decision differs away from its "
+            f"threshold: {dec}")
+    require(status["res_active"] and status["point_valid"],
+            f"update_residual_status kernel != plain on {name}: {status}")
+    return row
+
+
+def mixed_case(name: str, st, images, cam, cfg, ind, card: str) -> dict:
+    """One phase-14 case of the mixed BA: run_ba_mixed on the kernels (the
+    reprojection terms entering the solve as an additive system and a
+    second Schur pair, the reprojection energy in the FINISH launch, the
+    indirect inverse depths selected there) against run_ba_mixed_plain on
+    the card within bk.MIXED_PARITY_TOL (E, T, idepth, the indirect idepths;
+    point_valid equal), the accept decisions compared as in ba_case, and its
+    launches (1 + 3 x ba_iters sweeps, ba_iters solves)."""
+    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
+    trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
+    got, got_i, E = ba._run_ba_cuda(st, images, cam, cfg, None, ind=ind, trace=trace)
+    torch.cuda.synchronize()
+    launches = {"ba_sweep": bk.ba_sweep_cuda.launches - before[0],
+                "ba_solve": bk.ba_solve_cuda.launches - before[1]}
+    tr = []
+    want, want_ind, E_want = ba.run_ba_mixed_plain(st, images, cam, cfg, ind, trace=tr)
+    rep = ba_parity(got, E, want, E_want, bk.MIXED_PARITY_TOL, (got_i, want_ind.idepth))
+    dec = _decisions(trace, tr)
+    row = {"case": name, "frames_valid": int(st.frame_valid.sum()),
+           "points_valid": int(st.point_valid.sum()),
+           "indirect_points_valid": int(ind.point_valid.sum()),
+           "indirect_obs": int(ind.obs_valid.sum()), "E": float(E), "E_plain": float(E_want),
+           "parity": rep, "decisions": dec, "launches": launches, "card": card}
+    print(json.dumps(row))
+    require(launches == {"ba_sweep": 1 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters},
+            f"{name}: launches {launches}")
+    differ = dec.get("first_differing")
+    require(rep["ok"] or (differ is not None and differ["within"]),
+            f"run_ba_mixed kernels != plain on {name}: {rep} {dec}")
+    require(differ is None or differ["within"], f"{name}: a decision differs away from its "
+            f"threshold: {dec}")
+    return row
+
+
+def decision_witness(st, images, cam, cfg, ind=None) -> list[dict]:
+    """The accept test's value (E_new - E) / E at each step of the plain
+    form's run (run_ba_plain, or run_ba_mixed_plain with `ind`), evaluated
+    at the same two states by the plain form in float32, by the kernels'
+    energy sweep (float64 block partials) and by the plain form in float64:
+    how far each float32 form's value sits from float64's says how near its
+    threshold a decision may go either way (bk.DECISION_TOL)."""
+    images64 = images.double()
+    lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
+
+    def energies(s, i):
+        return (ba.total_energy_plain(s, images, cam, cfg, i).double(),
+                ba.total_energy(s, images, cam, cfg, i).double(),
+                ba.total_energy_plain(_state64(s), images64, cam, cfg,
+                                      None if i is None else _state64(i)))
+
+    E = energies(st, ind)
+    out = []
+    for _ in range(cfg.ba_iters):
+        step = ba.ba_step_plain(st, images, cam, cfg, lam, ind)
+        cand, cand_i = step[0], None if ind is None else step[1]
+        E_new = energies(cand, cand_i)
+        v = [float((n - e) / e.abs().clamp_min(1e-30)) for e, n in zip(E, E_new)]
+        out.append({"plain_f32": v[0] - v[2], "kernel": v[1] - v[2], "value_f64": v[2]})
+        accept = bool(E_new[0] < E[0])
+        if accept:
+            st, ind, E = cand, cand_i, E_new
+        lam = torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2)
+    return out
+
+
+def partials_measure(st, images, cam, cfg) -> dict:
+    """The system sweep's sums against float64 from the same state: the
+    plain form's linearize/_assemble/_schur_terms in float64 as the
+    reference, the kernel (float64 block partials) and the plain form in
+    float32. For each: the largest error of H - H_corr
+    over its largest entry, of b - b_corr over its largest entry, and of the
+    curvature along the scale direction s^T (H - H_corr) s (s: each valid
+    slot's translation, normalized), relative."""
+    lam = torch.tensor(cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
+    _, ref = ba._sweep_plain(_state64(st), images.double(), cam, cfg, lam.double())
+    A64 = ref["H"] - ref["H_corr"]
+    g64 = ref["b"] - ref["b_corr"]
+    s = ba._nullspaces(_state64(st))[:, 6].double()
+    s = s / s.norm().clamp_min(1e-30)
+    c64 = float(s @ A64 @ s)
+    forms = {"kernel": bk.ba_sweep_cuda(st, images, cam, cfg, "system", lam=lam),
+             "plain_f32": ba._sweep_plain(st, images, cam, cfg, lam)[1]}
+    out = {"scale_curvature_f64": c64, "H_scale": float(A64.abs().max())}
+    for name, sysd in forms.items():
+        A = sysd["H"].double() - sysd["H_corr"].double()
+        g = sysd["b"].double() - sysd["b_corr"].double()
+        out[name] = {"H_sc_rel": float((A - A64).abs().max() / A64.abs().max()),
+                     "b_sc_rel": float((g - g64).abs().max() / g64.abs().max().clamp_min(1e-30)),
+                     "scale_rel": abs(float(s @ A @ s) - c64) / max(abs(c64), 1e-30)}
+    return out
+
+
+def marg_case(args) -> dict:
+    """The sweep's marg mode against _marg_pieces_plain on a captured call:
+    the four sums within 1e-3 of their largest entry (the host Schur takes
+    them in f64), the hosted mask equal, and the packed host result."""
+    st, images, cam, cfg, slot = args
+    got = ba._marg_pieces(st, images, cam, cfg, slot)
+    want = ba._marg_pieces_plain(st, images, cam, cfg, slot)
+    err = {}
+    for k, name in enumerate(("H_pts", "b_pts", "H_corr", "b_corr")):
+        err[name] = float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1.0))
+    hosted = bool(torch.equal(got[4], want[4]))
+    slot_i = int(slot)
+    pk, _ = ba.marg_host_schur(got, slot_i, cfg)
+    pp, _ = ba.marg_host_schur(want, slot_i, cfg)
+    packed = float(np.abs(pk - pp).max() / max(np.abs(pp).max(), 1e-30))
+    row = {"case": f"_marg_pieces, slot {slot_i}", "max_err_rel": err, "hosted_equal": hosted,
+           "packed_rel": packed}
+    print(json.dumps(row))
+    require(hosted and all(v <= 1e-3 for v in err.values()),
+            f"_marg_pieces kernel != plain: {row}")
+    return row
+
+
+def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict], dict]:
+    """Phase 14: the BA kernels against their plain forms on the card, on
+    every run_ba of phase 3 (the initial BA included), a _marg_pieces call,
+    an all-invalid window, ba_iters 0 and every run_ba_mixed of phase 5; the
+    decisions compared, and their float64 witness; the host waits inside
+    run_ba (none); times, bounds and the library's solve; the kernel's and
+    the plain form's sums against float64."""
+    runs, mixed = cap.calls["run_ba"], mixed_cap.calls["run_ba_mixed"]
+    require(len(runs) >= 2, f"phase 3's run_ba calls not captured ({len(runs)})")
+    require(cap.calls["_marg_pieces"], "no _marg_pieces call captured")
+    require(mixed, "phase 5's run_ba_mixed calls not captured")
+    rows = [ba_case(f"run_ba, phase-3 call {k} ({int(a[0].frame_valid.sum())} frames)", *a,
+                    card) for k, a in enumerate(runs)]
+    mixed_rows = [mixed_case(f"run_ba_mixed, phase-5 call {k} "
+                             f"({int(a[0].frame_valid.sum())} frames)", *a, card)
+                  for k, a in enumerate(mixed)]
+    witness = ([w for a in runs for w in decision_witness(*a)]
+               + [w for a in mixed for w in decision_witness(*a)])
+    spread = {k: max(abs(w[k]) for w in witness) for k in ("plain_f32", "kernel")}
+    print(json.dumps({"phase": "ba_decision_witness", "steps": len(witness),
+                      "max_from_f64": spread, "decision_tol": bk.DECISION_TOL,
+                      "nearest_f64_value": min(abs(w["value_f64"]) for w in witness)}))
+    st, images, cam, cfg = runs[-1]
+    rows.append(ba_case("run_ba, every frame slot invalid",
+                        st.replace(frame_valid=torch.zeros_like(st.frame_valid)), images, cam,
+                        cfg, card))
+    rows.append(ba_case("run_ba, ba_iters 0", st, images, cam,
+                        dataclasses.replace(cfg, ba_iters=0), card))
+    marg = marg_case(cap.calls["_marg_pieces"][0])
+    measure = [partials_measure(*a) for a in runs]
+    worst = {name: {k: max(m[name][k] for m in measure) for k in measure[0][name]}
+             for name in ("kernel", "plain_f32")}
+    print(json.dumps({"phase": "ba_partials", "worst": worst, "cases": measure}))
+
+    # times, bounds and host waits on the last captured window (the fullest)
+    lam = torch.tensor(cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
+    system = bk.ba_sweep_cuda(st, images, cam, cfg, "system", lam=lam)
+    plain_sys = ba._sweep_plain(st, images, cam, cfg, lam)[1]
+    D = 8 * st.num_frames
+    A = (plain_sys["H"] + st.H_m + torch.eye(D, device=images.device)
+         - plain_sys["H_corr"]).contiguous()
+    g = (plain_sys["b"] - plain_sys["b_corr"]).contiguous()
+    s_bound, s_by, s_detail = sweep_bound(st, images, cam, cfg)
+    v_bound, v_by, v_detail = solve_bound(st)
+    run_ms = cuda_ms(lambda: ba.run_ba(st, images, cam, cfg))
+    timing = {
+        "run_ba": {"kernel_ms": run_ms,
+                   "kernel_warm_ms": cuda_ms(lambda: ba.run_ba(st, images, cam, cfg), cold=False),
+                   "plain_ms": cuda_ms(lambda: ba.run_ba_plain(st, images, cam, cfg), reps=5,
+                                       warmup=1),
+                   "host_waits": _syncs(lambda: ba.run_ba(st, images, cam, cfg))},
+        "ba_sweep": {"kernel_ms": cuda_ms(lambda: bk.ba_sweep_cuda(st, images, cam, cfg, "system",
+                                                                   lam=lam)),
+                     "kernel_warm_ms": cuda_ms(lambda: bk.ba_sweep_cuda(
+                         st, images, cam, cfg, "system", lam=lam), cold=False),
+                     "energy_ms": cuda_ms(lambda: bk.ba_sweep_cuda(st, images, cam, cfg,
+                                                                   "energy")),
+                     "plain_ms": cuda_ms(lambda: ba._sweep_plain(st, images, cam, cfg, lam),
+                                         reps=5, warmup=1),
+                     "bound_ms": s_bound, "bound_by": s_by, "bound_detail": s_detail,
+                     "library_ms": None},
+        "ba_solve": {"kernel_ms": cuda_ms(lambda: bk.ba_solve_cuda(system, st, cfg, lam, st)),
+                     "kernel_warm_ms": cuda_ms(lambda: bk.ba_solve_cuda(system, st, cfg, lam, st),
+                                               cold=False),
+                     "plain_ms": cuda_ms(lambda: ba._solve_plain(plain_sys, st, cfg, lam, st),
+                                         reps=5, warmup=1),
+                     "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, g)),
+                     "bound_ms": v_bound, "bound_by": v_by, "bound_detail": v_detail}}
+    for k in ("ba_sweep", "ba_solve"):
+        timing[k]["bound_share"] = timing[k]["bound_ms"] / timing[k]["kernel_ms"]
+    public = {"timing": timing, "marg": marg, "partials_worst": worst,
+              "launches_per_run_ba": rows[0]["launches"],
+              "launches_per_run_ba_mixed": mixed_rows[0]["launches"],
+              "decisions_differing": sum("first_differing" in r["decisions"]
+                                         for r in rows + mixed_rows),
+              "decision_witness": spread, "cases": len(rows), "mixed_cases": len(mixed_rows)}
+    print(json.dumps({"phase": "ba_public", **public}))
+    waits = timing["run_ba"]["host_waits"]
+    require(waits["syncs"] == 0 and waits["memcpys"] == 0, f"run_ba waits for the device: {waits}")
+    for k in ("ba_sweep", "ba_solve"):
+        require(timing[k]["bound_share"] <= 1.0, f"{k}: under its bound: the bound is wrong")
+    return rows + mixed_rows, public
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1540,7 +1968,8 @@ def main() -> int:
     with LMCapture() as cap:
         cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
-        direct, direct_snap = direct_phase(dev, cam, traj, frames)
+        with BACapture(every=("run_ba",), first=("_marg_pieces",)) as ba_cap:
+            direct, direct_snap = direct_phase(dev, cam, traj, frames)
         print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -1551,7 +1980,8 @@ def main() -> int:
         with CallSites() as sites:
             cap.sites = sites
             t0 = time.perf_counter()
-            full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
+            with BACapture(every=("run_ba_mixed",)) as mixed_cap:
+                full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             reloc = relocalization_phase(dev, cam, traj, frames, sites)
@@ -1609,6 +2039,10 @@ def main() -> int:
     t0 = time.perf_counter()
     t_rows, p_rows, lm_public = lm_phase(cap, card)
     print(f"phase 13 (LM kernels) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ba_rows, ba_public = ba_phase(ba_cap, mixed_cap, card)
+    print(f"phase 14 (BA kernels) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
@@ -1678,12 +2112,28 @@ def main() -> int:
             "library_ms": None, "us_per_step": main_row["us_per_step"],
             "cluster": lm_public["cluster"][name],
             "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
+    timing = ba_public["timing"]
+    for name, replaces in (("ba_sweep", "libcml_tpu/models/direct/ba.py:317"),
+                           ("ba_solve", "libcml_tpu/models/direct/ba.py:532")):
+        by_path = {k: v[name] for k, v in runs.items() if v[name]}
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"libcml_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(max(r["parity"]["max_err"]["T"],
+                                   r["parity"]["max_err"]["idepth_abs"]) for r in ba_rows),
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "kernel_warm_ms": t["kernel_warm_ms"], "bound_share": t["bound_share"],
+            "launches_per_run_ba": ba_public["launches_per_run_ba"][name],
+            "run_ba": timing["run_ba"] if name == "ba_sweep" else None})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
                       "hybrid_pipelined": staged["pipelined"],
                       "hybrid_staged": staged["staged"], "calib": calib,
-                      "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public}))
+                      "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
+                      "ba_public": ba_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

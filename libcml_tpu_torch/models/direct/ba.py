@@ -49,6 +49,7 @@ from libcml_tpu_torch.models.direct.residuals import (
     pattern_uv,
     proj_jacobian,
 )
+from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops.image import bilinear_stack
 from libcml_tpu_torch.parallel.sharding import Mesh, local_rows
 
@@ -308,12 +309,6 @@ def _schur_terms(H_rho, b_rho, H_xr, lam, point_valid):
     return H_corr, b_corr, H_rho_d
 
 
-def _schur_reduce(H, b, H_rho, b_rho, H_xr, lam, point_valid):
-    """Eliminate the (diagonal) idepth block with LM damping."""
-    H_corr, b_corr, H_rho_d = _schur_terms(H_rho, b_rho, H_xr, lam, point_valid)
-    return H - H_corr, b - b_corr, H_rho_d
-
-
 def _ab_flat(ab: torch.Tensor) -> torch.Tensor:
     """(F, 2) affine states -> (F*8,) vector with them in the a/b rows."""
     F = ab.shape[0]
@@ -473,13 +468,14 @@ def indirect_energy(state: BAState, ind: IndirectFactors, cam: PinholeCamera,
     return _linearize_indirect(state, ind, cam, cfg)[-1]
 
 
-def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-                 cfg: DirectConfig, ind: IndirectFactors | None = None,
-                 mesh: Mesh | None = None) -> torch.Tensor:
+def total_energy_plain(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                       cfg: DirectConfig, ind: IndirectFactors | None = None,
+                       mesh: Mesh | None = None) -> torch.Tensor:
     """The exact functional the solver minimizes (photometric + prior +
     affine anchors + the optional mixed-BA reprojection terms), for
     accept/reject consistency. With a mesh the photometric sum is the
-    ranks' partial sums, all-reduced."""
+    ranks' partial sums, all-reduced. The plain form of the sweep kernel's
+    energy mode (total_energy dispatches)."""
     lin = linearize(local_rows(state, mesh), images, cam, cfg)
     e_photo = torch.sum(lin.energy)
     if mesh is not None:
@@ -497,28 +493,29 @@ def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     return e
 
 
-def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-            cfg: DirectConfig, lam: torch.Tensor, ind: IndirectFactors | None = None,
-            mesh: Mesh | None = None):
-    """One LM iteration: linearize, Schur-solve, back-substitute idepths.
-    With `ind`, the mixed-BA reprojection factors join the normal equations
-    and their idepths are Schur-eliminated alongside the photometric ones.
-    With a mesh, this rank's point rows only; one all-reduce of the point
-    sums, one all-gather of the idepth steps (`lin` holds this rank's rows).
-    Returns (new_state, lin), or (new_state, new_ind, lin) with `ind`."""
-    F = state.num_frames
-    D = F * _D
-    rows = local_rows(state, mesh)
+def _sweep_plain(rows: BAState, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                 lam: torch.Tensor):
+    """linearize + _assemble + _schur_terms over `rows`: the plain form of
+    the sweep kernel's system mode. Returns (lin, {H, b, H_corr, b_corr,
+    H_rho_d, b_rho, H_xr})."""
     lin = linearize(rows, images, cam, cfg)
     H, b, H_rho, b_rho, H_xr = _assemble(lin, rows, cfg)
     H_corr, b_corr, H_rho_d = _schur_terms(H_rho, b_rho, H_xr, lam, rows.point_valid)
-    if mesh is not None:
-        H, b, H_corr, b_corr = mesh.all_reduce(H, b, H_corr, b_corr)
-    # the terms every rank holds whole join after the reduction (once)
-    if ind is not None:
-        Hi, bi, Hi_rho, bi_rho, Hi_xr, _, _ = _assemble_indirect(state, ind, cam, cfg)
-        H = H + Hi
-        b = b + bi
+    return lin, {"H": H, "b": b, "H_corr": H_corr, "b_corr": b_corr, "H_rho_d": H_rho_d,
+                 "b_rho": b_rho, "H_xr": H_xr}
+
+
+def _solve_plain(system: dict, state: BAState, cfg: DirectConfig, lam: torch.Tensor,
+                 rows: BAState, extra: tuple | None = None):
+    """From the reduced system (and, for the mixed BA, `extra` = the
+    reprojection terms' (H, b, H_corr, b_corr)) to the step dx and the
+    rows' inverse-depth steps: the plain form of the solve kernel (the
+    state update is ba_step_plain's)."""
+    D = state.num_frames * _D
+    H, b = system["H"], system["b"]
+    if extra is not None:
+        H = H + extra[0]
+        b = b + extra[1]
 
     # marginalization prior (gradient at current state: b_m + H_m delta)
     delta_flat = state.delta.reshape(-1)
@@ -529,10 +526,9 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     H = H + torch.diag(diag_prior)
     b = b + b_prior
 
-    H_sc, b_sc = H - H_corr, b - b_corr
-    if ind is not None:
-        H_sc, b_sc, Hi_rho_d = _schur_reduce(H_sc, b_sc, Hi_rho, bi_rho, Hi_xr, lam,
-                                             ind.point_valid)
+    H_sc, b_sc = H - system["H_corr"], b - system["b_corr"]
+    if extra is not None:
+        H_sc, b_sc = H_sc - extra[2], b_sc - extra[3]
     eye = torch.eye(D, dtype=H.dtype, device=H.device)
     H_sc = H_sc + lam * torch.diag(torch.diag(H_sc)) + 1e-6 * eye
     dx, _ = torch.linalg.solve_ex(H_sc, b_sc)
@@ -545,8 +541,49 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     coeff, _ = torch.linalg.solve_ex(NtN, N.T @ dx)
     dx = dx - N @ coeff
 
-    d_rho = (b_rho - H_xr @ dx) / H_rho_d
+    d_rho = (system["b_rho"] - system["H_xr"] @ dx) / system["H_rho_d"]
     d_rho = torch.where(rows.point_valid, d_rho, torch.zeros_like(d_rho))
+    return dx, d_rho
+
+
+def _indirect_terms(state: BAState, ind: IndirectFactors, cam: PinholeCamera,
+                    cfg: DirectConfig, lam: torch.Tensor):
+    """The mixed BA's reprojection terms of an LM step: the additive (H, b)
+    and the Schur pair (H_corr, b_corr) of the camera system, and (b_rho,
+    H_xr, H_rho_d) for the inverse-depth steps of the indirect points."""
+    Hi, bi, Hi_rho, bi_rho, Hi_xr, _, _ = _assemble_indirect(state, ind, cam, cfg)
+    Hi_corr, bi_corr, Hi_rho_d = _schur_terms(Hi_rho, bi_rho, Hi_xr, lam, ind.point_valid)
+    return (Hi, bi, Hi_corr, bi_corr), (bi_rho, Hi_xr, Hi_rho_d)
+
+
+def _indirect_idepth(ind: IndirectFactors, back: tuple, dx: torch.Tensor,
+                     cfg: DirectConfig) -> torch.Tensor:
+    """The indirect points' inverse depths after the step dx."""
+    bi_rho, Hi_xr, Hi_rho_d = back
+    d_rho = (bi_rho - Hi_xr @ dx) / Hi_rho_d
+    d_rho = torch.where(ind.point_valid, d_rho, torch.zeros_like(d_rho))
+    return torch.clamp(ind.idepth - d_rho, cfg.idepth_min, cfg.idepth_max)
+
+
+def ba_step_plain(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                  cfg: DirectConfig, lam: torch.Tensor, ind: IndirectFactors | None = None,
+                  mesh: Mesh | None = None):
+    """One LM iteration: linearize, Schur-solve, back-substitute idepths
+    (the plain form of the sweep and solve kernels; ba_step dispatches).
+    With `ind`, the mixed-BA reprojection factors join the normal equations
+    and their idepths are Schur-eliminated alongside the photometric ones.
+    With a mesh, this rank's point rows only; one all-reduce of the point
+    sums, one all-gather of the idepth steps (`lin` holds this rank's rows).
+    Returns (new_state, lin), or (new_state, new_ind, lin) with `ind`."""
+    F = state.num_frames
+    rows = local_rows(state, mesh)
+    lin, system = _sweep_plain(rows, images, cam, cfg, lam)
+    if mesh is not None:
+        red = mesh.all_reduce(*(system[k] for k in ("H", "b", "H_corr", "b_corr")))
+        system.update(zip(("H", "b", "H_corr", "b_corr"), red))
+    # the terms every rank holds whole join after the reduction (once)
+    extra, back = (None, None) if ind is None else _indirect_terms(state, ind, cam, cfg, lam)
+    dx, d_rho = _solve_plain(system, state, cfg, lam, rows, extra)
     if mesh is not None:
         d_rho = mesh.all_gather_rows(d_rho)
 
@@ -561,11 +598,7 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     )
     if ind is None:
         return new_state, lin
-    d_rho_i = (bi_rho - Hi_xr @ dx) / Hi_rho_d
-    d_rho_i = torch.where(ind.point_valid, d_rho_i, torch.zeros_like(d_rho_i))
-    new_ind = ind.replace(idepth=torch.clamp(ind.idepth - d_rho_i, cfg.idepth_min,
-                                             cfg.idepth_max))
-    return new_state, new_ind, lin
+    return new_state, ind.replace(idepth=_indirect_idepth(ind, back, dx, cfg)), lin
 
 
 def _select_state(accept: torch.Tensor, a: BAState, b: BAState) -> BAState:
@@ -578,17 +611,22 @@ def _select_state(accept: torch.Tensor, a: BAState, b: BAState) -> BAState:
     return BAState(**out)
 
 
-def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-           cfg: DirectConfig, mesh: Mesh | None = None) -> tuple[BAState, torch.Tensor]:
+def run_ba_plain(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                 cfg: DirectConfig, mesh: Mesh | None = None,
+                 trace: list | None = None) -> tuple[BAState, torch.Tensor]:
     """Fixed-iteration LM loop with accept/reject (reference:
     DSOBundleAdjustment::run, energy-based step control). The accept test
     stays on the device: no host read per iteration. With a mesh, every
-    rank runs it on the same state and ends with the same state."""
-    E = total_energy(state, images, cam, cfg, mesh=mesh)
+    rank runs it on the same state and ends with the same state. The plain
+    form of the BA kernels' loop (run_ba dispatches). With `trace`, each
+    step appends its (E, E_new) as a (2,) tensor."""
+    E = total_energy_plain(state, images, cam, cfg, mesh=mesh)
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=E.device)
     for _ in range(cfg.ba_iters):
-        cand, _ = ba_step(state, images, cam, cfg, lam, mesh=mesh)
-        E_new = total_energy(cand, images, cam, cfg, mesh=mesh)
+        cand, _ = ba_step_plain(state, images, cam, cfg, lam, mesh=mesh)
+        E_new = total_energy_plain(cand, images, cam, cfg, mesh=mesh)
+        if trace is not None:
+            trace.append(torch.stack([E, E_new]))
         accept = E_new < E
         state = _select_state(accept, cand, state)
         E = torch.where(accept, E_new, E)
@@ -597,20 +635,24 @@ def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     return state, E
 
 
-def run_ba_mixed(state: BAState, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
-                 ind: IndirectFactors, mesh: Mesh | None = None,
-                 ) -> tuple[BAState, IndirectFactors, torch.Tensor]:
+def run_ba_mixed_plain(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                       cfg: DirectConfig, ind: IndirectFactors, mesh: Mesh | None = None,
+                       trace: list | None = None,
+                       ) -> tuple[BAState, IndirectFactors, torch.Tensor]:
     """Joint photometric + indirect-reprojection LM over the window — the
     mixed bundle adjustment (reference: DSOBundleAdjustment.cpp:2674
     addIndirectToProblem + joint Schur solve). run_ba's accept/reject loop
     with the reprojection terms in the normal equations and the energy; the
     indirect idepths ride along. With a mesh only the photometric points are
-    split: every rank holds and sweeps the indirect factors whole."""
-    E = total_energy(state, images, cam, cfg, ind, mesh=mesh)
+    split: every rank holds and sweeps the indirect factors whole. The plain
+    form (run_ba_mixed dispatches). With `trace`, as run_ba_plain's."""
+    E = total_energy_plain(state, images, cam, cfg, ind, mesh=mesh)
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=E.device)
     for _ in range(cfg.ba_iters):
-        cand, cand_i, _ = ba_step(state, images, cam, cfg, lam, ind, mesh=mesh)
-        E_new = total_energy(cand, images, cam, cfg, cand_i, mesh=mesh)
+        cand, cand_i, _ = ba_step_plain(state, images, cam, cfg, lam, ind, mesh=mesh)
+        E_new = total_energy_plain(cand, images, cam, cfg, cand_i, mesh=mesh)
+        if trace is not None:
+            trace.append(torch.stack([E, E_new]))
         accept = E_new < E
         state = _select_state(accept, cand, state)
         ind = ind.replace(idepth=torch.where(accept, cand_i.idepth, ind.idepth))
@@ -650,12 +692,13 @@ def refresh_fej(state: BAState) -> BAState:
 # ---------------------------------------------------------------------------
 
 
-def update_residual_status(state: BAState, images: torch.Tensor,
-                           cam: PinholeCamera, cfg: DirectConfig,
-                           mesh: Mesh | None = None) -> BAState:
+def update_residual_status_plain(state: BAState, images: torch.Tensor,
+                                 cam: PinholeCamera, cfg: DirectConfig,
+                                 mesh: Mesh | None = None) -> BAState:
     """Deactivate residuals whose energy exceeds the outlier threshold and
     points left with no active residual at all. With a mesh each rank
-    decides its rows and the rows are all-gathered."""
+    decides its rows and the rows are all-gathered. The plain form of the
+    sweep kernel's status mode (update_residual_status dispatches)."""
     rows = local_rows(state, mesh)
     lin = linearize(rows, images, cam, cfg)
     good = lin.active & (lin.energy < cfg.outlier_energy)
@@ -801,15 +844,16 @@ def marginalize_frame(
     return state.replace(H_m=H_m_fix, b_m=b_m_fix)
 
 
-def _marg_pieces(state: BAState, images: torch.Tensor, cam: PinholeCamera,
-                 cfg: DirectConfig, slot, mesh: Mesh | None = None):
+def _marg_pieces_plain(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                       cfg: DirectConfig, slot, mesh: Mesh | None = None):
     """Device half of f64 marginalization: linearize the points hosted in
     `slot`, FEJ-shift the residuals, and contract the (P, F, 8, ...) tensors
     down to the small normal-equation pieces. The point-Schur CORRECTION is
     contracted here, but the cancellation-sensitive subtraction
     H_pts - H_corr (both ~1e10, their difference along the scale direction
     ~1e6) is left to the host in f64. With a mesh each rank contracts its
-    rows and the four point sums are all-reduced."""
+    rows and the four point sums are all-reduced. The plain form of the
+    sweep kernel's marg mode (_marg_pieces dispatches)."""
     hosted, marg_state, lin, r0 = _fej_shifted(local_rows(state, mesh), images, cam, cfg,
                                                slot)
     H_pts, b_pts, H_rho, b_rho, H_xr = _assemble(lin, marg_state, cfg, r_shift=r0)
@@ -922,3 +966,202 @@ def _marg_apply(state: BAState, packed: torch.Tensor, hosted: torch.Tensor,
         H_m=packed[:-1],
         b_m=packed[-1],
     )
+
+
+# ---------------------------------------------------------------------------
+# The public entry points: the BA kernels for CUDA tensors, the plain forms
+# for CPU tensors
+# ---------------------------------------------------------------------------
+
+
+def _on_card(state: BAState) -> bool:
+    """True for a state on a CUDA device (the kernels), False on the CPU (the
+    plain forms); any other device raises."""
+    kind = state.uv.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {state.uv.device}")
+    return kind == "cuda"
+
+
+def _contiguous(state: BAState) -> BAState:
+    """The state with every tensor contiguous (the same tensors when they
+    already are, as the runtime's always are)."""
+    out = {}
+    for f in dataclasses.fields(BAState):
+        x = getattr(state, f.name)
+        out[f.name] = (SE3(R=x.R.contiguous(), t=x.t.contiguous()) if isinstance(x, SE3)
+                       else x.contiguous())
+    return BAState(**out)
+
+
+def _energy_cuda(state: BAState, images, cam, cfg, mesh, finish: bk.Finish | None):
+    """An energy sweep over this rank's rows, then `finish`: in the sweep's
+    launch without a mesh, after the all-reduce of the photometric sum with
+    one. Returns the photometric energy (reduced)."""
+    rows = local_rows(state, mesh)
+    if mesh is None:
+        return bk.ba_sweep_cuda(rows, images, cam, cfg, "energy", finish=finish)["e_photo"]
+    (e_photo,) = mesh.all_reduce(bk.ba_sweep_cuda(rows, images, cam, cfg, "energy")["e_photo"])
+    if finish is not None:
+        bk.ba_finish_cuda(e_photo, state, cfg, finish)
+    return e_photo
+
+
+def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
+    """ba_step on the card: the system sweep over this rank's rows (the
+    four sums all-reduced with a mesh), then the solve. With `ind`, the
+    mixed BA's reprojection terms (plain PyTorch, _assemble_indirect) enter
+    the solve as additive (H, b) and a second Schur pair. Returns the
+    candidate state and, with `ind`, the candidate inverse depths of the
+    indirect points."""
+    rows = local_rows(src, mesh)
+    system = bk.ba_sweep_cuda(rows, images, cam, cfg, "system", lam=lam)
+    if mesh is not None:
+        red = mesh.all_reduce(*(system[k] for k in ("H", "b", "H_corr", "b_corr")))
+        system.update(zip(("H", "b", "H_corr", "b_corr"), red))
+    extra, back = (None, None) if ind is None else _indirect_terms(src, ind, cam, cfg, lam)
+    if extra is not None:
+        extra = tuple(x.contiguous() for x in extra)
+    cand = bk.ba_solve_cuda(system, src, cfg, lam, rows, mesh=mesh is not None, extra=extra,
+                            want_dx=ind is not None)
+    if mesh is None:
+        idepth = cand["idepth"]
+    else:
+        d_rho = mesh.all_gather_rows(cand["d_rho"])
+        idepth = torch.clamp(src.idepth - d_rho, cfg.idepth_min, cfg.idepth_max)
+    new = src.replace(T=SE3(R=cand["R"], t=cand["t"]), ab=cand["ab"], delta=cand["delta"],
+                      idepth=idepth)
+    if ind is None:
+        return new, None
+    return new, _indirect_idepth(ind, back, cand["dx"], cfg)
+
+
+def _run_ba_cuda(state: BAState, images, cam, cfg, mesh, ind=None,
+                 trace: torch.Tensor | None = None):
+    """run_ba (run_ba_mixed with `ind`) on the card, with no host read: the
+    energy sweep at the start (which also sets lambda), then each LM step's
+    system sweep, solve and energy sweep of the candidate, whose last block
+    takes the accept test, lambda's update and the select into the result's
+    buffers (with a mesh or `ind`, after the all-reduce or the reprojection
+    energy, in the sweep kernel's FINISH launch). With `trace` (a
+    (ba_iters, 2) float32 tensor on the card), each step's (E, E_new).
+    Returns (state, E) or (state, indirect inverse depths, E)."""
+    state = _contiguous(state)
+    images = images.contiguous()
+    dev = state.uv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    E, lam = torch.empty((), **f32), torch.empty((), **f32)
+    e_ind = None if ind is None else indirect_energy(state, ind, cam, cfg)
+    _energy_cuda(state, images, cam, cfg, mesh,
+                 bk.Finish("energy", E=E, lam=lam, init_lam=True, e_extra=e_ind))
+    src, src_i = state, None if ind is None else ind.idepth.contiguous()
+    F, P = state.num_frames, state.num_points
+    dst = {"R": torch.empty((F, 3, 3), **f32), "t": torch.empty((F, 3), **f32),
+           "ab": torch.empty((F, 2), **f32), "delta": torch.empty((F, _D), **f32),
+           "idepth": torch.empty((P,), **f32)}
+    dst_i = None if ind is None else torch.empty_like(src_i)
+    for it in range(cfg.ba_iters):
+        cand, cand_i = _step_cuda(src, images, cam, cfg, lam, mesh,
+                                  None if ind is None else ind.replace(idepth=src_i))
+        fin = bk.Finish("accept", E=E, lam=lam, src=src, cand_idepth=cand.idepth, dst=dst,
+                        trace=None if trace is None else trace[it])
+        if ind is None:
+            _energy_cuda(cand, images, cam, cfg, mesh, fin)
+        else:
+            fin.e_extra = indirect_energy(cand, ind.replace(idepth=cand_i), cam, cfg)
+            fin.extra = (src_i, cand_i, dst_i)
+            e_photo = _energy_cuda(cand, images, cam, cfg, mesh, None)
+            bk.ba_finish_cuda(e_photo, cand, cfg, fin)
+        src = state.replace(T=SE3(R=dst["R"], t=dst["t"]), ab=dst["ab"], delta=dst["delta"],
+                            idepth=dst["idepth"])
+        src_i = dst_i
+    if ind is None:
+        return src, E
+    return src, src_i, E
+
+
+def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                 cfg: DirectConfig, ind: IndirectFactors | None = None,
+                 mesh: Mesh | None = None) -> torch.Tensor:
+    """total_energy_plain's functional: one energy sweep kernel (its last
+    block adds the prior and affine terms) for CUDA tensors, the plain form
+    for CPU tensors."""
+    if not _on_card(state):
+        return total_energy_plain(state, images, cam, cfg, ind, mesh)
+    state = _contiguous(state)
+    E = torch.empty((), dtype=torch.float32, device=state.uv.device)
+    e_ind = None if ind is None else indirect_energy(state, ind, cam, cfg)
+    _energy_cuda(state, images.contiguous(), cam, cfg, mesh,
+                 bk.Finish("energy", E=E, e_extra=e_ind))
+    return E
+
+
+def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+            cfg: DirectConfig, lam: torch.Tensor, ind: IndirectFactors | None = None,
+            mesh: Mesh | None = None):
+    """One LM iteration (ba_step_plain's): the system sweep and the solve
+    kernel for CUDA tensors (`lam` a 0-d float32 tensor on the card), the
+    plain form for CPU tensors. On the card the Jacobians are never formed,
+    so the third value (the Linearization) is None."""
+    if not _on_card(state):
+        return ba_step_plain(state, images, cam, cfg, lam, ind, mesh)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=state.uv.device).reshape(())
+    new, cand_i = _step_cuda(_contiguous(state), images.contiguous(), cam, cfg, lam, mesh, ind)
+    if ind is None:
+        return new, None
+    return new, ind.replace(idepth=cand_i), None
+
+
+def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+           cfg: DirectConfig, mesh: Mesh | None = None) -> tuple[BAState, torch.Tensor]:
+    """run_ba_plain's LM loop: on the card the BA kernels with no host read
+    (1 + 3 x ba_iters launches without a mesh), on the CPU the plain form."""
+    if not _on_card(state):
+        return run_ba_plain(state, images, cam, cfg, mesh)
+    return _run_ba_cuda(state, images, cam, cfg, mesh)
+
+
+def run_ba_mixed(state: BAState, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                 ind: IndirectFactors, mesh: Mesh | None = None,
+                 ) -> tuple[BAState, IndirectFactors, torch.Tensor]:
+    """run_ba_mixed_plain's joint LM loop: on the card the BA kernels (the
+    reprojection terms in plain PyTorch between them), on the CPU the plain
+    form."""
+    if not _on_card(state):
+        return run_ba_mixed_plain(state, images, cam, cfg, ind, mesh)
+    new, idepth_i, E = _run_ba_cuda(state, images, cam, cfg, mesh, ind)
+    return new, ind.replace(idepth=idepth_i), E
+
+
+def update_residual_status(state: BAState, images: torch.Tensor,
+                           cam: PinholeCamera, cfg: DirectConfig,
+                           mesh: Mesh | None = None) -> BAState:
+    """update_residual_status_plain's masks: the sweep kernel's status mode
+    for CUDA tensors, the plain form for CPU tensors."""
+    if not _on_card(state):
+        return update_residual_status_plain(state, images, cam, cfg, mesh)
+    state = _contiguous(state)
+    out = bk.ba_sweep_cuda(local_rows(state, mesh), images.contiguous(), cam, cfg, "status")
+    res_active, point_valid = out["res_active"], out["point_valid"]
+    if mesh is not None:
+        both = mesh.all_gather_rows(torch.cat([res_active, point_valid[:, None]], dim=1))
+        res_active, point_valid = both[:, :-1], both[:, -1]
+    return state.replace(res_active=res_active, point_valid=point_valid)
+
+
+def _marg_pieces(state: BAState, images: torch.Tensor, cam: PinholeCamera,
+                 cfg: DirectConfig, slot, mesh: Mesh | None = None):
+    """_marg_pieces_plain's pieces: the sweep kernel's marg mode for CUDA
+    tensors (`slot` an int or a 0-d device tensor, never read on the
+    host), the plain form for CPU tensors."""
+    if not _on_card(state):
+        return _marg_pieces_plain(state, images, cam, cfg, slot, mesh)
+    state = _contiguous(state)
+    out = bk.ba_sweep_cuda(local_rows(state, mesh), images.contiguous(), cam, cfg, "marg",
+                           slot=slot)
+    pieces = tuple(out[k] for k in ("H", "b", "H_corr", "b_corr"))
+    if mesh is not None:
+        pieces = mesh.all_reduce(*pieces)
+    hosted = state.point_valid & (state.host == slot)
+    return (*pieces, hosted, state.T.R, state.T.t, state.frame_valid, state.delta,
+            state.ab_fej, state.H_m, state.b_m)

@@ -1,0 +1,368 @@
+"""The window BA's LM loop on the card: the sweep and solve kernels.
+
+  ba_sweep_cuda   hand-written sm_90a kernel (csrc/ba_sweep.cu): one launch
+                  sweeps the (P, F) residual grid of a BAState and reduces it
+                  to what the plain forms' linearize + _assemble +
+                  _schur_terms give (the camera system H, b, the lambda-damped
+                  Schur corrections H_corr, b_corr, per point H_rho_d, b_rho
+                  and the H_xr row), or only the photometric energy, or
+                  update_residual_status' masks, or _marg_pieces'
+                  contraction; never a Jacobian. Its block partials are
+                  float64 (PERF.md: the sums of ~1e10 whose difference
+                  H - H_corr along the scale direction is ~1e6). With `finish` the same launch
+                  ends total_energy (the prior and affine terms) and, for run_ba,
+                  the accept test, lambda's update and the state select.
+                  `ba_finish_cuda` launches the same kernel's FINISH mode on
+                  an energy reduced elsewhere (an all-reduce, the mixed BA's
+                  reprojection term).
+  ba_solve_cuda   hand-written sm_90a kernel (csrc/ba_solve.cu): the rest of
+                  ba_step, from the reduced system to the candidate state (the
+                  priors, the damped dense solve with partial pivoting, the
+                  scale-gauge projection, the pose / affine / delta update and
+                  the inverse-depth back-substitution).
+
+They replace the JAX package's device program for the window BA, `run_ba`'s
+`lax.scan` (libcml_tpu/models/direct/ba.py:619) and the sweeps of
+`total_energy`, `update_residual_status` and `_marg_pieces`. Their plain
+PyTorch forms are those functions in models/direct/ba.py (`run_ba_plain`,
+`ba_step_plain`, ...); the public names there dispatch by the tensors'
+device. The kernels build with nvcc on first use (ops/kernel_build.py).
+Each wrapper counts its launches in `.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from libcml_tpu_torch.core.camera import PinholeCamera
+from libcml_tpu_torch.models.direct.config import DirectConfig
+from libcml_tpu_torch.ops import kernel_build as kb
+from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
+
+SWEEP_SOURCE = kb.CSRC / "ba_sweep.cu"
+SOLVE_SOURCE = kb.CSRC / "ba_solve.cu"
+MAX_FRAMES = 8              # csrc/ba_sweep.cu, ba_solve.cu MAX_F
+
+MODES = {"system": 0, "energy": 1, "status": 2, "marg": 3, "finish": 4}
+FIN = {None: 0, "energy": 1, "accept": 2}
+
+# How far run_ba on the kernels may sit from run_ba_plain on the same state
+# (chip_smoke.py phase 14), the bounds of tests/test_torch_direct.py's
+# run_ba parity test: E relative, T (R and t) absolute, idepth relative with
+# an absolute floor. The kernels sum in another order (and the LU is not
+# cuSOLVER's), so a step's accept test may go the other way near its
+# threshold; DECISION_TOL says how near, as |E_new - E| / E, such a decision
+# must sit. Its reading (chip_smoke.py phase 14's float64 witness, PERF.md):
+# over the 76 captured steps of a run the accept test's value (E_new - E) / E
+# in float32 sits up to 7.1e-5 from float64's from the same states in the
+# plain form and 4.2e-5 on the kernels (each residual is a difference of
+# ~100-grey-level values that is ~0.1), so a value within their sum, 1.1e-4,
+# may go either way: DECISION_TOL is that sum at one significant digit,
+# rounded down.
+PARITY_TOL = {"E_rel": 1e-3, "T": 2e-4, "idepth_rel": 1e-2, "idepth_abs": 1e-3}
+# run_ba_mixed on the kernels against run_ba_mixed_plain: the bounds of
+# tests/test_torch_hybrid.py's run_ba_mixed parity test (the indirect
+# inverse depths held like the photometric ones)
+MIXED_PARITY_TOL = {"E_rel": 3e-3, "T": 5e-4, "idepth_rel": 1e-2, "idepth_abs": 1e-3}
+DECISION_TOL = {"E_rel": 1e-4}
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _struct(name: str, ints: tuple, floats: tuple, ints2: tuple, ptrs: tuple):
+    fields = ([(n, _I) for n in ints] + [(n, _F) for n in floats] + [(n, _I) for n in ints2]
+              + [(n, _VP) for n in ptrs])
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+# csrc/ba_sweep.cu Args, field for field
+SweepArgs = _struct(
+    "SweepArgs", ("mode", "fin", "P", "F", "img_h", "img_w", "slot_host", "init_lam"),
+    ("fx", "fy", "cx", "cy", "huber_k", "half_k", "outlier", "rho_eps", "prior_a",
+     "prior_b", "lam_init"), ("P_total", "Q"),
+    ("uv", "host", "idepth", "idepth_fej", "color", "weight", "point_valid", "res_active",
+     "R", "t", "R_fej", "t_fej", "ab", "ab_fej", "delta", "frame_valid", "images", "lam",
+     "slot", "H", "b", "H_corr", "b_corr", "H_rho_d", "b_rho", "H_xr", "e_photo",
+     "res_active_out", "point_valid_out", "partials", "counter", "H_m", "b_m", "e_in",
+     "e_extra", "E", "lam_io", "src_R", "src_t", "src_ab", "src_delta", "src_idepth",
+     "cand_idepth", "dst_R", "dst_t", "dst_ab", "dst_delta", "dst_idepth", "src_extra",
+     "cand_extra", "dst_extra", "trace"))
+# csrc/ba_solve.cu Args, field for field
+SolveArgs = _struct(
+    "SolveArgs", ("F", "P", "mesh"), ("prior_a", "prior_b", "idepth_min", "idepth_max"), (),
+    ("H", "b", "H_corr", "b_corr", "Hi", "bi", "Hi_corr", "bi_corr", "H_m", "b_m", "R", "t",
+     "ab", "delta", "frame_valid", "lam", "H_rho_d", "b_rho", "H_xr", "point_valid", "idepth",
+     "R_out", "t_out", "ab_out", "delta_out", "idepth_out", "d_rho_out", "dx_out"))
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def _sweep_lib() -> ctypes.CDLL:
+    lib = kb.load(SWEEP_SOURCE, "ba_sweep_launch", [ctypes.POINTER(SweepArgs), _VP])
+    _check_size(lib, "ba_sweep_args_size", SweepArgs)
+    lib.ba_sweep_plan.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_longlong)]
+    lib.ba_sweep_plan.restype = _I
+    return lib
+
+
+def _solve_lib() -> ctypes.CDLL:
+    lib = kb.load(SOLVE_SOURCE, "ba_solve_launch", [ctypes.POINTER(SolveArgs), _VP])
+    _check_size(lib, "ba_solve_args_size", SolveArgs)
+    return lib
+
+
+def _check_size(lib: ctypes.CDLL, symbol: str, args_type) -> None:
+    """Raise unless the kernel's Args and its ctypes mirror have one size."""
+    size = getattr(lib, symbol)
+    size.restype = _I
+    if size() != ctypes.sizeof(args_type):
+        raise KernelLaunchError(f"{symbol}: the kernel's Args is {size()} bytes, the wrapper's "
+                                f"{ctypes.sizeof(args_type)}")
+
+
+def _counter(dev: torch.device) -> torch.Tensor:
+    """The sweep's arrival ticket on `dev` (the last block resets it to 0).
+    One a device: sweeps on one device run in stream order, never two at
+    once on two streams (the port uses the current stream only)."""
+    c = _COUNTERS.get(dev)
+    if c is None:
+        c = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return c
+
+
+def _check_state(state, images: torch.Tensor, cam: PinholeCamera, dev: torch.device) -> None:
+    P, F = state.uv.shape[0], state.ab.shape[0]
+    f32, b8 = torch.float32, torch.bool
+    if not 1 <= F <= MAX_FRAMES:
+        raise ValueError(f"the BA kernels take 1-{MAX_FRAMES} frame slots, got {F}")
+    for name, shape, dtype in (("uv", (P, 2), f32), ("host", (P,), torch.int32),
+                               ("idepth", (P,), f32), ("idepth_fej", (P,), f32),
+                               ("color", (P, 8), f32), ("weight", (P, 8), f32),
+                               ("point_valid", (P,), b8), ("res_active", (P, F), b8),
+                               ("ab", (F, 2), f32), ("ab_fej", (F, 2), f32),
+                               ("delta", (F, 8), f32), ("frame_valid", (F,), b8),
+                               ("H_m", (8 * F, 8 * F), f32), ("b_m", (8 * F,), f32)):
+        kb.check_tensor(name, getattr(state, name), shape, dtype, dev)
+    for name in ("T", "T_fej"):
+        T = getattr(state, name)
+        kb.check_tensor(f"{name}.R", T.R, (F, 3, 3), f32, dev)
+        kb.check_tensor(f"{name}.t", T.t, (F, 3), f32, dev)
+    kb.check_tensor("images", images, (F, cam.height, cam.width, 3), f32, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the BA kernels need CUDA tensors, got {dev}")
+
+
+@dataclasses.dataclass
+class Finish:
+    """What the sweep's last block (or FINISH) does after the photometric
+    sum: "energy" stores total_energy at the swept state in E (and with
+    `init_lam`, lambda's first value in lam); "accept" compares it with E,
+    keeps the lower in E, updates lam and writes dst = accept ? swept : src
+    (R, t, ab, delta of the frames, idepth of every point, and `extra`: the
+    mixed BA's indirect inverse depths as (src, cand, dst)); with `trace`
+    (a (2,) float32 tensor) the step's E and E_new."""
+
+    mode: str
+    E: torch.Tensor
+    lam: torch.Tensor | None = None
+    init_lam: bool = False
+    e_extra: torch.Tensor | None = None
+    src: object = None
+    cand_idepth: torch.Tensor | None = None
+    dst: dict | None = None
+    extra: tuple | None = None
+    trace: torch.Tensor | None = None
+
+
+def _finish_fields(args, fin: Finish | None, state, cfg: DirectConfig) -> None:
+    args.fin = FIN[None if fin is None else fin.mode]
+    args.H_m, args.b_m = _ptr(state.H_m), _ptr(state.b_m)
+    args.prior_a, args.prior_b = cfg.ba_prior_a, cfg.ba_prior_b
+    args.lam_init = cfg.ba_lambda_init
+    if fin is None:
+        return
+    args.E, args.lam_io, args.init_lam = _ptr(fin.E), _ptr(fin.lam), int(fin.init_lam)
+    args.e_extra = _ptr(fin.e_extra)
+    if fin.mode == "accept":
+        src, dst = fin.src, fin.dst
+        args.P_total = src.idepth.shape[0]
+        args.src_R, args.src_t, args.src_ab = _ptr(src.T.R), _ptr(src.T.t), _ptr(src.ab)
+        args.src_delta, args.src_idepth = _ptr(src.delta), _ptr(src.idepth)
+        args.cand_idepth, args.trace = _ptr(fin.cand_idepth), _ptr(fin.trace)
+        args.dst_R, args.dst_t, args.dst_ab = _ptr(dst["R"]), _ptr(dst["t"]), _ptr(dst["ab"])
+        args.dst_delta, args.dst_idepth = _ptr(dst["delta"]), _ptr(dst["idepth"])
+        if fin.extra is not None:
+            s, c, d = fin.extra
+            args.Q = s.shape[0]
+            args.src_extra, args.cand_extra, args.dst_extra = _ptr(s), _ptr(c), _ptr(d)
+
+
+def _frame_fields(args, state) -> None:
+    args.F = state.ab.shape[0]
+    args.R, args.t, args.ab = _ptr(state.T.R), _ptr(state.T.t), _ptr(state.ab)
+    args.delta, args.frame_valid = _ptr(state.delta), _ptr(state.frame_valid)
+
+
+def _launch_sweep(args, dev: torch.device) -> None:
+    lib = _sweep_lib()
+    with torch.cuda.device(dev):
+        err = lib.ba_sweep_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise KernelLaunchError(f"ba_sweep kernel launch failed: CUDA error {err}")
+    ba_sweep_cuda.launches += 1
+
+
+def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                  mode: str, lam: torch.Tensor | None = None, slot=None,
+                  finish: Finish | None = None) -> dict:
+    """One sweep over the point rows of `state` (a BAState, every tensor
+    contiguous on one CUDA device; with a mesh, this rank's rows) and the
+    window's level-0 gradient images (F, H, W, 3). `mode`: "system" (needs
+    `lam`, a 0-d float32 device tensor), "energy", "status" or "marg" (needs
+    `slot`, an int or a 0-d int64 device tensor). Returns a dict: e_photo
+    (0-d) always; H, b, H_corr, b_corr (system, marg); H_rho_d, b_rho, H_xr
+    (system); res_active, point_valid (status). With `finish`, the launch
+    also ends total_energy at `state` (and run_ba's accept step)."""
+    dev = state.uv.device
+    _check_state(state, images, cam, dev)
+    P, F = state.uv.shape[0], state.ab.shape[0]
+    D = 8 * F
+    if P == 0:
+        raise ValueError("ba_sweep_cuda needs at least one point row")
+    f32 = dict(dtype=torch.float32, device=dev)
+    blocks, part_bytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    _sweep_lib().ba_sweep_plan(P, F, ctypes.byref(blocks), ctypes.byref(part_bytes))
+    sysmode = mode in ("system", "marg")
+    per_block = part_bytes.value if sysmode else 8
+    partials = torch.empty(blocks.value * per_block, dtype=torch.uint8, device=dev)
+    out = {"e_photo": torch.empty((), **f32)}
+    if sysmode:
+        out.update(H=torch.empty((D, D), **f32), b=torch.empty((D,), **f32),
+                   H_corr=torch.empty((D, D), **f32), b_corr=torch.empty((D,), **f32))
+    if mode == "system":
+        if lam is None:
+            raise ValueError("the system sweep needs lam")
+        kb.check_tensor("lam", lam, (), torch.float32, dev)
+        out.update(H_rho_d=torch.empty((P,), **f32), b_rho=torch.empty((P,), **f32),
+                   H_xr=torch.empty((P, D), **f32))
+    if mode == "status":
+        out.update(res_active=torch.empty((P, F), dtype=torch.bool, device=dev),
+                   point_valid=torch.empty((P,), dtype=torch.bool, device=dev))
+    args = SweepArgs()
+    args.mode = MODES[mode]
+    args.P, args.P_total = P, P
+    args.img_h, args.img_w = cam.height, cam.width
+    args.fx, args.fy, args.cx, args.cy = cam.fx, cam.fy, cam.cx, cam.cy
+    k = cfg.huber_intensity
+    args.huber_k, args.half_k = k, float(np.float32(0.5 * k))
+    args.outlier = cfg.outlier_energy
+    args.rho_eps = 1e-12 if mode == "marg" else 1e-10
+    _frame_fields(args, state)
+    args.uv, args.host, args.idepth = _ptr(state.uv), _ptr(state.host), _ptr(state.idepth)
+    args.idepth_fej, args.color, args.weight = (_ptr(state.idepth_fej), _ptr(state.color),
+                                                _ptr(state.weight))
+    args.point_valid, args.res_active = _ptr(state.point_valid), _ptr(state.res_active)
+    args.R_fej, args.t_fej, args.ab_fej = (_ptr(state.T_fej.R), _ptr(state.T_fej.t),
+                                           _ptr(state.ab_fej))
+    args.images = _ptr(images)
+    args.lam = _ptr(lam)
+    if mode == "marg":
+        if isinstance(slot, torch.Tensor):
+            slot = slot.to(torch.int64).reshape(())
+            kb.check_tensor("slot", slot, (), torch.int64, dev)
+            args.slot = slot.data_ptr()
+        else:
+            args.slot_host = int(slot)
+    args.H, args.b = _ptr(out.get("H")), _ptr(out.get("b"))
+    args.H_corr, args.b_corr = _ptr(out.get("H_corr")), _ptr(out.get("b_corr"))
+    args.H_rho_d, args.b_rho, args.H_xr = (_ptr(out.get("H_rho_d")), _ptr(out.get("b_rho")),
+                                           _ptr(out.get("H_xr")))
+    args.e_photo = _ptr(out["e_photo"])
+    args.res_active_out = _ptr(out.get("res_active"))
+    args.point_valid_out = _ptr(out.get("point_valid"))
+    args.partials, args.counter = partials.data_ptr(), _counter(dev).data_ptr()
+    _finish_fields(args, finish, state, cfg)
+    _launch_sweep(args, dev)
+    return out
+
+
+ba_sweep_cuda.launches = 0
+
+
+def ba_finish_cuda(e_photo: torch.Tensor, state, cfg: DirectConfig, finish: Finish) -> None:
+    """The sweep kernel's FINISH mode, one block: total_energy at `state`
+    from a photometric energy `e_photo` (0-d, reduced elsewhere) and
+    `finish`'s step (as ba_sweep_cuda's). Counted as a ba_sweep launch."""
+    dev = state.uv.device
+    kb.check_tensor("e_photo", e_photo, (), torch.float32, dev)
+    args = SweepArgs()
+    args.mode = MODES["finish"]
+    _frame_fields(args, state)
+    args.idepth = _ptr(state.idepth)
+    args.e_in = e_photo.data_ptr()
+    _finish_fields(args, finish, state, cfg)
+    _launch_sweep(args, dev)
+
+
+def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, rows,
+                  mesh: bool = False, extra: tuple | None = None, want_dx: bool = False) -> dict:
+    """The rest of ba_step on the card (one launch): `system` is the reduced
+    sweep (H, b, H_corr, b_corr; with a mesh all-reduced) and its per-row
+    H_rho_d, b_rho, H_xr for `rows` (the BAState whose point rows were
+    swept); `state` the whole state. `extra`: the mixed BA's (Hi, bi,
+    Hi_corr, bi_corr). Returns the candidate's R, t, ab, delta and either
+    idepth (every row; no mesh) or d_rho (the rows; mesh), and dx when
+    `want_dx`."""
+    dev = state.uv.device
+    F, P = state.ab.shape[0], rows.uv.shape[0]
+    D = 8 * F
+    f32 = dict(dtype=torch.float32, device=dev)
+    kb.check_tensor("lam", lam, (), torch.float32, dev)
+    for name, shape in (("H", (D, D)), ("b", (D,)), ("H_corr", (D, D)), ("b_corr", (D,)),
+                        ("H_rho_d", (P,)), ("b_rho", (P,)), ("H_xr", (P, D))):
+        kb.check_tensor(name, system[name], shape, torch.float32, dev)
+    out = {"R": torch.empty((F, 3, 3), **f32), "t": torch.empty((F, 3), **f32),
+           "ab": torch.empty((F, 2), **f32), "delta": torch.empty((F, 8), **f32)}
+    out["d_rho" if mesh else "idepth"] = torch.empty((P,), **f32)
+    if want_dx:
+        out["dx"] = torch.empty((D,), **f32)
+    args = SolveArgs()
+    args.F, args.P, args.mesh = F, P, int(mesh)
+    args.prior_a, args.prior_b = cfg.ba_prior_a, cfg.ba_prior_b
+    args.idepth_min, args.idepth_max = cfg.idepth_min, cfg.idepth_max
+    args.H, args.b = _ptr(system["H"]), _ptr(system["b"])
+    args.H_corr, args.b_corr = _ptr(system["H_corr"]), _ptr(system["b_corr"])
+    if extra is not None:
+        for name, x, shape in zip(("Hi", "bi", "Hi_corr", "bi_corr"), extra,
+                                  ((D, D), (D,), (D, D), (D,))):
+            kb.check_tensor(name, x, shape, torch.float32, dev)
+            setattr(args, name, x.data_ptr())
+    args.H_m, args.b_m = _ptr(state.H_m), _ptr(state.b_m)
+    args.R, args.t, args.ab = _ptr(state.T.R), _ptr(state.T.t), _ptr(state.ab)
+    args.delta, args.frame_valid = _ptr(state.delta), _ptr(state.frame_valid)
+    args.lam = lam.data_ptr()
+    args.H_rho_d, args.b_rho, args.H_xr = (_ptr(system["H_rho_d"]), _ptr(system["b_rho"]),
+                                           _ptr(system["H_xr"]))
+    args.point_valid, args.idepth = _ptr(rows.point_valid), _ptr(rows.idepth)
+    args.R_out, args.t_out, args.ab_out = _ptr(out["R"]), _ptr(out["t"]), _ptr(out["ab"])
+    args.delta_out = _ptr(out["delta"])
+    args.idepth_out, args.d_rho_out = _ptr(out.get("idepth")), _ptr(out.get("d_rho"))
+    args.dx_out = _ptr(out.get("dx"))
+    lib = _solve_lib()
+    with torch.cuda.device(dev):
+        err = lib.ba_solve_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise KernelLaunchError(f"ba_solve kernel launch failed: CUDA error {err}")
+    ba_solve_cuda.launches += 1
+    return out
+
+
+ba_solve_cuda.launches = 0

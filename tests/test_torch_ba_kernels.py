@@ -1,0 +1,619 @@
+"""The window BA kernels' arithmetic modelled on the CPU and held to the plain
+forms and to the JAX package; their dispatch; the kernels on the card.
+
+csrc/ba_sweep.cu and csrc/ba_solve.cu cannot run here. A torch model of their
+arithmetic stands in for them:
+- the sweep: each (point, target) pair's Jacobians factored through z_k =
+  (gx, gy, c_k, 1), so that the pair keeps Z = sum_k w z z^T, zr = sum_k w z r
+  and its FEJ geometry (A_t, A_h, a, s0) and every normal-equation term is a
+  form L Z L^T; the block's partial sums over its 32 points in point order
+  in float64, then the blocks' partials in block order;
+- the solve: the damped system built in the kernel's order, elimination
+  with the first row of largest magnitude as pivot and the multipliers
+  scaled by the pivot's reciprocal, back-substitution by the reciprocals, the
+  scale-gauge projection, the state update;
+- run_ba's schedule: the energy at the start, then a system sweep, a solve
+  and an energy sweep of the candidate a step, the accept test E_new < E,
+  lambda x0.4 (floor 1e-7) or x5 (cap 1e2), the select.
+The model is held to the plain forms (`run_ba_plain`, `ba_step_plain`,
+`update_residual_status_plain`, `_marg_pieces_plain`, `run_ba_mixed_plain`)
+and to `libcml_tpu.models.direct.ba.run_ba` at the bounds of
+tests/test_torch_direct.py's run_ba test, on a 160x120 window of 4 keyframes
+and 256 point slots (rejected steps, an all-invalid window, ba_iters 0, the
+marginalization pieces and the mixed BA among the cases). The kernels
+themselves are held to the plain forms on the card by the tests at the end
+(skipped without CUDA) and by chip_smoke.py phase 14. Worker time: about 25 s
+alone on one thread, half of it the JAX reference's compile.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import libcml_tpu.models.direct.ba as jba
+from libcml_tpu.core.camera import PinholeCamera as JCam
+from libcml_tpu.core.lie import SE3 as JSE3
+from libcml_tpu.models.direct.config import DirectConfig as JCfg
+
+import libcml_tpu_torch.models.direct.ba as tba
+import libcml_tpu_torch.models.direct.window as twin
+from libcml_tpu_torch import convert
+from libcml_tpu_torch.core.camera import PinholeCamera as TCam
+from libcml_tpu_torch.core.lie import SE3 as TSE3, se3_exp, skew
+from libcml_tpu_torch.data.synthetic import SyntheticScene, forward_trajectory
+from libcml_tpu_torch.models.direct.config import DirectConfig as TCfg
+from libcml_tpu_torch.models.direct.residuals import huber_energy, huber_weight, pattern_uv
+from libcml_tpu_torch.models.direct.selector import select_points
+from libcml_tpu_torch.ops import ba_sweep as bk
+from libcml_tpu_torch.ops.image import bilinear_stack, build_gradient_pyramid
+
+# The suite runs in several worker processes that share a few cores: one
+# torch thread each, since with torch's default thread pool per process the
+# workers' spinning threads slow each other down many times over.
+torch.set_num_threads(1)
+
+CAM_ARGS = (110.0, 110.0, 79.5, 59.5, 160, 120)
+CFG_KW = dict(num_levels=3, max_points=256, points_per_kf=64, init_points=256,
+              max_frames=4, tracker_iters=8, init_iters=12, ba_iters=4)
+TCAM, JCAM = TCam.make(*CAM_ARGS), JCam.make(*CAM_ARGS)
+TCFG, JCFG = TCfg(**CFG_KW), JCfg(**CFG_KW)
+NPB = 32                          # csrc/ba_sweep.cu: points a block
+KF_FRAMES = [0, 2, 4, 6]
+# tests/test_torch_direct.py test_run_ba_matches_reference's bounds
+TOL = {"E_rel": 1e-3, "T": 2e-4, "idepth_rel": 1e-2, "idepth_abs": 1e-3}
+
+
+def _np(x):
+    return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def window():
+    """Keyframes at frames 0, 2, 4, 6 with perturbed poses, 64 points each
+    at their rendered inverse depth; the rendered images kept for the mixed
+    case's factors."""
+    scene = SyntheticScene.default(TCAM, seed=3)
+    poses = forward_trajectory(7, step=0.08, yaw_rate=0.003)
+    rng = np.random.default_rng(1)
+    w = twin.empty_window(TCFG, TCAM.height, TCAM.width)
+    rendered = {}
+    for n, i in enumerate(KF_FRAMES):
+        img, idep = scene.render(*poses[i])
+        rendered[i] = (img, idep)
+        g0 = build_gradient_pyramid(torch.tensor(img), 1)[0]
+        xi = torch.tensor(rng.normal(0, 0.004, 6) if n else np.zeros(6), dtype=torch.float32)
+        T = se3_exp(xi).compose(TSE3(R=torch.tensor(poses[i][0], dtype=torch.float32),
+                                     t=torch.tensor(poses[i][1], dtype=torch.float32)))
+        w, slot = twin.add_keyframe(w, g0, T, torch.zeros(2), i)
+        uv, valid, _ = select_points(g0, 64)
+        ui = _np(uv).astype(int)
+        rho = idep[np.clip(ui[:, 1], 0, 119), np.clip(ui[:, 0], 0, 159)]
+        ok = _np(valid) & (rho > 1e-3)
+        w = twin.add_points(w, slot, uv, torch.tensor(rho), torch.tensor(ok), TCFG)
+    w = w.replace(ba=tba.anchor_first_frame(w.ba, 0, TCFG))
+    return {"ba": w.ba, "images": w.images, "poses": poses, "rendered": rendered}
+
+
+def _jax_state(st: tba.BAState) -> jba.BAState:
+    d = convert.to_np(st)
+    kw = {k: jnp.asarray(v) for k, v in d.items() if k not in ("T", "T_fej")}
+    for k in ("T", "T_fej"):
+        kw[k] = JSE3(R=jnp.asarray(d[k]["R"]), t=jnp.asarray(d[k]["t"]))
+    return jba.BAState(**kw)
+
+
+# -- the model of csrc/ba_sweep.cu --------------------------------------------------------
+
+
+def _lrows(A: torch.Tensor, s0: torch.Tensor, host_side: bool) -> torch.Tensor:
+    """(..., 8, 4) L_t or L_h of the pairs: row d maps z to J[k][d]."""
+    L = torch.zeros(A.shape[:-2] + (8, 4))
+    L[..., :6, 0] = A[..., 0, :]
+    L[..., :6, 1] = A[..., 1, :]
+    L[..., 6, 2] = s0 if host_side else -s0
+    L[..., 7, 3] = s0 if host_side else -1.0
+    return L
+
+
+def _pairs(st: tba.BAState, images, cam, cfg, mode: str, slot=None) -> dict:
+    """Phase A for every (point, target) pair: the mask, the energy, and
+    for the system modes the FEJ geometry and the sums Z, zr."""
+    P, F = st.num_points, st.num_frames
+    host = st.host.long()
+    rel, relf = tba._pairwise_rel(st.T), tba._pairwise_rel(st.T_fej)
+    Rc, tc = rel.R[host], rel.t[host]
+    Rf, tf = relf.R[host], relf.t[host]
+    Xp = cam.unproject(pattern_uv(st.uv), st.idepth[:, None])               # (P, 8, 3)
+    Y = torch.einsum("pfij,pkj->pfki", Rc, Xp) + tc[:, :, None, :]
+    uvj, vz = cam.project(Y)
+    geo = torch.all(vz & cam.in_bounds(uvj, border=2.0), dim=-1)
+    smp = bilinear_stack(images, uvj)                                         # (P, F, 8, 3)
+    ab = st.ab
+    s_ji = torch.exp(ab[None, :, 0] - ab[host, 0][:, None])
+    r = (smp[..., 0] - ab[None, :, 1, None]) - s_ji[..., None] * (
+        st.color[:, None, :] - ab[host, 1][:, None, None])
+    pv = st.point_valid if mode != "marg" else st.point_valid & (st.host == slot)
+    fv = st.frame_valid
+    act = (st.res_active & pv[:, None] & fv[None, :] & fv[host][:, None]
+           & (host[:, None] != torch.arange(F)[None, :]) & geo)
+    e = torch.where(act, torch.sum(st.weight[:, None, :] * huber_energy(r, cfg.huber_intensity),
+                                   -1), torch.zeros(()))
+    out = {"act": act, "e": e, "host": host}
+    if mode not in ("system", "marg"):
+        return out
+    Xi = cam.unproject(st.uv, st.idepth_fej)                                  # (P, 3)
+    Xj = torch.einsum("pfij,pj->pfi", Rf, Xi) + tf
+    iz = 1.0 / torch.clamp(Xj[..., 2], min=1e-8)
+    zero = torch.zeros_like(iz)
+    Juv = torch.stack([torch.stack([cam.fx * iz, zero, (-cam.fx * Xj[..., 0]) * iz * iz], -1),
+                       torch.stack([zero, cam.fy * iz, (-cam.fy * Xj[..., 1]) * iz * iz], -1)],
+                      -2)                                                     # (P, F, 2, 3)
+    eye = torch.eye(3).expand(P, F, 3, 3)
+    At = Juv @ torch.cat([eye, -skew(Xj)], -1)
+    Ah = Juv @ -(Rf @ torch.cat([eye[:, 0], -skew(Xi)], -1)[:, None])
+    a = (Juv @ (-(Xj - tf) / torch.clamp(st.idepth_fej, min=1e-8)[:, None, None])[..., None])[..., 0]
+    s0 = torch.exp(st.ab_fej[None, :, 0] - st.ab_fej[host, 0][:, None])
+    c0 = (st.color[:, None, :] - st.ab_fej[host, 1][:, None, None]).expand(P, F, 8)
+    z = torch.stack([smp[..., 1], smp[..., 2], c0, torch.ones_like(c0)], -1)  # (P, F, 8, 4)
+    Lt, Lh = _lrows(At, s0, False), _lrows(Ah, s0, True)
+    w = torch.where(act[..., None], huber_weight(r, cfg.huber_intensity) * st.weight[:, None, :],
+                    torch.zeros(()))
+    rr = r
+    if mode == "marg":
+        Jt = torch.einsum("pfdm,pfkm->pfkd", Lt, z)
+        Jh = torch.einsum("pfdm,pfkm->pfkd", Lh, z)
+        jr = z[..., 0] * a[..., None, 0] + z[..., 1] * a[..., None, 1]
+        rr = ((r - torch.sum(Jt * st.delta[None, :, None, :], -1))
+              - torch.sum(Jh * st.delta[host][:, None, None, :], -1)
+              - jr * (st.idepth - st.idepth_fej)[:, None, None])
+    out.update(Lt=Lt, Lh=Lh, a=a, Z=torch.einsum("pfk,pfkm,pfkn->pfmn", w, z, z),
+               zr=torch.einsum("pfk,pfkm,pfk->pfm", w, z, rr))
+    return out
+
+
+def _sweep(st: tba.BAState, images, cam, cfg, mode: str, lam=0.0, slot=None) -> dict:
+    """csrc/ba_sweep.cu on the CPU: phases A-D, with the block partials in
+    float64 summed over 32 points in point order and then over the blocks in
+    block order."""
+    acc = torch.float64
+    P, F = st.num_points, st.num_frames
+    D = 8 * F
+    q = _pairs(st, images, cam, cfg, mode, slot)
+    out = {}
+    blocks = range(0, P, NPB)
+    e_parts = [torch.sum(q["e"][b:b + NPB].reshape(-1).to(acc)) for b in blocks]
+    out["e_photo"] = torch.stack(e_parts).cumsum(0)[-1].float()
+    if mode == "status":
+        good = q["act"] & (q["e"] < cfg.outlier_energy)
+        out["res_active"] = st.res_active & (good | ~q["act"])
+        out["point_valid"] = st.point_valid & (good.sum(1) >= 1)
+    if mode not in ("system", "marg"):
+        return out
+    Lt, Lh, Z, zr, act, host = q["Lt"], q["Lh"], q["Z"], q["zr"], q["act"], q["host"]
+    a4 = torch.cat([q["a"], torch.zeros(P, F, 2)], -1)
+    Za = (Z @ a4[..., None])[..., 0]
+    X = (Lt @ Za[..., None])[..., 0].reshape(P, D).clone()                   # H_xr target blocks
+    hx = (Lh @ Za[..., None])[..., 0]
+    H_rho = torch.zeros(P)
+    b_rho = torch.zeros(P)
+    for g in range(F):   # phase B: a point's pairs in slot order
+        H_rho = H_rho + torch.sum(a4[:, g] * Za[:, g], -1)
+        b_rho = b_rho + torch.sum(a4[:, g] * zr[:, g], -1)
+    hsum = torch.zeros(P, 8)
+    for g in range(F):
+        hsum = hsum + hx[:, g]
+    for p in range(P):
+        h = int(host[p])
+        X[p, 8 * h:8 * h + 8] += hsum[p]
+    valid = st.point_valid if mode == "system" else st.point_valid & (st.host == slot)
+    eps = 1e-10 if mode == "system" else 1e-12
+    H_rho_d = torch.where(valid, H_rho * (1.0 + torch.tensor(lam, dtype=torch.float32)) + eps,
+                          torch.ones(()))
+    scale = torch.where(valid, 1.0 / H_rho_d, torch.zeros(()))
+    Ftt = Lt @ Z @ Lt.transpose(-1, -2)
+    Fhh = Lh @ Z @ Lh.transpose(-1, -2)
+    Fth = Lt @ Z @ Lh.transpose(-1, -2)
+    bt = (Lt @ zr[..., None])[..., 0]
+    bh = (Lh @ zr[..., None])[..., 0]
+    parts = []
+    for b0 in blocks:
+        H = torch.zeros(F, F, 8, 8, dtype=acc)
+        bv = torch.zeros(F, 8, dtype=acc)
+        Hc = torch.zeros(D, D, dtype=acc)
+        bc = torch.zeros(D, dtype=acc)
+        for p in range(b0, min(b0 + NPB, P)):
+            h = int(host[p])
+            for f in range(F):
+                if act[p, f]:
+                    H[f, f] += Ftt[p, f].to(acc)
+                    H[f, h] += Fth[p, f].to(acc)
+                    H[h, f] += Fth[p, f].T.to(acc)
+                    bv[f] += bt[p, f].to(acc)
+            for g in range(F):
+                if act[p, g]:
+                    H[h, h] += Fhh[p, g].to(acc)
+                    bv[h] += bh[p, g].to(acc)
+            Hc += ((X[p] * scale[p])[:, None] * X[p][None, :]).to(acc)
+            bc += (X[p] * (b_rho[p] * scale[p])).to(acc)
+        parts.append((H.permute(0, 2, 1, 3).reshape(D, D), bv.reshape(D), Hc, bc))
+    total = [sum(x[i] for x in parts[1:]) + parts[0][i] if len(parts) > 1 else parts[0][i]
+             for i in range(4)]
+    out.update(H=total[0].float(), b=total[1].float(), H_corr=total[2].float(),
+               b_corr=total[3].float(), H_rho_d=H_rho_d, b_rho=b_rho, H_xr=X)
+    return out
+
+
+# -- the model of csrc/ba_solve.cu and of run_ba's schedule ------------------------------
+
+
+def _pivot(col: torch.Tensor, k: int) -> int:
+    """The row the solve kernel's warp picks at column k: the first of
+    largest magnitude among rows >= k (LAPACK's isamax); a NaN never wins,
+    unless row k itself is NaN."""
+    v = torch.abs(col[k:])
+    if torch.isnan(v[0]):
+        return k
+    v = torch.where(torch.isnan(v), torch.full_like(v, -1.0), v)
+    return k + int(torch.argmax(v))
+
+
+def _solve(system: dict, st: tba.BAState, lam, cfg, extra=None) -> tuple[tba.BAState, torch.Tensor]:
+    """csrc/ba_solve.cu on the CPU: the damped system, LU with the first row
+    of largest magnitude as pivot and reciprocal multipliers, the
+    back-substitution, the gauge projection, the state update."""
+    F = st.num_frames
+    D = 8 * F
+    lam = torch.tensor(lam, dtype=torch.float32)
+    fvd = st.frame_valid.repeat_interleave(8)
+    k8 = torch.arange(D) % 8
+    pw = torch.where(k8 == 6, torch.tensor(cfg.ba_prior_a, dtype=torch.float32),
+                     torch.where(k8 == 7, torch.tensor(cfg.ba_prior_b, dtype=torch.float32),
+                                 torch.zeros(())))
+    H = system["H"] if extra is None else system["H"] + extra[0]
+    A = H + st.H_m
+    A = A + torch.diag(torch.where(fvd, pw, torch.ones(())))
+    A = A - system["H_corr"]
+    if extra is not None:
+        A = A - extra[2]
+    A = A + torch.diag(lam * torch.diag(A)) + 1e-6 * torch.eye(D)
+    g = system["b"] if extra is None else system["b"] + extra[1]
+    g = (g + st.b_m) + st.H_m @ st.delta.reshape(-1)
+    g = g + torch.where(fvd, pw * tba._ab_flat(st.ab), torch.zeros(()))
+    g = g - system["b_corr"]
+    if extra is not None:
+        g = g - extra[3]
+    M = torch.cat([A, g[:, None]], 1)
+    rcp = torch.zeros(D)
+    for k in range(D):
+        p = _pivot(M[:, k], k)
+        if p != k:
+            M[[k, p], k:] = M[[p, k], k:]
+        rcp[k] = 1.0 / M[k, k]
+        M[k + 1:, k + 1:] -= (M[k + 1:, k:k + 1] * rcp[k]) * M[k:k + 1, k + 1:]
+    x = torch.zeros(D)
+    for k in range(D - 1, -1, -1):
+        x[k] = (M[k, D] - torch.sum(M[k, k + 1:D] * x[k + 1:])) * rcp[k]
+    n = torch.zeros(F, 8)
+    n[:, :3] = st.T.t * st.frame_valid[:, None].float()
+    n = n.reshape(D)
+    x = x - n * (torch.sum(n * x) / (torch.sum(n * n) + 1e-6))
+    dxf = torch.where(st.frame_valid[:, None], x.reshape(F, 8), torch.zeros(()))
+    T_new = tba.se3_select(st.frame_valid, se3_exp(-dxf[:, :6]).compose(st.T), st.T)
+    d_rho = (system["b_rho"] - system["H_xr"] @ x) / system["H_rho_d"]
+    d_rho = torch.where(st.point_valid, d_rho, torch.zeros(()))
+    new = st.replace(T=T_new, ab=st.ab - dxf[:, 6:], delta=st.delta - dxf,
+                     idepth=torch.clamp(st.idepth - d_rho, cfg.idepth_min, cfg.idepth_max))
+    return new, x
+
+
+def _energy(st: tba.BAState, images, cam, cfg, e_extra=None) -> torch.Tensor:
+    """The energy sweep and the finish of total_energy."""
+    e = _sweep(st, images, cam, cfg, "energy")["e_photo"]
+    d = st.delta.reshape(-1)
+    e_ab = 0.5 * torch.sum(torch.where(
+        st.frame_valid, cfg.ba_prior_a * st.ab[:, 0] ** 2 + cfg.ba_prior_b * st.ab[:, 1] ** 2,
+        torch.zeros(())))
+    E = (e + (torch.dot(st.b_m, d) + 0.5 * torch.dot(d, st.H_m @ d))) + e_ab
+    return E if e_extra is None else E + e_extra
+
+
+def _model_run_ba(st, images, cam, cfg, ind=None):
+    """run_ba (run_ba_mixed with `ind`) on the model: E0, then a system
+    sweep, a solve and an energy sweep a step, the accept test, lambda's
+    update and the select. Returns (state, ind idepth or None, E, the
+    accept decisions with E and E_new)."""
+    ie = None if ind is None else tba.indirect_energy(st, ind, cam, cfg)
+    E = _energy(st, images, cam, cfg, ie)
+    lam = torch.tensor(cfg.ba_lambda_init, dtype=torch.float32)
+    steps = []
+    for _ in range(cfg.ba_iters):
+        system = _sweep(st, images, cam, cfg, "system", lam=float(lam))
+        extra, back = (None, None) if ind is None else tba._indirect_terms(st, ind, cam, cfg,
+                                                                            lam)
+        cand, dx = _solve(system, st, float(lam), cfg, extra)
+        cand_i = None if ind is None else ind.replace(
+            idepth=tba._indirect_idepth(ind, back, dx, cfg))
+        E_new = _energy(cand, images, cam, cfg,
+                        None if ind is None else tba.indirect_energy(cand, cand_i, cam, cfg))
+        accept = bool(E_new < E)
+        steps.append((accept, float(E), float(E_new)))
+        if accept:
+            st, E = cand, E_new
+            ind = cand_i
+        lam = (torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2))
+    return st, None if ind is None else ind.idepth, E, steps
+
+
+def _assert_run_close(st, E, ref_st, ref_E):
+    np.testing.assert_allclose(_np(E), _np(ref_E), rtol=TOL["E_rel"])
+    np.testing.assert_allclose(_np(st.T.t), _np(ref_st.T.t), atol=TOL["T"])
+    np.testing.assert_allclose(_np(st.T.R), _np(ref_st.T.R), atol=TOL["T"])
+    np.testing.assert_allclose(_np(st.idepth), _np(ref_st.idepth), rtol=TOL["idepth_rel"],
+                               atol=TOL["idepth_abs"])
+    np.testing.assert_array_equal(_np(st.point_valid), _np(ref_st.point_valid))
+
+
+# -- the tests ------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lam", [1e-3, 1e2], ids=["lam_init", "lam_cap"])
+def test_sweep_model_equals_plain_assemble(window, lam):
+    """The factored, block-ordered sums equal linearize + _assemble +
+    _schur_terms at run_ba's first and largest lambda: the system and its
+    Schur terms to 1e-4 of their largest entry, the per-point terms to 1e-4,
+    the energy to 1e-5."""
+    st, images = window["ba"], window["images"]
+    got = _sweep(st, images, TCAM, TCFG, "system", lam=lam)
+    lin = tba.linearize(st, images, TCAM, TCFG)
+    H, b, H_rho, b_rho, H_xr = tba._assemble(lin, st, TCFG)
+    H_corr, b_corr, H_rho_d = tba._schur_terms(H_rho, b_rho, H_xr, torch.tensor(lam),
+                                               st.point_valid)
+    for name, want in (("H", H), ("b", b), ("H_corr", H_corr), ("b_corr", b_corr),
+                       ("H_rho_d", H_rho_d), ("b_rho", b_rho), ("H_xr", H_xr)):
+        ref = _np(want)
+        np.testing.assert_allclose(_np(got[name]), ref, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(ref).max())), err_msg=name)
+    np.testing.assert_allclose(_np(got["e_photo"]), _np(torch.sum(lin.energy)), rtol=1e-5)
+    assert int(lin.active.sum()) > 500
+
+
+def test_run_ba_model_matches_plain_and_jax(window):
+    """4 LM steps of the model from the window's state, held to run_ba_plain and to the JAX package's
+    run_ba at the run_ba parity test's bounds; with 12 steps (steps that
+    are rejected, and lambda growing) to run_ba_plain."""
+    st, images = window["ba"], window["images"]
+    got, _, E, steps = _model_run_ba(st, images, TCAM, TCFG)
+    want, E_want = tba.run_ba(st, images, TCAM, TCFG)
+    _assert_run_close(got, E, want, E_want)
+    bj, Ej = jba.run_ba(_jax_state(st), jnp.asarray(_np(images)), JCAM, JCFG)
+    jst = convert.from_np(tba.BAState, convert.to_np(jax.device_get(bj)))
+    _assert_run_close(got, E, jst, torch.tensor(np.asarray(Ej)))
+    assert steps[0][0], "the first step is accepted"
+    cfg12 = dataclasses.replace(TCFG, ba_iters=12)
+    got, _, E, steps = _model_run_ba(st, images, TCAM, cfg12)
+    want, E_want = tba.run_ba(st, images, TCAM, cfg12)
+    _assert_run_close(got, E, want, E_want)
+    assert not all(s[0] for s in steps), f"no step rejected: {steps}"
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "iters0", "big_lambda"])
+def test_run_ba_model_edge_cases(window, case):
+    """An all-invalid window (the identity guard keeps the solve regular and
+    nothing moves), ba_iters 0 (the state and its energy), and a lambda so
+    large that every step is rejected: the model equals the plain form."""
+    st, images = window["ba"], window["images"]
+    cfg = TCFG
+    if case == "all_invalid":
+        st = st.replace(frame_valid=torch.zeros_like(st.frame_valid))
+    elif case == "iters0":
+        cfg = dataclasses.replace(TCFG, ba_iters=0)
+    else:
+        cfg = dataclasses.replace(TCFG, ba_lambda_init=1e2, ba_iters=2)
+    got, _, E, steps = _model_run_ba(st, images, TCAM, cfg)
+    want, E_want = tba.run_ba(st, images, TCAM, cfg)
+    _assert_run_close(got, E, want, E_want)
+    assert torch.isfinite(got.T.t).all() and torch.isfinite(E)
+    if case == "all_invalid":
+        assert float(E) == float(E_want)
+        np.testing.assert_array_equal(_np(got.T.t), _np(st.T.t))
+    if case == "iters0":
+        assert steps == []
+
+
+def test_status_and_marg_modes_equal_plain(window):
+    """update_residual_status' masks exactly; _marg_pieces' four sums to
+    1e-3 of their largest entry (the sums of ~1e8 the host Schur takes in
+    f64), slot as an int and as a 0-d tensor."""
+    st, images = window["ba"], window["images"]
+    st = tba.run_ba(st, images, TCAM, TCFG)[0]
+    got = _sweep(st, images, TCAM, TCFG, "status")
+    want = tba.update_residual_status(st, images, TCAM, TCFG)
+    assert torch.equal(got["res_active"], want.res_active)
+    assert torch.equal(got["point_valid"], want.point_valid)
+    for slot in (1, torch.tensor(2)):
+        got = _sweep(st, images, TCAM, TCFG, "marg", slot=slot)
+        want = tba._marg_pieces(st, images, TCAM, TCFG, slot)
+        for k, name in enumerate(("H", "b", "H_corr", "b_corr")):
+            ref = _np(want[k])
+            np.testing.assert_allclose(_np(got[name]), ref, rtol=1e-3,
+                                       atol=1e-3 * max(1.0, float(np.abs(ref).max())),
+                                       err_msg=name)
+
+
+def _factors(window, Q=32, seed=5) -> tba.IndirectFactors:
+    """Indirect factors hosted in slot 0: frame 0's pixels at their rendered
+    depth, projected with the true poses into slots 1-3, 0.5 px noise."""
+    rng = np.random.default_rng(seed)
+    F = TCFG.max_frames
+    _, idep = window["rendered"][0]
+    uv = np.c_[rng.uniform(10, 150, Q), rng.uniform(10, 110, Q)].astype(np.float32)
+    rho = idep[uv[:, 1].astype(int), uv[:, 0].astype(int)].astype(np.float32)
+    Xh = _np(TCAM.unproject(torch.tensor(uv), torch.tensor(rho))).astype(np.float64)
+    R0, t0 = window["poses"][0]
+    Xw = (Xh - t0) @ R0
+    obs = np.zeros((Q, F, 2), np.float32)
+    ok = np.zeros((Q, F), bool)
+    for s, i in enumerate(KF_FRAMES[1:], start=1):
+        R, t = window["poses"][i]
+        Xc = Xw @ R.T + t
+        pix = np.c_[110.0 * Xc[:, 0] / Xc[:, 2] + 79.5, 110.0 * Xc[:, 1] / Xc[:, 2] + 59.5]
+        obs[:, s] = pix + rng.normal(0, 0.5, pix.shape)
+        ok[:, s] = (Xc[:, 2] > 0.1) & (pix[:, 0] > 2) & (pix[:, 0] < 157) & (pix[:, 1] > 2) \
+            & (pix[:, 1] < 117)
+    rho0 = (rho * rng.uniform(0.97, 1.03, Q)).astype(np.float32)
+    return convert.from_np(tba.IndirectFactors, dict(
+        uv=uv, host=np.zeros(Q, np.int32), idepth=rho0, point_valid=rho > 1e-3, obs_uv=obs,
+        obs_valid=ok, sigma2=np.ones((Q, F), np.float32)))
+
+
+def test_mixed_model_matches_plain(window):
+    """run_ba_mixed on the model (the reprojection terms as an additive
+    system and a second Schur pair in the solve, the reprojection energy
+    added to the finish) against run_ba_mixed_plain: energies to 3e-3,
+    poses to 5e-4, inverse depths to 1e-2 (tests/test_torch_hybrid.py's
+    bounds)."""
+    st, images = window["ba"], window["images"]
+    ind = _factors(window)
+    got, rho_i, E, _ = _model_run_ba(st, images, TCAM, TCFG, ind=ind)
+    want, ind_w, E_w = tba.run_ba_mixed(st, images, TCAM, TCFG, ind)
+    np.testing.assert_allclose(_np(E), _np(E_w), rtol=3e-3)
+    np.testing.assert_allclose(_np(got.T.t), _np(want.T.t), atol=5e-4)
+    np.testing.assert_allclose(_np(got.T.R), _np(want.T.R), atol=5e-4)
+    np.testing.assert_allclose(_np(got.idepth), _np(want.idepth), rtol=1e-2, atol=1e-3)
+    np.testing.assert_allclose(_np(rho_i), _np(ind_w.idepth), rtol=1e-2, atol=1e-3)
+
+
+def test_lu_pivot_rule_and_reciprocals():
+    """The solve's elimination picks the first row of largest magnitude (a
+    tie goes to the first; a NaN below never wins; a NaN on the diagonal
+    stays), and solves a well-conditioned system to f32 accuracy."""
+    col = torch.tensor([1.0, 2.0, -50.0, 50.0, float("nan"), 3.0])
+    assert _pivot(col, 0) == 2 and _pivot(col, 3) == 3 and _pivot(col, 4) == 4
+    assert _pivot(torch.tensor([float("nan"), 2.0, 9.0]), 1) == 2
+    rng = np.random.default_rng(0)
+    B = rng.normal(size=(8, 8)).astype(np.float32) + 8 * np.eye(8, dtype=np.float32)
+    cfg = dataclasses.replace(TCFG, max_frames=1, max_points=2, ba_prior_a=0.0, ba_prior_b=0.0)
+    st = tba.empty_state(cfg).replace(frame_valid=torch.ones(1, dtype=torch.bool))
+    system = {"H": torch.tensor(B), "b": torch.ones(8), "H_corr": torch.zeros(8, 8),
+              "b_corr": torch.zeros(8), "H_rho_d": torch.ones(2), "b_rho": torch.zeros(2),
+              "H_xr": torch.zeros(2, 8)}
+    _, x = _solve(system, st, 0.0, cfg)
+    want = np.linalg.solve(B.astype(np.float64) + 1e-6 * np.eye(8), np.ones(8))
+    np.testing.assert_allclose(_np(x), want, rtol=1e-4, atol=1e-5)
+
+
+# -- dispatch ---------------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_forms(window, monkeypatch):
+    """CPU tensors run the plain forms and never reach the kernels'
+    wrappers; the wrappers refuse CPU tensors and count nothing."""
+    st, images = window["ba"], window["images"]
+    bk.ba_sweep_cuda.launches = bk.ba_solve_cuda.launches = 0
+
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached a kernel wrapper")
+
+    monkeypatch.setattr(bk, "ba_sweep_cuda", boom)
+    monkeypatch.setattr(bk, "ba_solve_cuda", boom)
+    cfg1 = dataclasses.replace(TCFG, ba_iters=1)
+    tba.run_ba(st, images, TCAM, cfg1)
+    tba.update_residual_status(st, images, TCAM, TCFG)
+    tba._marg_pieces(st, images, TCAM, TCFG, 1)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.ba_sweep_cuda(st, images, TCAM, TCFG, "energy")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tba.run_ba(st.replace(uv=st.uv.to("meta")), images, TCAM, TCFG)
+    assert bk.ba_sweep_cuda.launches == 0 and bk.ba_solve_cuda.launches == 0
+
+
+@pytest.mark.parametrize("fn", ["run_ba", "ba_step", "total_energy", "update_residual_status",
+                                "_marg_pieces", "run_ba_mixed"])
+def test_card_tensors_never_take_the_plain_forms(window, monkeypatch, fn):
+    """The card's path launches the kernels or raises: with the device test
+    answering "card" for these CPU tensors, every entry point reaches the
+    sweep wrapper, which refuses them, and no plain form runs."""
+    st, images = window["ba"], window["images"]
+
+    def boom(*a, **k):
+        raise AssertionError("the card's path took a plain form")
+
+    for name in ("run_ba_plain", "ba_step_plain", "total_energy_plain",
+                 "update_residual_status_plain", "_marg_pieces_plain", "run_ba_mixed_plain",
+                 "linearize", "_assemble"):
+        monkeypatch.setattr(tba, name, boom)
+    monkeypatch.setattr(tba, "_on_card", lambda s: True)
+    ind = _factors(window, Q=4)
+    calls = {"run_ba": lambda: tba.run_ba(st, images, TCAM, TCFG),
+             "ba_step": lambda: tba.ba_step(st, images, TCAM, TCFG, torch.tensor(1e-3)),
+             "total_energy": lambda: tba.total_energy(st, images, TCAM, TCFG),
+             "update_residual_status": lambda: tba.update_residual_status(st, images, TCAM, TCFG),
+             "_marg_pieces": lambda: tba._marg_pieces(st, images, TCAM, TCFG, 1),
+             "run_ba_mixed": lambda: tba.run_ba_mixed(st, images, TCAM, TCFG, ind)}
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        calls[fn]()
+
+
+@pytest.mark.parametrize("what", ["frames", "dtype", "noncontiguous"])
+def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(window, what):
+    st, images = window["ba"], window["images"]
+    if what == "frames":
+        with pytest.raises(ValueError, match="frame slots"):
+            bk._check_state(st.replace(ab=torch.zeros(9, 2)), images, TCAM,
+                            torch.device("cuda"))
+        return
+    bad, err, match = ((st.replace(idepth=st.idepth.double()), TypeError, "dtype")
+                       if what == "dtype" else
+                       (st.replace(color=st.color.T.contiguous().T), ValueError, "contiguous"))
+    with pytest.raises(err, match=match):
+        bk._check_state(bad, images, TCAM, torch.device("cpu"))
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        bk._check_state(st, images, TCAM, torch.device("cpu"))
+
+
+# -- the kernels on the card --------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _to(st, dev):
+    return convert.from_np(tba.BAState, convert.to_np(st), device=dev)
+
+
+def _cpu(st):
+    return convert.from_np(tba.BAState, convert.to_np(st))
+
+
+def test_cuda_run_ba_matches_plain(cuda, window):
+    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
+    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
+    got, E = tba.run_ba(st, images, TCAM, TCFG)
+    torch.cuda.synchronize()
+    assert bk.ba_sweep_cuda.launches - before[0] == 1 + 2 * TCFG.ba_iters
+    assert bk.ba_solve_cuda.launches - before[1] == TCFG.ba_iters
+    want, E_want = tba.run_ba_plain(st, images, TCAM, TCFG)
+    _assert_run_close(_cpu(got), E.cpu(), _cpu(want), E_want.cpu())
+
+
+def test_cuda_status_and_marg_match_plain(cuda, window):
+    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
+    got = tba.update_residual_status(st, images, TCAM, TCFG)
+    want = tba.update_residual_status_plain(st, images, TCAM, TCFG)
+    assert torch.equal(got.res_active, want.res_active)
+    assert torch.equal(got.point_valid, want.point_valid)
+    got = tba._marg_pieces(st, images, TCAM, TCFG, 1)
+    want = tba._marg_pieces_plain(st, images, TCAM, TCFG, 1)
+    for x, y in zip(got[:4], want[:4]):
+        ref = _np(y.cpu())
+        np.testing.assert_allclose(_np(x.cpu()), ref, rtol=1e-3,
+                                   atol=1e-3 * max(1.0, float(np.abs(ref).max())))
