@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the five hand-written kernels (csrc/hamming_match.cu,
-     track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu) from the sources in
-     this checkout, one nvcc each, all started together.
+  1. build the six hand-written kernels (csrc/hamming_match.cu,
+     track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu) from the
+     sources in this checkout, one nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -99,26 +99,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      holds at once (cudaOccupancyMaxActiveClusters).
  14. the BA kernels: ba_sweep (the window BA's residual sweep, reduced to
      the Schur-ready camera system, or the energy, or the residual status,
-     or the marginalization pieces) and ba_solve (the rest of an LM step)
+     or the marginalization pieces), ba_solve (the rest of an LM step) and
+     ba_run (a whole run_ba in one launch, from the same device functions)
      against their plain forms on the card, on the inputs of every run_ba
-     call of phase 3 (the initial BA included), an all-invalid window and
-     ba_iters 0: E, T and idepth within bk.PARITY_TOL of run_ba_plain
-     (point_valid equal), each step's accept decision beside the plain
-     form's (a differing one within bk.DECISION_TOL of its threshold), the
-     launches of a run_ba (1 + 2 x ba_iters sweeps, ba_iters solves), and
-     update_residual_status on both forms at the plain result (res_active
-     and point_valid equal); every run_ba_mixed call of phase 5 against
-     run_ba_mixed_plain (E, T, idepth and the indirect idepths within
-     bk.MIXED_PARITY_TOL, the decisions compared alike, 1 + 3 x ba_iters
-     sweeps); each captured step's accept-test value from the same states
-     in float32 (plain, kernels) against float64 (the witness behind
-     bk.DECISION_TOL); phase 3's first _marg_pieces call (the four
-     sums within 1e-3, hosted equal); the system sweep's H - H_corr (the
-     kernel's float64 block partials and the plain form's float32) against
-     float64 from the same states; on the last window, the host waits
-     inside run_ba (none), cold and warm ms of a run_ba, a sweep and a solve,
-     the plain forms' ms, torch.linalg.solve_ex's ms on the damped system,
-     and each kernel's bound and share.
+     call of phase 3 (the initial BA included), an all-invalid window,
+     ba_iters 0 and a run whose steps are all rejected: E, T and idepth
+     within bk.PARITY_TOL of run_ba_plain (point_valid equal), each step's
+     accept decision beside the plain form's (a differing one within
+     bk.DECISION_TOL of its threshold), the launches of a run_ba (1 ba_run;
+     split into sweeps and solves, 1 + 2 x ba_iters and ba_iters, whose
+     result must have the one launch's bits), and update_residual_status on
+     both forms at the plain result (res_active and point_valid equal);
+     every run_ba_mixed call of phase 5 against run_ba_mixed_plain (E, T,
+     idepth and the indirect idepths within bk.MIXED_PARITY_TOL, the
+     decisions compared alike, 1 + 3 x ba_iters sweeps); each captured
+     step's accept-test value from the same states in float32 (plain,
+     kernels) against float64 (the witness behind bk.DECISION_TOL); phase
+     3's first _marg_pieces call (the four sums within 1e-3, hosted equal);
+     the system sweep's H - H_corr (the kernel's float64 group partials and
+     the plain form's float32) against float64 from the same states, the
+     scale curvature's error at most the plain form's recorded worst (3.18 %);
+     on the last window, the host waits inside run_ba (none), cold and warm
+     ms of a run_ba, a system sweep, an energy sweep and a solve, the plain
+     forms' ms, torch.linalg.solve_ex's ms on the damped system, and each
+     kernel's bound and share, a run_ba's bound its sweeps' and solves'.
 Every phase from 3 on reports the LM and BA kernels' launches of its run
 (counted from 0 just before it and read just after); phase 3 must launch
 track_lm on every tracked frame and the BA kernels, phase 4 pnp_lm twice a
@@ -133,8 +137,9 @@ its run and read just after, with each path's count beside them; times and
 bound of the phase-4 masks case, cold, and of the staged-tick and
 match_ratio cases; for track_lm and pnp_lm the launches of every path's run
 and the times and bound of phase 13's first case, each case beside them;
-for ba_sweep and ba_solve the launches of every path's run and phase 14's
-times and bounds), and the result line {"ok": true, "device": {...}} last.
+for ba_sweep, ba_solve and ba_run the launches of every path's run and
+phase 14's times and bounds), and the result line {"ok": true, "device":
+{...}} last.
 """
 
 from __future__ import annotations
@@ -194,7 +199,8 @@ class SmokeFailure(RuntimeError):
 
 # the LM and BA kernels' wrappers, whose launch counts each path's run reports
 LM_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
-              "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda}
+              "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
+              "ba_run": bk.ba_run_cuda}
 
 
 def reset_launches() -> None:
@@ -467,7 +473,8 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     require(np.isfinite(ate) and ate < 0.1, f"direct ATE {ate} >= 0.1")
     require(lm["track_lm"] >= len(imgs) - WARMUP and lm["pnp_lm"] == 0,
             f"the direct path's LM launches {lm}")
-    require(lm["ba_sweep"] > 0 and lm["ba_solve"] > 0, f"the direct path's BA launches {lm}")
+    require(lm["ba_run"] > 0 and lm["ba_sweep"] > 0 and lm["ba_solve"] == 0,
+            f"the direct path's BA launches {lm}")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
     return res, _snapshot(odo)
 
@@ -1151,12 +1158,29 @@ def sharded_phase(cam, traj, frames, direct_snap: dict, hybrid_snap: dict) -> di
     imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
     out = {"phase": "sharded", "backend": dist.get_backend(), "world_size": mesh.world_size,
            "device": str(mesh.device)}
+    per_call = {"run_ba": [], "run_ba_mixed": []}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            before = lm_launches()
+            out = fn(*args, **kw)
+            per_call[name].append(_ba_launches(before))
+            return out
+        return call
+
     for name, make, want in (
             ("direct", lambda: DirectOdometry(cam, wl.BENCH_CFG, mesh=mesh), direct_snap),
             ("hybrid", lambda: wl.hybrid_odometry(cam, mesh=mesh), hybrid_snap)):
         odo = make()
         mesh.all_reduces = mesh.all_gathers = 0
-        run = timed_run(odo, imgs)
+        orig = {n: getattr(ba, n) for n in per_call}
+        for n, fn in orig.items():
+            setattr(ba, n, counted(n, fn))
+        try:
+            run = timed_run(odo, imgs)
+        finally:
+            for n, fn in orig.items():
+                setattr(ba, n, fn)
         ate = ate_rmse(run.pop("est")[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
         got = _snapshot(odo)
         same = {k: _same(want[k], got[k]) for k in want}
@@ -1169,8 +1193,14 @@ def sharded_phase(cam, traj, frames, direct_snap: dict, hybrid_snap: dict) -> di
         require(all(same.values()), f"sharded {name} differs from the unsharded run: {same}")
         require(mesh.all_reduces > 0, f"sharded {name}: no all-reduce ran")
     dist.destroy_process_group()
+    iters = wl.BENCH_CFG.ba_iters
+    out["launches_per_run_ba"] = {n: v[0] if v else None for n, v in per_call.items()}
     print(json.dumps(out))
     require(out["hybrid"]["kernel_launches"] > 0, "the sharded hybrid launched no kernel")
+    split = {"ba_sweep": 2 + 3 * iters, "ba_solve": iters, "ba_run": 0}
+    require(per_call["run_ba"] and all(v == split for v in per_call["run_ba"])
+            and per_call["run_ba_mixed"] and all(v == split for v in per_call["run_ba_mixed"]),
+            f"a run_ba with a mesh: launches {per_call}")
     return out
 
 
@@ -1550,6 +1580,13 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
 # entries); and, per valid point, the upper triangle of its Schur outer
 # product and its gradient correction
 BA_RESIDUAL_FMA, BA_PAIR_FEJ_FMA, BA_PAIR_SYSTEM_FMA = 40, 70, 100 * 4 + 16 * 2
+# an energy sweep's residual: the same less the 14 sums of Z and zr
+BA_ENERGY_RESIDUAL_FMA = BA_RESIDUAL_FMA - 14
+BA_KERNELS = ("ba_sweep", "ba_solve", "ba_run")
+# the worst error of the scale curvature of H - H_corr against float64 over
+# phase 3's windows recorded for the one-block sweep with float64 partials
+# and for the plain form (PERF.md)
+SCALE_REL_RECORDED = {"kernel": 0.0107, "plain_f32": 0.0318}
 
 
 class BACapture:
@@ -1659,22 +1696,27 @@ def _active_pairs(st, images, cam, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return lin.active, texels
 
 
-def sweep_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
-    """Least time of one system sweep, in ms: the larger of its bytes over the
-    HBM rate (the texels its active pairs gather, 12 bytes each; the point
-    and frame data read once; the system, Schur terms and per-point outputs
-    written once) and its arithmetic over the f32 rate (the FMAs above, as 2
-    operations each, for the active pairs and valid points of this state)."""
+def sweep_bound(st, images, cam, cfg, mode: str = "system") -> tuple[float, str, dict]:
+    """Least time of one system (or energy) sweep, in ms: the larger of its
+    bytes over the HBM rate (the texels its active pairs gather, 12 bytes
+    each; the point and frame data read once; the system, Schur terms and
+    per-point outputs, or the energy, written once) and its arithmetic over
+    the f32 rate (the FMAs above, as 2 operations each, for the active pairs
+    and valid points of this state)."""
     active, texels = _active_pairs(st, images, cam, cfg)
     P, F = st.num_points, st.num_frames
     D = 8 * F
     pairs = int(active.sum())
     valid = int(st.point_valid.sum())
-    nbytes = (12 * texels.numel() + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F)
-              + F * (2 * 48 + 2 * 8 + 32 + 1) + D * D * 4 + 4
-              + 2 * D * D * 4 + 2 * D * 4 + P * (4 + 4 + 4 * D) + 4)
-    fma = (pairs * (8 * BA_RESIDUAL_FMA + BA_PAIR_FEJ_FMA + BA_PAIR_SYSTEM_FMA)
-           + valid * (D * (D + 1) // 2 + D))
+    if mode == "energy":
+        nbytes = 12 * texels.numel() + P * (8 + 4 + 4 + 32 + 32 + 1 + F) + F * (48 + 8 + 1) + 4
+        fma = pairs * 8 * BA_ENERGY_RESIDUAL_FMA
+    else:
+        nbytes = (12 * texels.numel() + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F)
+                  + F * (2 * 48 + 2 * 8 + 32 + 1) + D * D * 4 + 4
+                  + 2 * D * D * 4 + 2 * D * 4 + P * (4 + 4 + 4 * D) + 4)
+        fma = (pairs * (8 * BA_RESIDUAL_FMA + BA_PAIR_FEJ_FMA + BA_PAIR_SYSTEM_FMA)
+               + valid * (D * (D + 1) // 2 + D))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * fma / F32_FLOP_PER_S * 1e3
     detail = {"bytes": nbytes, "flops": 2 * fma, "active_pairs": pairs, "residuals": 8 * pairs,
@@ -1701,18 +1743,62 @@ def solve_bound(st) -> tuple[float, str, dict]:
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
-def ba_case(name: str, st, images, cam, cfg, card: str) -> dict:
+def run_ba_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
+    """Least time of one run_ba, in ms: the bounds of the sweeps and solves
+    it makes (sweep_bound, solve_bound), each at the state it takes along
+    the plain form's run (the energy sweep at the start; a step's system
+    sweep and solve at the held state, its energy sweep at the candidate),
+    summed. By: the kind that bounds the larger share of the sum."""
+    parts = [sweep_bound(st, images, cam, cfg, "energy")]
+    lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
+    E = ba.total_energy_plain(st, images, cam, cfg)
+    for _ in range(cfg.ba_iters):
+        cand, _ = ba.ba_step_plain(st, images, cam, cfg, lam)
+        parts += [sweep_bound(st, images, cam, cfg), solve_bound(st),
+                  sweep_bound(cand, images, cam, cfg, "energy")]
+        E_new = ba.total_energy_plain(cand, images, cam, cfg)
+        accept = bool(E_new < E)
+        if accept:
+            st, E = cand, E_new
+        lam = torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2)
+    total = sum(p[0] for p in parts)
+    by_bytes = sum(p[0] for p in parts if p[1] == "bytes")
+    detail = {"sweeps": 1 + 2 * cfg.ba_iters, "solves": cfg.ba_iters,
+              "bytes": sum(p[2]["bytes"] for p in parts),
+              "flops": sum(p[2]["flops"] for p in parts)}
+    return total, ("bytes" if 2 * by_bytes >= total else "operations"), detail
+
+
+def _ba_launches(before: dict) -> dict:
+    now = lm_launches()
+    return {k: now[k] - before[k] for k in BA_KERNELS}
+
+
+def _bits_equal(a, Ea, b, Eb) -> bool:
+    return bool(torch.equal(Ea, Eb) and all(torch.equal(x, y) for x, y in (
+        (a.T.R, b.T.R), (a.T.t, b.T.t), (a.ab, b.ab), (a.delta, b.delta), (a.idepth, b.idepth))))
+
+
+def ba_case(name: str, st, images, cam, cfg, card: str, rejected: bool = False) -> dict:
     """One phase-14 case: run_ba on the kernels against run_ba_plain on the
     card (E, T, idepth within bk.PARITY_TOL, point_valid equal, the accept
-    decisions compared), its launches (1 + 2 x ba_iters sweeps, ba_iters
-    solves), and update_residual_status on both forms at the plain result
-    (res_active and point_valid equal)."""
-    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
+    decisions compared), its launches (1 ba_run), the same run split into
+    sweeps and solves (1 + 2 x ba_iters and ba_iters launches, the route of
+    a mesh and of the mixed BA) with the same bits, and
+    update_residual_status on both forms at the plain result (res_active
+    and point_valid equal). `rejected`: every step must be rejected and the
+    state keep its bits."""
+    before = lm_launches()
     trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     got, E = ba._run_ba_cuda(st, images, cam, cfg, None, trace=trace)
     torch.cuda.synchronize()
-    launches = {"ba_sweep": bk.ba_sweep_cuda.launches - before[0],
-                "ba_solve": bk.ba_solve_cuda.launches - before[1]}
+    launches = _ba_launches(before)
+    before = lm_launches()
+    trace_s = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
+    split, E_s = ba._run_ba_cuda(st, images, cam, cfg, None, trace=trace_s, split=True)
+    torch.cuda.synchronize()
+    launches_split = _ba_launches(before)
+    same = _bits_equal(got, E, split, E_s) and bool(torch.equal(trace, trace_s))
     tr = []
     want, E_want = ba.run_ba_plain(st, images, cam, cfg, trace=tr)
     rep = ba_parity(got, E, want, E_want)
@@ -1725,10 +1811,16 @@ def ba_case(name: str, st, images, cam, cfg, card: str) -> dict:
     row = {"case": name, "frames_valid": int(st.frame_valid.sum()),
            "points_valid": int(st.point_valid.sum()), "E": float(E), "E_plain": float(E_want),
            "parity": rep, "decisions": dec, "status": status, "launches": launches,
-           "card": card}
+           "launches_split": launches_split, "split_bits_equal": same, "card": card}
     print(json.dumps(row))
-    require(launches == {"ba_sweep": 1 + 2 * cfg.ba_iters, "ba_solve": cfg.ba_iters},
-            f"{name}: launches {launches}")
+    require(launches == {"ba_sweep": 0, "ba_solve": 0, "ba_run": 1}, f"{name}: launches {launches}")
+    require(launches_split == {"ba_sweep": 1 + 2 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
+                               "ba_run": 0}, f"{name}: split launches {launches_split}")
+    require(same, f"{name}: the split launches' result differs from the one launch's")
+    if rejected:
+        require(not any(dec["kernel"]) and _bits_equal(got, E, st, E)
+                and _bits_equal(want, E_want, st, E_want),
+                f"{name}: a step was accepted or a rejected step moved the state: {dec}")
     differ = dec.get("first_differing")
     require(rep["ok"] or (differ is not None and differ["within"]),
             f"run_ba kernels != plain on {name}: {rep} {dec}")
@@ -1747,12 +1839,11 @@ def mixed_case(name: str, st, images, cam, cfg, ind, card: str) -> dict:
     the card within bk.MIXED_PARITY_TOL (E, T, idepth, the indirect idepths;
     point_valid equal), the accept decisions compared as in ba_case, and its
     launches (1 + 3 x ba_iters sweeps, ba_iters solves)."""
-    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
+    before = lm_launches()
     trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     got, got_i, E = ba._run_ba_cuda(st, images, cam, cfg, None, ind=ind, trace=trace)
     torch.cuda.synchronize()
-    launches = {"ba_sweep": bk.ba_sweep_cuda.launches - before[0],
-                "ba_solve": bk.ba_solve_cuda.launches - before[1]}
+    launches = _ba_launches(before)
     tr = []
     want, want_ind, E_want = ba.run_ba_mixed_plain(st, images, cam, cfg, ind, trace=tr)
     rep = ba_parity(got, E, want, E_want, bk.MIXED_PARITY_TOL, (got_i, want_ind.idepth))
@@ -1763,8 +1854,8 @@ def mixed_case(name: str, st, images, cam, cfg, ind, card: str) -> dict:
            "indirect_obs": int(ind.obs_valid.sum()), "E": float(E), "E_plain": float(E_want),
            "parity": rep, "decisions": dec, "launches": launches, "card": card}
     print(json.dumps(row))
-    require(launches == {"ba_sweep": 1 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters},
-            f"{name}: launches {launches}")
+    require(launches == {"ba_sweep": 1 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
+                         "ba_run": 0}, f"{name}: launches {launches}")
     differ = dec.get("first_differing")
     require(rep["ok"] or (differ is not None and differ["within"]),
             f"run_ba_mixed kernels != plain on {name}: {rep} {dec}")
@@ -1804,11 +1895,11 @@ def decision_witness(st, images, cam, cfg, ind=None) -> list[dict]:
     return out
 
 
-def partials_measure(st, images, cam, cfg) -> dict:
+def partials_measure(st, images, cam, cfg, sweep=bk.ba_sweep_cuda) -> dict:
     """The system sweep's sums against float64 from the same state: the
     plain form's linearize/_assemble/_schur_terms in float64 as the
-    reference, the kernel (float64 block partials) and the plain form in
-    float32. For each: the largest error of H - H_corr
+    reference, the kernel `sweep` (float64 block partials) and the plain
+    form in float32. For each: the largest error of H - H_corr
     over its largest entry, of b - b_corr over its largest entry, and of the
     curvature along the scale direction s^T (H - H_corr) s (s: each valid
     slot's translation, normalized), relative."""
@@ -1819,12 +1910,12 @@ def partials_measure(st, images, cam, cfg) -> dict:
     s = ba._nullspaces(_state64(st))[:, 6].double()
     s = s / s.norm().clamp_min(1e-30)
     c64 = float(s @ A64 @ s)
-    forms = {"kernel": bk.ba_sweep_cuda(st, images, cam, cfg, "system", lam=lam),
+    forms = {"kernel": sweep(st, images, cam, cfg, "system", lam=lam),
              "plain_f32": ba._sweep_plain(st, images, cam, cfg, lam)[1]}
     out = {"scale_curvature_f64": c64, "H_scale": float(A64.abs().max())}
-    for name, sysd in forms.items():
-        A = sysd["H"].double() - sysd["H_corr"].double()
-        g = sysd["b"].double() - sysd["b_corr"].double()
+    for name, sysd in forms.items():   # the kernel's H, b: H - H_corr, b - b_corr
+        A = sysd["H"].double() - (sysd["H_corr"].double() if "H_corr" in sysd else 0.0)
+        g = sysd["b"].double() - (sysd["b_corr"].double() if "b_corr" in sysd else 0.0)
         out[name] = {"H_sc_rel": float((A - A64).abs().max() / A64.abs().max()),
                      "b_sc_rel": float((g - g64).abs().max() / g64.abs().max().clamp_min(1e-30)),
                      "scale_rel": abs(float(s @ A @ s) - c64) / max(abs(c64), 1e-30)}
@@ -1882,6 +1973,10 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
                         cfg, card))
     rows.append(ba_case("run_ba, ba_iters 0", st, images, cam,
                         dataclasses.replace(cfg, ba_iters=0), card))
+    # the candidates' inverse depths clamped to 1e-3 (points near infinity)
+    # raise the energy: every step rejected, the select's keep branch
+    rows.append(ba_case("run_ba, every step rejected", st, images, cam,
+                        dataclasses.replace(cfg, idepth_max=1e-3), card, rejected=True))
     marg = marg_case(cap.calls["_marg_pieces"][0])
     measure = [partials_measure(*a) for a in runs]
     worst = {name: {k: max(m[name][k] for m in measure) for k in measure[0][name]}
@@ -1897,35 +1992,47 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
          - plain_sys["H_corr"]).contiguous()
     g = (plain_sys["b"] - plain_sys["b_corr"]).contiguous()
     s_bound, s_by, s_detail = sweep_bound(st, images, cam, cfg)
+    e_bound, e_by, e_detail = sweep_bound(st, images, cam, cfg, "energy")
     v_bound, v_by, v_detail = solve_bound(st)
-    run_ms = cuda_ms(lambda: ba.run_ba(st, images, cam, cfg))
+    r_bound, r_by, r_detail = run_ba_bound(st, images, cam, cfg)
+
+    def run():
+        return ba.run_ba(st, images, cam, cfg)
+
+    def sweep():
+        return bk.ba_sweep_cuda(st, images, cam, cfg, "system", lam=lam)
+
+    def energy():
+        return bk.ba_sweep_cuda(st, images, cam, cfg, "energy")
+
+    def solve():
+        return bk.ba_solve_cuda(system, st, cfg, lam, st)
+
     timing = {
-        "run_ba": {"kernel_ms": run_ms,
-                   "kernel_warm_ms": cuda_ms(lambda: ba.run_ba(st, images, cam, cfg), cold=False),
+        "run_ba": {"kernel_ms": cuda_ms(run), "kernel_warm_ms": cuda_ms(run, cold=False),
                    "plain_ms": cuda_ms(lambda: ba.run_ba_plain(st, images, cam, cfg), reps=5,
                                        warmup=1),
-                   "host_waits": _syncs(lambda: ba.run_ba(st, images, cam, cfg))},
-        "ba_sweep": {"kernel_ms": cuda_ms(lambda: bk.ba_sweep_cuda(st, images, cam, cfg, "system",
-                                                                   lam=lam)),
-                     "kernel_warm_ms": cuda_ms(lambda: bk.ba_sweep_cuda(
-                         st, images, cam, cfg, "system", lam=lam), cold=False),
-                     "energy_ms": cuda_ms(lambda: bk.ba_sweep_cuda(st, images, cam, cfg,
-                                                                   "energy")),
+                   "host_waits": _syncs(run), "library_ms": None,
+                   "bound_ms": r_bound, "bound_by": r_by, "bound_detail": r_detail},
+        "ba_sweep": {"kernel_ms": cuda_ms(sweep), "kernel_warm_ms": cuda_ms(sweep, cold=False),
+                     "energy_ms": cuda_ms(energy), "energy_warm_ms": cuda_ms(energy, cold=False),
                      "plain_ms": cuda_ms(lambda: ba._sweep_plain(st, images, cam, cfg, lam),
                                          reps=5, warmup=1),
                      "bound_ms": s_bound, "bound_by": s_by, "bound_detail": s_detail,
-                     "library_ms": None},
-        "ba_solve": {"kernel_ms": cuda_ms(lambda: bk.ba_solve_cuda(system, st, cfg, lam, st)),
-                     "kernel_warm_ms": cuda_ms(lambda: bk.ba_solve_cuda(system, st, cfg, lam, st),
-                                               cold=False),
+                     "energy_bound_ms": e_bound, "energy_bound_by": e_by,
+                     "energy_bound_detail": e_detail, "library_ms": None},
+        "ba_solve": {"kernel_ms": cuda_ms(solve), "kernel_warm_ms": cuda_ms(solve, cold=False),
                      "plain_ms": cuda_ms(lambda: ba._solve_plain(plain_sys, st, cfg, lam, st),
                                          reps=5, warmup=1),
                      "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, g)),
                      "bound_ms": v_bound, "bound_by": v_by, "bound_detail": v_detail}}
-    for k in ("ba_sweep", "ba_solve"):
+    for k in ("run_ba", "ba_sweep", "ba_solve"):
         timing[k]["bound_share"] = timing[k]["bound_ms"] / timing[k]["kernel_ms"]
+    timing["ba_sweep"]["energy_bound_share"] = e_bound / timing["ba_sweep"]["energy_ms"]
     public = {"timing": timing, "marg": marg, "partials_worst": worst,
+              "partials_recorded_worst_scale_rel": SCALE_REL_RECORDED,
               "launches_per_run_ba": rows[0]["launches"],
+              "launches_per_run_ba_split": rows[0]["launches_split"],
               "launches_per_run_ba_mixed": mixed_rows[0]["launches"],
               "decisions_differing": sum("first_differing" in r["decisions"]
                                          for r in rows + mixed_rows),
@@ -1933,8 +2040,11 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     print(json.dumps({"phase": "ba_public", **public}))
     waits = timing["run_ba"]["host_waits"]
     require(waits["syncs"] == 0 and waits["memcpys"] == 0, f"run_ba waits for the device: {waits}")
-    for k in ("ba_sweep", "ba_solve"):
+    require(worst["kernel"]["scale_rel"] <= SCALE_REL_RECORDED["plain_f32"],
+            f"the scale curvature of H - H_corr is off by {worst['kernel']['scale_rel']}")
+    for k in ("run_ba", "ba_sweep", "ba_solve"):
         require(timing[k]["bound_share"] <= 1.0, f"{k}: under its bound: the bound is wrong")
+    require(timing["ba_sweep"]["energy_bound_share"] <= 1.0, "energy sweep under its bound")
     return rows + mixed_rows, public
 
 
@@ -2113,20 +2223,25 @@ def main() -> int:
             "cluster": lm_public["cluster"][name],
             "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
     timing = ba_public["timing"]
-    for name, replaces in (("ba_sweep", "libcml_tpu/models/direct/ba.py:317"),
-                           ("ba_solve", "libcml_tpu/models/direct/ba.py:532")):
+    ba_err = max(max(r["parity"]["max_err"]["T"], r["parity"]["max_err"]["idepth_abs"])
+                 for r in ba_rows)
+    for name, replaces, t in (
+            ("ba_sweep", "libcml_tpu/models/direct/ba.py:317", timing["ba_sweep"]),
+            ("ba_solve", "libcml_tpu/models/direct/ba.py:532", timing["ba_solve"]),
+            ("ba_run", "libcml_tpu/models/direct/ba.py:619", timing["run_ba"])):
         by_path = {k: v[name] for k, v in runs.items() if v[name]}
-        t = timing[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": f"libcml_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(max(r["parity"]["max_err"]["T"],
-                                   r["parity"]["max_err"]["idepth_abs"]) for r in ba_rows),
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "kernel_warm_ms": t["kernel_warm_ms"], "bound_share": t["bound_share"],
-            "launches_per_run_ba": ba_public["launches_per_run_ba"][name],
-            "run_ba": timing["run_ba"] if name == "ba_sweep" else None})
+            "max_abs_err": ba_err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "kernel_warm_ms": t["kernel_warm_ms"], "bound_share": t["bound_share"]}
+        if name == "ba_sweep":
+            row.update({k: t[k] for k in ("energy_ms", "energy_warm_ms", "energy_bound_ms",
+                                          "energy_bound_share")})
+        if name != "ba_run":
+            row["launches_per_run_ba_split"] = ba_public["launches_per_run_ba_split"][name]
+        kernels.append(row)
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,

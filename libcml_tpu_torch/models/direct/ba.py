@@ -1008,8 +1008,8 @@ def _energy_cuda(state: BAState, images, cam, cfg, mesh, finish: bk.Finish | Non
 
 
 def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
-    """ba_step on the card: the system sweep over this rank's rows (the
-    four sums all-reduced with a mesh), then the solve. With `ind`, the
+    """ba_step on the card: the system sweep over this rank's rows (its
+    Schur-complemented H and b all-reduced with a mesh), then the solve. With `ind`, the
     mixed BA's reprojection terms (plain PyTorch, _assemble_indirect) enter
     the solve as additive (H, b) and a second Schur pair. Returns the
     candidate state and, with `ind`, the candidate inverse depths of the
@@ -1017,8 +1017,7 @@ def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
     rows = local_rows(src, mesh)
     system = bk.ba_sweep_cuda(rows, images, cam, cfg, "system", lam=lam)
     if mesh is not None:
-        red = mesh.all_reduce(*(system[k] for k in ("H", "b", "H_corr", "b_corr")))
-        system.update(zip(("H", "b", "H_corr", "b_corr"), red))
+        system.update(zip(("H", "b"), mesh.all_reduce(system["H"], system["b"])))
     extra, back = (None, None) if ind is None else _indirect_terms(src, ind, cam, cfg, lam)
     if extra is not None:
         extra = tuple(x.contiguous() for x in extra)
@@ -1037,17 +1036,24 @@ def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
 
 
 def _run_ba_cuda(state: BAState, images, cam, cfg, mesh, ind=None,
-                 trace: torch.Tensor | None = None):
-    """run_ba (run_ba_mixed with `ind`) on the card, with no host read: the
-    energy sweep at the start (which also sets lambda), then each LM step's
-    system sweep, solve and energy sweep of the candidate, whose last block
-    takes the accept test, lambda's update and the select into the result's
-    buffers (with a mesh or `ind`, after the all-reduce or the reprojection
-    energy, in the sweep kernel's FINISH launch). With `trace` (a
-    (ba_iters, 2) float32 tensor on the card), each step's (E, E_new).
-    Returns (state, E) or (state, indirect inverse depths, E)."""
+                 trace: torch.Tensor | None = None, split: bool = False):
+    """run_ba (run_ba_mixed with `ind`) on the card, with no host read.
+    Without a mesh or `ind` (unless `split`), one launch of the run kernel.
+    Otherwise split launches of the same device functions in the same
+    orders (the same bits): the energy sweep at the start (which also sets
+    lambda), then each LM step's system sweep, solve and energy sweep of the
+    candidate, whose energy block takes the accept test, lambda's update and
+    the select into the result's buffers (with a mesh or `ind`, after the
+    all-reduce or the reprojection energy, in the sweep kernel's FINISH
+    launch). With `trace` (a (ba_iters, 2) float32 tensor on the card), each
+    step's (E, E_new). Returns (state, E) or (state, indirect inverse
+    depths, E)."""
     state = _contiguous(state)
     images = images.contiguous()
+    if mesh is None and ind is None and not split:
+        out = bk.ba_run_cuda(state, images, cam, cfg, trace=trace)
+        return state.replace(T=SE3(R=out["R"], t=out["t"]), ab=out["ab"], delta=out["delta"],
+                             idepth=out["idepth"]), out["E"]
     dev = state.uv.device
     f32 = dict(dtype=torch.float32, device=dev)
     E, lam = torch.empty((), **f32), torch.empty((), **f32)
@@ -1115,7 +1121,8 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
 def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
            cfg: DirectConfig, mesh: Mesh | None = None) -> tuple[BAState, torch.Tensor]:
     """run_ba_plain's LM loop: on the card the BA kernels with no host read
-    (1 + 3 x ba_iters launches without a mesh), on the CPU the plain form."""
+    (one launch without a mesh; with one, 2 + 3 x ba_iters sweep launches
+    and ba_iters solves), on the CPU the plain form."""
     if not _on_card(state):
         return run_ba_plain(state, images, cam, cfg, mesh)
     return _run_ba_cuda(state, images, cam, cfg, mesh)

@@ -1,25 +1,32 @@
-"""The window BA's LM loop on the card: the sweep and solve kernels.
+"""The window BA's LM loop on the card: the sweep, solve and run kernels.
 
-  ba_sweep_cuda   hand-written sm_90a kernel (csrc/ba_sweep.cu): one launch
-                  sweeps the (P, F) residual grid of a BAState and reduces it
-                  to what the plain forms' linearize + _assemble +
-                  _schur_terms give (the camera system H, b, the lambda-damped
-                  Schur corrections H_corr, b_corr, per point H_rho_d, b_rho
-                  and the H_xr row), or only the photometric energy, or
-                  update_residual_status' masks, or _marg_pieces'
-                  contraction; never a Jacobian. Its block partials are
+  ba_sweep_cuda   hand-written sm_90a kernel (csrc/ba_sweep.cu): one
+                  cooperative launch sweeps the (P, F) residual grid of a
+                  BAState and reduces it to what the plain forms' linearize +
+                  _assemble + _schur_terms give (the camera system H, b, the
+                  lambda-damped Schur corrections H_corr, b_corr, returned as
+                  the differences S = H - H_corr, s = b - b_corr; per point
+                  H_rho_d, b_rho and the H_xr row), or only the photometric
+                  energy, or update_residual_status' masks, or _marg_pieces'
+                  contraction; never a Jacobian. Its group partials are
                   float64 (PERF.md: the sums of ~1e10 whose difference
-                  H - H_corr along the scale direction is ~1e6). With `finish` the same launch
-                  ends total_energy (the prior and affine terms) and, for run_ba,
-                  the accept test, lambda's update and the state select.
-                  `ba_finish_cuda` launches the same kernel's FINISH mode on
-                  an energy reduced elsewhere (an all-reduce, the mixed BA's
-                  reprojection term).
+                  H - H_corr along the scale direction is ~1e6), summed over
+                  the groups by every block of the grid (phase D). With
+                  `finish` the same launch ends total_energy (the prior and
+                  affine terms) and, for run_ba, the accept test, lambda's
+                  update and the state select. `ba_finish_cuda` launches the
+                  same kernel's FINISH mode on an energy reduced elsewhere (an
+                  all-reduce, the mixed BA's reprojection term).
   ba_solve_cuda   hand-written sm_90a kernel (csrc/ba_solve.cu): the rest of
                   ba_step, from the reduced system to the candidate state (the
-                  priors, the damped dense solve with partial pivoting, the
-                  scale-gauge projection, the pose / affine / delta update and
-                  the inverse-depth back-substitution).
+                  priors, the damped dense solve by one warp, the scale-gauge
+                  projection, the pose / affine / delta update, and the
+                  inverse-depth back-substitution over the card).
+  ba_run_cuda     hand-written sm_90a kernel (csrc/ba_run.cu): a whole
+                  run_ba without a mesh or reprojection terms in one
+                  persistent cooperative launch, from the same device
+                  functions (csrc/ba_common.cuh) in the same orders as the
+                  split launches above, so both routes give the same bits.
 
 They replace the JAX package's device program for the window BA, `run_ba`'s
 `lax.scan` (libcml_tpu/models/direct/ba.py:619) and the sweeps of
@@ -39,13 +46,15 @@ import numpy as np
 import torch
 
 from libcml_tpu_torch.core.camera import PinholeCamera
+from libcml_tpu_torch.core.lie import SE3
 from libcml_tpu_torch.models.direct.config import DirectConfig
 from libcml_tpu_torch.ops import kernel_build as kb
 from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 SWEEP_SOURCE = kb.CSRC / "ba_sweep.cu"
 SOLVE_SOURCE = kb.CSRC / "ba_solve.cu"
-MAX_FRAMES = 8              # csrc/ba_sweep.cu, ba_solve.cu MAX_F
+RUN_SOURCE = kb.CSRC / "ba_run.cu"
+MAX_FRAMES = 8              # csrc/ba_common.cuh MAX_F
 
 MODES = {"system": 0, "energy": 1, "status": 2, "marg": 3, "finish": 4}
 FIN = {None: 0, "energy": 1, "accept": 2}
@@ -79,7 +88,7 @@ def _struct(name: str, ints: tuple, floats: tuple, ints2: tuple, ptrs: tuple):
     return type(name, (ctypes.Structure,), {"_fields_": fields})
 
 
-# csrc/ba_sweep.cu Args, field for field
+# csrc/ba_common.cuh Args, field for field
 SweepArgs = _struct(
     "SweepArgs", ("mode", "fin", "P", "F", "img_h", "img_w", "slot_host", "init_lam"),
     ("fx", "fy", "cx", "cy", "huber_k", "half_k", "outlier", "rho_eps", "prior_a",
@@ -87,18 +96,25 @@ SweepArgs = _struct(
     ("uv", "host", "idepth", "idepth_fej", "color", "weight", "point_valid", "res_active",
      "R", "t", "R_fej", "t_fej", "ab", "ab_fej", "delta", "frame_valid", "images", "lam",
      "slot", "H", "b", "H_corr", "b_corr", "H_rho_d", "b_rho", "H_xr", "e_photo",
-     "res_active_out", "point_valid_out", "partials", "counter", "H_m", "b_m", "e_in",
+     "res_active_out", "point_valid_out", "partials", "bar", "H_m", "b_m", "e_in",
      "e_extra", "E", "lam_io", "src_R", "src_t", "src_ab", "src_delta", "src_idepth",
      "cand_idepth", "dst_R", "dst_t", "dst_ab", "dst_delta", "dst_idepth", "src_extra",
      "cand_extra", "dst_extra", "trace"))
-# csrc/ba_solve.cu Args, field for field
+# csrc/ba_common.cuh SolveArgs, field for field
 SolveArgs = _struct(
     "SolveArgs", ("F", "P", "mesh"), ("prior_a", "prior_b", "idepth_min", "idepth_max"), (),
-    ("H", "b", "H_corr", "b_corr", "Hi", "bi", "Hi_corr", "bi_corr", "H_m", "b_m", "R", "t",
+    ("H", "b", "Hi", "bi", "Hi_corr", "bi_corr", "H_m", "b_m", "R", "t",
      "ab", "delta", "frame_valid", "lam", "H_rho_d", "b_rho", "H_xr", "point_valid", "idepth",
-     "R_out", "t_out", "ab_out", "delta_out", "idepth_out", "d_rho_out", "dx_out"))
+     "R_out", "t_out", "ab_out", "delta_out", "idepth_out", "d_rho_out", "dx", "bar"))
 
-_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+# csrc/ba_run.cu RunArgs
+class RunArgs(ctypes.Structure):
+    _fields_ = [("init", SweepArgs), ("cur", SweepArgs), ("cand", SweepArgs),
+                ("solve", SolveArgs), ("iters", _I), ("trace", _VP), ("flag", _VP)]
+
+
+_BARRIERS: dict[torch.device, torch.Tensor] = {}
 
 
 def _ptr(x: torch.Tensor | None) -> int | None:
@@ -119,6 +135,12 @@ def _solve_lib() -> ctypes.CDLL:
     return lib
 
 
+def _run_lib() -> ctypes.CDLL:
+    lib = kb.load(RUN_SOURCE, "ba_run_launch", [ctypes.POINTER(RunArgs), _VP])
+    _check_size(lib, "ba_run_args_size", RunArgs)
+    return lib
+
+
 def _check_size(lib: ctypes.CDLL, symbol: str, args_type) -> None:
     """Raise unless the kernel's Args and its ctypes mirror have one size."""
     size = getattr(lib, symbol)
@@ -128,13 +150,14 @@ def _check_size(lib: ctypes.CDLL, symbol: str, args_type) -> None:
                                 f"{ctypes.sizeof(args_type)}")
 
 
-def _counter(dev: torch.device) -> torch.Tensor:
-    """The sweep's arrival ticket on `dev` (the last block resets it to 0).
-    One a device: sweeps on one device run in stream order, never two at
-    once on two streams (the port uses the current stream only)."""
-    c = _COUNTERS.get(dev)
+def _barrier(dev: torch.device) -> torch.Tensor:
+    """The BA kernels' grid barrier on `dev`: an arrival count (0 between
+    launches) and a generation number. One a device: the BA kernels on one
+    device run in stream order, never two at once on two streams (the port
+    uses the current stream only)."""
+    c = _BARRIERS.get(dev)
     if c is None:
-        c = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        c = _BARRIERS[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
     return c
 
 
@@ -162,7 +185,7 @@ def _check_state(state, images: torch.Tensor, cam: PinholeCamera, dev: torch.dev
 
 @dataclasses.dataclass
 class Finish:
-    """What the sweep's last block (or FINISH) does after the photometric
+    """What the sweep's energy block (or FINISH) does after the photometric
     sum: "energy" stores total_energy at the swept state in E (and with
     `init_lam`, lambda's first value in lam); "accept" compares it with E,
     keeps the lower in E, updates lam and writes dst = accept ? swept : src
@@ -220,45 +243,13 @@ def _launch_sweep(args, dev: torch.device) -> None:
     ba_sweep_cuda.launches += 1
 
 
-def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
-                  mode: str, lam: torch.Tensor | None = None, slot=None,
-                  finish: Finish | None = None) -> dict:
-    """One sweep over the point rows of `state` (a BAState, every tensor
-    contiguous on one CUDA device; with a mesh, this rank's rows) and the
-    window's level-0 gradient images (F, H, W, 3). `mode`: "system" (needs
-    `lam`, a 0-d float32 device tensor), "energy", "status" or "marg" (needs
-    `slot`, an int or a 0-d int64 device tensor). Returns a dict: e_photo
-    (0-d) always; H, b, H_corr, b_corr (system, marg); H_rho_d, b_rho, H_xr
-    (system); res_active, point_valid (status). With `finish`, the launch
-    also ends total_energy at `state` (and run_ba's accept step)."""
-    dev = state.uv.device
-    _check_state(state, images, cam, dev)
-    P, F = state.uv.shape[0], state.ab.shape[0]
-    D = 8 * F
-    if P == 0:
-        raise ValueError("ba_sweep_cuda needs at least one point row")
-    f32 = dict(dtype=torch.float32, device=dev)
-    blocks, part_bytes = ctypes.c_int(0), ctypes.c_longlong(0)
-    _sweep_lib().ba_sweep_plan(P, F, ctypes.byref(blocks), ctypes.byref(part_bytes))
-    sysmode = mode in ("system", "marg")
-    per_block = part_bytes.value if sysmode else 8
-    partials = torch.empty(blocks.value * per_block, dtype=torch.uint8, device=dev)
-    out = {"e_photo": torch.empty((), **f32)}
-    if sysmode:
-        out.update(H=torch.empty((D, D), **f32), b=torch.empty((D,), **f32),
-                   H_corr=torch.empty((D, D), **f32), b_corr=torch.empty((D,), **f32))
-    if mode == "system":
-        if lam is None:
-            raise ValueError("the system sweep needs lam")
-        kb.check_tensor("lam", lam, (), torch.float32, dev)
-        out.update(H_rho_d=torch.empty((P,), **f32), b_rho=torch.empty((P,), **f32),
-                   H_xr=torch.empty((P, D), **f32))
-    if mode == "status":
-        out.update(res_active=torch.empty((P, F), dtype=torch.bool, device=dev),
-                   point_valid=torch.empty((P,), dtype=torch.bool, device=dev))
+def _sweep_args(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                mode: str, lam: torch.Tensor | None = None) -> SweepArgs:
+    """A sweep's arguments over the rows of `state` in `mode` (outputs,
+    scratch and finish unset)."""
     args = SweepArgs()
     args.mode = MODES[mode]
-    args.P, args.P_total = P, P
+    args.P = args.P_total = state.uv.shape[0]
     args.img_h, args.img_w = cam.height, cam.width
     args.fx, args.fy, args.cx, args.cy = cam.fx, cam.fy, cam.cx, cam.cy
     k = cfg.huber_intensity
@@ -274,6 +265,53 @@ def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectCo
                                            _ptr(state.ab_fej))
     args.images = _ptr(images)
     args.lam = _ptr(lam)
+    return args
+
+
+def _partials(P: int, F: int, sysmode: bool, dev: torch.device) -> torch.Tensor:
+    """Scratch for the point groups' partial sums of a sweep of P rows."""
+    groups, part_bytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    _sweep_lib().ba_sweep_plan(P, F, ctypes.byref(groups), ctypes.byref(part_bytes))
+    per_group = part_bytes.value if sysmode else 8
+    return torch.empty(groups.value * per_group, dtype=torch.uint8, device=dev)
+
+
+def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                  mode: str, lam: torch.Tensor | None = None, slot=None,
+                  finish: Finish | None = None) -> dict:
+    """One sweep over the point rows of `state` (a BAState, every tensor
+    contiguous on one CUDA device; with a mesh, this rank's rows) and the
+    window's level-0 gradient images (F, H, W, 3). `mode`: "system" (needs
+    `lam`, a 0-d float32 device tensor), "energy", "status" or "marg" (needs
+    `slot`, an int or a 0-d int64 device tensor). Returns a dict: e_photo
+    (0-d) always; H, b (system: the differences H - H_corr, b - b_corr,
+    each taken in double and rounded once), H_rho_d, b_rho, H_xr (system);
+    H, b, H_corr, b_corr (marg); res_active, point_valid (status). With `finish`, the launch
+    also ends total_energy at `state` (and run_ba's accept step)."""
+    dev = state.uv.device
+    _check_state(state, images, cam, dev)
+    P, F = state.uv.shape[0], state.ab.shape[0]
+    D = 8 * F
+    if P == 0:
+        raise ValueError("ba_sweep_cuda needs at least one point row")
+    f32 = dict(dtype=torch.float32, device=dev)
+    sysmode = mode in ("system", "marg")
+    partials = _partials(P, F, sysmode, dev)
+    out = {"e_photo": torch.empty((), **f32)}
+    if sysmode:
+        out.update(H=torch.empty((D, D), **f32), b=torch.empty((D,), **f32))
+    if mode == "marg":
+        out.update(H_corr=torch.empty((D, D), **f32), b_corr=torch.empty((D,), **f32))
+    if mode == "system":
+        if lam is None:
+            raise ValueError("the system sweep needs lam")
+        kb.check_tensor("lam", lam, (), torch.float32, dev)
+        out.update(H_rho_d=torch.empty((P,), **f32), b_rho=torch.empty((P,), **f32),
+                   H_xr=torch.empty((P, D), **f32))
+    if mode == "status":
+        out.update(res_active=torch.empty((P, F), dtype=torch.bool, device=dev),
+                   point_valid=torch.empty((P,), dtype=torch.bool, device=dev))
+    args = _sweep_args(state, images, cam, cfg, mode, lam)
     if mode == "marg":
         if isinstance(slot, torch.Tensor):
             slot = slot.to(torch.int64).reshape(())
@@ -288,7 +326,7 @@ def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectCo
     args.e_photo = _ptr(out["e_photo"])
     args.res_active_out = _ptr(out.get("res_active"))
     args.point_valid_out = _ptr(out.get("point_valid"))
-    args.partials, args.counter = partials.data_ptr(), _counter(dev).data_ptr()
+    args.partials, args.bar = partials.data_ptr(), _barrier(dev).data_ptr()
     _finish_fields(args, finish, state, cfg)
     _launch_sweep(args, dev)
     return out
@@ -312,10 +350,35 @@ def ba_finish_cuda(e_photo: torch.Tensor, state, cfg: DirectConfig, finish: Fini
     _launch_sweep(args, dev)
 
 
+def _solve_args(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, out: dict,
+                dx: torch.Tensor) -> SolveArgs:
+    """The solve's arguments from `system` (H, b: H - H_corr, b - b_corr) at `state`
+    into `out`'s frames (R, t, ab, delta) and dx (rows unset)."""
+    args = SolveArgs()
+    args.F = state.ab.shape[0]
+    args.prior_a, args.prior_b = cfg.ba_prior_a, cfg.ba_prior_b
+    args.idepth_min, args.idepth_max = cfg.idepth_min, cfg.idepth_max
+    args.H, args.b = _ptr(system["H"]), _ptr(system["b"])
+    args.H_m, args.b_m = _ptr(state.H_m), _ptr(state.b_m)
+    args.R, args.t, args.ab = _ptr(state.T.R), _ptr(state.T.t), _ptr(state.ab)
+    args.delta, args.frame_valid = _ptr(state.delta), _ptr(state.frame_valid)
+    args.lam = lam.data_ptr()
+    args.R_out, args.t_out, args.ab_out = _ptr(out["R"]), _ptr(out["t"]), _ptr(out["ab"])
+    args.delta_out, args.dx = _ptr(out["delta"]), dx.data_ptr()
+    args.bar = _barrier(state.uv.device).data_ptr()
+    return args
+
+
+def _frames(F: int, dev: torch.device) -> dict:
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {"R": torch.empty((F, 3, 3), **f32), "t": torch.empty((F, 3), **f32),
+            "ab": torch.empty((F, 2), **f32), "delta": torch.empty((F, 8), **f32)}
+
+
 def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, rows,
                   mesh: bool = False, extra: tuple | None = None, want_dx: bool = False) -> dict:
     """The rest of ba_step on the card (one launch): `system` is the reduced
-    sweep (H, b, H_corr, b_corr; with a mesh all-reduced) and its per-row
+    sweep (H, b: H - H_corr, b - b_corr; with a mesh all-reduced) and its per-row
     H_rho_d, b_rho, H_xr for `rows` (the BAState whose point rows were
     swept); `state` the whole state. `extra`: the mixed BA's (Hi, bi,
     Hi_corr, bi_corr). Returns the candidate's R, t, ab, delta and either
@@ -324,38 +387,26 @@ def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, row
     dev = state.uv.device
     F, P = state.ab.shape[0], rows.uv.shape[0]
     D = 8 * F
-    f32 = dict(dtype=torch.float32, device=dev)
     kb.check_tensor("lam", lam, (), torch.float32, dev)
-    for name, shape in (("H", (D, D)), ("b", (D,)), ("H_corr", (D, D)), ("b_corr", (D,)),
-                        ("H_rho_d", (P,)), ("b_rho", (P,)), ("H_xr", (P, D))):
+    for name, shape in (("H", (D, D)), ("b", (D,)), ("H_rho_d", (P,)), ("b_rho", (P,)),
+                        ("H_xr", (P, D))):
         kb.check_tensor(name, system[name], shape, torch.float32, dev)
-    out = {"R": torch.empty((F, 3, 3), **f32), "t": torch.empty((F, 3), **f32),
-           "ab": torch.empty((F, 2), **f32), "delta": torch.empty((F, 8), **f32)}
-    out["d_rho" if mesh else "idepth"] = torch.empty((P,), **f32)
+    out = _frames(F, dev)
+    out["d_rho" if mesh else "idepth"] = torch.empty((P,), dtype=torch.float32, device=dev)
+    dx = torch.empty((D,), dtype=torch.float32, device=dev)
     if want_dx:
-        out["dx"] = torch.empty((D,), **f32)
-    args = SolveArgs()
-    args.F, args.P, args.mesh = F, P, int(mesh)
-    args.prior_a, args.prior_b = cfg.ba_prior_a, cfg.ba_prior_b
-    args.idepth_min, args.idepth_max = cfg.idepth_min, cfg.idepth_max
-    args.H, args.b = _ptr(system["H"]), _ptr(system["b"])
-    args.H_corr, args.b_corr = _ptr(system["H_corr"]), _ptr(system["b_corr"])
+        out["dx"] = dx
+    args = _solve_args(system, state, cfg, lam, out, dx)
+    args.P, args.mesh = P, int(mesh)
     if extra is not None:
         for name, x, shape in zip(("Hi", "bi", "Hi_corr", "bi_corr"), extra,
                                   ((D, D), (D,), (D, D), (D,))):
             kb.check_tensor(name, x, shape, torch.float32, dev)
             setattr(args, name, x.data_ptr())
-    args.H_m, args.b_m = _ptr(state.H_m), _ptr(state.b_m)
-    args.R, args.t, args.ab = _ptr(state.T.R), _ptr(state.T.t), _ptr(state.ab)
-    args.delta, args.frame_valid = _ptr(state.delta), _ptr(state.frame_valid)
-    args.lam = lam.data_ptr()
     args.H_rho_d, args.b_rho, args.H_xr = (_ptr(system["H_rho_d"]), _ptr(system["b_rho"]),
                                            _ptr(system["H_xr"]))
     args.point_valid, args.idepth = _ptr(rows.point_valid), _ptr(rows.idepth)
-    args.R_out, args.t_out, args.ab_out = _ptr(out["R"]), _ptr(out["t"]), _ptr(out["ab"])
-    args.delta_out = _ptr(out["delta"])
     args.idepth_out, args.d_rho_out = _ptr(out.get("idepth")), _ptr(out.get("d_rho"))
-    args.dx_out = _ptr(out.get("dx"))
     lib = _solve_lib()
     with torch.cuda.device(dev):
         err = lib.ba_solve_launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
@@ -366,3 +417,57 @@ def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, row
 
 
 ba_solve_cuda.launches = 0
+
+
+def ba_run_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
+                trace: torch.Tensor | None = None) -> dict:
+    """run_ba_plain's LM loop (cfg.ba_iters steps, no mesh, no reprojection
+    terms) in one launch: `state` a BAState, every tensor contiguous on one
+    CUDA device, and the window's level-0 gradient images. Returns the
+    result's R, t, ab, delta, idepth and E (0-d); with `trace` (a (ba_iters,
+    2) float32 tensor on the card), each step's (E, E_new) in it."""
+    dev = state.uv.device
+    _check_state(state, images, cam, dev)
+    P, F = state.uv.shape[0], state.ab.shape[0]
+    D = 8 * F
+    if P == 0:
+        raise ValueError("ba_run_cuda needs at least one point row")
+    f32 = dict(dtype=torch.float32, device=dev)
+    if trace is not None:
+        kb.check_tensor("trace", trace, (cfg.ba_iters, 2), torch.float32, dev)
+    out = {**_frames(F, dev), "idepth": torch.empty((P,), **f32), "E": torch.empty((), **f32)}
+    cand = {**_frames(F, dev), "idepth": torch.empty((P,), **f32)}
+    system = {"H": torch.empty((D, D), **f32), "b": torch.empty((D,), **f32)}
+    lam, dx = torch.empty((), **f32), torch.empty((D,), **f32)
+    flag = torch.empty((1,), dtype=torch.int32, device=dev)
+    partials = _partials(P, F, True, dev)
+    bar = _barrier(dev).data_ptr()
+    held = state.replace(T=SE3(R=out["R"], t=out["t"]), ab=out["ab"], delta=out["delta"],
+                         idepth=out["idepth"])
+    trial = state.replace(T=SE3(R=cand["R"], t=cand["t"]), ab=cand["ab"], delta=cand["delta"],
+                          idepth=cand["idepth"])
+    r = RunArgs()
+    r.init = _sweep_args(state, images, cam, cfg, "energy")
+    _finish_fields(r.init, Finish("energy", E=out["E"], lam=lam, init_lam=True), state, cfg)
+    r.cur = _sweep_args(held, images, cam, cfg, "system", lam)
+    r.cur.H, r.cur.b = _ptr(system["H"]), _ptr(system["b"])
+    r.cand = _sweep_args(trial, images, cam, cfg, "energy")
+    _finish_fields(r.cand, Finish("accept", E=out["E"], lam=lam, src=held,
+                                  cand_idepth=cand["idepth"], dst=out), trial, cfg)
+    r.solve = _solve_args(system, held, cfg, lam, cand, dx)
+    r.solve.P = P
+    r.solve.point_valid, r.solve.idepth = _ptr(state.point_valid), _ptr(out["idepth"])
+    r.solve.idepth_out = _ptr(cand["idepth"])
+    for args in (r.init, r.cur, r.cand):
+        args.partials, args.bar = partials.data_ptr(), bar
+    r.iters, r.trace, r.flag = cfg.ba_iters, _ptr(trace), flag.data_ptr()
+    lib = _run_lib()
+    with torch.cuda.device(dev):
+        err = lib.ba_run_launch(ctypes.byref(r), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise KernelLaunchError(f"ba_run kernel launch failed: CUDA error {err}")
+    ba_run_cuda.launches += 1
+    return out
+
+
+ba_run_cuda.launches = 0

@@ -26,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # every kernel of the port
 SOURCES = (CSRC / "hamming_match.cu", CSRC / "track_lm.cu", CSRC / "pnp_lm.cu",
-           CSRC / "ba_sweep.cu", CSRC / "ba_solve.cu")
+           CSRC / "ba_sweep.cu", CSRC / "ba_solve.cu", CSRC / "ba_run.cu")
 
 
 class KernelBuildError(RuntimeError):
@@ -47,11 +47,19 @@ def _nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """The shared library of `source`, keyed by the content hash of the
-    source and of the csrc/ headers it includes (`#include "name.cuh"`)."""
-    text = source.read_bytes()
-    h = hashlib.sha256(text)
-    for name in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
-        h.update((source.parent / name.decode()).read_bytes())
+    source and of the csrc/ headers it includes (`#include "name.cuh"`,
+    and theirs in turn)."""
+    h = hashlib.sha256()
+    seen, todo = set(), [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(text)
+        todo += [source.parent / name.decode()
+                 for name in re.findall(rb'^#include "([^"]+)"', text, flags=re.M)]
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -48,7 +48,8 @@ FRAMES = 40                  # direct frames run, the last WINDOW of them profil
 WINDOW = 10                  # frames in each profiled window
 SYNC_OPS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
             "cudaEventSynchronize")
-LAUNCH_OPS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+LAUNCH_OPS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+              "cudaLaunchCooperativeKernel")
 # (module or class, function name, stage name) of each stage, outermost
 # first; the hybrid's stages are named after the stats timers around them
 HYB = hybrid.HybridOdometry
@@ -60,6 +61,7 @@ STAGES = (
     (odometry, "_kf_insert_and_ba", "_kf_insert_and_ba"),
     (odometry, "_activate_and_clear", "_activate_and_clear"),
     (odometry, "_refresh_after_kf", "_refresh_after_kf"),
+    (ba, "run_ba", "run_ba"), (ba, "update_residual_status", "update_residual_status"),
     (ba, "_marg_pieces", "_marg_pieces"), (ba, "marg_host_schur", "marg_host_schur"),
     (hybrid, "_extract", "time_orb"), (hybrid, "_project_match_pnp", "time_pnp"),
     (hybrid, "_local_map_pass2", "_local_map_pass2"),

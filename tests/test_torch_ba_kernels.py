@@ -1,29 +1,42 @@
 """The window BA kernels' arithmetic modelled on the CPU and held to the plain
 forms and to the JAX package; their dispatch; the kernels on the card.
 
-csrc/ba_sweep.cu and csrc/ba_solve.cu cannot run here. A torch model of their
-arithmetic stands in for them:
+csrc/ba_sweep.cu, ba_solve.cu and ba_run.cu cannot run here. A torch model of
+their arithmetic (csrc/ba_common.cuh) stands in for them:
 - the sweep: each (point, target) pair's Jacobians factored through z_k =
   (gx, gy, c_k, 1), so that the pair keeps Z = sum_k w z z^T, zr = sum_k w z r
   and its FEJ geometry (A_t, A_h, a, s0) and every normal-equation term is a
-  form L Z L^T; the block's partial sums over its 32 points in point order
-  in float64, then the blocks' partials in block order;
+  form L Z L^T; a point group's partial sums in float64, each quarter's 4
+  points in point order and then the quarters in order (H's slot blocks on
+  and above the block diagonal whole, H_corr's upper triangle mirrored), the
+  group's
+  energy a tree over each warp's 32 pairs and then the warps in order; then
+  phase D: each entry summed over the groups in group order (acc = 0, then
+  groups 0..G-1), whichever block of the grid sums it;
 - the solve: the damped system built in the kernel's order, elimination
   with the first row of largest magnitude as pivot and the multipliers
-  scaled by the pivot's reciprocal, back-substitution by the reciprocals, the
-  scale-gauge projection, the state update;
+  scaled by the pivot's reciprocal (one warp, two rows a lane that stay in
+  place while their positions are interchanged: each entry takes the same
+  operations as in a block-wide elimination that swaps rows), the
+  back-substitution
+  by the reciprocals, the scale-gauge projection, the state update;
 - run_ba's schedule: the energy at the start, then a system sweep, a solve
   and an energy sweep of the candidate a step, the accept test E_new < E,
-  lambda x0.4 (floor 1e-7) or x5 (cap 1e2), the select.
+  lambda x0.4 (floor 1e-7) or x5 (cap 1e2), the select (a rejected step
+  keeps the state's bits).
 The model is held to the plain forms (`run_ba_plain`, `ba_step_plain`,
 `update_residual_status_plain`, `_marg_pieces_plain`, `run_ba_mixed_plain`)
 and to `libcml_tpu.models.direct.ba.run_ba` at the bounds of
 tests/test_torch_direct.py's run_ba test, on a 160x120 window of 4 keyframes
 and 256 point slots (rejected steps, an all-invalid window, ba_iters 0, the
-marginalization pieces and the mixed BA among the cases). The kernels
-themselves are held to the plain forms on the card by the tests at the end
-(skipped without CUDA) and by chip_smoke.py phase 14. Worker time: about 25 s
-alone on one thread, half of it the JAX reference's compile.
+marginalization pieces and the mixed BA among the cases), and its orders to
+the one-block kernels' where they agree (the elimination, phase D's
+per-entry order). The
+kernels themselves are held to the plain forms on the card by the tests at
+the end (skipped without CUDA: the one-launch run and the split launches,
+and each to the other bit for bit) and by chip_smoke.py phase 14. Worker
+time: about 25 s alone on one thread, half of it the JAX reference's
+compile.
 """
 
 import dataclasses
@@ -61,8 +74,10 @@ CFG_KW = dict(num_levels=3, max_points=256, points_per_kf=64, init_points=256,
               max_frames=4, tracker_iters=8, init_iters=12, ba_iters=4)
 TCAM, JCAM = TCam.make(*CAM_ARGS), JCam.make(*CAM_ARGS)
 TCFG, JCFG = TCfg(**CFG_KW), JCfg(**CFG_KW)
-NPB = 32                          # csrc/ba_sweep.cu: points a block
+NPB = 16                          # csrc/ba_common.cuh: points a group
 KF_FRAMES = [0, 2, 4, 6]
+# every step rejected: the candidates' inverse depths clamped to 1e-3
+REJECTING = TCfg(**{**CFG_KW, "ba_iters": 2, "idepth_max": 1e-3})
 # tests/test_torch_direct.py test_run_ba_matches_reference's bounds
 TOL = {"E_rel": 1e-3, "T": 2e-4, "idepth_rel": 1e-2, "idepth_abs": 1e-3}
 
@@ -175,18 +190,47 @@ def _pairs(st: tba.BAState, images, cam, cfg, mode: str, slot=None) -> dict:
     return out
 
 
+def _tree(e: torch.Tensor) -> torch.Tensor:
+    """A group's energy as the kernel sums it: a tree over each warp's 32
+    pairs (lane l takes lane l + o at o = 1, 2, ..., 16), then the warps in
+    order; `e` float64, a multiple of 32 long."""
+    w = e.reshape(-1, 32)
+    while w.shape[1] > 1:
+        w = w[:, 0::2] + w[:, 1::2]
+    acc = w[0, 0]
+    for k in range(1, w.shape[0]):
+        acc = acc + w[k, 0]
+    return acc
+
+
+def _phase_d(parts: list) -> torch.Tensor:
+    """Phase D: every entry summed over the groups in group order, acc = 0
+    and then groups 0..G-1."""
+    acc = torch.zeros_like(parts[0])
+    for part in parts:
+        acc = acc + part
+    return acc
+
+
+def _upper_mirrored(M: torch.Tensor) -> torch.Tensor:
+    """The matrix the kernel stores from its upper-triangle entries."""
+    return torch.triu(M) + torch.triu(M, 1).T
+
+
 def _sweep(st: tba.BAState, images, cam, cfg, mode: str, lam=0.0, slot=None) -> dict:
-    """csrc/ba_sweep.cu on the CPU: phases A-D, with the block partials in
-    float64 summed over 32 points in point order and then over the blocks in
-    block order."""
+    """csrc/ba_sweep.cu (and ba_run.cu's sweeps) on the CPU: phases A, F, B
+    and C of each 16-point group, the group partials in float64 (the
+    quarters' in point order, then the quarters in order), then phase D."""
     acc = torch.float64
     P, F = st.num_points, st.num_frames
     D = 8 * F
     q = _pairs(st, images, cam, cfg, mode, slot)
     out = {}
-    blocks = range(0, P, NPB)
-    e_parts = [torch.sum(q["e"][b:b + NPB].reshape(-1).to(acc)) for b in blocks]
-    out["e_photo"] = torch.stack(e_parts).cumsum(0)[-1].float()
+    groups = range(0, P, NPB)
+    e_pad = torch.zeros(len(groups) * NPB, 8, dtype=acc)
+    e_pad[:P, :F] = q["e"].to(acc)
+    e_parts = [_tree(e_pad[b:b + NPB].reshape(-1)) for b in groups]
+    out["e_photo"] = _phase_d(e_parts).float()
     if mode == "status":
         good = q["act"] & (q["e"] < cfg.outlier_energy)
         out["res_active"] = st.res_active & (good | ~q["act"])
@@ -220,31 +264,47 @@ def _sweep(st: tba.BAState, images, cam, cfg, mode: str, lam=0.0, slot=None) -> 
     bt = (Lt @ zr[..., None])[..., 0]
     bh = (Lh @ zr[..., None])[..., 0]
     parts = []
-    for b0 in blocks:
-        H = torch.zeros(F, F, 8, 8, dtype=acc)
-        bv = torch.zeros(F, 8, dtype=acc)
-        Hc = torch.zeros(D, D, dtype=acc)
-        bc = torch.zeros(D, dtype=acc)
-        for p in range(b0, min(b0 + NPB, P)):
-            h = int(host[p])
-            for f in range(F):
-                if act[p, f]:
-                    H[f, f] += Ftt[p, f].to(acc)
-                    H[f, h] += Fth[p, f].to(acc)
-                    H[h, f] += Fth[p, f].T.to(acc)
-                    bv[f] += bt[p, f].to(acc)
-            for g in range(F):
-                if act[p, g]:
-                    H[h, h] += Fhh[p, g].to(acc)
-                    bv[h] += bh[p, g].to(acc)
-            Hc += ((X[p] * scale[p])[:, None] * X[p][None, :]).to(acc)
-            bc += (X[p] * (b_rho[p] * scale[p])).to(acc)
-        parts.append((H.permute(0, 2, 1, 3).reshape(D, D), bv.reshape(D), Hc, bc))
-    total = [sum(x[i] for x in parts[1:]) + parts[0][i] if len(parts) > 1 else parts[0][i]
-             for i in range(4)]
-    out.update(H=total[0].float(), b=total[1].float(), H_corr=total[2].float(),
-               b_corr=total[3].float(), H_rho_d=H_rho_d, b_rho=b_rho, H_xr=X)
+    for b0 in groups:
+        quarters = []
+        for q0 in range(b0, b0 + NPB, 4):   # a quarter's points in point order
+            quarters.append(_partial(range(q0, min(q0 + 4, P)), F, D, act, host, Ftt, Fth,
+                                     Fhh, bt, bh, X, scale, b_rho))
+        parts.append(((quarters[0] + quarters[1]) + quarters[2]) + quarters[3])
+    total = _phase_d(parts)
+    H, b = total[:D * D].reshape(D, D), total[D * D:D * D + D]
+    H_corr = _upper_mirrored(total[D * D + D:2 * D * D + D].reshape(D, D))
+    b_corr = total[2 * D * D + D:]
+    if mode == "system":   # the Schur complement's differences in double, rounded once
+        out.update(H=(H - H_corr).float(), b=(b - b_corr).float(), H_rho_d=H_rho_d,
+                   b_rho=b_rho, H_xr=X)
+    else:
+        out.update(H=H.float(), b=b.float(), H_corr=H_corr.float(), b_corr=b_corr.float())
     return out
+
+
+def _partial(points, F, D, act, host, Ftt, Fth, Fhh, bt, bh, X, scale, b_rho) -> torch.Tensor:
+    """The float64 sums of `points` in point order: H (F x F blocks), b,
+    H_corr, b_corr, flattened."""
+    acc = torch.float64
+    H = torch.zeros(F, F, 8, 8, dtype=acc)
+    bv = torch.zeros(F, 8, dtype=acc)
+    Hc = torch.zeros(D, D, dtype=acc)
+    bc = torch.zeros(D, dtype=acc)
+    for p in points:
+        h = int(host[p])
+        for f in range(F):
+            if act[p, f]:
+                H[f, f] += Ftt[p, f].to(acc)
+                H[f, h] += Fth[p, f].to(acc)
+                H[h, f] += Fth[p, f].T.to(acc)
+                bv[f] += bt[p, f].to(acc)
+        for g in range(F):
+            if act[p, g]:
+                H[h, h] += Fhh[p, g].to(acc)
+                bv[h] += bh[p, g].to(acc)
+        Hc += ((X[p] * scale[p])[:, None] * X[p][None, :]).to(acc)
+        bc += (X[p] * (b_rho[p] * scale[p])).to(acc)
+    return torch.cat([H.permute(0, 2, 1, 3).reshape(-1), bv.reshape(-1), Hc.reshape(-1), bc])
 
 
 # -- the model of csrc/ba_solve.cu and of run_ba's schedule ------------------------------
@@ -261,6 +321,24 @@ def _pivot(col: torch.Tensor, k: int) -> int:
     return k + int(torch.argmax(v))
 
 
+def _eliminate(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, list]:
+    """Elimination of [A | g] with partial pivoting, as a block that swaps
+    rows and the warp both do it: at column k the pivot row swapped with row
+    k (columns k on), rcp_k = 1 / a_kk, and a_ij -= (a_ik rcp_k) a_kj below
+    and right of the pivot. Returns (M, the reciprocals, the pivot rows)."""
+    M = M.clone()
+    D = M.shape[0]
+    rcp, piv = torch.zeros(D), []
+    for k in range(D):
+        p = _pivot(M[:, k], k)
+        piv.append(p)
+        if p != k:
+            M[[k, p], k:] = M[[p, k], k:]
+        rcp[k] = 1.0 / M[k, k]
+        M[k + 1:, k + 1:] -= (M[k + 1:, k:k + 1] * rcp[k]) * M[k:k + 1, k + 1:]
+    return M, rcp, piv
+
+
 def _solve(system: dict, st: tba.BAState, lam, cfg, extra=None) -> tuple[tba.BAState, torch.Tensor]:
     """csrc/ba_solve.cu on the CPU: the damped system, LU with the first row
     of largest magnitude as pivot and reciprocal multipliers, the
@@ -274,26 +352,17 @@ def _solve(system: dict, st: tba.BAState, lam, cfg, extra=None) -> tuple[tba.BAS
                      torch.where(k8 == 7, torch.tensor(cfg.ba_prior_b, dtype=torch.float32),
                                  torch.zeros(())))
     H = system["H"] if extra is None else system["H"] + extra[0]
-    A = H + st.H_m
+    A = H + st.H_m   # H: the system sweep's H - H_corr
     A = A + torch.diag(torch.where(fvd, pw, torch.ones(())))
-    A = A - system["H_corr"]
     if extra is not None:
         A = A - extra[2]
     A = A + torch.diag(lam * torch.diag(A)) + 1e-6 * torch.eye(D)
     g = system["b"] if extra is None else system["b"] + extra[1]
     g = (g + st.b_m) + st.H_m @ st.delta.reshape(-1)
     g = g + torch.where(fvd, pw * tba._ab_flat(st.ab), torch.zeros(()))
-    g = g - system["b_corr"]
     if extra is not None:
         g = g - extra[3]
-    M = torch.cat([A, g[:, None]], 1)
-    rcp = torch.zeros(D)
-    for k in range(D):
-        p = _pivot(M[:, k], k)
-        if p != k:
-            M[[k, p], k:] = M[[p, k], k:]
-        rcp[k] = 1.0 / M[k, k]
-        M[k + 1:, k + 1:] -= (M[k + 1:, k:k + 1] * rcp[k]) * M[k:k + 1, k + 1:]
+    M, rcp, _ = _eliminate(torch.cat([A, g[:, None]], 1))
     x = torch.zeros(D)
     for k in range(D - 1, -1, -1):
         x[k] = (M[k, D] - torch.sum(M[k, k + 1:D] * x[k + 1:])) * rcp[k]
@@ -363,16 +432,19 @@ def _assert_run_close(st, E, ref_st, ref_E):
 @pytest.mark.parametrize("lam", [1e-3, 1e2], ids=["lam_init", "lam_cap"])
 def test_sweep_model_equals_plain_assemble(window, lam):
     """The factored, block-ordered sums equal linearize + _assemble +
-    _schur_terms at run_ba's first and largest lambda: the system and its
-    Schur terms to 1e-4 of their largest entry, the per-point terms to 1e-4,
-    the energy to 1e-5."""
+    _schur_terms at run_ba's first and largest lambda: the Schur-complemented
+    system (the system sweep's H, b: H - H_corr and b - b_corr) to 1e-4 of
+    its largest entry, the per-point terms to 1e-4, the energy to 1e-5 (the
+    four sums apart: the marg mode's test)."""
     st, images = window["ba"], window["images"]
     got = _sweep(st, images, TCAM, TCFG, "system", lam=lam)
     lin = tba.linearize(st, images, TCAM, TCFG)
     H, b, H_rho, b_rho, H_xr = tba._assemble(lin, st, TCFG)
     H_corr, b_corr, H_rho_d = tba._schur_terms(H_rho, b_rho, H_xr, torch.tensor(lam),
                                                st.point_valid)
-    for name, want in (("H", H), ("b", b), ("H_corr", H_corr), ("b_corr", b_corr),
+    assert "H_corr" not in got and "b_corr" not in got
+    got["H_sc"], got["b_sc"] = got["H"], got["b"]
+    for name, want in (("H_sc", H - H_corr), ("b_sc", b - b_corr),
                        ("H_rho_d", H_rho_d), ("b_rho", b_rho), ("H_xr", H_xr)):
         ref = _np(want)
         np.testing.assert_allclose(_np(got[name]), ref, rtol=1e-4,
@@ -400,19 +472,23 @@ def test_run_ba_model_matches_plain_and_jax(window):
     assert not all(s[0] for s in steps), f"no step rejected: {steps}"
 
 
-@pytest.mark.parametrize("case", ["all_invalid", "iters0", "big_lambda"])
+@pytest.mark.parametrize("case", ["all_invalid", "iters0", "big_lambda", "rejected"])
 def test_run_ba_model_edge_cases(window, case):
     """An all-invalid window (the identity guard keeps the solve regular and
-    nothing moves), ba_iters 0 (the state and its energy), and a lambda so
-    large that every step is rejected: the model equals the plain form."""
+    nothing moves), ba_iters 0 (the state and its energy), run_ba's largest
+    lambda, and steps that are all rejected (the candidates' inverse depths
+    clamped to 1e-3, points near infinity, raise the energy; the select
+    keeps the state's bits): the model equals the plain form."""
     st, images = window["ba"], window["images"]
     cfg = TCFG
     if case == "all_invalid":
         st = st.replace(frame_valid=torch.zeros_like(st.frame_valid))
     elif case == "iters0":
         cfg = dataclasses.replace(TCFG, ba_iters=0)
-    else:
+    elif case == "big_lambda":
         cfg = dataclasses.replace(TCFG, ba_lambda_init=1e2, ba_iters=2)
+    else:
+        cfg = REJECTING
     got, _, E, steps = _model_run_ba(st, images, TCAM, cfg)
     want, E_want = tba.run_ba(st, images, TCAM, cfg)
     _assert_run_close(got, E, want, E_want)
@@ -422,6 +498,13 @@ def test_run_ba_model_edge_cases(window, case):
         np.testing.assert_array_equal(_np(got.T.t), _np(st.T.t))
     if case == "iters0":
         assert steps == []
+    if case == "rejected":   # every step rejected: the select keeps the state's bits
+        assert steps and not any(s[0] for s in steps)
+        for x, y, z in ((got.T.R, want.T.R, st.T.R), (got.T.t, want.T.t, st.T.t),
+                        (got.ab, want.ab, st.ab), (got.delta, want.delta, st.delta),
+                        (got.idepth, want.idepth, st.idepth)):
+            assert torch.equal(x, z) and torch.equal(y, z)
+        assert float(E) == float(_energy(st, images, TCAM, cfg))
 
 
 def test_status_and_marg_modes_equal_plain(window):
@@ -498,12 +581,109 @@ def test_lu_pivot_rule_and_reciprocals():
     B = rng.normal(size=(8, 8)).astype(np.float32) + 8 * np.eye(8, dtype=np.float32)
     cfg = dataclasses.replace(TCFG, max_frames=1, max_points=2, ba_prior_a=0.0, ba_prior_b=0.0)
     st = tba.empty_state(cfg).replace(frame_valid=torch.ones(1, dtype=torch.bool))
-    system = {"H": torch.tensor(B), "b": torch.ones(8), "H_corr": torch.zeros(8, 8),
-              "b_corr": torch.zeros(8), "H_rho_d": torch.ones(2), "b_rho": torch.zeros(2),
-              "H_xr": torch.zeros(2, 8)}
+    system = {"H": torch.tensor(B), "b": torch.ones(8), "H_rho_d": torch.ones(2),
+              "b_rho": torch.zeros(2), "H_xr": torch.zeros(2, 8)}
     _, x = _solve(system, st, 0.0, cfg)
     want = np.linalg.solve(B.astype(np.float64) + 1e-6 * np.eye(8), np.ones(8))
     np.testing.assert_allclose(_np(x), want, rtol=1e-4, atol=1e-5)
+
+
+def _eliminate_warp(M: np.ndarray) -> tuple[np.ndarray, np.ndarray, list]:
+    """csrc/ba_common.cuh warp_solve's elimination in float32: rows stay where
+    they are (a lane holds two), each with its position in LAPACK's row
+    order; the pivot from the candidates' magnitudes as ordered integers
+    (+1; 0 for a NaN or a row already eliminated), the warp's max of them
+    and then the least position holding it; an interchange swaps two rows'
+    positions; every row below the pivot updated column by column with the
+    pivot row's entries. Returns the factors in position order, the
+    reciprocals and the pivots."""
+    M = M.astype(np.float32).copy()
+    D = M.shape[0]
+    pos = list(range(D))
+    rcp, piv = np.zeros(D, np.float32), []
+    for k in range(D):
+        keys = {}
+        for r in range(D):
+            v = np.float32(abs(M[r, k]))
+            keys[r] = 0 if pos[r] < k or np.isnan(v) else int(v.view(np.uint32)) + 1
+        m = max(keys.values())
+        q = min((pos[r] for r in range(D) if m and keys[r] == m), default=64)
+        first = abs(M[pos.index(k), k])
+        best = np.uint32(max(m, 1) - 1).view(np.float32)
+        p = k if (np.isnan(first) or m == 0 or not best > first) else q
+        piv.append(p)
+        if p != k:
+            rk_, rp_ = pos.index(k), pos.index(p)
+            pos[rk_], pos[rp_] = p, k
+        owner = pos.index(k)
+        rk = np.float32(1.0) / M[owner, k]
+        rcp[k] = rk
+        for r in range(D):
+            if pos[r] > k:
+                m_r = M[r, k] * rk
+                for c in range(k + 1, D + 1):
+                    M[r, c] = M[r, c] - m_r * M[owner, c]
+    return M[[pos.index(i) for i in range(D)]], rcp, piv
+
+
+@pytest.mark.parametrize("case", ["random", "pivoting", "window"])
+def test_warp_lu_keeps_the_elimination_bits(window, case):
+    """The warp's elimination (rows held in place, their positions
+    interchanged, the pivot from integer reductions) gives every entry the
+    operations of a block-wide elimination with row interchanges (the
+    model's _eliminate): the same pivots, reciprocals and factors, bit for
+    bit, on a random system, one that pivots at every step, and the window's
+    damped system at run_ba's first lambda."""
+    rng = np.random.default_rng(4)
+    if case == "window":
+        st = window["ba"]
+        system = _sweep(st, window["images"], TCAM, TCFG, "system", lam=1e-3)
+        A = system["H"] + st.H_m
+        A = A + torch.diag(1e-3 * torch.diag(A)) + 1e-6 * torch.eye(A.shape[0])
+        M = torch.cat([A, system["b"][:, None]], 1).numpy()
+    else:
+        D = 24
+        M = rng.normal(size=(D, D + 1)).astype(np.float32)
+        if case == "pivoting":
+            M[:, :D] = M[:, :D][::-1] * (1.0 + np.arange(D)[:, None])
+    want, rcp, piv = _eliminate(torch.tensor(M))
+    got, rcp_w, piv_w = _eliminate_warp(M)
+    assert piv == piv_w
+    np.testing.assert_array_equal(rcp_w, rcp.numpy())
+    D = M.shape[0]
+    upper = np.triu(np.ones((D, D + 1), bool))
+    np.testing.assert_array_equal(got[upper], want.numpy()[upper])
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 16, 128])
+def test_phase_d_order_does_not_depend_on_the_grid(blocks):
+    """Phase D as the kernels split it (chunk c of 32 entries to block c mod
+    the grid, warp c div the grid, then every 8 warps' worth): every entry
+    is summed once, over the groups in group order, so the reduced sums are
+    the serial order's bits (a last block's: acc = 0, then blocks in
+    order) whatever the grid."""
+    rng = np.random.default_rng(2)
+    G, total = 37, 3305
+    part = rng.normal(size=(G, total)) * 10.0 ** rng.integers(-3, 10, size=(G, total))
+    serial = np.zeros(total)
+    for g in range(G):
+        serial = serial + part[g]
+    got, seen = np.full(total, np.nan), np.zeros(total, int)
+    for b in range(blocks):
+        for w in range(8):
+            c = b + blocks * w
+            while c * 32 < total:
+                for lane in range(32):
+                    task = c * 32 + lane
+                    if task < total:
+                        acc = 0.0
+                        for g in range(G):
+                            acc = acc + part[g, task]
+                        got[task] = acc
+                        seen[task] += 1
+                c += blocks * 8
+    assert (seen == 1).all()
+    np.testing.assert_array_equal(got, serial)
 
 
 # -- dispatch ---------------------------------------------------------------------------------
@@ -594,15 +774,50 @@ def _cpu(st):
     return convert.from_np(tba.BAState, convert.to_np(st))
 
 
-def test_cuda_run_ba_matches_plain(cuda, window):
+def _launches() -> dict:
+    return {"run": bk.ba_run_cuda.launches, "sweep": bk.ba_sweep_cuda.launches,
+            "solve": bk.ba_solve_cuda.launches}
+
+
+@pytest.mark.parametrize("case", ["default", "rejected"])
+@pytest.mark.parametrize("route", ["one_launch", "split"])
+def test_cuda_run_ba_matches_plain(cuda, window, route, case):
+    """run_ba on the card, in one launch of the run kernel (the unsharded
+    route) or in split sweep and solve launches (the route of a mesh and of
+    the mixed BA), held to run_ba_plain; with every step rejected the state
+    keeps its bits."""
+    cfg = TCFG if case == "default" else REJECTING
     st, images = _to(window["ba"], cuda), window["images"].to(cuda)
-    before = (bk.ba_sweep_cuda.launches, bk.ba_solve_cuda.launches)
-    got, E = tba.run_ba(st, images, TCAM, TCFG)
+    before = _launches()
+    got, E = tba._run_ba_cuda(st, images, TCAM, cfg, None, split=route == "split")
     torch.cuda.synchronize()
-    assert bk.ba_sweep_cuda.launches - before[0] == 1 + 2 * TCFG.ba_iters
-    assert bk.ba_solve_cuda.launches - before[1] == TCFG.ba_iters
-    want, E_want = tba.run_ba_plain(st, images, TCAM, TCFG)
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    if route == "one_launch":
+        assert launches == {"run": 1, "sweep": 0, "solve": 0}
+    else:
+        assert launches == {"run": 0, "sweep": 1 + 2 * cfg.ba_iters, "solve": cfg.ba_iters}
+    want, E_want = tba.run_ba_plain(st, images, TCAM, cfg)
     _assert_run_close(_cpu(got), E.cpu(), _cpu(want), E_want.cpu())
+    if case == "rejected":
+        for x, y in ((got.T.R, st.T.R), (got.T.t, st.T.t), (got.ab, st.ab),
+                     (got.delta, st.delta), (got.idepth, st.idepth)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["default", "rejected"])
+def test_cuda_one_launch_equals_split(cuda, window, case):
+    """The run kernel and the split launches run the same device functions
+    in the same orders: the same bits (E, the trace, every state tensor)."""
+    cfg = TCFG if case == "default" else REJECTING
+    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
+    traces = [torch.empty((cfg.ba_iters, 2), device=cuda) for _ in range(2)]
+    a, Ea = tba._run_ba_cuda(st, images, TCAM, cfg, None, trace=traces[0])
+    b, Eb = tba._run_ba_cuda(st, images, TCAM, cfg, None, trace=traces[1], split=True)
+    torch.cuda.synchronize()
+    assert torch.equal(Ea, Eb) and torch.equal(traces[0], traces[1])
+    for x, y in ((a.T.R, b.T.R), (a.T.t, b.T.t), (a.ab, b.ab), (a.delta, b.delta),
+                 (a.idepth, b.idepth)):
+        assert torch.equal(x, y)
 
 
 def test_cuda_status_and_marg_match_plain(cuda, window):
