@@ -107,8 +107,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      within bk.PARITY_TOL of run_ba_plain (point_valid equal), each step's
      accept decision beside the plain form's (a differing one within
      bk.DECISION_TOL of its threshold), the launches of a run_ba (1 ba_run;
-     split into sweeps and solves, 1 + 2 x ba_iters and ba_iters, whose
-     result must have the one launch's bits), and update_residual_status on
+     on a world of one, the mesh's route, 2 + 3 x ba_iters sweep and FINISH
+     launches and ba_iters solves, whose result must have the one launch's
+     bits), and update_residual_status on
      both forms at the plain result (res_active and point_valid equal);
      every run_ba_mixed call of phase 5 against run_ba_mixed_plain (E, T,
      idepth and the indirect idepths within bk.MIXED_PARITY_TOL, the
@@ -122,7 +123,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      on the last window, the host waits inside run_ba (none), cold and warm
      ms of a run_ba, a system sweep, an energy sweep and a solve, the plain
      forms' ms, torch.linalg.solve_ex's ms on the damped system, and each
-     kernel's bound and share, a run_ba's bound its sweeps' and solves'.
+     kernel's bound and share (a run_ba's: its inputs and texels read once,
+     its result written once, its sweeps' and solves' operations).
 Every phase from 3 on reports the LM and BA kernels' launches of its run
 (counted from 0 just before it and read just after); phase 3 must launch
 track_lm on every tracked frame and the BA kernels, phase 4 pnp_lm twice a
@@ -1699,8 +1701,9 @@ def _active_pairs(st, images, cam, cfg) -> tuple[torch.Tensor, torch.Tensor]:
 def sweep_bound(st, images, cam, cfg, mode: str = "system") -> tuple[float, str, dict]:
     """Least time of one system (or energy) sweep, in ms: the larger of its
     bytes over the HBM rate (the texels its active pairs gather, 12 bytes
-    each; the point and frame data read once; the system, Schur terms and
-    per-point outputs, or the energy, written once) and its arithmetic over
+    each; the point and frame data read once; the Schur-complemented system
+    H - H_corr, b - b_corr and the per-point rows, or the energy, written
+    once) and its arithmetic over
     the f32 rate (the FMAs above, as 2 operations each, for the active pairs
     and valid points of this state)."""
     active, texels = _active_pairs(st, images, cam, cfg)
@@ -1714,7 +1717,7 @@ def sweep_bound(st, images, cam, cfg, mode: str = "system") -> tuple[float, str,
     else:
         nbytes = (12 * texels.numel() + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F)
                   + F * (2 * 48 + 2 * 8 + 32 + 1) + D * D * 4 + 4
-                  + 2 * D * D * 4 + 2 * D * 4 + P * (4 + 4 + 4 * D) + 4)
+                  + D * D * 4 + D * 4 + P * (4 + 4 + 4 * D) + 4)
         fma = (pairs * (8 * BA_RESIDUAL_FMA + BA_PAIR_FEJ_FMA + BA_PAIR_SYSTEM_FMA)
                + valid * (D * (D + 1) // 2 + D))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1725,8 +1728,8 @@ def sweep_bound(st, images, cam, cfg, mode: str = "system") -> tuple[float, str,
 
 
 def solve_bound(st) -> tuple[float, str, dict]:
-    """Least time of one solve, in ms: its inputs (the system and its Schur
-    terms, the prior, the state, the per-point rows) read once and its
+    """Least time of one solve, in ms: its inputs (the Schur-complemented
+    system, the prior, the state, the per-point rows) read once and its
     outputs written once over the HBM rate, or its FMAs over the f32 rate:
     an LU of the D x D system with one right-hand side (D^3 / 3 + D^2), the
     back-substitution and the gauge projection (D^2 / 2 + 2D), and D a
@@ -1734,7 +1737,7 @@ def solve_bound(st) -> tuple[float, str, dict]:
     P, F = st.num_points, st.num_frames
     D = 8 * F
     valid = int(st.point_valid.sum())
-    nbytes = 3 * D * D * 4 + 3 * D * 4 + F * (48 + 8 + 32 + 1) + 4 + P * (4 * D + 4 + 4 + 1 + 4) \
+    nbytes = 2 * D * D * 4 + 2 * D * 4 + F * (48 + 8 + 32 + 1) + 4 + P * (4 * D + 4 + 4 + 1 + 4) \
         + F * (48 + 8 + 32) + P * 4
     fma = D ** 3 // 3 + D * D + D * D // 2 + 2 * D + valid * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1744,29 +1747,47 @@ def solve_bound(st) -> tuple[float, str, dict]:
 
 
 def run_ba_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
-    """Least time of one run_ba, in ms: the bounds of the sweeps and solves
-    it makes (sweep_bound, solve_bound), each at the state it takes along
-    the plain form's run (the energy sweep at the start; a step's system
-    sweep and solve at the held state, its energy sweep at the candidate),
-    summed. By: the kind that bounds the larger share of the sum."""
-    parts = [sweep_bound(st, images, cam, cfg, "energy")]
+    """Least time of one run_ba in one launch, in ms: the larger of its
+    bytes over the HBM rate (the state's point and frame data and the prior
+    read once, the texels that any of its sweeps gathers read once, 12
+    bytes each, and the result's frames, inverse depths and energy written
+    once; the system and the point rows stay on the chip) and its
+    arithmetic over the f32 rate (the operations that sweep_bound and
+    solve_bound count for each sweep and solve it makes, each at the state
+    it takes along the plain form's run: the energy sweep at the start; a
+    step's system sweep and solve at the held state, its energy sweep at
+    the candidate)."""
+    P, F = st.num_points, st.num_frames
+    D = 8 * F
+    flops, texels = 0, []
+
+    def sweep(s, mode):
+        nonlocal flops
+        flops += sweep_bound(s, images, cam, cfg, mode)[2]["flops"]
+        texels.append(_active_pairs(s, images, cam, cfg)[1])
+
+    sweep(st, "energy")
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
     E = ba.total_energy_plain(st, images, cam, cfg)
     for _ in range(cfg.ba_iters):
         cand, _ = ba.ba_step_plain(st, images, cam, cfg, lam)
-        parts += [sweep_bound(st, images, cam, cfg), solve_bound(st),
-                  sweep_bound(cand, images, cam, cfg, "energy")]
+        sweep(st, "system")
+        flops += solve_bound(st)[2]["flops"]
+        sweep(cand, "energy")
         E_new = ba.total_energy_plain(cand, images, cam, cfg)
         accept = bool(E_new < E)
         if accept:
             st, E = cand, E_new
         lam = torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2)
-    total = sum(p[0] for p in parts)
-    by_bytes = sum(p[0] for p in parts if p[1] == "bytes")
-    detail = {"sweeps": 1 + 2 * cfg.ba_iters, "solves": cfg.ba_iters,
-              "bytes": sum(p[2]["bytes"] for p in parts),
-              "flops": sum(p[2]["flops"] for p in parts)}
-    return total, ("bytes" if 2 * by_bytes >= total else "operations"), detail
+    n_tex = int(torch.unique(torch.cat(texels)).numel())
+    nbytes = (12 * n_tex + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F) + F * (2 * 48 + 2 * 8 + 32 + 1)
+              + D * D * 4 + D * 4 + 4 + F * (48 + 8 + 32) + P * 4 + 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"sweeps": 1 + 2 * cfg.ba_iters, "solves": cfg.ba_iters, "bytes": nbytes,
+              "flops": flops, "texels": n_tex,
+              "texels_summed_over_sweeps": sum(x.numel() for x in texels)}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
 def _ba_launches(before: dict) -> dict:
@@ -1779,12 +1800,12 @@ def _bits_equal(a, Ea, b, Eb) -> bool:
         (a.T.R, b.T.R), (a.T.t, b.T.t), (a.ab, b.ab), (a.delta, b.delta), (a.idepth, b.idepth))))
 
 
-def ba_case(name: str, st, images, cam, cfg, card: str, rejected: bool = False) -> dict:
+def ba_case(name: str, st, images, cam, cfg, card: str, mesh, rejected: bool = False) -> dict:
     """One phase-14 case: run_ba on the kernels against run_ba_plain on the
     card (E, T, idepth within bk.PARITY_TOL, point_valid equal, the accept
-    decisions compared), its launches (1 ba_run), the same run split into
-    sweeps and solves (1 + 2 x ba_iters and ba_iters launches, the route of
-    a mesh and of the mixed BA) with the same bits, and
+    decisions compared), its launches (1 ba_run), the same run on `mesh`, a
+    world of one (split into 2 + 3 x ba_iters sweep and FINISH launches and
+    ba_iters solves, the route of a mesh), with the same bits, and
     update_residual_status on both forms at the plain result (res_active
     and point_valid equal). `rejected`: every step must be rejected and the
     state keep its bits."""
@@ -1794,14 +1815,15 @@ def ba_case(name: str, st, images, cam, cfg, card: str, rejected: bool = False) 
     torch.cuda.synchronize()
     launches = _ba_launches(before)
     before = lm_launches()
-    trace_s = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
-    split, E_s = ba._run_ba_cuda(st, images, cam, cfg, None, trace=trace_s, split=True)
+    trace_m = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
+    on_mesh, E_m = ba._run_ba_cuda(st, images, cam, cfg, mesh, trace=trace_m)
     torch.cuda.synchronize()
-    launches_split = _ba_launches(before)
-    same = _bits_equal(got, E, split, E_s) and bool(torch.equal(trace, trace_s))
+    launches_mesh = _ba_launches(before)
+    same = _bits_equal(got, E, on_mesh, E_m) and bool(torch.equal(trace, trace_m))
     tr = []
     want, E_want = ba.run_ba_plain(st, images, cam, cfg, trace=tr)
     rep = ba_parity(got, E, want, E_want)
+    rep_mesh = ba_parity(on_mesh, E_m, want, E_want)
     dec = _decisions(trace, tr)
     s_k = ba.update_residual_status(want, images, cam, cfg)
     s_p = ba.update_residual_status_plain(want, images, cam, cfg)
@@ -1810,13 +1832,14 @@ def ba_case(name: str, st, images, cam, cfg, card: str, rejected: bool = False) 
               "residuals_dropped": int((want.res_active & ~s_p.res_active).sum())}
     row = {"case": name, "frames_valid": int(st.frame_valid.sum()),
            "points_valid": int(st.point_valid.sum()), "E": float(E), "E_plain": float(E_want),
-           "parity": rep, "decisions": dec, "status": status, "launches": launches,
-           "launches_split": launches_split, "split_bits_equal": same, "card": card}
+           "parity": rep, "parity_mesh": rep_mesh, "decisions": dec, "status": status,
+           "launches": launches, "launches_mesh": launches_mesh, "mesh_bits_equal": same,
+           "card": card}
     print(json.dumps(row))
     require(launches == {"ba_sweep": 0, "ba_solve": 0, "ba_run": 1}, f"{name}: launches {launches}")
-    require(launches_split == {"ba_sweep": 1 + 2 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
-                               "ba_run": 0}, f"{name}: split launches {launches_split}")
-    require(same, f"{name}: the split launches' result differs from the one launch's")
+    require(launches_mesh == {"ba_sweep": 2 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
+                              "ba_run": 0}, f"{name}: a world of one's launches {launches_mesh}")
+    require(same, f"{name}: a world of one's split launches differ from the one launch")
     if rejected:
         require(not any(dec["kernel"]) and _bits_equal(got, E, st, E)
                 and _bits_equal(want, E_want, st, E_want),
@@ -1956,8 +1979,24 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     require(len(runs) >= 2, f"phase 3's run_ba calls not captured ({len(runs)})")
     require(cap.calls["_marg_pieces"], "no _marg_pieces call captured")
     require(mixed, "phase 5's run_ba_mixed calls not captured")
-    rows = [ba_case(f"run_ba, phase-3 call {k} ({int(a[0].frame_valid.sum())} frames)", *a,
-                    card) for k, a in enumerate(runs)]
+    mesh = make_mesh()   # a world of one: the mesh's split route beside the one launch
+    try:
+        rows = [ba_case(f"run_ba, phase-3 call {k} ({int(a[0].frame_valid.sum())} frames)",
+                        *a, card, mesh) for k, a in enumerate(runs)]
+        st, images, cam, cfg = runs[-1]
+        rows.append(ba_case("run_ba, every frame slot invalid",
+                            st.replace(frame_valid=torch.zeros_like(st.frame_valid)), images,
+                            cam, cfg, card, mesh))
+        rows.append(ba_case("run_ba, ba_iters 0", st, images, cam,
+                            dataclasses.replace(cfg, ba_iters=0), card, mesh))
+        # the candidates' inverse depths clamped to 1e-3 (points near
+        # infinity) raise the energy: every step rejected, the select's keep
+        # branch
+        rows.append(ba_case("run_ba, every step rejected", st, images, cam,
+                            dataclasses.replace(cfg, idepth_max=1e-3), card, mesh,
+                            rejected=True))
+    finally:
+        dist.destroy_process_group()
     mixed_rows = [mixed_case(f"run_ba_mixed, phase-5 call {k} "
                              f"({int(a[0].frame_valid.sum())} frames)", *a, card)
                   for k, a in enumerate(mixed)]
@@ -1967,16 +2006,6 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     print(json.dumps({"phase": "ba_decision_witness", "steps": len(witness),
                       "max_from_f64": spread, "decision_tol": bk.DECISION_TOL,
                       "nearest_f64_value": min(abs(w["value_f64"]) for w in witness)}))
-    st, images, cam, cfg = runs[-1]
-    rows.append(ba_case("run_ba, every frame slot invalid",
-                        st.replace(frame_valid=torch.zeros_like(st.frame_valid)), images, cam,
-                        cfg, card))
-    rows.append(ba_case("run_ba, ba_iters 0", st, images, cam,
-                        dataclasses.replace(cfg, ba_iters=0), card))
-    # the candidates' inverse depths clamped to 1e-3 (points near infinity)
-    # raise the energy: every step rejected, the select's keep branch
-    rows.append(ba_case("run_ba, every step rejected", st, images, cam,
-                        dataclasses.replace(cfg, idepth_max=1e-3), card, rejected=True))
     marg = marg_case(cap.calls["_marg_pieces"][0])
     measure = [partials_measure(*a) for a in runs]
     worst = {name: {k: max(m[name][k] for m in measure) for k in measure[0][name]}
@@ -2029,10 +2058,19 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     for k in ("run_ba", "ba_sweep", "ba_solve"):
         timing[k]["bound_share"] = timing[k]["bound_ms"] / timing[k]["kernel_ms"]
     timing["ba_sweep"]["energy_bound_share"] = e_bound / timing["ba_sweep"]["energy_ms"]
+    def err(reps):   # the largest T and idepth error of run_ba's kernels against plain
+        return max(max(r["max_err"]["T"], r["max_err"]["idepth_abs"]) for r in reps)
+
+    # ba_run: its own launches (the one-launch runs); ba_sweep and ba_solve:
+    # the runs that launch them (a world of one's and the mixed BA's)
+    kernel_err = {"ba_run": err(r["parity"] for r in rows)}
+    kernel_err["ba_sweep"] = kernel_err["ba_solve"] = err(
+        [r["parity_mesh"] for r in rows] + [r["parity"] for r in mixed_rows])
     public = {"timing": timing, "marg": marg, "partials_worst": worst,
+              "max_abs_err": kernel_err,
               "partials_recorded_worst_scale_rel": SCALE_REL_RECORDED,
               "launches_per_run_ba": rows[0]["launches"],
-              "launches_per_run_ba_split": rows[0]["launches_split"],
+              "launches_per_run_ba_mesh": rows[0]["launches_mesh"],
               "launches_per_run_ba_mixed": mixed_rows[0]["launches"],
               "decisions_differing": sum("first_differing" in r["decisions"]
                                          for r in rows + mixed_rows),
@@ -2151,7 +2189,7 @@ def main() -> int:
     print(f"phase 13 (LM kernels) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    ba_rows, ba_public = ba_phase(ba_cap, mixed_cap, card)
+    _, ba_public = ba_phase(ba_cap, mixed_cap, card)
     print(f"phase 14 (BA kernels) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
@@ -2223,8 +2261,6 @@ def main() -> int:
             "cluster": lm_public["cluster"][name],
             "cases": {r["case"]: {k: r[k] for k in keys} for r in rows}})
     timing = ba_public["timing"]
-    ba_err = max(max(r["parity"]["max_err"]["T"], r["parity"]["max_err"]["idepth_abs"])
-                 for r in ba_rows)
     for name, replaces, t in (
             ("ba_sweep", "libcml_tpu/models/direct/ba.py:317", timing["ba_sweep"]),
             ("ba_solve", "libcml_tpu/models/direct/ba.py:532", timing["ba_solve"]),
@@ -2233,14 +2269,16 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": f"libcml_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": ba_err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": ba_public["max_abs_err"][name], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "kernel_warm_ms": t["kernel_warm_ms"], "bound_share": t["bound_share"]}
         if name == "ba_sweep":
             row.update({k: t[k] for k in ("energy_ms", "energy_warm_ms", "energy_bound_ms",
                                           "energy_bound_share")})
         if name != "ba_run":
-            row["launches_per_run_ba_split"] = ba_public["launches_per_run_ba_split"][name]
+            row["launches_per_run_ba_mesh"] = ba_public["launches_per_run_ba_mesh"][name]
+            row["launches_per_run_ba_mixed"] = ba_public["launches_per_run_ba_mixed"][name]
         kernels.append(row)
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,

@@ -1330,4 +1330,23 @@ __device__ __forceinline__ float clamp_idepth(float x, float lo, float hi) {
   return lm::clamp_max(lm::clamp_min(x, lo), hi);
 }
 
+// The blocks of THREADS threads that a cooperative launch of `kernel` with
+// `smem` bytes of dynamic shared memory can keep resident on the current
+// card (0 on an error), cached per device: each library launches one kernel
+// through it.
+inline int capacity(const void* kernel, size_t smem) {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
+        cudaSuccess)
+      return 0;
+    cached[dev] = sms * per_sm;
+  }
+  return cached[dev];
+}
+
 }  // namespace ba

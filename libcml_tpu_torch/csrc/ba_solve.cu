@@ -72,21 +72,6 @@ __global__ void __launch_bounds__(THREADS, 1) ba_solve_kernel(
   // stage: rows
 }
 
-int capacity(const void* kernel, size_t smem) {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
-        cudaSuccess)
-      return 0;
-    cached[dev] = sms * per_sm;
-  }
-  return cached[dev];
-}
-
 }  // namespace
 
 // Launches the solve on `stream` with the arguments in `a` (a host struct,

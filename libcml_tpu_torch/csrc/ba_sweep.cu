@@ -123,21 +123,6 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
   // stage: finish
 }
 
-int capacity(const void* kernel, size_t smem) {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
-        cudaSuccess)
-      return 0;
-    cached[dev] = sms * per_sm;
-  }
-  return cached[dev];
-}
-
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(Shared) + ROW_BYTES;
   const void* kernel = reinterpret_cast<const void*>(ba_sweep_kernel);

@@ -1036,9 +1036,9 @@ def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
 
 
 def _run_ba_cuda(state: BAState, images, cam, cfg, mesh, ind=None,
-                 trace: torch.Tensor | None = None, split: bool = False):
+                 trace: torch.Tensor | None = None):
     """run_ba (run_ba_mixed with `ind`) on the card, with no host read.
-    Without a mesh or `ind` (unless `split`), one launch of the run kernel.
+    Without a mesh or `ind`, one launch of the run kernel.
     Otherwise split launches of the same device functions in the same
     orders (the same bits): the energy sweep at the start (which also sets
     lambda), then each LM step's system sweep, solve and energy sweep of the
@@ -1050,7 +1050,7 @@ def _run_ba_cuda(state: BAState, images, cam, cfg, mesh, ind=None,
     depths, E)."""
     state = _contiguous(state)
     images = images.contiguous()
-    if mesh is None and ind is None and not split:
+    if mesh is None and ind is None:
         out = bk.ba_run_cuda(state, images, cam, cfg, trace=trace)
         return state.replace(T=SE3(R=out["R"], t=out["t"]), ab=out["ab"], delta=out["delta"],
                              idepth=out["idepth"]), out["E"]

@@ -33,8 +33,9 @@ marginalization pieces and the mixed BA among the cases), and its orders to
 the one-block kernels' where they agree (the elimination, phase D's
 per-entry order). The
 kernels themselves are held to the plain forms on the card by the tests at
-the end (skipped without CUDA: the one-launch run and the split launches,
-and each to the other bit for bit) and by chip_smoke.py phase 14. Worker
+the end (skipped without CUDA: the one-launch run and the split launches of
+a mesh's route on a world of one, and each to the other bit for bit) and by
+chip_smoke.py phase 14. Worker
 time: about 25 s alone on one thread, half of it the JAX reference's
 compile.
 """
@@ -779,23 +780,39 @@ def _launches() -> dict:
             "solve": bk.ba_solve_cuda.launches}
 
 
+@pytest.fixture(scope="module")
+def mesh_of_one():
+    """A world of one over NCCL in this process (the mesh's route: split
+    sweep, solve and FINISH launches with identity collectives between
+    them), destroyed at the module's end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from libcml_tpu_torch.parallel.sharding import make_mesh
+    mesh = make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("case", ["default", "rejected"])
-@pytest.mark.parametrize("route", ["one_launch", "split"])
-def test_cuda_run_ba_matches_plain(cuda, window, route, case):
+@pytest.mark.parametrize("route", ["one_launch", "mesh"])
+def test_cuda_run_ba_matches_plain(cuda, window, request, route, case):
     """run_ba on the card, in one launch of the run kernel (the unsharded
-    route) or in split sweep and solve launches (the route of a mesh and of
-    the mixed BA), held to run_ba_plain; with every step rejected the state
-    keeps its bits."""
+    route) or in split sweep, solve and FINISH launches (the route of a mesh,
+    here a world of one), held to run_ba_plain; with every step rejected the
+    state keeps its bits."""
     cfg = TCFG if case == "default" else REJECTING
+    mesh = request.getfixturevalue("mesh_of_one") if route == "mesh" else None
     st, images = _to(window["ba"], cuda), window["images"].to(cuda)
     before = _launches()
-    got, E = tba._run_ba_cuda(st, images, TCAM, cfg, None, split=route == "split")
+    got, E = tba.run_ba(st, images, TCAM, cfg, mesh)
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _launches().items()}
     if route == "one_launch":
         assert launches == {"run": 1, "sweep": 0, "solve": 0}
     else:
-        assert launches == {"run": 0, "sweep": 1 + 2 * cfg.ba_iters, "solve": cfg.ba_iters}
+        assert launches == {"run": 0, "sweep": 2 + 3 * cfg.ba_iters, "solve": cfg.ba_iters}
     want, E_want = tba.run_ba_plain(st, images, TCAM, cfg)
     _assert_run_close(_cpu(got), E.cpu(), _cpu(want), E_want.cpu())
     if case == "rejected":
@@ -805,14 +822,15 @@ def test_cuda_run_ba_matches_plain(cuda, window, route, case):
 
 
 @pytest.mark.parametrize("case", ["default", "rejected"])
-def test_cuda_one_launch_equals_split(cuda, window, case):
-    """The run kernel and the split launches run the same device functions
-    in the same orders: the same bits (E, the trace, every state tensor)."""
+def test_cuda_one_launch_equals_mesh_of_one(cuda, mesh_of_one, window, case):
+    """The run kernel and a world of one's split launches run the same
+    device functions in the same orders: the same bits (E, the trace, every
+    state tensor)."""
     cfg = TCFG if case == "default" else REJECTING
     st, images = _to(window["ba"], cuda), window["images"].to(cuda)
     traces = [torch.empty((cfg.ba_iters, 2), device=cuda) for _ in range(2)]
     a, Ea = tba._run_ba_cuda(st, images, TCAM, cfg, None, trace=traces[0])
-    b, Eb = tba._run_ba_cuda(st, images, TCAM, cfg, None, trace=traces[1], split=True)
+    b, Eb = tba._run_ba_cuda(st, images, TCAM, cfg, mesh_of_one, trace=traces[1])
     torch.cuda.synchronize()
     assert torch.equal(Ea, Eb) and torch.equal(traces[0], traces[1])
     for x, y in ((a.T.R, b.T.R), (a.T.t, b.T.t), (a.ab, b.ab), (a.delta, b.delta),

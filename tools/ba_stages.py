@@ -20,10 +20,9 @@ module names, so each build runs its own wrappers on its own csrc/):
   stage, over `--reps` launches, the median of the time at which the last
   block passed it, from the first block's start (globaltimer, us), and the
   median of block 0's cycles since its previous stamp. The shipped sources
-  carry no switch for this: this tree's marks its boundaries with
-  `// stage: NAME` comments (each becomes a stamp), and the earlier layout
-  without them (the ticketed sweep and the one-block solve) is stamped at
-  fixed lines;
+  carry no switch for this: they mark their stage boundaries with
+  `// stage: NAME` comments, and each becomes a stamp. A tree whose sources
+  carry no marks is timed but not staged;
 - times: cold and warm device ms (chip_smoke.cuda_ms, median of 30) of a
   `run_ba`, a system sweep, an energy sweep and a solve, the builds in
   turns (each in order, then in reverse).
@@ -88,32 +87,6 @@ extern "C" int ba_stage_clear() {
   return (int)e;
 }
 """
-SYNC = "__syncthreads(); "
-# The ticketed sweep and one-block solve carry no marks: (file, anchor line,
-# where, stage, block barrier first); a barrier only where every thread of the
-# block passes
-TICKET_LAYOUT_ANCHORS = (
-    ("ba_sweep.cu", "  Shared& s = *reinterpret_cast<Shared*>(smem);", "after", "start", False),
-    ("ba_sweep.cu", "  // phase A: a thread a (point, target) pair", "before", "setup", False),
-    ("ba_sweep.cu", "  if (a.mode == STATUS && tid < NPB && base + tid < a.P) {", "before", "A",
-     False),
-    ("ba_sweep.cu", "  if (sys && a.H_xr)", "before", "B", False),
-    ("ba_sweep.cu", "  // phase C: the block's partial sums, each in index order", "before",
-     "H_xr", True),
-    ("ba_sweep.cu", "  // phase D: the last block to arrive sums the partials in block order",
-     "before", "C", True),
-    ("ba_sweep.cu", "  if (!s.last) return;", "after", "ticket", False),
-    ("ba_sweep.cu", "  e_photo = s.fin[0];", "before", "D", False),
-    ("ba_sweep.cu", "  if (a.fin != FIN_NONE) finish(a, s, e_photo);", "after", "finish", True),
-    ("ba_solve.cu", "  const float lam = *a.lam;", "after", "start", False),
-    ("ba_solve.cu", "  // elimination with partial pivoting", "before", "build", False),
-    ("ba_solve.cu", "  // back-substitution by warp 0, x_k", "before", "eliminate", False),
-    ("ba_solve.cu", "  if (a.dx_out && tid < D) a.dx_out[tid] = s.x[tid];", "before",
-     "triangular", False),
-    ("ba_solve.cu", "  // the points: d_rho = (b_rho - H_xr dx) / H_rho_d", "before", "frames",
-     True),
-    ("ba_solve.cu", "\n}\n\n}  // namespace", "before", "rows", True),
-)
 MARK = re.compile(r"^(\s*)// stage: (\S+)\s*$", re.M)
 
 
@@ -167,30 +140,15 @@ def instrument(build: Build, out_dir: Path) -> tuple[Path, list[str]]:
     shutil.copytree(build.csrc, out_dir)
     ba_files = sorted(p.name for p in out_dir.iterdir()
                       if p.name.startswith("ba_") and p.suffix in (".cu", ".cuh"))
-    unmarked = "// stage:" not in "".join((out_dir / f).read_text() for f in ba_files)
     index: dict[str, int] = {}
+
+    def sub(m):
+        k = index.setdefault(m.group(2), len(index))
+        return f"{m.group(1)}ba_stage({k});"
+
     for f in ba_files:
         path = out_dir / f
-        text = path.read_text()
-        if unmarked:
-            for file, anchor, where, stage, sync in TICKET_LAYOUT_ANCHORS:
-                if file != f:
-                    continue
-                k = index.setdefault(stage, len(index))
-                stamp = ("  " + SYNC if sync else "  ") + f"ba_stage({k});\n"
-                if anchor not in text:
-                    raise RuntimeError(f"{f}: anchor not found: {anchor!r}")
-                if anchor.startswith("\n}"):
-                    text = text.replace(anchor, "\n" + stamp.rstrip("\n") + anchor, 1)
-                elif where == "before":
-                    text = text.replace(anchor, stamp + anchor, 1)
-                else:
-                    text = text.replace(anchor, anchor + "\n" + stamp.rstrip("\n"), 1)
-        else:
-            def sub(m):
-                k = index.setdefault(m.group(2), len(index))
-                return f"{m.group(1)}ba_stage({k});"
-            text = MARK.sub(sub, text)
+        text = MARK.sub(sub, path.read_text())
         if f.endswith(".cu"):
             text = STAMP_HEAD + text + STAMP_TAIL
         path.write_text(text)
@@ -284,7 +242,8 @@ def main() -> int:
     stage_dir = kb.BUILD_DIR / "ba_stages"
     copies = {b.name: instrument(b, stage_dir / b.name) for b in builds}
     sources = [p for b in builds for p in sorted(b.csrc.glob("ba_*.cu"))]
-    sources += [p for copy, _ in copies.values() for p in sorted(copy.glob("ba_*.cu"))]
+    sources += [p for copy, stages in copies.values() if stages
+                for p in sorted(copy.glob("ba_*.cu"))]
     built = kb.build_many(sources, verbose=True)
     info = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "window_frames": a.frames,
@@ -316,7 +275,8 @@ def main() -> int:
         copy, stages = copies[b.name]
         row = {"build": b.name, "parity": cs.ba_parity(got, E, want, E_want),
                "partials": cs.partials_measure(st, images, cam, cfg, sweep=b.bk.ba_sweep_cuda),
-               "stages": stage_report(b, copy, stages, calls, a.reps), "card": card}
+               "stages": stage_report(b, copy, stages, calls, a.reps) if stages else None,
+               "card": card}
         print(json.dumps(row), flush=True)
         out["builds"][b.name] = row
 
