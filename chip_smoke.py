@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the six hand-written kernels (csrc/hamming_match.cu,
-     track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu) from the
-     sources in this checkout, one nvcc each, all started together.
+  1. build the seven hand-written kernels (csrc/hamming_match.cu,
+     track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu,
+     trace_epipolar.cu) from the sources in this checkout, one nvcc each,
+     all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -125,10 +126,24 @@ Phases (any failure exits non-zero, and no result line is printed):
      forms' ms, torch.linalg.solve_ex's ms on the damped system, and each
      kernel's bound and share (a run_ba's: its inputs and texels read once,
      its result written once, its sweeps' and solves' operations).
-Every phase from 3 on reports the LM and BA kernels' launches of its run
-(counted from 0 just before it and read just after); phase 3 must launch
-track_lm on every tracked frame and the BA kernels, phase 4 pnp_lm twice a
-frame, phases 5 and 7 both LM kernels.
+ 15. the tracer's kernel: trace_epipolar (the whole trace_immatures_rows,
+     one launch a call) against trace_immatures_rows_plain on the card
+     (te.parity: untraced rows, pixels and colours bit for bit; statuses
+     equal and intervals within te.RHO_TOL, a point differing only where a
+     deciding value sits within te.DECISION_TOL of its threshold, every
+     such point counted and printed) on every trace_immatures_rows call of
+     phase 3 and of phase 5's direct spine, then on the phase-3 call that
+     sweeps the most points with every row padding, with a dead host slot
+     and with a NaN observer pose (no interval moves); one launch a call
+     (counted and profiled), no sync and no memcpy inside; on that call cold
+     and warm ms (median of 30), the plain form's, the bound (bytes: the
+     arena in and out, the texels read once; or the swept points' f32
+     operations) and its share.
+Every phase from 3 on reports the LM, BA and tracer kernels' launches of its
+run (counted from 0 just before it and read just after); phase 3 must launch
+track_lm on every tracked frame, the BA kernels, and trace_epipolar once on
+every frame whose pose is good; phase 4 pnp_lm twice a frame, phases 5 and 7
+both LM kernels.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection) and 12 (match_ratio), held to the plain
@@ -140,8 +155,9 @@ bound of the phase-4 masks case, cold, and of the staged-tick and
 match_ratio cases; for track_lm and pnp_lm the launches of every path's run
 and the times and bound of phase 13's first case, each case beside them;
 for ba_sweep, ba_solve and ba_run the launches of every path's run and
-phase 14's times and bounds), and the result line {"ok": true, "device":
-{...}} last.
+phase 14's times and bounds; for trace_epipolar the launches of every
+path's run and phase 15's times and bound), and the result line {"ok": true,
+"device": {...}} last.
 """
 
 from __future__ import annotations
@@ -169,13 +185,14 @@ from libcml_tpu_torch.data import corridor
 from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.core.lie import SE3
-from libcml_tpu_torch.models.direct import ba, residuals, tracker
+from libcml_tpu_torch.models.direct import ba, residuals, tracer, tracker
 from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect import pnp as pnp_mod
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
+from libcml_tpu_torch.ops import trace_epipolar as te
 from libcml_tpu_torch.parallel.sharding import make_mesh
 from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
@@ -199,22 +216,24 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# the LM and BA kernels' wrappers, whose launch counts each path's run reports
-LM_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
-              "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
-              "ba_run": bk.ba_run_cuda}
+# the LM, BA and tracer kernels' wrappers, whose launch counts each path's
+# run reports
+PATH_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
+                "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
+                "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda}
 
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0 (just before a path's run)."""
     hm.hamming_resolve_cuda.launches = 0
-    for fn in LM_KERNELS.values():
+    for fn in PATH_KERNELS.values():
         fn.launches = 0
 
 
-def lm_launches() -> dict:
-    """The LM kernels' launch counts since the last reset_launches()."""
-    return {name: fn.launches for name, fn in LM_KERNELS.items()}
+def path_launches() -> dict:
+    """The LM, BA and tracer kernels' launch counts since the last
+    reset_launches()."""
+    return {name: fn.launches for name, fn in PATH_KERNELS.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -440,7 +459,7 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     odo = DirectOdometry(cam, wl.BENCH_CFG)         # default device: the card
     imgs = [f[0].cpu().numpy() for f in frames[:N_DIRECT]]
     gt = []
-    kf = lost = 0
+    kf = lost = good = 0
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -451,11 +470,12 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
         out = odo.process(img, float(i))
         kf += int(bool(out.get("kf", False)))
         lost += int(out.get("state") == "LOST")
+        good += int("flow" in out and bool(out["ok"]))    # a tracked frame, its pose good
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     wall = t_end - t0
     launches = hm.hamming_resolve_cuda.launches   # the direct path runs no Hamming kernel
-    lm = lm_launches()
+    lm = path_launches()
     for R, t in traj[:N_DIRECT]:
         M = np.eye(4)
         M[:3, :3], M[:3, 3] = R, t
@@ -468,7 +488,7 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     res = {"phase": "direct", "frames": len(imgs), "fps": len(imgs) / wall,
            "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
            "wall_s": wall, "ate": ate, "segments": odo.segments, "lost_frames": lost,
-           "keyframes": kf, "keyframe_frames": _keyframe_frames(odo),
+           "keyframes": kf, "keyframe_frames": _keyframe_frames(odo), "good_pose_frames": good,
            "host_ms_per_stage": host_ms,
            "kernel_launches": {"hamming_resolve": launches, **lm}}
     print(json.dumps(res))
@@ -477,6 +497,8 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
             f"the direct path's LM launches {lm}")
     require(lm["ba_run"] > 0 and lm["ba_sweep"] > 0 and lm["ba_solve"] == 0,
             f"the direct path's BA launches {lm}")
+    require(good > 0 and lm["trace_epipolar"] == good,
+            f"the tracer launched {lm['trace_epipolar']} times over {good} good-pose frames")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
     return res, _snapshot(odo)
 
@@ -515,7 +537,7 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
                 f"frame {i}: pose error {t_err:.4f} / {r_err:.4f} rad out of budget")
     launches = hm.hamming_resolve_cuda.launches
     res = {"phase": "hybrid_tracking", "frames": len(per_frame), "map_points": n_map,
-           "launches": launches, "lm_launches": lm_launches(),
+           "launches": launches, "lm_launches": path_launches(),
            "ms_per_frame": statistics.median(r["ms"] for r in per_frame),
            "min_inliers": min(r["inliers"] for r in per_frame),
            "max_t_err": max(r["t_err"] for r in per_frame),
@@ -659,7 +681,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = hm.hamming_resolve_cuda.launches
-    lm = lm_launches()
+    lm = path_launches()
     wall = t_end - t0
     _, est = odo.trajectory_c2w()
     ate = ate_rmse(est[:, :3, 3], gt_centres(traj[:N_DIRECT]), with_scale=True)
@@ -722,7 +744,7 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hm.hamming_resolve_cuda.launches
-    lm = lm_launches()
+    lm = path_launches()
     require(at is not None, f"never relocalized (states {states})")
     _, est = odo.trajectory_c2w()
     err = float(np.linalg.norm(est[-1, :3, 3] - view_before))
@@ -767,7 +789,7 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hm.hamming_resolve_cuda.launches
-    lm = lm_launches()
+    lm = path_launches()
     with open(log_path) as f:
         lines = f.read().splitlines()
     missing = [n for n in EXPORT_FILES if not os.path.isfile(os.path.join(out_dir, n))]
@@ -851,7 +873,7 @@ def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
     snap_c = _snapshot(c)
     torch.cuda.synchronize()
     launches = hm.hamming_resolve_cuda.launches
-    lm = lm_launches()
+    lm = path_launches()
     wall = time.perf_counter() - t0
     cpu = make("cpu")
     cpu.load_state(ckpt)
@@ -975,7 +997,7 @@ def timed_run(odo, imgs) -> dict:
     t_end = time.perf_counter()
     return {"wall_s": t_end - t0, "fps": len(imgs) / (t_end - t0),
             "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
-            "kernel_launches": hm.hamming_resolve_cuda.launches, "lm_launches": lm_launches(),
+            "kernel_launches": hm.hamming_resolve_cuda.launches, "lm_launches": path_launches(),
             "lost_frames": lost, "est": est}
 
 
@@ -1164,7 +1186,7 @@ def sharded_phase(cam, traj, frames, direct_snap: dict, hybrid_snap: dict) -> di
 
     def counted(name, fn):
         def call(*args, **kw):
-            before = lm_launches()
+            before = path_launches()
             out = fn(*args, **kw)
             per_call[name].append(_ba_launches(before))
             return out
@@ -1791,7 +1813,7 @@ def run_ba_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
 
 
 def _ba_launches(before: dict) -> dict:
-    now = lm_launches()
+    now = path_launches()
     return {k: now[k] - before[k] for k in BA_KERNELS}
 
 
@@ -1809,12 +1831,12 @@ def ba_case(name: str, st, images, cam, cfg, card: str, mesh, rejected: bool = F
     update_residual_status on both forms at the plain result (res_active
     and point_valid equal). `rejected`: every step must be rejected and the
     state keep its bits."""
-    before = lm_launches()
+    before = path_launches()
     trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     got, E = ba._run_ba_cuda(st, images, cam, cfg, None, trace=trace)
     torch.cuda.synchronize()
     launches = _ba_launches(before)
-    before = lm_launches()
+    before = path_launches()
     trace_m = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     on_mesh, E_m = ba._run_ba_cuda(st, images, cam, cfg, mesh, trace=trace_m)
     torch.cuda.synchronize()
@@ -1862,7 +1884,7 @@ def mixed_case(name: str, st, images, cam, cfg, ind, card: str) -> dict:
     the card within bk.MIXED_PARITY_TOL (E, T, idepth, the indirect idepths;
     point_valid equal), the accept decisions compared as in ba_case, and its
     launches (1 + 3 x ba_iters sweeps, ba_iters solves)."""
-    before = lm_launches()
+    before = path_launches()
     trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     got, got_i, E = ba._run_ba_cuda(st, images, cam, cfg, None, ind=ind, trace=trace)
     torch.cuda.synchronize()
@@ -2086,6 +2108,193 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     return rows + mixed_rows, public
 
 
+# -- phase 15 ----------------------------------------------------------------------
+
+# arithmetic the tracer's function needs, counted from csrc/trace_epipolar.cu
+# (a rounded op, a floor and a square root one each; compares, clamps and
+# selects not counted): a sample (a pattern pixel of a hypothesis: its
+# pixel, 2; unprojection, 6; transform, 15 + 3; projection, 7; the bilinear
+# sample of channel 0, 15; the residual's square and sum, 3); a hypothesis
+# (its grid value, 2; exp; the depth's reciprocal); a swept point (two
+# logs, the grid's width, the argmin's and the windows' 16 compares not
+# counted, the refine, 12, the span, 6, the new interval, 6); a traced row
+# (its relative pose, 3 x 3 x 5 + 3 x 5 + 3 x 5)
+TRACE_SAMPLE_FLOPS, TRACE_HYP_FLOPS, TRACE_POINT_FLOPS, TRACE_ROW_FLOPS = 51, 4, 27, 75
+# an arena entry's bytes: uv, colour, rho_lo, rho_hi, n_ok, n_fail, valid
+ARENA_ENTRY_BYTES = 2 * 4 + 8 * 4 + 4 + 4 + 4 + 4 + 1
+
+
+class TraceCapture:
+    """Keeps (cloned) the inputs of every trace_immatures_rows call that a
+    run makes (runtime/odometry.py's _frame_step looks it up at call time,
+    for the direct path and the hybrid's direct spine), by phase."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self.phase: str | None = None
+        self._orig = odometry.trace_immatures_rows
+
+    def _call(self, *args):
+        if self.phase is not None:
+            self.calls.setdefault(self.phase, []).append(_clone_trace_args(args))
+        return self._orig(*args)
+
+    def __enter__(self):
+        odometry.trace_immatures_rows = self._call
+        return self
+
+    def __exit__(self, *exc):
+        odometry.trace_immatures_rows = self._orig
+
+
+def _clone_trace_args(args):
+    arena, rows, T_hosts, host_valid, obs_grad, T_obs, cam, cfg = args
+    return (arena.map(torch.Tensor.clone), rows.clone(),
+            SE3(R=T_hosts.R.clone(), t=T_hosts.t.clone()), host_valid.clone(), obs_grad.clone(),
+            SE3(R=T_obs.R.clone(), t=T_obs.t.clone()), cam, cfg)
+
+
+def _trace_probes(args) -> torch.Tensor:
+    arena, rows = args[0], args[1]
+    return torch.full((rows.shape[0], arena.valid.shape[1], len(te.PROBE_FIELDS)),
+                      float("nan"), device=rows.device)
+
+
+def trace_parity(args) -> tuple[dict, object, object]:
+    """The kernel (through the dispatcher, probes on) against
+    trace_immatures_rows_plain on the card: te.parity, its one launch."""
+    pk, pp = _trace_probes(args), _trace_probes(args)
+    before = te.trace_rows_cuda.launches
+    got = tracer.trace_immatures_rows(*args, probes=pk)
+    torch.cuda.synchronize()
+    calls = te.trace_rows_cuda.launches - before
+    want = tracer.trace_immatures_rows_plain(*args, probes=pp)
+    rep = te.parity(got, want, (pk, pp), args[1], args[7])
+    rep["launches"] = calls
+    return rep, got, want
+
+
+def _swept_points(args) -> int:
+    """Points the tracer sweeps: the valid points of traced live slots."""
+    arena, rows, _, host_valid = args[:4]
+    return sum(int((arena.valid[f] & host_valid[f]).sum()) for f in set(rows.tolist()) if f >= 0)
+
+
+def trace_bound(args) -> tuple[float, str, dict]:
+    """Least time of one tracer call, in ms: the larger of its bytes over the
+    HBM rate and its arithmetic over the f32 rate. Bytes: the arena read
+    once and the new arena written once (every entry, the copied rows too),
+    the rows, the host slots' poses and flags, the observer's pose, and each
+    texel of channel 0 that a swept point's samples read, counted once.
+    Arithmetic: the swept points' samples, hypotheses and refines (a point
+    of a traced row whose slot is live and which is valid), and the traced
+    rows' relative poses."""
+    arena, rows, T_hosts, host_valid, obs_grad, T_obs, cam, cfg = args
+    F, K = arena.valid.shape
+    S = cfg.trace_steps
+    traced = sorted({f for f in rows.tolist() if f >= 0})
+    swept = [(f, arena.valid[f] & host_valid[f]) for f in traced]
+    ids = []
+    for f, m in swept:
+        if not bool(m.any()):
+            continue
+        T_oh = T_obs.compose(SE3(R=T_hosts.R[f], t=T_hosts.t[f]).inverse())
+        lo = torch.log(torch.clamp(arena.rho_lo[f][m], min=1e-6))
+        hi = torch.log(torch.clamp(arena.rho_hi[f][m], min=2e-6))
+        frac = torch.linspace(0.0, 1.0, S, device=lo.device)
+        rho = torch.exp(lo[:, None] + (hi - lo)[:, None] * frac)             # (P, S)
+        Xh = cam.unproject(residuals.pattern_uv(arena.uv[f][m])[:, None], rho[..., None])
+        uv, _ = cam.project(T_oh.apply(Xh))                                   # (P, S, 8, 2)
+        W, H = cam.width, cam.height
+        x0 = torch.nan_to_num(torch.clamp(torch.floor(uv[..., 0]), 0, W - 2), nan=0.0).long()
+        y0 = torch.nan_to_num(torch.clamp(torch.floor(uv[..., 1]), 0, H - 2), nan=0.0).long()
+        base = (y0 * W + x0).reshape(-1)
+        ids += [base, base + 1, base + W, base + W + 1]
+    texels = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    points = int(sum(int(m.sum()) for _, m in swept))
+    nbytes = (2 * F * K * ARENA_ENTRY_BYTES + rows.numel() * 4 + F * (12 * 4 + 1) + 12 * 4
+              + 4 * texels)
+    flops = float(points * (S * (8 * TRACE_SAMPLE_FLOPS + TRACE_HYP_FLOPS) + TRACE_POINT_FLOPS)
+                  + len(traced) * TRACE_ROW_FLOPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops, "texels": texels, "swept_points": points,
+              "traced_rows": len(traced)}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def trace_phase(cap: TraceCapture, card: str) -> tuple[dict, dict]:
+    """Phase 15: the tracer's kernel against its plain form on the card
+    (te.parity) on every trace_immatures_rows call of phases 3 and 5, then
+    all-padding rows, a dead host slot and a NaN observer pose on the
+    phase-3 call that sweeps the most points; one launch a call (counted
+    and profiled), no host wait inside; cold and warm ms, the plain form's,
+    the bound and its share on that call (the main path's shapes)."""
+    calls = {ph: cap.calls.get(ph, []) for ph in ("direct", "hybrid")}
+    require(all(calls.values()), f"tracer calls not captured: "
+            f"{ {k: len(v) for k, v in calls.items()} }")
+    reports = []
+    for ph, captured in calls.items():
+        for k, args in enumerate(captured):
+            rep, _, _ = trace_parity(args)
+            rep["case"] = f"phase-{3 if ph == 'direct' else 5} call {k}"
+            reports.append(rep)
+    args = max(calls["direct"], key=_swept_points)      # the call with the most work
+    arena, rows, T_hosts, host_valid, obs_grad, T_obs, cam, cfg = args
+    dead = host_valid.clone()
+    dead[rows[rows >= 0][0]] = False
+    t_nan = T_obs.t.clone()
+    t_nan[0] = float("nan")
+    edge_cases = {"all rows padding": (arena, torch.full_like(rows, -1), *args[2:]),
+                  "a dead host slot": (*args[:3], dead, *args[4:]),
+                  "a NaN observer pose": (*args[:5], SE3(R=T_obs.R, t=t_nan), cam, cfg)}
+    for name, case in edge_cases.items():
+        rep, got, want = trace_parity(case)
+        rep["case"] = name
+        reports.append(rep)
+        if name == "a NaN observer pose":
+            rep["intervals_kept"] = bool(torch.equal(got.rho_lo, arena.rho_lo)
+                                         and torch.equal(got.rho_hi, arena.rho_hi))
+            require(rep["intervals_kept"], "a NaN observer pose moved an interval")
+    for rep in reports:
+        for d in rep["edge_points"]:
+            print(f"  tracer {rep['case']}: row {d['row']} point {d['point']} differs at a "
+                  f"decision's edge: {d}")
+        require(rep["ok"] and rep["launches"] == 1, f"trace_epipolar != plain: {rep}")
+
+    def kernel():
+        return tracer.trace_immatures_rows(*args)
+
+    def plain():
+        return tracer.trace_immatures_rows_plain(*args)
+
+    host, device_ops = launches_per_call(kernel)
+    waits = _syncs(kernel)
+    bound, by, detail = trace_bound(args)
+    ms = cuda_ms(kernel)
+    timing = {"kernel_ms": ms, "kernel_warm_ms": cuda_ms(kernel, cold=False),
+              "plain_ms": cuda_ms(plain), "launches_per_call": host,
+              "device_ops_per_call": device_ops, "host_waits": waits, "bound_ms": bound,
+              "bound_by": by, "bound_detail": detail, "bound_share": bound / ms,
+              "library_ms": None, "card": card}
+    parity_rows = [r for r in reports if r["case"].startswith("phase")]
+    public = {"calls": {ph: len(v) for ph, v in calls.items()},
+              "points_traced": sum(r["traced_points"] for r in parity_rows),
+              "points_swept": sum(r["swept_points"] for r in parity_rows),
+              "edge_points": sum(r["differing"] for r in reports),
+              "max_rho_steps_agreeing": max(r["max_rho_steps_agreeing"] for r in reports),
+              "max_abs_err": max(r["max_abs_err"] for r in reports),
+              "edge_cases": {r["case"]: {k: r[k] for k in ("ok", "differing", "swept_points")}
+                             for r in reports if not r["case"].startswith("phase")},
+              "decision_tol": te.DECISION_TOL, "rho_tol": te.RHO_TOL, "timing": timing}
+    print(json.dumps({"phase": "trace_public", **public}))
+    require(host == 1, f"trace_immatures_rows made {host} launches a call")
+    require(waits["syncs"] == 0 and waits["memcpys"] == 0,
+            f"trace_immatures_rows waits for the device: {waits}")
+    require(timing["bound_share"] <= 1.0, "trace_epipolar: under its bound: the bound is wrong")
+    return public, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2113,11 +2322,13 @@ def main() -> int:
     rows, max_err = kernel_vs_plain(dev, card, popc_rate, phase4_args)
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
-    with LMCapture() as cap:
+    with LMCapture() as cap, TraceCapture() as trace_cap:
         cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
+        trace_cap.phase = "direct"
         with BACapture(every=("run_ba",), first=("_marg_pieces",)) as ba_cap:
             direct, direct_snap = direct_phase(dev, cam, traj, frames)
+        trace_cap.phase = None
         print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -2128,8 +2339,10 @@ def main() -> int:
         with CallSites() as sites:
             cap.sites = sites
             t0 = time.perf_counter()
+            trace_cap.phase = "hybrid"
             with BACapture(every=("run_ba_mixed",)) as mixed_cap:
                 full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
+            trace_cap.phase = None
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             reloc = relocalization_phase(dev, cam, traj, frames, sites)
@@ -2191,6 +2404,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _, ba_public = ba_phase(ba_cap, mixed_cap, card)
     print(f"phase 14 (BA kernels) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    trace_public, trace_timing = trace_phase(trace_cap, card)
+    print(f"phase 15 (tracer kernel) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
@@ -2280,13 +2497,24 @@ def main() -> int:
             row["launches_per_run_ba_mesh"] = ba_public["launches_per_run_ba_mesh"][name]
             row["launches_per_run_ba_mixed"] = ba_public["launches_per_run_ba_mixed"][name]
         kernels.append(row)
+    by_path = {k: v["trace_epipolar"] for k, v in runs.items() if v["trace_epipolar"]}
+    t = trace_timing
+    kernels.append({
+        "name": "trace_epipolar", "route": "cuda",
+        "source": "libcml_tpu_torch/csrc/trace_epipolar.cu",
+        "replaces": "libcml_tpu/models/direct/tracer.py:185",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": trace_public["max_abs_err"],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
+        "bound_share": t["bound_share"], "edge_points": trace_public["edge_points"]})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
                       "hybrid_pipelined": staged["pipelined"],
                       "hybrid_staged": staged["staged"], "calib": calib,
                       "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
-                      "ba_public": ba_public}))
+                      "ba_public": ba_public, "trace_public": trace_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

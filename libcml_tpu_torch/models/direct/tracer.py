@@ -20,6 +20,7 @@ from libcml_tpu_torch.core.lie import SE3
 from libcml_tpu_torch.models.direct.config import DirectConfig
 from libcml_tpu_torch.models.direct.residuals import pattern_uv
 from libcml_tpu_torch.ops.image import bilinear
+from libcml_tpu_torch.ops.trace_epipolar import trace_rows_cuda
 
 _BIG = 1e12
 
@@ -186,7 +187,39 @@ def seed_immatures(
     )
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
 def trace_immatures_rows(
+    arena: ImmatureArena,
+    rows: torch.Tensor,        # (R,) int32 host-slot indices to trace (-1 pad)
+    T_hosts: SE3,
+    host_valid: torch.Tensor,
+    obs_grad: torch.Tensor,
+    T_obs: SE3,
+    cam: PinholeCamera,
+    cfg: DirectConfig,
+    probes: torch.Tensor | None = None,
+) -> ImmatureArena:
+    """Trace the R most-recently-seeded arena rows against a new frame: one
+    launch of the hand-written kernel (ops/trace_epipolar.py) for CUDA
+    tensors, trace_immatures_rows_plain for CPU tensors; any other device
+    raises. A failure to build or launch the kernel raises. `probes`: see
+    trace_immatures_rows_plain."""
+    if _on_card(arena.uv):
+        return trace_rows_cuda(arena, rows.contiguous(), SE3(R=T_hosts.R.contiguous(),
+                                                             t=T_hosts.t.contiguous()),
+                               host_valid.contiguous(), obs_grad.contiguous(),
+                               SE3(R=T_obs.R.contiguous(), t=T_obs.t.contiguous()), cam, cfg,
+                               probes)
+    if arena.uv.device.type == "cpu":
+        return trace_immatures_rows_plain(arena, rows, T_hosts, host_valid, obs_grad, T_obs,
+                                          cam, cfg, probes)
+    raise ValueError(f"tracer: unsupported device {arena.uv.device}")
+
+
+def trace_immatures_rows_plain(
     arena: ImmatureArena,
     rows: torch.Tensor,        # (R,) int host-slot indices to trace (-1 pad)
     T_hosts: SE3,
@@ -195,18 +228,21 @@ def trace_immatures_rows(
     T_obs: SE3,
     cam: PinholeCamera,
     cfg: DirectConfig,
+    probes: torch.Tensor | None = None,
 ) -> ImmatureArena:
     """Trace only the R most-recently-seeded arena rows (gather → trace →
     scatter back). The -1 pad rows are gathered from row 0 (masked dead),
     and their results are NOT written back: they are masked out of the
-    scatter, never clamped onto row 0 (which may be a genuine row)."""
+    scatter, never clamped onto row 0 (which may be a genuine row). With
+    `probes` ((R, K, 7) float32), every traced point's deciding values
+    (ops/trace_epipolar.PROBE_FIELDS) are written there, by trace row."""
     rows_c = torch.clamp(rows, min=0).long()
     row_ok = rows >= 0
     sub = arena.map(lambda x: x[rows_c])
     sub = sub.replace(valid=sub.valid & row_ok[:, None])
     sub_T = SE3(R=T_hosts.R[rows_c], t=T_hosts.t[rows_c])
     sub_hv = host_valid[rows_c] & row_ok
-    traced = trace_immatures(sub, sub_T, sub_hv, obs_grad, T_obs, cam, cfg)
+    traced = trace_immatures(sub, sub_T, sub_hv, obs_grad, T_obs, cam, cfg, probes)
 
     F = arena.valid.shape[0]
     # (F, R) one-hot of the written rows; rows are distinct window slots
@@ -230,12 +266,15 @@ def trace_immatures(
     T_obs: SE3,                # new frame pose (w2c)
     cam: PinholeCamera,
     cfg: DirectConfig,
+    probes: torch.Tensor | None = None,
 ) -> ImmatureArena:
     """One epipolar sweep of every immature candidate against a new frame,
     narrowing each candidate's inverse-depth interval (traceNewCoarse):
     S hypotheses geometrically spaced inside [rho_lo, rho_hi], pattern SSD,
     parabolic refine, interval shrinks to best +- 1.2 grid steps; failures
-    are counted and repeat failures dropped."""
+    are counted and repeat failures dropped. With `probes` ((F, K, 7)
+    float32), each candidate's deciding values are written there
+    (ops/trace_epipolar.PROBE_FIELDS)."""
     F, K = arena.valid.shape
     S = cfg.trace_steps
     dev = arena.uv.device
@@ -289,6 +328,9 @@ def trace_immatures(
     )
     informative = ok & (span > 1.0)
 
+    if probes is not None:
+        _write_probes(probes, ssd, best, best_ssd, second, span, uv_o, dlog, cam)
+
     new_lo = torch.exp(log_best - 1.2 * dlog)
     new_hi = torch.exp(log_best + 1.2 * dlog)
     rho_lo = torch.where(informative, torch.clamp(new_lo, min=1e-5), arena.rho_lo)
@@ -299,6 +341,23 @@ def trace_immatures(
     valid = arena.valid & (n_fail < 4)
     return arena.replace(rho_lo=rho_lo, rho_hi=rho_hi, n_ok=n_ok, n_fail=n_fail,
                          valid=valid)
+
+
+def _write_probes(probes: torch.Tensor, ssd, best, best_ssd, second, span, uv_o, dlog,
+                  cam: PinholeCamera) -> None:
+    """Fill `probes` (..., 7) with trace_immatures' deciding values: the
+    argmin, its SSD, the least SSD of any other hypothesis, the windowed
+    second best, the span, every projected pattern pixel's least distance
+    from the in-bounds limits, the grid step."""
+    others = torch.where(torch.arange(ssd.shape[-1], device=ssd.device) == best[..., None],
+                         torch.full_like(ssd, float("inf")), ssd)
+    u, v = uv_o[..., 0], uv_o[..., 1]
+    lim_u, lim_v = float(cam.width - 3), float(cam.height - 3)
+    edge = torch.minimum(torch.minimum((u - 2.0).abs(), (u - lim_u).abs()),
+                         torch.minimum((v - 2.0).abs(), (v - lim_v).abs()))
+    edge = torch.nan_to_num(edge, nan=float("inf")).flatten(-2).amin(-1)
+    probes.copy_(torch.stack([best.float(), best_ssd, others.amin(-1), second, span, edge,
+                              dlog], dim=-1))
 
 
 def mature_mask(arena: ImmatureArena, cfg: DirectConfig):

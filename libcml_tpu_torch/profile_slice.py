@@ -19,7 +19,12 @@ nested in it. A stage's device time is that of the work its CUDA runtime
 calls enqueued, matched by their correlation ids, so a kernel launched
 through ctypes (the hand-written kernels) counts as well as one launched by
 a torch operator; `track_lm` and `pnp_lm` are the LM kernels' launches
-(inside `track`, `track_multi` and `solve_pnp`). A Chrome trace of each
+(inside `track`, `track_multi` and `solve_pnp`), `trace_epipolar` the
+tracer kernel's (inside `trace_immatures_rows`). `_preprocess` (or
+`_preprocess_rect` where the sequence has a calibration) is the frame's
+gradient pyramid, `_frame_step` the whole tracked frame (the tracking, the
+tracer and `_scalar_bundle`, the frame's scalars for the host, among it).
+A Chrome trace of each
 window goes under `--out`. Needs a
 CUDA card; exits non-zero without one.
 """
@@ -38,7 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from libcml_tpu_torch import workload as wl
-from libcml_tpu_torch.models.direct import ba, tracker
+from libcml_tpu_torch.models.direct import ba, tracer, tracker
 from libcml_tpu_torch.models.indirect import matching, pnp
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.runtime import hybrid, odometry
@@ -54,10 +59,15 @@ LAUNCH_OPS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
 # first; the hybrid's stages are named after the stats timers around them
 HYB = hybrid.HybridOdometry
 STAGES = (
+    (odometry, "_preprocess", "_preprocess"), (hybrid, "_preprocess", "_preprocess"),
+    (odometry, "_preprocess_rect", "_preprocess_rect"),
+    (odometry, "_frame_step", "_frame_step"),
     (odometry, "track", "track"), (odometry, "track_multi", "track_multi"),
     (tracker, "track_lm_cuda", "track_lm"),
     (tracker, "evaluate_residuals", "evaluate_residuals"), (tracker, "se3_exp", "se3_exp"),
     (odometry, "trace_immatures_rows", "trace_immatures_rows"),
+    (tracer, "trace_rows_cuda", "trace_epipolar"),
+    (odometry, "_scalar_bundle", "_scalar_bundle"),
     (odometry, "_kf_insert_and_ba", "_kf_insert_and_ba"),
     (odometry, "_activate_and_clear", "_activate_and_clear"),
     (odometry, "_refresh_after_kf", "_refresh_after_kf"),

@@ -32,9 +32,10 @@ and 256 point slots (rejected steps, an all-invalid window, ba_iters 0, the
 marginalization pieces and the mixed BA among the cases), and its orders to
 the one-block kernels' where they agree (the elimination, phase D's
 per-entry order). The
-kernels themselves are held to the plain forms on the card by the tests at
-the end (skipped without CUDA: the one-launch run and the split launches of
-a mesh's route on a world of one, and each to the other bit for bit) and by
+kernels themselves are held to the plain forms on the card by
+tests/test_torch_card_ba.py (skipped without CUDA: the one-launch run and
+the split launches of a mesh's route on a world of one, and each to the
+other bit for bit; it holds the window and the run comparison) and by
 chip_smoke.py phase 14. Worker
 time: about 25 s alone on one thread, half of it the JAX reference's
 compile.
@@ -54,33 +55,21 @@ from libcml_tpu.core.lie import SE3 as JSE3
 from libcml_tpu.models.direct.config import DirectConfig as JCfg
 
 import libcml_tpu_torch.models.direct.ba as tba
-import libcml_tpu_torch.models.direct.window as twin
 from libcml_tpu_torch import convert
-from libcml_tpu_torch.core.camera import PinholeCamera as TCam
-from libcml_tpu_torch.core.lie import SE3 as TSE3, se3_exp, skew
-from libcml_tpu_torch.data.synthetic import SyntheticScene, forward_trajectory
-from libcml_tpu_torch.models.direct.config import DirectConfig as TCfg
+from libcml_tpu_torch.core.lie import se3_exp, skew
 from libcml_tpu_torch.models.direct.residuals import huber_energy, huber_weight, pattern_uv
-from libcml_tpu_torch.models.direct.selector import select_points
 from libcml_tpu_torch.ops import ba_sweep as bk
-from libcml_tpu_torch.ops.image import bilinear_stack, build_gradient_pyramid
+from libcml_tpu_torch.ops.image import bilinear_stack
+from test_torch_card_ba import (
+    CAM_ARGS, CFG_KW, KF_FRAMES, REJECTING, TCAM, TCFG, TOL, assert_run_close, build_window)
 
 # The suite runs in several worker processes that share a few cores: one
 # torch thread each, since with torch's default thread pool per process the
 # workers' spinning threads slow each other down many times over.
 torch.set_num_threads(1)
 
-CAM_ARGS = (110.0, 110.0, 79.5, 59.5, 160, 120)
-CFG_KW = dict(num_levels=3, max_points=256, points_per_kf=64, init_points=256,
-              max_frames=4, tracker_iters=8, init_iters=12, ba_iters=4)
-TCAM, JCAM = TCam.make(*CAM_ARGS), JCam.make(*CAM_ARGS)
-TCFG, JCFG = TCfg(**CFG_KW), JCfg(**CFG_KW)
+JCAM, JCFG = JCam.make(*CAM_ARGS), JCfg(**CFG_KW)
 NPB = 16                          # csrc/ba_common.cuh: points a group
-KF_FRAMES = [0, 2, 4, 6]
-# every step rejected: the candidates' inverse depths clamped to 1e-3
-REJECTING = TCfg(**{**CFG_KW, "ba_iters": 2, "idepth_max": 1e-3})
-# tests/test_torch_direct.py test_run_ba_matches_reference's bounds
-TOL = {"E_rel": 1e-3, "T": 2e-4, "idepth_rel": 1e-2, "idepth_abs": 1e-3}
 
 
 def _np(x):
@@ -89,29 +78,7 @@ def _np(x):
 
 @pytest.fixture(scope="module")
 def window():
-    """Keyframes at frames 0, 2, 4, 6 with perturbed poses, 64 points each
-    at their rendered inverse depth; the rendered images kept for the mixed
-    case's factors."""
-    scene = SyntheticScene.default(TCAM, seed=3)
-    poses = forward_trajectory(7, step=0.08, yaw_rate=0.003)
-    rng = np.random.default_rng(1)
-    w = twin.empty_window(TCFG, TCAM.height, TCAM.width)
-    rendered = {}
-    for n, i in enumerate(KF_FRAMES):
-        img, idep = scene.render(*poses[i])
-        rendered[i] = (img, idep)
-        g0 = build_gradient_pyramid(torch.tensor(img), 1)[0]
-        xi = torch.tensor(rng.normal(0, 0.004, 6) if n else np.zeros(6), dtype=torch.float32)
-        T = se3_exp(xi).compose(TSE3(R=torch.tensor(poses[i][0], dtype=torch.float32),
-                                     t=torch.tensor(poses[i][1], dtype=torch.float32)))
-        w, slot = twin.add_keyframe(w, g0, T, torch.zeros(2), i)
-        uv, valid, _ = select_points(g0, 64)
-        ui = _np(uv).astype(int)
-        rho = idep[np.clip(ui[:, 1], 0, 119), np.clip(ui[:, 0], 0, 159)]
-        ok = _np(valid) & (rho > 1e-3)
-        w = twin.add_points(w, slot, uv, torch.tensor(rho), torch.tensor(ok), TCFG)
-    w = w.replace(ba=tba.anchor_first_frame(w.ba, 0, TCFG))
-    return {"ba": w.ba, "images": w.images, "poses": poses, "rendered": rendered}
+    return build_window()
 
 
 def _jax_state(st: tba.BAState) -> jba.BAState:
@@ -418,7 +385,7 @@ def _model_run_ba(st, images, cam, cfg, ind=None):
     return st, None if ind is None else ind.idepth, E, steps
 
 
-def _assert_run_close(st, E, ref_st, ref_E):
+def assert_run_close(st, E, ref_st, ref_E):
     np.testing.assert_allclose(_np(E), _np(ref_E), rtol=TOL["E_rel"])
     np.testing.assert_allclose(_np(st.T.t), _np(ref_st.T.t), atol=TOL["T"])
     np.testing.assert_allclose(_np(st.T.R), _np(ref_st.T.R), atol=TOL["T"])
@@ -461,15 +428,15 @@ def test_run_ba_model_matches_plain_and_jax(window):
     st, images = window["ba"], window["images"]
     got, _, E, steps = _model_run_ba(st, images, TCAM, TCFG)
     want, E_want = tba.run_ba(st, images, TCAM, TCFG)
-    _assert_run_close(got, E, want, E_want)
+    assert_run_close(got, E, want, E_want)
     bj, Ej = jba.run_ba(_jax_state(st), jnp.asarray(_np(images)), JCAM, JCFG)
     jst = convert.from_np(tba.BAState, convert.to_np(jax.device_get(bj)))
-    _assert_run_close(got, E, jst, torch.tensor(np.asarray(Ej)))
+    assert_run_close(got, E, jst, torch.tensor(np.asarray(Ej)))
     assert steps[0][0], "the first step is accepted"
     cfg12 = dataclasses.replace(TCFG, ba_iters=12)
     got, _, E, steps = _model_run_ba(st, images, TCAM, cfg12)
     want, E_want = tba.run_ba(st, images, TCAM, cfg12)
-    _assert_run_close(got, E, want, E_want)
+    assert_run_close(got, E, want, E_want)
     assert not all(s[0] for s in steps), f"no step rejected: {steps}"
 
 
@@ -492,7 +459,7 @@ def test_run_ba_model_edge_cases(window, case):
         cfg = REJECTING
     got, _, E, steps = _model_run_ba(st, images, TCAM, cfg)
     want, E_want = tba.run_ba(st, images, TCAM, cfg)
-    _assert_run_close(got, E, want, E_want)
+    assert_run_close(got, E, want, E_want)
     assert torch.isfinite(got.T.t).all() and torch.isfinite(E)
     if case == "all_invalid":
         assert float(E) == float(E_want)
@@ -755,98 +722,3 @@ def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(window, what):
         bk._check_state(bad, images, TCAM, torch.device("cpu"))
     with pytest.raises(ValueError, match="need CUDA tensors"):
         bk._check_state(st, images, TCAM, torch.device("cpu"))
-
-
-# -- the kernels on the card --------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _to(st, dev):
-    return convert.from_np(tba.BAState, convert.to_np(st), device=dev)
-
-
-def _cpu(st):
-    return convert.from_np(tba.BAState, convert.to_np(st))
-
-
-def _launches() -> dict:
-    return {"run": bk.ba_run_cuda.launches, "sweep": bk.ba_sweep_cuda.launches,
-            "solve": bk.ba_solve_cuda.launches}
-
-
-@pytest.fixture(scope="module")
-def mesh_of_one():
-    """A world of one over NCCL in this process (the mesh's route: split
-    sweep, solve and FINISH launches with identity collectives between
-    them), destroyed at the module's end."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
-    import torch.distributed as dist
-
-    from libcml_tpu_torch.parallel.sharding import make_mesh
-    mesh = make_mesh()
-    yield mesh
-    dist.destroy_process_group()
-
-
-@pytest.mark.parametrize("case", ["default", "rejected"])
-@pytest.mark.parametrize("route", ["one_launch", "mesh"])
-def test_cuda_run_ba_matches_plain(cuda, window, request, route, case):
-    """run_ba on the card, in one launch of the run kernel (the unsharded
-    route) or in split sweep, solve and FINISH launches (the route of a mesh,
-    here a world of one), held to run_ba_plain; with every step rejected the
-    state keeps its bits."""
-    cfg = TCFG if case == "default" else REJECTING
-    mesh = request.getfixturevalue("mesh_of_one") if route == "mesh" else None
-    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
-    before = _launches()
-    got, E = tba.run_ba(st, images, TCAM, cfg, mesh)
-    torch.cuda.synchronize()
-    launches = {k: v - before[k] for k, v in _launches().items()}
-    if route == "one_launch":
-        assert launches == {"run": 1, "sweep": 0, "solve": 0}
-    else:
-        assert launches == {"run": 0, "sweep": 2 + 3 * cfg.ba_iters, "solve": cfg.ba_iters}
-    want, E_want = tba.run_ba_plain(st, images, TCAM, cfg)
-    _assert_run_close(_cpu(got), E.cpu(), _cpu(want), E_want.cpu())
-    if case == "rejected":
-        for x, y in ((got.T.R, st.T.R), (got.T.t, st.T.t), (got.ab, st.ab),
-                     (got.delta, st.delta), (got.idepth, st.idepth)):
-            assert torch.equal(x, y)
-
-
-@pytest.mark.parametrize("case", ["default", "rejected"])
-def test_cuda_one_launch_equals_mesh_of_one(cuda, mesh_of_one, window, case):
-    """The run kernel and a world of one's split launches run the same
-    device functions in the same orders: the same bits (E, the trace, every
-    state tensor)."""
-    cfg = TCFG if case == "default" else REJECTING
-    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
-    traces = [torch.empty((cfg.ba_iters, 2), device=cuda) for _ in range(2)]
-    a, Ea = tba._run_ba_cuda(st, images, TCAM, cfg, None, trace=traces[0])
-    b, Eb = tba._run_ba_cuda(st, images, TCAM, cfg, mesh_of_one, trace=traces[1])
-    torch.cuda.synchronize()
-    assert torch.equal(Ea, Eb) and torch.equal(traces[0], traces[1])
-    for x, y in ((a.T.R, b.T.R), (a.T.t, b.T.t), (a.ab, b.ab), (a.delta, b.delta),
-                 (a.idepth, b.idepth)):
-        assert torch.equal(x, y)
-
-
-def test_cuda_status_and_marg_match_plain(cuda, window):
-    st, images = _to(window["ba"], cuda), window["images"].to(cuda)
-    got = tba.update_residual_status(st, images, TCAM, TCFG)
-    want = tba.update_residual_status_plain(st, images, TCAM, TCFG)
-    assert torch.equal(got.res_active, want.res_active)
-    assert torch.equal(got.point_valid, want.point_valid)
-    got = tba._marg_pieces(st, images, TCAM, TCFG, 1)
-    want = tba._marg_pieces_plain(st, images, TCAM, TCFG, 1)
-    for x, y in zip(got[:4], want[:4]):
-        ref = _np(y.cpu())
-        np.testing.assert_allclose(_np(x.cpu()), ref, rtol=1e-3,
-                                   atol=1e-3 * max(1.0, float(np.abs(ref).max())))

@@ -17,8 +17,8 @@ N = 4096). The kernels cannot run here. Two models stand in for them:
   pivoted elimination, in numpy, held to the plain forms within the
   tolerances phase 13 of chip_smoke.py applies on the card
   (`ops.track_lm.PARITY_TOL`, `ops.pnp_lm.PARITY_TOL`).
-The kernels themselves are held to the plain forms on the card by the tests
-at the end (skipped without CUDA) and by chip_smoke.py.
+The kernels themselves are held to the plain forms on the card by
+tests/test_torch_card_lm.py (skipped without CUDA) and by chip_smoke.py.
 """
 
 import jax
@@ -725,46 +725,3 @@ def test_pnp_kernel_model_within_parity_tolerance():
         res = pnp_lm.parity(model, want, _t(Xw), _t(uv), _t(valid), _t(s2),
                             TCam.make(*CAM_ARGS))
         assert res["ok"], res
-
-
-# -- the kernels on the card ------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _to(x, dev):
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    if isinstance(x, list):
-        return [_to(v, dev) for v in x]
-    return x
-
-
-def test_cuda_track_lm_matches_plain(cuda, scene):
-    _, Ht = _hypotheses(scene)
-    args = _to(list(_level_args(scene, [2, 1, 0])), cuda) + [
-        scene["rt"].idepth.to(cuda), Ht.R.to(cuda), Ht.t.to(cuda),
-        torch.zeros(15, 2, device=cuda), torch.zeros(2, device=cuda), TCFG, True]
-    before = track_lm.track_lm_cuda.launches
-    got = track_lm.track_lm_cuda(*args)
-    torch.cuda.synchronize()
-    assert track_lm.track_lm_cuda.launches == before + 1
-    res = track_lm.parity(got, ttrk.track_levels_plain(*args), TCFG)
-    assert res["ok"] and res["stats_err"] is not None, res
-
-
-def test_cuda_pnp_lm_matches_plain(cuda):
-    Xw, uv, valid, s2, T0, _ = _pnp_problem(7)
-    args = [_t(x).to(cuda) for x in (Xw, uv, valid, s2, T0.R, T0.t)]
-    cam = TCam.make(*CAM_ARGS)
-    before = pnp_lm.pnp_lm_cuda.launches
-    got = pnp_lm.pnp_lm_cuda(*args, cam, 4, 10)
-    torch.cuda.synchronize()
-    assert pnp_lm.pnp_lm_cuda.launches == before + 1
-    res = pnp_lm.parity(got, tpnp.pnp_lm_plain(*args, cam, 4, 10), *args[:4], cam)
-    assert res["ok"], res
