@@ -18,7 +18,8 @@
 // block that owns it takes it through:
 //   A  a thread a pair: the current-state warp and bilinear sample of the 8
 //      pixels, residuals, Huber weights and energy, the masks, the FEJ
-//      geometry, Z and zr (kept in shared memory);
+//      geometry, Z and zr (kept in shared memory; MARG takes this phase in
+//      double, marg_pair);
 //   F  two threads a pair: its forms L Z L^T (L_t Z L_t^T, L_t Z L_h^T, L_h Z
 //      L_h^T), L zr, the target block of its H_xr row and its share of the
 //      point's H_rho, b_rho, H_xr host block;
@@ -433,12 +434,12 @@ __device__ __forceinline__ void rel_poses(const Args& a) {
 }
 
 // Phase A: one (point, target) pair (thread t < NPAIR of the block; pair
-// t = pl * MAX_F + f).
-__device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared& s, int t, int p,
-                                           int slot) {
+// t = pl * MAX_F + f), in SYSTEM, ENERGY and STATUS (MARG: marg_pair).
+__device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared& s, int t,
+                                           int p) {
   const int f = t % MAX_F;
   Pair& q = s.pair[t];
-  const bool sys = mode == SYSTEM || mode == MARG;
+  const bool sys = mode == SYSTEM;
   float e = 0.0f, Z[10], zr[4];
 #pragma unroll
   for (int i = 0; i < 10; ++i) Z[i] = 0.0f;
@@ -448,8 +449,7 @@ __device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared&
   if (p < a.P && f < a.F) {
     const int h = a.host[p];
     const int F = a.F;
-    bool pv = a.point_valid[p] != 0;
-    if (mode == MARG) pv = pv && h == slot;
+    const bool pv = a.point_valid[p] != 0;
     active = a.res_active[(size_t)p * F + f] && pv && s.fvalid[f] && s.fvalid[h] &&
              h != f;
     const float u = a.uv[2 * p], v = a.uv[2 * p + 1];
@@ -461,7 +461,7 @@ __device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared&
     const float* tc = s.relt[0][h * MAX_F + f];
 
     // FEJ geometry at the point's centre
-    float s0 = 0.0f, b0h = 0.0f, At[12], Ah[12], ar[2], dt[8], dh[8], drho = 0.0f;
+    float s0 = 0.0f, b0h = 0.0f, At[12], Ah[12], ar[2];
     if (sys) {
       const float* Rf = s.relR[1][h * MAX_F + f];
       const float* tf = s.relt[1][h * MAX_F + f];
@@ -510,14 +510,6 @@ __device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared&
       ar[1] = (Jv[0] * dX[0] + Jv[1] * dX[1]) + Jv[2] * dX[2];
       s0 = expf(s.fabf[f][0] - s.fabf[h][0]);
       b0h = s.fabf[h][1];
-      if (mode == MARG) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          dt[i] = s.fdelta[f][i];
-          dh[i] = s.fdelta[h][i];
-        }
-        drho = rho - rho0;
-      }
     }
 
     // the current-state warp of the 8 pattern pixels
@@ -549,27 +541,13 @@ __device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared&
         const float w = huber_w(r, a.huber_k) * wk;
         const float c0 = col - b0h;
         const float zk[4] = {smp[1], smp[2], c0, 1.0f};
-        float rr = r;
-        if (mode == MARG) {
-          // res_toZeroF: r - J_t d_t - J_h d_h - J_rho d_rho
-          float jt = 0.0f, jh = 0.0f;
-#pragma unroll
-          for (int c = 0; c < 6; ++c) {
-            jt += (smp[1] * At[c] + smp[2] * At[6 + c]) * dt[c];
-            jh += (smp[1] * Ah[c] + smp[2] * Ah[6 + c]) * dh[c];
-          }
-          jt += (-s0 * c0) * dt[6] + (-1.0f) * dt[7];
-          jh += (s0 * c0) * dh[6] + s0 * dh[7];
-          const float jr = smp[1] * ar[0] + smp[2] * ar[1];
-          rr = ((r - jt) - jh) - jr * drho;
-        }
         int i = 0;
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const float wz = w * zk[m];
 #pragma unroll
           for (int n = m; n < 4; ++n) Z[i++] += wz * zk[n];
-          zr[m] += wz * rr;
+          zr[m] += wz * r;
         }
       }
     }
@@ -604,6 +582,198 @@ __device__ __forceinline__ void sweep_pair(const Args& a, int mode, SweepShared&
     for (int i = 0; i < 4; ++i) q.zr[i] = zr[i];
   }
   s.e[t] = e;
+  s.act[t] = active;
+}
+
+// Phase A of MARG (_marg_pieces: the points hosted in `slot`), in double.
+// The marginalization's sums go to the host's float64 Schur, where b_pts and
+// b_corr are sums whose terms cancel: a residual rounded in float32 (a
+// sample at a pixel projected in float32, less the host colour's affine
+// image; ~1e-4 of the residual) reaches them at up to ~1e-2 of their
+// largest entry on a real window, in the plain form as in a float32 sweep
+// (PERF.md). So the pair's relative poses, the current-state warp and
+// bilinear samples of the 8 pixels, the residuals, the Huber weights, the
+// FEJ shift r - J_t d_t - J_h d_h - J_rho d_rho, the FEJ geometry and the
+// sums Z and zr are taken here in double from the float32 inputs, in the
+// plain form's formulas, and rounded once into the Pair; phases F to D are
+// those of SYSTEM. The plain form's float64 run (_marg_pieces_plain on a
+// float64 state) is then matched to float32 rounding of Z and zr.
+__device__ __forceinline__ double dclamp_min(double x, double m) { return x < m ? m : x; }
+__device__ __forceinline__ double dclamp_max(double x, double m) { return x > m ? m : x; }
+
+// T_f o T_h^-1 in double from the frames' float32 poses (core/lie.py).
+__device__ __forceinline__ void rel_pose_f64(const float* Rh, const float* th, const float* Rf,
+                                             const float* tf, double R[9], double t[3]) {
+  double ninv[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    ninv[r] = -((double)Rh[r] * th[0] + (double)Rh[3 + r] * th[1] + (double)Rh[6 + r] * th[2]);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      R[3 * r + c] = (double)Rf[3 * r] * Rh[3 * c] + (double)Rf[3 * r + 1] * Rh[3 * c + 1] +
+                     (double)Rf[3 * r + 2] * Rh[3 * c + 2];
+    t[r] = (double)Rf[3 * r] * ninv[0] + (double)Rf[3 * r + 1] * ninv[1] +
+           (double)Rf[3 * r + 2] * ninv[2] + (double)tf[r];
+  }
+}
+
+__device__ __forceinline__ void marg_pair(const Args& a, SweepShared& s, int t, int p, int slot) {
+  const int f = t % MAX_F;
+  Pair& q = s.pair[t];
+  double e = 0.0, Z[10], zr[4], At[12], Ah[12], ar[2] = {0.0, 0.0}, s0 = 0.0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) Z[i] = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) zr[i] = 0.0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) At[i] = Ah[i] = 0.0;
+  bool active = false;
+  if (p < a.P && f < a.F) {
+    const int h = a.host[p];
+    const int F = a.F;
+    const bool pv = a.point_valid[p] != 0 && h == slot;
+    active = a.res_active[(size_t)p * F + f] && pv && s.fvalid[f] && s.fvalid[h] && h != f;
+    const double fx = a.fx, fy = a.fy, cx = a.cx, cy = a.cy;
+    const double u = a.uv[2 * p], v = a.uv[2 * p + 1];
+    const double rho = ldcg(a.idepth + p);
+    const double rho0 = a.idepth_fej[p];
+    const double ah = s.fab[h][0], bh = s.fab[h][1];
+    const double s_ji = exp((double)s.fab[f][0] - ah);
+    const double bj = s.fab[f][1];
+    double Rc[9], tc[3], Rf[9], tf[3];
+    rel_pose_f64(s.fR[0][h], s.ft[0][h], s.fR[0][f], s.ft[0][f], Rc, tc);
+    rel_pose_f64(s.fR[1][h], s.ft[1][h], s.fR[1][f], s.ft[1][f], Rf, tf);
+
+    // FEJ geometry at the point's centre (linearize, proj_jacobian)
+    const double d0 = 1.0 / dclamp_min(rho0, 1e-12);
+    const double Xi[3] = {((u - cx) / fx) * d0, ((v - cy) / fy) * d0, d0};
+    double Xj[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      Xj[r] = Rf[3 * r] * Xi[0] + Rf[3 * r + 1] * Xi[1] + Rf[3 * r + 2] * Xi[2] + tf[r];
+    const double iz = 1.0 / dclamp_min(Xj[2], 1e-8);
+    const double iz2 = iz * iz;
+    const double Ju[3] = {fx * iz, 0.0, -fx * Xj[0] * iz2};
+    const double Jv[3] = {0.0, fy * iz, -fy * Xj[1] * iz2};
+    const double Sj[3][3] = {{0.0, Xj[2], -Xj[1]}, {-Xj[2], 0.0, Xj[0]}, {Xj[1], -Xj[0], 0.0}};
+    const double Si[3][3] = {{0.0, Xi[2], -Xi[1]}, {-Xi[2], 0.0, Xi[0]}, {Xi[1], -Xi[0], 0.0}};
+    double Mh[3][6];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        Mh[r][c] = -Rf[3 * r + c];
+        Mh[r][3 + c] =
+            -(Rf[3 * r] * Si[0][c] + Rf[3 * r + 1] * Si[1][c] + Rf[3 * r + 2] * Si[2][c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      if (c < 3) {
+        At[c] = Ju[c];
+        At[6 + c] = Jv[c];
+      } else {
+        At[c] = Ju[0] * Sj[0][c - 3] + Ju[1] * Sj[1][c - 3] + Ju[2] * Sj[2][c - 3];
+        At[6 + c] = Jv[0] * Sj[0][c - 3] + Jv[1] * Sj[1][c - 3] + Jv[2] * Sj[2][c - 3];
+      }
+      Ah[c] = Ju[0] * Mh[0][c] + Ju[1] * Mh[1][c] + Ju[2] * Mh[2][c];
+      Ah[6 + c] = Jv[0] * Mh[0][c] + Jv[1] * Mh[1][c] + Jv[2] * Mh[2][c];
+    }
+    const double rc = dclamp_min(rho0, 1e-8);
+    const double dX[3] = {-(Xj[0] - tf[0]) / rc, -(Xj[1] - tf[1]) / rc, -(Xj[2] - tf[2]) / rc};
+    ar[0] = Ju[0] * dX[0] + Ju[1] * dX[1] + Ju[2] * dX[2];
+    ar[1] = Jv[0] * dX[0] + Jv[1] * dX[1] + Jv[2] * dX[2];
+    s0 = exp((double)s.fabf[f][0] - (double)s.fabf[h][0]);
+    const double b0h = s.fabf[h][1];
+    const float* dt = s.fdelta[f];
+    const float* dh = s.fdelta[h];
+    const double drho = rho - rho0;
+
+    // the current-state warp of the 8 pattern pixels (camera.project,
+    // ops/image.py bilinear_stack)
+    const double depth = 1.0 / dclamp_min(rho, 1e-12);
+    const float* img = a.images + (size_t)f * a.img_h * a.img_w * 3;
+    const double u_max = a.img_w - 3.0, v_max = a.img_h - 3.0;
+    bool geo_ok = true;
+#pragma unroll 1
+    for (int k = 0; k < NPAT; ++k) {
+      const double X[3] = {((u + PAT_U[k] - cx) / fx) * depth, ((v + PAT_V[k] - cy) / fy) * depth,
+                           depth};
+      double Y[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        Y[r] = Rc[3 * r] * X[0] + Rc[3 * r + 1] * X[1] + Rc[3 * r + 2] * X[2] + tc[r];
+      const double izk = 1.0 / (fabs(Y[2]) < 1e-12 ? 1e-12 : Y[2]);
+      const double uj = fx * Y[0] * izk + cx;
+      const double vj = fy * Y[1] * izk + cy;
+      geo_ok = geo_ok && Y[2] > 1e-6 && uj >= 2.0 && uj <= u_max && vj >= 2.0 && vj <= v_max;
+      double x0f = dclamp_max(dclamp_min(floor(uj), 0.0), a.img_w - 2.0);
+      double y0f = dclamp_max(dclamp_min(floor(vj), 0.0), a.img_h - 2.0);
+      if (isnan(x0f)) x0f = 0.0;
+      if (isnan(y0f)) y0f = 0.0;
+      const double dx = dclamp_max(dclamp_min(uj - x0f, 0.0), 1.0);
+      const double dy = dclamp_max(dclamp_min(vj - y0f, 0.0), 1.0);
+      const float* p00 = img + ((size_t)(int)y0f * a.img_w + (int)x0f) * 3;
+      const float* p10 = p00 + (size_t)a.img_w * 3;
+      double smp[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const double top = (double)__ldg(p00 + c) * (1.0 - dx) + (double)__ldg(p00 + 3 + c) * dx;
+        const double bot = (double)__ldg(p10 + c) * (1.0 - dx) + (double)__ldg(p10 + 3 + c) * dx;
+        smp[c] = top * (1.0 - dy) + bot * dy;
+      }
+      const double col = a.color[(size_t)p * NPAT + k];
+      const double wk = a.weight[(size_t)p * NPAT + k];
+      const double r = (smp[0] - bj) - s_ji * (col - bh);
+      const double ar_ = fabs(r);
+      const double k_ = a.huber_k;
+      e += wk * (ar_ <= k_ ? 0.5 * r * r : k_ * (ar_ - 0.5 * k_));
+      const double w = (ar_ <= k_ ? 1.0 : k_ / dclamp_min(ar_, 1e-12)) * wk;
+      const double c0 = col - b0h;
+      // res_toZeroF: r - J_t d_t - J_h d_h - J_rho d_rho
+      double jt = 0.0, jh = 0.0;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        jt += (smp[1] * At[c] + smp[2] * At[6 + c]) * dt[c];
+        jh += (smp[1] * Ah[c] + smp[2] * Ah[6 + c]) * dh[c];
+      }
+      jt += -s0 * c0 * dt[6] - dt[7];
+      jh += s0 * c0 * dh[6] + s0 * dh[7];
+      const double rr = ((r - jt) - jh) - (smp[1] * ar[0] + smp[2] * ar[1]) * drho;
+      const double zk[4] = {smp[1], smp[2], c0, 1.0};
+      int i = 0;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const double wz = w * zk[m];
+#pragma unroll
+        for (int n = m; n < 4; ++n) Z[i++] += wz * zk[n];
+        zr[m] += wz * rr;
+      }
+    }
+    active = active && geo_ok;
+  }
+  if (!active) {
+    e = 0.0;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) Z[i] = 0.0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zr[i] = 0.0;
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    q.At[i] = (float)At[i];
+    q.Ah[i] = (float)Ah[i];
+  }
+  q.a[0] = (float)ar[0];
+  q.a[1] = (float)ar[1];
+  q.s0 = (float)s0;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) q.Z[i] = (float)Z[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q.zr[i] = (float)zr[i];
+  s.e[t] = (float)e;
   s.act[t] = active;
 }
 
@@ -807,7 +977,12 @@ __device__ __noinline__ void sweep_group(const Args& a, int slot, float lam, int
     for (int i = tid; i < NPB * XS; i += THREADS) (&X[0][0])[i] = 0.0f;
   if (tid < NPB) s.host[tid] = base + tid < a.P ? a.host[base + tid] : -1;
   // stage: A0
-  if (tid < NPAIR) sweep_pair(a, mode, s, tid, base + tid / MAX_F, slot);
+  if (tid < NPAIR) {
+    if (mode == MARG)
+      marg_pair(a, s, tid, base + tid / MAX_F, slot);
+    else
+      sweep_pair(a, mode, s, tid, base + tid / MAX_F);
+  }
   __syncthreads();
   // stage: A
   group_energy(s);

@@ -28,7 +28,9 @@
 // energy); ENERGY (the photometric energy only); STATUS (update_residual_status:
 // the new res_active and point_valid, and the energy); MARG (_marg_pieces:
 // the points hosted in a slot, the gradient from the FEJ-shifted residual
-// r - J_t d_t - J_h d_h - J_rho d_rho, the Schur scale 1/(H_rho + 1e-12));
+// r - J_t d_t - J_h d_h - J_rho d_rho, the Schur scale 1/(H_rho + 1e-12);
+// its pairs' residuals and sums in double, ba_common.cuh marg_pair, since
+// the host's float64 Schur takes sums whose terms cancel);
 // FINISH (no sweep: one block completes an energy reduced elsewhere, e.g. by
 // an all-reduce). With `fin`, the energy's block also adds the prior and
 // affine terms of total_energy and, for FIN_ACCEPT, takes run_ba's accept

@@ -35,6 +35,7 @@ SOURCE = kb.CSRC / "trace_epipolar.cu"
 STEPS = 16              # csrc/trace_epipolar.cu S: two lanes a hypothesis
 PATTERN = 8             # csrc/trace_epipolar.cu NP: four pixels a lane
 MAX_ROWS = 32           # csrc/trace_epipolar.cu MAX_ROWS: a lane a row, a lane a host slot
+VECTOR_ALIGN = 16       # the kernel loads an entry's pixel and colours as float2 / float4
 # what a probe row holds, per traced point: the argmin, its SSD, the least
 # SSD of any other hypothesis, the second best outside the +-2-step window,
 # the pixel span, the least distance of any projected pattern pixel from the
@@ -88,6 +89,9 @@ def _check(arena, rows: torch.Tensor, T_hosts: SE3, host_valid: torch.Tensor,
                          f"{MAX_ROWS} traced rows, got F {F}, R {R}")
     if K == 0:
         raise ValueError("trace_rows_cuda needs a non-empty arena")
+    if 3 * cam.height * cam.width >= 2 ** 31:
+        raise ValueError("trace_rows_cuda indexes the image with 32-bit offsets: "
+                         f"{cam.height} x {cam.width} x 3 is too large")
     dev, f32 = arena.uv.device, torch.float32
     for name, x, shape, dtype in (
             ("uv", arena.uv, (F, K, 2), f32), ("color", arena.color, (F, K, PATTERN), f32),
@@ -102,6 +106,10 @@ def _check(arena, rows: torch.Tensor, T_hosts: SE3, host_valid: torch.Tensor,
         kb.check_tensor(name, x, shape, dtype, dev)
     if probes is not None:
         kb.check_tensor("probes", probes, (R, K, len(PROBE_FIELDS)), f32, dev)
+    for name, x in (("uv", arena.uv), ("color", arena.color)):   # loaded as vectors
+        if x.data_ptr() % VECTOR_ALIGN:
+            raise ValueError(f"trace_rows_cuda loads {name} as {VECTOR_ALIGN}-byte vectors: "
+                             f"its data must be {VECTOR_ALIGN}-byte aligned")
     if dev.type != "cuda":
         raise ValueError(f"trace_rows_cuda needs CUDA tensors, got {dev}")
 
@@ -127,8 +135,10 @@ def trace_rows_cuda(arena, rows: torch.Tensor, T_hosts: SE3, host_valid: torch.T
     outs = (out["uv"], out["color"], out["rho_lo"], out["rho_hi"], out["n_ok"],
             out["n_fail"], out["valid"])
     dims = (ctypes.c_int * 5)(F, K, rows.shape[0], cam.height, cam.width)
-    conf = (ctypes.c_float * 6)(cam.fx, cam.fy, cam.cx, cam.cy,
-                                float(np.float32(1.0 / (STEPS - 1))), cfg.trace_min_quality)
+    one = np.float32(1.0)
+    conf = (ctypes.c_float * 8)(cam.fx, cam.fy, cam.cx, cam.cy, float(one / np.float32(STEPS - 1)),
+                                cfg.trace_min_quality, float(one / np.float32(cam.fx)),
+                                float(one / np.float32(cam.fy)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.trace_epipolar_launch(

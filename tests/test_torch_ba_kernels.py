@@ -12,7 +12,9 @@ their arithmetic (csrc/ba_common.cuh) stands in for them:
   group's
   energy a tree over each warp's 32 pairs and then the warps in order; then
   phase D: each entry summed over the groups in group order (acc = 0, then
-  groups 0..G-1), whichever block of the grid sums it;
+  groups 0..G-1), whichever block of the grid sums it; the marg mode's
+  pairs (marg_pair) in float64 from the float32 inputs, rounded once, and
+  held nearer a float64 _marg_pieces_plain than the plain float32 form;
 - the solve: the damped system built in the kernel's order, elimination
   with the first row of largest magnitude as pivot and the multipliers
   scaled by the pivot's reciprocal (one warp, two rows a lane that stay in
@@ -56,7 +58,7 @@ from libcml_tpu.models.direct.config import DirectConfig as JCfg
 
 import libcml_tpu_torch.models.direct.ba as tba
 from libcml_tpu_torch import convert
-from libcml_tpu_torch.core.lie import se3_exp, skew
+from libcml_tpu_torch.core.lie import SE3, se3_exp, skew
 from libcml_tpu_torch.models.direct.residuals import huber_energy, huber_weight, pattern_uv
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops.image import bilinear_stack
@@ -94,7 +96,7 @@ def _jax_state(st: tba.BAState) -> jba.BAState:
 
 def _lrows(A: torch.Tensor, s0: torch.Tensor, host_side: bool) -> torch.Tensor:
     """(..., 8, 4) L_t or L_h of the pairs: row d maps z to J[k][d]."""
-    L = torch.zeros(A.shape[:-2] + (8, 4))
+    L = torch.zeros(A.shape[:-2] + (8, 4), dtype=A.dtype)
     L[..., :6, 0] = A[..., 0, :]
     L[..., :6, 1] = A[..., 1, :]
     L[..., 6, 2] = s0 if host_side else -s0
@@ -102,9 +104,24 @@ def _lrows(A: torch.Tensor, s0: torch.Tensor, host_side: bool) -> torch.Tensor:
     return L
 
 
+def _state64(st: tba.BAState) -> tba.BAState:
+    """The state with every float tensor in float64."""
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        out[f.name] = (SE3(R=v.R.double(), t=v.t.double()) if isinstance(v, SE3)
+                       else v.double() if v.is_floating_point() else v)
+    return tba.BAState(**out)
+
+
 def _pairs(st: tba.BAState, images, cam, cfg, mode: str, slot=None) -> dict:
     """Phase A for every (point, target) pair: the mask, the energy, and
-    for the system modes the FEJ geometry and the sums Z, zr."""
+    for the system modes the FEJ geometry and the sums Z, zr. The marg
+    mode's (csrc/ba_common.cuh marg_pair) in float64 from the float32
+    inputs, rounded once into the pair's float32 values."""
+    if mode == "marg" and st.uv.dtype == torch.float32:
+        q = _pairs(_state64(st), images.double(), cam, cfg, mode, slot)
+        return {k: v.float() if v.is_floating_point() else v for k, v in q.items()}
     P, F = st.num_points, st.num_frames
     host = st.host.long()
     rel, relf = tba._pairwise_rel(st.T), tba._pairwise_rel(st.T_fej)
@@ -493,6 +510,29 @@ def test_status_and_marg_modes_equal_plain(window):
             np.testing.assert_allclose(_np(got[name]), ref, rtol=1e-3,
                                        atol=1e-3 * max(1.0, float(np.abs(ref).max())),
                                        err_msg=name)
+
+
+def _rel(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """chip_smoke.py's marg measure: the largest error over the reference's
+    largest entry (at least 1)."""
+    return float((x.double() - ref.double()).abs().max()
+                 / ref.double().abs().max().clamp_min(1.0))
+
+
+@pytest.mark.parametrize("slot", [1, 2, 3])
+def test_marg_model_nearer_float64_than_plain(window, slot):
+    """The marg mode's phase A in double (marg_pair): each of the four sums
+    sits nearer _marg_pieces_plain in float64 than the plain float32 form
+    does, and within float32 rounding of its pair sums (2e-7 of the largest
+    entry here, where the plain form sits at up to ~1.5e-6)."""
+    st, images = window["ba"], window["images"]
+    st = tba.run_ba(st, images, TCAM, TCFG)[0]
+    got = _sweep(st, images, TCAM, TCFG, "marg", slot=slot)
+    plain = tba._marg_pieces_plain(st, images, TCAM, TCFG, slot)
+    ref = tba._marg_pieces_plain(_state64(st), images.double(), TCAM, TCFG, slot)
+    for k, name in enumerate(("H", "b", "H_corr", "b_corr")):
+        e_model, e_plain = _rel(got[name], ref[k]), _rel(plain[k], ref[k])
+        assert e_model <= e_plain and e_model <= 2e-7, (name, e_model, e_plain)
 
 
 def _factors(window, Q=32, seed=5) -> tba.IndirectFactors:

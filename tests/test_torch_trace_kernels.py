@@ -10,9 +10,10 @@ computed in the warp, the 3x3 products as the kernel's fused multiply-add
 chains (emulated in float64), a division by a Python number taken as a
 product with the float reciprocal, a hypothesis's SSD summed as
 ((0+4)+(2+6)) + ((1+5)+(3+7)), its two halves added by a shuffle, the
-argmin as a butterfly over (ssd, s) pairs with the first occurrence
-winning, the second best, the runner-up and the border margin as
-butterflies, f0, f1, f2 read from their lanes, lane 0's update; untraced
+argmin as two redux.sync minima (over each SSD's bits, a NaN the least key,
+then over the hypotheses that hold the least: the first occurrence), the
+second best, the runner-up and the border margin as minima over bits, f0,
+f1, f2 read from their lanes, lane 0's update; untraced
 rows copied, a dead slot's and an invalid point's status update without a
 sweep. The model is held to `trace_immatures_rows_plain` under the kernel's
 own rule, `ops.trace_epipolar.parity` (statuses equal and intervals within
@@ -26,6 +27,7 @@ that a point's near hypotheses leave the image; three seeds each.
 
 import dataclasses
 import re
+import sys
 from pathlib import Path
 
 import jax
@@ -78,15 +80,41 @@ def _shfl(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, src.expand(x.shape))
 
 
-def _before(a, sa, b, sb):
-    """csrc/trace_epipolar.cu before(): torch.argmin's order."""
-    an, bn = torch.isnan(a), torch.isnan(b)
-    return torch.where(an != bn, an, torch.where(an, sa < sb, (a < b) | ((a == b) & (sa < sb))))
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits as non-negative int64 (__float_as_uint)."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
-def _min_nan(a, b):
-    return torch.where(torch.isnan(a) | torch.isnan(b), torch.full_like(a, float("nan")),
-                       torch.fmin(a, b))
+def _float(bits: torch.Tensor) -> torch.Tensor:
+    """__uint_as_float."""
+    return (bits & 0xFFFFFFFF).to(torch.int64).to(torch.int32).view(torch.float32)
+
+
+def _redux_min(x: torch.Tensor) -> torch.Tensor:
+    """__reduce_min_sync over the lane axis (every lane gets the least)."""
+    return x.min(dim=-1, keepdim=True).values.expand(x.shape)
+
+
+def _argmin_first(ssd: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """csrc/trace_epipolar.cu argmin_first: the least key (0 for a NaN, else
+    the bits plus one), then the least hypothesis among the lanes that hold
+    it; ssd (..., 32) >= 0 or NaN."""
+    key = torch.where(torch.isnan(ssd), 0, _bits(ssd) + 1)
+    kmin = _redux_min(key)
+    return _redux_min(torch.where(key == kmin, s.expand(ssd.shape), torch.full_like(key, 16)))
+
+
+def _warp_min_nan(x: torch.Tensor) -> torch.Tensor:
+    """csrc/trace_epipolar.cu warp_min_nan: a NaN wins (x >= 0)."""
+    kmin = _redux_min(torch.where(torch.isnan(x), 0, _bits(x) + 1))
+    return torch.where(kmin == 0, _float(torch.full_like(kmin, 0x7FFFFFFF)), _float(kmin - 1))
+
+
+def _warp_fmin(x: torch.Tensor) -> torch.Tensor:
+    """csrc/trace_epipolar.cu warp_fmin: a NaN loses (x >= 0)."""
+    kmin = _redux_min(torch.where(torch.isnan(x), 0xFFFFFFFF, _bits(x)))
+    return torch.where(kmin == 0xFFFFFFFF, _float(torch.full_like(kmin, 0x7FFFFFFF)),
+                       _float(kmin))
 
 
 def _model_sweep(arena, f: int, T_host, T_obs, obs_grad, cam, cfg, fault=None):
@@ -141,17 +169,11 @@ def _model_sweep(arena, f: int, T_host, T_obs, obs_grad, cam, cfg, fault=None):
     pair_ok = ok & _shfl(ok, lanes ^ 1)
     ssd = torch.where(pair_ok, torch.where(half == 1, other + part, part + other), BIG)
 
-    best_ssd, best = ssd, s.expand(ssd.shape)
-    for off in (16, 8, 4, 2):
-        ov, os_ = _shfl(best_ssd, lanes ^ off), _shfl(best, lanes ^ off)
-        take = _before(ov, os_, best_ssd, best)
-        best_ssd, best = torch.where(take, ov, best_ssd), torch.where(take, os_, best)
-    second = torch.where((s - best).abs() <= 2, BIG, ssd)
-    runner = torch.where(s == best, _f(np.inf), ssd)
-    for off in (16, 8, 4, 2, 1):
-        second = _min_nan(second, _shfl(second, lanes ^ off))
-        runner = torch.fmin(runner, _shfl(runner, lanes ^ off))
-        edge = torch.fmin(edge, _shfl(edge, lanes ^ off))
+    best = _argmin_first(ssd, s)
+    best_ssd = _shfl(ssd, 2 * best[:, :1].expand(-1, 32))
+    second = _warp_min_nan(torch.where((s - best).abs() <= 2, BIG, ssd))
+    runner = _warp_fmin(torch.where(s == best, _f(np.inf), ssd))
+    edge = _warp_fmin(edge)
     # lane 0 from here on
     best, best_ssd, second, runner, edge = (x[:, 0] for x in (best, best_ssd, second, runner,
                                                                 edge))
@@ -254,6 +276,40 @@ def test_kernel_model_within_parity_of_plain_and_jax(case, seed):
         assert moved > 0
 
 
+REDUX_CASES = ("random", "ties", "nan", "nan_and_ties", "all_failed")
+
+
+@pytest.mark.parametrize("case", REDUX_CASES)
+def test_redux_reductions_take_argmins_order(case):
+    """The kernel's reductions over bits, as modelled: argmin_first is
+    torch.argmin (the first occurrence; a NaN the smallest, its first
+    occurrence), warp_min_nan torch.amin (a NaN wins) and warp_fmin a
+    minimum that skips NaN (NaN only when every lane holds one); over 16
+    hypotheses held by lane pairs."""
+    rng = np.random.default_rng(REDUX_CASES.index(case))
+    x = rng.uniform(0.0, 3000.0, (256, 16)).astype(np.float32)
+    if case in ("ties", "nan_and_ties"):
+        x = np.round(x / 500.0).astype(np.float32) * 500.0      # few distinct values
+    if case in ("nan", "nan_and_ties"):
+        x[rng.random(x.shape) < 0.15] = np.nan
+        x[0] = np.nan                                            # a row of NaN alone
+    if case == "all_failed":
+        x[:] = np.float32(1e12)
+        x[::3, 5] = 0.0                                          # an exact zero
+    v = torch.tensor(x)
+    lanes = v.repeat_interleave(2, dim=1)                        # (P, 32): two lanes a hypothesis
+    best = _argmin_first(lanes, LANES >> 1)
+    assert torch.equal(best[:, 0], torch.argmin(v, dim=1)), case
+    assert bool((best == best[:, :1]).all())
+    amin = _warp_min_nan(lanes)[:, 0]
+    assert torch.equal(torch.isnan(amin), torch.isnan(torch.amin(v, dim=1)))
+    assert torch.equal(amin.nan_to_num(-1.0), torch.amin(v, dim=1).nan_to_num(-1.0))
+    fmin = _warp_fmin(lanes)[:, 0]
+    skip = torch.where(torch.isnan(v), torch.full_like(v, np.inf), v).amin(dim=1)
+    skip = torch.where(torch.isnan(v).all(dim=1), torch.full_like(skip, np.nan), skip)
+    assert torch.equal(fmin.nan_to_num(-1.0), skip.nan_to_num(-1.0)), case
+
+
 # a wrong kernel planted in the model, the case that shows it, and whether the
 # plain form's probes are spoilt too
 FAULTS = {
@@ -345,7 +401,7 @@ def test_card_tensors_never_take_the_plain_form(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["steps", "pattern", "frames", "rows", "dtype",
-                                  "noncontiguous", "shape", "probes"])
+                                  "noncontiguous", "shape", "probes", "misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, what):
     """Checked before anything is built or launched."""
     c = trace_case("recent", 0)
@@ -372,6 +428,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(monkeypatch, what):
     elif what == "shape":
         a["arena"] = c["arena"].replace(color=c["arena"].color[..., :4].contiguous())
         match = "shape"
+    elif what == "misaligned":   # a contiguous colour tensor 4 bytes past a 16-byte line
+        color = c["arena"].color
+        buf = torch.zeros(color.numel() + 1)
+        a["arena"] = c["arena"].replace(color=buf[1:].view(color.shape))
+        match = "aligned"
     else:
         a["probes"], match = torch.zeros(3, 64, 5), "shape"
     before = te.trace_rows_cuda.launches
@@ -394,3 +455,41 @@ def test_card_test_files_import_only_the_port():
         bad = [f"{p.name}:{i}: {line}" for i, line in enumerate(p.read_text().splitlines(), 1)
                if banned.match(line)]
         assert not bad, bad
+
+
+# -- tools/trace_stages.py ------------------------------------------------------------------
+
+
+def test_trace_stages_stamps_a_throwaway_copy(tmp_path):
+    """tools/trace_stages.py stamps a copy: each `// stage: NAME` mark of
+    csrc/trace_epipolar.cu becomes a stamp there, in order, the other
+    sources are copied as they are, and the shipped source is untouched; a
+    tree of another commit launches its own source, and `sources()` points
+    the wrapper at a stamped copy only inside its block."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from tools import trace_stages as ts
+
+    shipped = te.SOURCE.read_text()
+    marks = re.findall(r"^\s*// stage: (\S+)\s*$", shipped, re.M)
+    assert len(marks) >= 5 and len(set(marks)) == len(marks)
+    tree = ts.TraceBuild("tree")
+    copy, stages = ts.instrument(tree, tmp_path / "tree", prefix="trace_")
+    assert te.SOURCE.read_text() == shipped
+    assert stages == marks
+    text = (copy / te.SOURCE.name).read_text()
+    assert "// stage:" not in text
+    assert [int(k) for k in re.findall(r"ba_stage\((\d+)\);", text)] == list(range(len(marks)))
+    for other in ("ba_sweep.cu", "ba_common.cuh", "track_lm.cu"):
+        assert (copy / other).read_text() == (te.SOURCE.parent / other).read_text()
+
+    other = tmp_path / "other" / "libcml_tpu_torch"
+    for sub, src in (("ops", Path(te.__file__)), ("csrc", te.SOURCE)):
+        (other / sub).mkdir(parents=True)
+        (other / sub / src.name).write_text(src.read_text())
+    build = ts.TraceBuild("other", tmp_path / "other")
+    assert build.bk is not te and build.bk.SOURCE == other / "csrc" / te.SOURCE.name
+    with build.sources(copy):
+        assert build.bk.SOURCE == copy / te.SOURCE.name
+    assert build.bk.SOURCE == other / "csrc" / te.SOURCE.name
+    assert te.SOURCE.read_text() == shipped
+

@@ -10,7 +10,8 @@ float64 on the card (the state and images in float64; the scale gauge's
 nullspace built in the state's type) and, in float32, this tree's kernels
 (`_run_ba_cuda`, one launch), another tree's (`--parent`: a git archive of a
 parent commit, loaded as tools/ba_stages.py loads it), `run_ba_plain` on the
-card and on the CPU. One JSON line a window: each form's accept decisions
+card and on the CPU (the float64 run is chip_smoke.run_ba_f64, the one phase
+14 holds its cases to). One JSON line a window: each form's accept decisions
 (A accept, r reject, a step a letter) and its distance from the float64 run
 (chip_smoke.ba_parity's measures: E relative, T absolute, idepth over its
 bound), and each float32 form's distance from the plain form on the card
@@ -31,23 +32,10 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from libcml_tpu_torch import workload as wl  # noqa: E402
-from libcml_tpu_torch.core.lie import SE3, skew  # noqa: E402
+from libcml_tpu_torch.core.lie import SE3  # noqa: E402
 from libcml_tpu_torch.models.direct import ba  # noqa: E402
 from libcml_tpu_torch.runtime.odometry import DirectOdometry  # noqa: E402
 from tools.ba_stages import Build  # noqa: E402
-
-
-def nullspaces_like_state(state) -> torch.Tensor:
-    """ba._nullspaces in the state's floating type (it builds float32)."""
-    F = state.num_frames
-    R, t = state.T.R, state.T.t
-    fv = state.frame_valid[:, None, None].to(R.dtype)
-    N = torch.zeros((F, 8, 7), dtype=R.dtype, device=R.device)
-    N[:, 0:3, 0:3] = R * fv
-    N[:, 0:3, 3:6] = (skew(t) @ R) * fv
-    N[:, 3:6, 3:6] = R * fv
-    N[:, 0:3, 6] = t * fv[..., 0]
-    return N.reshape(F * 8, 7)
 
 
 def to_state(x, fn):
@@ -91,14 +79,9 @@ def main() -> int:
             out, E = ba.run_ba_plain(s, im, cam_, cfg, trace=trace)
             t = torch.stack(trace).cpu() if trace else torch.zeros((0, 2))
             runs[name] = (to_state(out, cpu), E.cpu(), (t[:, 1] < t[:, 0]).tolist())
-        orig = ba._nullspaces
-        ba._nullspaces = nullspaces_like_state
-        try:
-            out, E = ba.run_ba_plain(cs._state64(st), images.double(), cam_, cfg)
-        finally:
-            ba._nullspaces = orig
-        f64 = (to_state(out, lambda v: v.float().cpu() if v.is_floating_point() else v.cpu()),
-               E.float().cpu())
+        r64 = cs.run_ba_f64(st, images, cam_, cfg)
+        f64 = (to_state(r64["state"], lambda v: v.float().cpu() if v.is_floating_point()
+                        else v.cpu()), r64["E"].float().cpu())
         row = {"window": k, "frames": int(st.frame_valid.sum()), "card": card}
         for name, (s, E, dec) in runs.items():
             vs64 = cs.ba_parity(s, E, *f64)["max_err"]

@@ -132,21 +132,22 @@ class Build:
                 setattr(self.bk, f, p)
 
 
-def instrument(build: Build, out_dir: Path) -> tuple[Path, list[str]]:
-    """A copy of the build's csrc/ in `out_dir` with stage stamps in its BA
-    sources. Returns (the copy, the stage names by stamp index)."""
+def instrument(build: Build, out_dir: Path, prefix: str = "ba_") -> tuple[Path, list[str]]:
+    """A copy of the build's csrc/ in `out_dir` with stage stamps in its
+    sources whose names start with `prefix` (the BA sources by default).
+    Returns (the copy, the stage names by stamp index)."""
     if out_dir.exists():
         shutil.rmtree(out_dir)
     shutil.copytree(build.csrc, out_dir)
-    ba_files = sorted(p.name for p in out_dir.iterdir()
-                      if p.name.startswith("ba_") and p.suffix in (".cu", ".cuh"))
+    files = sorted(p.name for p in out_dir.iterdir()
+                   if p.name.startswith(prefix) and p.suffix in (".cu", ".cuh"))
     index: dict[str, int] = {}
 
     def sub(m):
         k = index.setdefault(m.group(2), len(index))
         return f"{m.group(1)}ba_stage({k});"
 
-    for f in ba_files:
+    for f in files:
         path = out_dir / f
         text = MARK.sub(sub, path.read_text())
         if f.endswith(".cu"):
