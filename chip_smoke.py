@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the seven hand-written kernels (csrc/hamming_match.cu,
+  1. build the eight hand-written kernels (csrc/hamming_match.cu,
      track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu,
-     trace_epipolar.cu) from the sources in this checkout, one nvcc each,
-     all started together.
+     trace_epipolar.cu, local_ba.cu) from the sources in this checkout, one
+     nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -139,11 +139,28 @@ Phases (any failure exits non-zero, and no result line is printed):
      and warm ms (median of 30), the plain form's, the bound (bytes: the
      arena in and out, the texels read once; or the swept points' f32
      operations) and its share.
-Every phase from 3 on reports the LM, BA and tracer kernels' launches of its
-run (counted from 0 just before it and read just after); phase 3 must launch
-track_lm on every tracked frame, the BA kernels, and trace_epipolar once on
-every frame whose pose is good; phase 4 pnp_lm twice a frame, phases 5 and 7
-both LM kernels.
+ 16. the local BA's kernel: local_ba (the whole run_local_ba, one launch a
+     call) against run_local_ba_plain on the card on every run_local_ba
+     call of phases 5, 7, 10 and 12 (lba.parity: T, the points with two or
+     more valid observations and the other points' pixels within
+     lba.PARITY_TOL, obs_valid equal; or, beyond those bounds, the kernel
+     within lba.F64_TOL of a float64 run of the plain form in every measure
+     and no further from it than the plain form in each measure beyond its
+     bound; an observation pruned otherwise only where that run prunes
+     it as the kernel does, or where that run's chi2 sits within
+     lba.CHI2_EDGE_REL of 5.991; every such observation, and every step
+     whose accept decision differs, printed); two runs of the kernel bit
+     for bit; no path of phases 3-12 reaches run_local_ba_plain or ba_step;
+     one launch a call (counted and profiled), no sync and no memcpy
+     inside; on the heaviest call cold and warm ms beside the launch floor,
+     the plain form's, the bound (bytes: the problem read once, the result
+     written once; or the plain form's f32 operations for its observations,
+     points and frame pairs over the steps run) and its share.
+Every phase from 3 on reports the LM, BA, tracer and local BA kernels'
+launches of its run (counted from 0 just before it and read just after);
+phase 3 must launch track_lm on every tracked frame, the BA kernels, and
+trace_epipolar once on every frame whose pose is good; phase 4 pnp_lm twice
+a frame, phases 5 and 7 both LM kernels, phase 5 local_ba.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection) and 12 (match_ratio), held to the plain
@@ -156,7 +173,8 @@ match_ratio cases; for track_lm and pnp_lm the launches of every path's run
 and the times and bound of phase 13's first case, each case beside them;
 for ba_sweep, ba_solve and ba_run the launches of every path's run and
 phase 14's times and bounds; for trace_epipolar the launches of every
-path's run and phase 15's times and bound), and the result line {"ok": true,
+path's run and phase 15's times and bound; for local_ba the launches of
+every path's run and phase 16's times and bound), and the result line {"ok": true,
 "device": {...}} last.
 """
 
@@ -188,12 +206,14 @@ from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.core.lie import SE3, skew
 from libcml_tpu_torch.models.direct import ba, residuals, tracer, tracker
+from libcml_tpu_torch.models.indirect import indirect_ba as iba
 from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect import pnp as pnp_mod
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
+from libcml_tpu_torch.ops import local_ba as lba
 from libcml_tpu_torch.ops import trace_epipolar as te
 from libcml_tpu_torch.parallel.sharding import make_mesh
 from libcml_tpu_torch.runtime import hybrid, odometry
@@ -218,11 +238,12 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# the LM, BA and tracer kernels' wrappers, whose launch counts each path's
-# run reports
+# the LM, BA, tracer and local BA kernels' wrappers, whose launch counts each
+# path's run reports
 PATH_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
                 "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
-                "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda}
+                "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda,
+                "local_ba": lba.local_ba_cuda}
 
 
 def reset_launches() -> None:
@@ -233,7 +254,7 @@ def reset_launches() -> None:
 
 
 def path_launches() -> dict:
-    """The LM, BA and tracer kernels' launch counts since the last
+    """The LM, BA, tracer and local BA kernels' launch counts since the last
     reset_launches()."""
     return {name: fn.launches for name, fn in PATH_KERNELS.items()}
 
@@ -747,6 +768,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     print(json.dumps(res))
     require(np.isfinite(ate) and ate < 0.1, f"hybrid ATE {ate} >= 0.1")
     require(lm["track_lm"] > 0 and lm["pnp_lm"] > 0, f"the hybrid's LM launches {lm}")
+    require(lm["local_ba"] > 0, f"the hybrid launched no local BA kernel: {lm}")
     require(odo.segments == 0 and lost == 0, "hybrid lost tracking")
     require(ev["ok_kf"] >= 1, "no indirect keyframe triangulated points and completed a local BA")
     require(launches == sum(sites.launches.values()),
@@ -2475,6 +2497,212 @@ def trace_phase(cap: TraceCapture, card: str) -> tuple[dict, dict]:
     return public, timing
 
 
+
+# -- phase 16 -----------------------------------------------------------------
+
+# the runs whose run_local_ba calls phase 16 holds (phases 5, 7, 10, 12)
+LOCAL_BA_RUNS = ("hybrid", "cli_modslam", "hybrid_pipelined", "hybrid_staged", "sharded_hybrid")
+# f32 operations of the plain form's LM step for one observation: the
+# residual (31: R X + t, the projection, r, chi2), the Huber weight (4), the
+# Jacobians (J_proj 8, J_pose 72, J_pt 36), the weighting (18), the products
+# H_cc (144), b_c (24), H_pp (36), b_p (12) and W (72), and the candidate's
+# energy (36)
+LBA_OBS_STEP_FLOPS = 31 + 4 + 8 + 72 + 36 + 18 + 144 + 24 + 36 + 12 + 72 + 36
+# a point a step: damping and the 3x3 inverse (~50), H_pp^-1 u and the update
+# (21); a (point, frame) pair: W H_pp^-1 (108), b_red (36), W^T dx (36); a
+# (point, frame, frame) triple: its 6x6 block of W H_pp^-1 W^T (216)
+LBA_POINT_FLOPS, LBA_PAIR_FLOPS, LBA_TRIPLE_FLOPS = 71, 180, 216
+LBA_OBS_ENERGY_FLOPS = 36   # a stage's first energy, and each prune, an observation
+
+
+class LocalBACapture:
+    """Keeps (cloned) the problem of every run_local_ba call that an armed
+    run makes (runtime/hybrid.py looks iba.run_local_ba up at call time), by
+    run, and counts every call of run_local_ba_plain and ba_step while it is
+    entered: on the card no path may reach them."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self.run: str | None = None
+        self.plain_calls = Counter()
+        self._orig = {n: getattr(iba, n) for n in ("run_local_ba", "run_local_ba_plain",
+                                                   "ba_step")}
+
+    def _call(self, prob, cam, *args, **kw):
+        if self.run is not None:
+            self.calls.setdefault(self.run, []).append((clone_problem(prob), cam, args, kw))
+        return self._orig["run_local_ba"](prob, cam, *args, **kw)
+
+    def _counted(self, name):
+        fn = self._orig[name]
+
+        def call(*args, **kw):
+            self.plain_calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        iba.run_local_ba = self._call
+        iba.run_local_ba_plain = self._counted("run_local_ba_plain")
+        iba.ba_step = self._counted("ba_step")
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(iba, name, fn)
+
+
+def clone_problem(prob):
+    return prob.replace(T=SE3(R=prob.T.R.clone(), t=prob.T.t.clone()),
+                        **{f.name: getattr(prob, f.name).clone()
+                           for f in dataclasses.fields(prob) if f.name != "T"})
+
+
+def _stage_iters(args, kw) -> tuple[int, int]:
+    it = dict(zip(("stage1_iters", "stage2_iters"), args))
+    it.update(kw)
+    return it.get("stage1_iters", 5), it.get("stage2_iters", 10)
+
+
+def local_ba_bound(prob, iters: tuple[int, int]) -> tuple[float, str, dict]:
+    """Least time of one run_local_ba, in ms: the larger of its bytes over the
+    HBM rate and its f32 operations over the f32 rate. Bytes: the problem
+    read once (poses and flags, points and flags, the observations' frames,
+    points, pixels, validity and variances) and the result written once
+    (poses, points, validity). Operations: the plain form's, for this
+    problem's observations, points, (point, frame) pairs and (point, frame,
+    frame) triples, over the steps run, with the (6M)^2 LU a step and each
+    stage's first energy and prune."""
+    M, N, K = prob.T.t.shape[0], prob.Xw.shape[0], prob.obs_frame.shape[0]
+    f = prob.obs_frame.long().cpu().numpy()
+    p = prob.obs_point.long().cpu().numpy()
+    pairs = np.unique(p * M + f)
+    per_point = np.bincount(pairs // M, minlength=N)
+    steps = sum(iters)
+    D = 6 * M
+    step = (K * LBA_OBS_STEP_FLOPS + N * LBA_POINT_FLOPS + pairs.size * LBA_PAIR_FLOPS
+            + int((per_point ** 2).sum()) * LBA_TRIPLE_FLOPS + 2 * D ** 3 // 3 + 2 * D * D
+            + M * 100)
+    flops = float(steps * step + 2 * 2 * K * LBA_OBS_ENERGY_FLOPS)
+    nbytes = (M * (48 + 2) + N * (12 + 1) + K * (4 + 4 + 8 + 1 + 4)) + (M * 48 + N * 12 + K)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops, "M": M, "N": N, "K": K,
+              "point_frame_pairs": int(pairs.size), "steps": steps}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def local_ba_check(prob, cam, iters: tuple[int, int]) -> dict:
+    """The kernel through run_local_ba's dispatch (its launches counted),
+    then lba.compare (a traced launch, uncounted, against run_local_ba_plain
+    and a float64 run of it), and the two launches' results bit for bit."""
+    before = lba.local_ba_cuda.launches
+    got = iba.run_local_ba(prob, cam, *iters)
+    torch.cuda.synchronize()
+    launches = lba.local_ba_cuda.launches - before
+    rep = lba.compare(prob, cam, iters)
+    again = rep.pop("got")
+    rep.pop("want"), rep.pop("trace"), rep.pop("mid")
+    same = all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in ((got.T.R, again.T.R), (got.T.t, again.T.t), (got.Xw, again.Xw),
+                            (got.obs_valid, again.obs_valid)))
+    rep.update(launches=launches, repeat_bits=same, M=prob.T.t.shape[0], N=prob.Xw.shape[0],
+               K=prob.obs_frame.shape[0])
+    return rep
+
+
+def local_ba_phase(cap: LocalBACapture, card: str) -> tuple[dict, dict]:
+    """Phase 16: the local BA's kernel against its plain form on the card
+    (lba.parity, with a float64 run of the plain form) on every run_local_ba
+    call of phases 5, 7, 10 and 12; one launch a call (counted and
+    profiled), no sync and no memcpy inside, two runs bit for bit; the
+    steps whose accept decision differs and the observations pruned at the
+    chi2 edge, printed; on the heaviest call cold and warm ms beside the
+    launch floor, the plain form's, the bound and its share."""
+    require(sum(cap.plain_calls.values()) == 0,
+            f"a path on the card reached the plain local BA: {dict(cap.plain_calls)}")
+    calls = [(run, k, c) for run in LOCAL_BA_RUNS for k, c in enumerate(cap.calls.get(run, []))]
+    require(cap.calls.get("hybrid"), f"no run_local_ba call captured in phase 5: "
+            f"{ {k: len(v) for k, v in cap.calls.items()} }")
+    reports = []
+    for run, k, (prob, cam, args, kw) in calls:
+        iters = _stage_iters(args, kw)
+        rep = local_ba_check(prob, cam, iters)
+        rep["case"] = f"{run} call {k}"
+        rep["host_waits"] = _syncs(lambda: iba.run_local_ba(prob, cam, *iters))
+        reports.append(rep)
+        print(f"  local BA {rep['case']} (M {rep['M']}, N {rep['N']}, K {rep['K']}): "
+              f"{rep['launches']} launch, {rep['host_waits']['syncs']} syncs, "
+              f"{rep['host_waits']['memcpys']} memcpys; ok {rep['ok']}, beyond the bounds "
+              f"{rep['over']}, from float64 kernel / plain: " + ", ".join(
+                  f"{m} {rep['kernel_vs_f64'][m]:.3g} / {rep['plain_vs_f64'][m]:.3g}"
+                  for m in lba.MEASURES))
+        for key, why in (("edge_obs", "at the chi2 edge"), ("f64_obs", "as the float64 run"),
+                         ("unexplained_obs", "UNEXPLAINED")):
+            for d in rep[key]:
+                print(f"  local BA {rep['case']}: observation pruned otherwise than the plain "
+                      f"form ({why}): {d}")
+        for d in rep["decisions"]:
+            print(f"  local BA {rep['case']}: step {d['step']} accepted otherwise: {d}")
+        require(rep["ok"] and rep["launches"] == 1 and rep["repeat_bits"]
+                and rep["host_waits"]["syncs"] == 0 and rep["host_waits"]["memcpys"] == 0,
+                f"local_ba != plain on {rep['case']}: "
+                f"{ {k: v for k, v in rep.items() if k != 'decisions'} }")
+    prob, cam, args, kw = max((c for _, _, c in calls),
+                              key=lambda c: c[0].obs_frame.shape[0] * c[0].T.t.shape[0])
+    iters = _stage_iters(args, kw)
+
+    def kernel():
+        return iba.run_local_ba(prob, cam, *iters)
+
+    def plain():
+        return iba.run_local_ba_plain(prob, cam, *iters)
+
+    def no_steps():
+        return iba.run_local_ba(prob, cam, 0, 0)
+
+    host, device_ops = launches_per_call(kernel)
+    waits = _syncs(kernel)
+    bound, by, detail = local_ba_bound(prob, iters)
+    ms, warm = cuda_ms(kernel), cuda_ms(kernel, cold=False)
+    set_up = cuda_ms(no_steps)    # the grouping, the copies and the two prunes
+    floor = launch_floor()
+    timing = {"kernel_ms": ms, "kernel_warm_ms": warm, **floor,
+              "no_steps_ms": set_up, "ms_per_step": (ms - set_up) / max(sum(iters), 1),
+              "above_floor_share": (ms - floor["floor_ms"]) / ms,
+              "above_floor_warm_share": (warm - floor["floor_warm_ms"]) / warm,
+              "plain_ms": cuda_ms(plain, reps=5, warmup=1), "launches_per_call": host,
+              "device_ops_per_call": device_ops, "host_waits": waits, "bound_ms": bound,
+              "bound_by": by, "bound_detail": detail, "bound_share": bound / ms,
+              "library_ms": None, "card": card}
+    public = {"calls": {run: len(cap.calls.get(run, [])) for run in LOCAL_BA_RUNS},
+              "shapes": sorted({(r["M"], r["N"], r["K"]) for r in reports}),
+              "edge_obs": sum(len(r["edge_obs"]) for r in reports),
+              "obs_as_f64": sum(len(r["f64_obs"]) for r in reports),
+              "decisions_differing": sum(len(r["decisions"]) for r in reports),
+              "beyond_bounds_within_f64_tol": sum(not r["within"] for r in reports),
+              "max_abs_err": max(max(r["vs_plain"]["T"], r["vs_plain"]["X_abs"])
+                                 for r in reports),
+              "max_vs_plain": {m: max(r["vs_plain"][m] for r in reports)
+                               for m in ("T", "X_scaled", "px")},
+              "max_kernel_vs_f64": {m: max(r["kernel_vs_f64"][m] for r in reports)
+                                    for m in ("T", "X_scaled", "px")},
+              "max_plain_vs_f64": {m: max(r["plain_vs_f64"][m] for r in reports)
+                                   for m in ("T", "X_scaled", "px")},
+              "steps_accepted": {f: sum(r["steps_accepted"][f] for r in reports)
+                                 for f in ("kernel", "plain")},
+              "parity_tol": lba.PARITY_TOL, "f64_tol": lba.F64_TOL,
+              "chi2_edge_rel": lba.CHI2_EDGE_REL,
+              "timing": timing}
+    print(json.dumps({"phase": "local_ba_public", **public}))
+    require(host == 1, f"run_local_ba made {host} launches a call")
+    require(waits["syncs"] == 0 and waits["memcpys"] == 0,
+            f"run_local_ba waits for the device: {waits}")
+    require(timing["bound_share"] <= 1.0, "local_ba: under its bound: the bound is wrong")
+    return public, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2503,6 +2731,9 @@ def main() -> int:
     rows, max_err = kernel_vs_plain(dev, card, popc_rate, phase4_args)
     print(f"phase 2 (kernel vs plain) {time.perf_counter() - t0:.1f} s")
 
+    # phases 3-12 run with the local BA's calls watched (captured for phase
+    # 16 in phases 5, 7, 10 and 12)
+    lba_cap = LocalBACapture().__enter__()
     with LMCapture() as cap, TraceCapture() as trace_cap:
         cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
@@ -2521,8 +2752,10 @@ def main() -> int:
             cap.sites = sites
             t0 = time.perf_counter()
             trace_cap.phase = "hybrid"
+            lba_cap.run = "hybrid"
             with BACapture(every=("run_ba_mixed",)) as mixed_cap:
                 full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
+            lba_cap.run = None
             trace_cap.phase = None
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
@@ -2540,7 +2773,9 @@ def main() -> int:
     try:
         with CallSites() as sites:
             t0 = time.perf_counter()
+            lba_cap.run = "cli_modslam"
             entry, seq = entry_points_phase(dev, work, sites)
+            lba_cap.run = None
             print(f"phase 7 (entry points) {time.perf_counter() - t0:.1f} s")
         row = kernel_case(CLI_CASE, sites.captured["_project_match_pnp"], card, popc_rate)
         rows.append(row)
@@ -2558,7 +2793,9 @@ def main() -> int:
     with CallSites() as sites:
         for mode in ("pipelined", "staged"):
             t0 = time.perf_counter()
+            lba_cap.run = f"hybrid_{mode}"
             staged[mode] = staged_hybrid_phase(cam, traj, frames, sites, mode)
+            lba_cap.run = None
             print(f"phase 10 (hybrid {mode}) {time.perf_counter() - t0:.1f} s")
             if mode == "pipelined":
                 require("_map_projection_match" in sites.captured,
@@ -2572,7 +2809,9 @@ def main() -> int:
     print(f"phase 11 (calib SLAM, depth prior) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    lba_cap.run = "sharded_hybrid"
     sharded = sharded_phase(cam, traj, frames, direct_snap, hybrid_snap)
+    lba_cap.__exit__()
     ratio, row = match_ratio_phase(frames, card, popc_rate)
     rows.append(row)
     max_err = max(max_err, row["max_abs_err"])
@@ -2589,6 +2828,10 @@ def main() -> int:
     t0 = time.perf_counter()
     trace_public, trace_timing = trace_phase(trace_cap, card)
     print(f"phase 15 (tracer kernel) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lba_public, lba_timing = local_ba_phase(lba_cap, card)
+    print(f"phase 16 (local BA kernel) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
@@ -2690,13 +2933,34 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
         "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
         "floor_warm_ms": t["floor_warm_ms"], "edge_points": trace_public["edge_points"]})
+    by_path = {k: v["local_ba"] for k, v in runs.items() if v["local_ba"]}
+    for run in LOCAL_BA_RUNS:   # each captured call was one launch of its run
+        require(len(lba_cap.calls.get(run, [])) == by_path.get(run, 0),
+                f"{run}: {len(lba_cap.calls.get(run, []))} run_local_ba calls, "
+                f"{by_path.get(run, 0)} local_ba launches")
+    t = lba_timing
+    kernels.append({
+        "name": "local_ba", "route": "cuda", "source": "libcml_tpu_torch/csrc/local_ba.cu",
+        "replaces": "libcml_tpu/models/indirect/indirect_ba.py:188",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": lba_public["max_abs_err"],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
+        "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
+        "floor_warm_ms": t["floor_warm_ms"], "edge_obs": lba_public["edge_obs"],
+        "decisions_differing": lba_public["decisions_differing"],
+        # max_abs_err is the kernel against the plain form; with one fixed
+        # frame the plain form drifts from float64 far more than the kernel
+        "max_kernel_vs_f64": lba_public["max_kernel_vs_f64"],
+        "max_plain_vs_f64": lba_public["max_plain_vs_f64"]})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
                       "hybrid_pipelined": staged["pipelined"],
                       "hybrid_staged": staged["staged"], "calib": calib,
                       "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
-                      "ba_public": ba_public, "trace_public": trace_public}))
+                      "ba_public": ba_public, "trace_public": trace_public,
+                      "local_ba_public": lba_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

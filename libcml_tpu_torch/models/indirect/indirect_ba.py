@@ -12,7 +12,9 @@ sums on every run, where float atomics would not be); the point blocks (3x3
 each) are inverted in a batch and eliminated, leaving a dense (6M, 6M)
 camera system.
 The LM loop is fixed-length with accept/reject by torch.where, so no
-iteration reads the host.
+iteration reads the host (the group tables read their sizes once a run).
+On the card `run_local_ba` is one launch of a hand-written kernel
+(ops/local_ba.py, csrc/local_ba.cu); `run_local_ba_plain` is the loop.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from libcml_tpu_torch.core.camera import PinholeCamera
 from libcml_tpu_torch.core.lie import SE3, se3_exp, se3_select, skew
+from libcml_tpu_torch.ops.local_ba import local_ba_cuda
 
 _CHI2_2D = 5.991
 
@@ -87,7 +90,7 @@ def ba_energy(prob: IndirectBAProblem, cam: PinholeCamera) -> torch.Tensor:
 def segments(index: torch.Tensor, n: int) -> torch.Tensor:
     """(n, C) table of the positions k of `index` (K,) in each group 0..n-1,
     in increasing order, padded with K; C is the largest group. Built once
-    per problem (one host read, C), it turns every grouped sum of an LM
+    per problem (a host read per table, C), it turns every grouped sum of an LM
     step into a gather and a sum over a fixed-length axis: the same additions
     in the same order on every run, where a float index_add on CUDA adds in
     the order its atomics land."""
@@ -122,6 +125,8 @@ class Groups:
 
 
 def group_observations(prob: IndirectBAProblem) -> Groups:
+    """The plain form's three group tables (segments): a host read per
+    table. The kernel groups the observations by point itself."""
     M, N = prob.T.t.shape[0], prob.Xw.shape[0]
     f, p = prob.obs_frame.long(), prob.obs_point.long()
     return Groups(frame=segments(f, M), point=segments(p, N), pair=segments(f * N + p, M * N))
@@ -203,16 +208,20 @@ def _prune(prob: IndirectBAProblem, cam: PinholeCamera) -> IndirectBAProblem:
                         & (_chi2(r, prob.obs_sigma2) < _CHI2_2D))
 
 
-def run_local_ba(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int = 5,
-                 stage2_iters: int = 10) -> IndirectBAProblem:
+def run_local_ba_plain(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int = 5,
+                       stage2_iters: int = 10, trace: list | None = None,
+                       mid: list | None = None) -> IndirectBAProblem:
     """Two-stage local BA with a chi2 observation prune between the stages
     and after them (reference: localOptimize, 5 iterations, prune chi2 >
-    5.991, 10 more).
+    5.991, 10 more), as a Python loop of PyTorch ops: run_local_ba's form on
+    the CPU, and the reference the kernel is held to on the card.
 
     A step whose solve went singular (with one fixed frame the scale is a
     free gauge, and the damping falls to ~1e-7) is rejected. The JAX
     package accepts it: ba_energy masks the non-finite residuals, so the
-    NaN state scores 0 (ROADMAP.md section 3)."""
+    NaN state scores 0 (ROADMAP.md section 3). With `trace` (a list), each
+    step appends its (E, E_new, finite) as 0-d tensors; with `mid`, the
+    problem after the first stage and its prune is appended."""
 
     groups = group_observations(prob)
 
@@ -222,8 +231,11 @@ def run_local_ba(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int 
         for _ in range(iters):
             cand = ba_step(prob, cam, lam, groups)
             E_new = ba_energy(cand, cam)
-            accept = (E_new < E) & torch.isfinite(cand.Xw).all() & torch.isfinite(cand.T.t).all() \
+            finite = torch.isfinite(cand.Xw).all() & torch.isfinite(cand.T.t).all() \
                 & torch.isfinite(cand.T.R).all()
+            if trace is not None:
+                trace.append((E, E_new, finite))
+            accept = (E_new < E) & finite
             prob = _select(accept, cand, prob)
             E = torch.where(accept, E_new, E)
             lam = torch.where(accept, torch.clamp(lam * 0.4, min=1e-9),
@@ -231,4 +243,34 @@ def run_local_ba(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int 
         return prob
 
     prob = _prune(lm_loop(prob, stage1_iters), cam)
+    if mid is not None:
+        mid.append(prob)
     return _prune(lm_loop(prob, stage2_iters), cam)
+
+
+def _on_card(prob: IndirectBAProblem) -> bool:
+    """True for a problem on a CUDA device (the kernel), False on the CPU
+    (the plain form); any other device raises."""
+    kind = prob.Xw.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {prob.Xw.device}")
+    return kind == "cuda"
+
+
+def _contiguous(prob: IndirectBAProblem) -> IndirectBAProblem:
+    return prob.replace(
+        T=SE3(R=prob.T.R.contiguous(), t=prob.T.t.contiguous()),
+        **{f.name: getattr(prob, f.name).contiguous() for f in dataclasses.fields(prob)
+           if f.name != "T"})
+
+
+def run_local_ba(prob: IndirectBAProblem, cam: PinholeCamera, stage1_iters: int = 5,
+                 stage2_iters: int = 10) -> IndirectBAProblem:
+    """run_local_ba_plain's two LM stages and prunes. A problem on the card
+    runs them in one launch of the hand-written kernel (ops/local_ba.py,
+    csrc/local_ba.cu: no host read; a failed build or launch raises, and
+    nothing falls back to the plain form); a problem on the CPU runs the
+    plain form."""
+    if not _on_card(prob):
+        return run_local_ba_plain(prob, cam, stage1_iters, stage2_iters)
+    return local_ba_cuda(_contiguous(prob), cam, stage1_iters, stage2_iters)

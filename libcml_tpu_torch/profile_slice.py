@@ -20,7 +20,8 @@ calls enqueued, matched by their correlation ids, so a kernel launched
 through ctypes (the hand-written kernels) counts as well as one launched by
 a torch operator; `track_lm` and `pnp_lm` are the LM kernels' launches
 (inside `track`, `track_multi` and `solve_pnp`), `trace_epipolar` the
-tracer kernel's (inside `trace_immatures_rows`). `_preprocess` (or
+tracer kernel's (inside `trace_immatures_rows`), `local_ba` the local BA
+kernel's (inside `time_local_ba`). `_preprocess` (or
 `_preprocess_rect` where the sequence has a calibration) is the frame's
 gradient pyramid, `_frame_step` the whole tracked frame (the tracking, the
 tracer and `_scalar_bundle`, the frame's scalars for the host, among it).
@@ -44,7 +45,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from libcml_tpu_torch import workload as wl
 from libcml_tpu_torch.models.direct import ba, tracer, tracker
-from libcml_tpu_torch.models.indirect import matching, pnp
+from libcml_tpu_torch.models.indirect import indirect_ba, matching, pnp
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
 from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
@@ -81,6 +82,7 @@ STAGES = (
     (HYB, "_complete_mixed_window_ba", "time_mixed_ba"),
     (HYB, "_dispatch_indirect_local_ba", "time_local_ba"),
     (HYB, "_complete_indirect_local_ba", "time_local_ba"),
+    (indirect_ba, "local_ba_cuda", "local_ba"),
     (hybrid, "match_projection", "match_projection"),
     (matching, "hamming_resolve", "hamming_resolve"), (hybrid, "solve_pnp", "solve_pnp"),
     (pnp, "pnp_lm_cuda", "pnp_lm"),

@@ -2,6 +2,7 @@
 another tree's, on one card.
 
     python3 tools/trace_stages.py [--parent DIR ...] [--frames 60] [--reps 20] [--out FILE]
+    python3 tools/trace_stages.py --trees --parent DIR [--frames 60]
 
 Runs DirectOdometry on the smoke's frames (libcml_tpu_torch/workload.py:
 640x480, bench.py's configuration) and captures every trace_immatures_rows
@@ -28,8 +29,18 @@ csrc/, as tools/ba_stages.py's Build loads the BA wrappers):
   through the same ctypes route), the builds and the floor in turns (in
   order, then in reverse).
 
-One JSON line a build, then the times; all of it also in --out. Needs one
-CUDA card; no JAX.
+One JSON line a build, then the times; all of it also in --out.
+
+With --trees, only the whole packages are compared: the direct run and the
+sequential HybridOdometry (workload.hybrid_odometry) in a fresh process of
+each tree, this one and the first --parent, each importing its own
+libcml_tpu_torch and building its own kernels; one JSON line a mode with
+each tree's ATE, whether the trajectories (trajectory_c2w's estimates) are
+bit-identical, and their largest difference. It exits 1 when the direct
+trajectories differ: a change that leaves the direct path alone (as one
+to a hybrid-only kernel does) must leave its bits alone.
+
+Needs one CUDA card; no JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +48,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -93,6 +107,56 @@ def direct_run(cam, traj, imgs, build: TraceBuild) -> tuple[list, np.ndarray, fl
     return cap.calls["direct"], est, float(ate)
 
 
+# a whole tree's run, in its own process with its package first on the path
+TREE_RUNNER = r"""
+import sys, numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+import libcml_tpu_torch
+from libcml_tpu_torch import workload as wl
+from libcml_tpu_torch.eval.trajectory import ate_rmse
+from libcml_tpu_torch.runtime.odometry import DirectOdometry
+assert libcml_tpu_torch.__file__.startswith(sys.argv[1]), libcml_tpu_torch.__file__
+n, mode, out = int(sys.argv[2]), sys.argv[3], sys.argv[4]
+cam, traj, frames = wl.render_frames(torch.device("cuda"), n)
+odo = DirectOdometry(cam, wl.BENCH_CFG) if mode == "direct" else wl.hybrid_odometry(cam)
+for i, f in enumerate(frames):
+    odo.process(f[0].cpu().numpy(), float(i))
+torch.cuda.synchronize()
+_, est = odo.trajectory_c2w()
+est = np.asarray(est, np.float64)
+gt = np.asarray([np.linalg.inv(np.r_[np.c_[R, t], [[0, 0, 0, 1]]])[:3, 3] for R, t in traj])
+np.savez(out, est=est, ate=ate_rmse(est[:, :3, 3], gt, with_scale=True))
+"""
+
+
+def tree_run(tree: Path, mode: str, frames: int, work: Path) -> dict:
+    """`mode`'s ("direct" or "hybrid") trajectory and ATE from `tree`'s
+    package, in a process of its own."""
+    out = work / f"{len(list(work.iterdir()))}.npz"
+    subprocess.run([sys.executable, "-c", TREE_RUNNER, str(tree), str(frames), mode, str(out)],
+                   cwd=tree, env={**os.environ, "PYTHONPATH": str(tree)}, check=True)
+    d = np.load(out)
+    return {"est": d["est"], "ate": float(d["ate"])}
+
+
+def compare_trees(parent: Path, frames: int, card: str) -> int:
+    """--trees: this tree's direct and hybrid trajectories against `parent`'s."""
+    root = Path(__file__).resolve().parents[1]
+    same = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("direct", "hybrid"):
+            mine = tree_run(root, mode, frames, Path(tmp))
+            other = tree_run(parent.resolve(), mode, frames, Path(tmp))
+            shape_ok = mine["est"].shape == other["est"].shape
+            same[mode] = shape_ok and mine["est"].tobytes() == other["est"].tobytes()
+            print(json.dumps({"mode": mode, "frames": frames, "ate": mine["ate"],
+                              "parent_ate": other["ate"], "bit_identical": same[mode],
+                              "max_abs_diff": (float(np.abs(mine["est"] - other["est"]).max())
+                                               if shape_ok else None), "card": card}),
+                  flush=True)
+    return 0 if same["direct"] else 1
+
+
 def bits(x: torch.Tensor) -> np.ndarray:
     """A tensor's bytes, for a comparison that holds a NaN by its bits."""
     return x.detach().contiguous().cpu().numpy().view(np.uint8)
@@ -113,10 +177,16 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--trees", action="store_true",
+                    help="compare the whole packages' trajectories with the first --parent's")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_stages: CUDA is not available", file=sys.stderr)
         return 1
+    if a.trees:
+        if not a.parent:
+            ap.error("--trees needs --parent")
+        return compare_trees(a.parent[0], a.frames, cs.nvidia_smi("name,power.limit"))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.nvidia_smi("name,power.limit")
