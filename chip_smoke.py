@@ -1,6 +1,6 @@
 """Smoke run of libcml_tpu_torch on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-local-ba FILE]
 
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
@@ -2564,6 +2564,49 @@ def _stage_iters(args, kw) -> tuple[int, int]:
     return it.get("stage1_iters", 5), it.get("stage2_iters", 10)
 
 
+LBA_FIELDS = ("frame_valid", "frame_fixed", "Xw", "point_valid", "obs_frame", "obs_point",
+              "obs_uv", "obs_valid", "obs_sigma2")
+
+
+def save_local_ba_calls(path: Path, calls: list, extra: dict | None = None) -> None:
+    """Writes run_local_ba calls, [(run, problem, camera, (stage1, stage2))],
+    to an .npz that load_local_ba_calls reads (with `extra`'s arrays)."""
+    out = {"n": np.array(len(calls))}
+    for k, (run, prob, cam, iters) in enumerate(calls):
+        out.update({f"c{k}_run": np.array(run), f"c{k}_R": prob.T.R, f"c{k}_t": prob.T.t,
+                    f"c{k}_iters": np.array(iters),
+                    f"c{k}_cam": np.array([cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                                           cam.height], np.float64),
+                    **{f"c{k}_{f}": getattr(prob, f) for f in LBA_FIELDS}})
+    out.update(extra or {})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                                 else v for k, v in out.items()})
+
+
+def load_local_ba_calls(path: Path, dev) -> list:
+    """save_local_ba_calls' calls, their problems on `dev`."""
+    from libcml_tpu_torch.core.camera import PinholeCamera
+    d = np.load(path)
+    calls = []
+    for k in range(int(d["n"])):
+        def g(f):
+            return d[f"c{k}_{f}"]
+        fx, fy, cx, cy, w, h = g("cam").tolist()
+        prob = iba.IndirectBAProblem(
+            T=SE3(R=torch.tensor(g("R"), device=dev), t=torch.tensor(g("t"), device=dev)),
+            **{f: torch.tensor(g(f), device=dev) for f in LBA_FIELDS})
+        calls.append((str(g("run")), prob, PinholeCamera.make(fx, fy, cx, cy, int(w), int(h)),
+                      tuple(int(v) for v in g("iters"))))
+    return calls
+
+
+def local_ba_work(prob) -> int:
+    """The size by which phase 16 picks its heaviest call: observations x
+    frame slots."""
+    return prob.obs_frame.shape[0] * prob.T.t.shape[0]
+
+
 def local_ba_bound(prob, iters: tuple[int, int]) -> tuple[float, str, dict]:
     """Least time of one run_local_ba, in ms: the larger of its bytes over the
     HBM rate and its f32 operations over the f32 rate. Bytes: the problem
@@ -2649,8 +2692,7 @@ def local_ba_phase(cap: LocalBACapture, card: str) -> tuple[dict, dict]:
                 and rep["host_waits"]["syncs"] == 0 and rep["host_waits"]["memcpys"] == 0,
                 f"local_ba != plain on {rep['case']}: "
                 f"{ {k: v for k, v in rep.items() if k != 'decisions'} }")
-    prob, cam, args, kw = max((c for _, _, c in calls),
-                              key=lambda c: c[0].obs_frame.shape[0] * c[0].T.t.shape[0])
+    prob, cam, args, kw = max((c for _, _, c in calls), key=lambda c: local_ba_work(c[0]))
     iters = _stage_iters(args, kw)
 
     def kernel():
@@ -2694,7 +2736,7 @@ def local_ba_phase(cap: LocalBACapture, card: str) -> tuple[dict, dict]:
                                  for f in ("kernel", "plain")},
               "parity_tol": lba.PARITY_TOL, "f64_tol": lba.F64_TOL,
               "chi2_edge_rel": lba.CHI2_EDGE_REL,
-              "timing": timing}
+              "max_points": lba.max_points(prob.Xw.device), "timing": timing}
     print(json.dumps({"phase": "local_ba_public", **public}))
     require(host == 1, f"run_local_ba made {host} launches a call")
     require(waits["syncs"] == 0 and waits["memcpys"] == 0,
@@ -2703,7 +2745,13 @@ def local_ba_phase(cap: LocalBACapture, card: str) -> tuple[dict, dict]:
     return public, timing
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of libcml_tpu_torch on one CUDA card.")
+    ap.add_argument("--save-local-ba", type=Path, default=None, metavar="FILE",
+                    help="also write phase 16's captured run_local_ba calls to FILE (.npz; "
+                         "tools/local_ba_witness.py --calls reads it)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2829,6 +2877,10 @@ def main() -> int:
     trace_public, trace_timing = trace_phase(trace_cap, card)
     print(f"phase 15 (tracer kernel) {time.perf_counter() - t0:.1f} s")
 
+    if opts.save_local_ba:
+        save_local_ba_calls(opts.save_local_ba, [
+            (run, prob, cam_, _stage_iters(args, kw)) for run in LOCAL_BA_RUNS
+            for prob, cam_, args, kw in lba_cap.calls.get(run, [])])
     t0 = time.perf_counter()
     lba_public, lba_timing = local_ba_phase(lba_cap, card)
     print(f"phase 16 (local BA kernel) {time.perf_counter() - t0:.1f} s")

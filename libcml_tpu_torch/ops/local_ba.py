@@ -29,12 +29,14 @@ import torch
 from libcml_tpu_torch.core.camera import PinholeCamera
 from libcml_tpu_torch.core.lie import SE3
 from libcml_tpu_torch.ops import kernel_build as kb
-from libcml_tpu_torch.ops.ba_sweep import _barrier
 from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 SOURCE = kb.CSRC / "local_ba.cu"
 MAX_FRAMES = 8              # csrc/local_ba.cu MAX_M: D = 6 M <= 48 for the warp's LU
 GROUP_POINTS = 16           # csrc/local_ba.cu NPG
+# The most points a call takes is the card's: local_ba_max_points (a block
+# keeps its groups in shared memory, and every block is co-resident), 14,784
+# on an H100 (132 SMs, 7 groups a block); runtime/hybrid.py MAP_CAP is 4,096.
 TRACE_FIELDS = ("E", "E_new", "finite")   # a step's trace row
 CHI2 = 5.991                # models/indirect/indirect_ba.py _CHI2_2D
 
@@ -76,8 +78,24 @@ class LocalArgs(ctypes.Structure):
                 + [(n, _VP) for n in (
                     "R", "t", "frame_valid", "frame_fixed", "Xw", "point_valid", "obs_frame",
                     "obs_point", "obs_uv", "obs_valid", "obs_sigma2", "R_out", "t_out",
-                    "Xw_out", "obs_valid_out", "obs_valid_mid", "cnt", "off", "order", "part",
-                    "sys", "epart", "bad", "bar", "trace")])
+                    "Xw_out", "obs_valid_out", "obs_valid_mid", "cnt", "off", "order", "rec",
+                    "rval", "nxt", "part", "sys", "epart", "bad", "bar", "trace")])
+
+
+# csrc/local_ba.cu grid_sync: 8 arrival counts and the departures, one
+# 128-byte line each
+BARRIER_WORDS = 9 * 32
+_BARRIERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _barrier(dev: torch.device) -> torch.Tensor:
+    """The kernel's grid barrier on `dev`: its arrival counts and departure
+    count, all 0 between launches (the kernel's last block out resets
+    them). One a device: launches on one device run in stream order."""
+    c = _BARRIERS.get(dev)
+    if c is None:
+        c = _BARRIERS[dev] = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
+    return c
 
 
 def _lib() -> ctypes.CDLL:
@@ -88,6 +106,22 @@ def _lib() -> ctypes.CDLL:
         raise KernelLaunchError(f"local_ba_args_size: the kernel's LocalArgs is {size()} bytes, "
                                 f"the wrapper's {ctypes.sizeof(LocalArgs)}")
     return lib
+
+
+_MAX_POINTS: dict[torch.device, int] = {}
+
+
+def max_points(dev: torch.device) -> int:
+    """The most points (N) the kernel takes on CUDA device `dev`."""
+    n = _MAX_POINTS.get(dev)
+    if n is None:
+        out = _I()
+        with torch.cuda.device(dev):
+            err = _lib().local_ba_max_points(ctypes.byref(out))
+        if err != 0:
+            raise KernelLaunchError(f"local_ba_max_points failed: CUDA error {err}")
+        n = _MAX_POINTS[dev] = out.value
+    return n
 
 
 def _check(prob, dev: torch.device) -> tuple[int, int, int]:
@@ -105,6 +139,9 @@ def _check(prob, dev: torch.device) -> tuple[int, int, int]:
         kb.check_tensor(name, x, shape, dtype, dev)
     if dev.type != "cuda":
         raise ValueError(f"the local BA kernel needs CUDA tensors, got {dev}")
+    if N > max_points(dev):
+        raise ValueError(f"the local BA kernel takes at most {max_points(dev)} points on "
+                         f"{dev}, got {N}")
     return M, N, K
 
 
@@ -115,9 +152,9 @@ def _ptr(x: torch.Tensor | None) -> int | None:
 def local_ba_cuda(prob, cam: PinholeCamera, stage1_iters: int = 5, stage2_iters: int = 10,
                   trace: torch.Tensor | None = None, obs_valid_mid: torch.Tensor | None = None):
     """run_local_ba_plain in one launch: `prob` an IndirectBAProblem whose
-    tensors are contiguous on one CUDA device (M <= 8 frame slots; an
-    observation whose frame or point index is out of range never counts and
-    comes out invalid). Returns the problem with the result's T, Xw and
+    tensors are contiguous on one CUDA device (M <= 8 frame slots, N <=
+    max_points(device) points; an observation whose frame or point index is
+    out of range never counts and comes out invalid). Returns the problem with the result's T, Xw and
     obs_valid, in new tensors. With `trace` (a (stage1_iters + stage2_iters,
     3) float64 tensor on the card): each step's E, E_new and whether its
     candidate was finite (1.0 or 0.0); with `obs_valid_mid` (a (K,) bool
@@ -138,12 +175,14 @@ def local_ba_cuda(prob, cam: PinholeCamera, stage1_iters: int = 5, stage2_iters:
     R_out, t_out = torch.empty((M, 3, 3), **f32), torch.empty((M, 3), **f32)
     Xw_out = torch.empty((N, 3), **f32)
     ov_out = torch.empty((K,), dtype=torch.bool, device=dev)
-    # one scratch buffer: doubles first (part, sys, epart), then ints (cnt,
-    # off, order, bad)
+    # one scratch buffer: the list records first (16 bytes each, aligned as
+    # the allocation), then doubles (part, sys, epart), ints (cnt, off,
+    # order, nxt, bad) and bytes (rval)
     n_dbl = G * NT + NT + 2 * G
-    n_int = N + (N + 1) + K + 2 * G
-    scratch = torch.empty(8 * n_dbl + 4 * n_int, dtype=torch.uint8, device=dev)
-    base = scratch.data_ptr()
+    n_int = N + (N + 1) + 2 * K + 2 * G
+    scratch = torch.empty(16 * K + 8 * n_dbl + 4 * n_int + K, dtype=torch.uint8, device=dev)
+    a_rec = scratch.data_ptr()
+    base = a_rec + 16 * K
     a = LocalArgs()
     a.M, a.N, a.K, a.iters1, a.iters2 = M, N, K, int(stage1_iters), int(stage2_iters)
     a.fx, a.fy, a.cx, a.cy = cam.fx, cam.fy, cam.cx, cam.cy
@@ -155,6 +194,7 @@ def local_ba_cuda(prob, cam: PinholeCamera, stage1_iters: int = 5, stage2_iters:
     a.obs_sigma2 = prob.obs_sigma2.data_ptr()
     a.R_out, a.t_out, a.Xw_out = R_out.data_ptr(), t_out.data_ptr(), Xw_out.data_ptr()
     a.obs_valid_out, a.obs_valid_mid = ov_out.data_ptr(), _ptr(obs_valid_mid)
+    a.rec = a_rec
     a.part = base
     a.sys = base + 8 * G * NT
     a.epart = a.sys + 8 * NT
@@ -162,7 +202,9 @@ def local_ba_cuda(prob, cam: PinholeCamera, stage1_iters: int = 5, stage2_iters:
     a.cnt = ints
     a.off = ints + 4 * N
     a.order = a.off + 4 * (N + 1)
-    a.bad = a.order + 4 * K
+    a.nxt = a.order + 4 * K
+    a.bad = a.nxt + 4 * K
+    a.rval = a.bad + 4 * 2 * G
     a.bar, a.trace = _barrier(dev).data_ptr(), _ptr(trace)
     lib = _lib()
     with torch.cuda.device(dev):

@@ -3,8 +3,11 @@ plain form run_local_ba_plain: the seeded problems of
 tests/test_torch_hybrid.py's local-BA test (frames 0 and 1 fixed), the edge
 cases (every observation invalid, a valid point without a valid
 observation, a step whose candidate is not finite, a two-view problem with
-frame 0 fixed, no iterations, six frames), a problem at the hybrid's map
-capacity (4096 points, ~9,216 observations over 6 keyframes) and two at a
+frame 0 fixed, no iterations, six frames), every frame count from 1 to 8 (the
+solve's padded sizes 8 to 48), every observation made twice (pairs of two
+observations, longer lists than the kernel keeps in shared memory), a
+problem at the hybrid's map capacity (4096 points, ~9,216 observations over
+6 keyframes), one with more point groups than the card has SMs and two at a
 full-hybrid call's size, two runs bit for bit, and the finiteness reject.
 
 The problems are built with the port alone: this file imports only torch,
@@ -159,6 +162,36 @@ def hybrid_shaped_problem(seed: int = 0) -> dict:
     return map_cap_problem(seed, N=654, seen=276, outliers=16)
 
 
+def frames_problem(M: int) -> dict:
+    """local_problem with M frame slots, 1 to 8: the kernel's solve at each
+    padded size Dp = 8 ceil(6M / 8) (8 to 48; one row a lane up to Dp 32 at
+    M 5, two rows from Dp 40 at M 6). Frame 0 fixed up to M 2, frames 0 and
+    1 above."""
+    return local_problem(10 + M, M=M, N=90, fixed=1 if M <= 2 else 2)
+
+
+def many_groups_problem() -> dict:
+    """map_cap_problem with 5,000 points (313 point groups, more than the
+    card's 132 SMs: each block owns three groups), each keyframe seeing
+    1,800 of them (K = 10,800), 100 outliers."""
+    return map_cap_problem(1, N=5000, seen=1800, outliers=100)
+
+
+def repeated_obs_problem() -> dict:
+    """local_problem with 8 frames and every observation made twice (the
+    copy 0.3 px off): each (point, frame) pair holds two observations, and a
+    group of 16 points holds more list positions than the kernel keeps in
+    shared memory (128)."""
+    d = local_problem(3, M=8, N=64, fixed=2)
+    rng = np.random.default_rng(3)
+    K = d["obs_frame"].size
+    order = np.argsort(np.r_[np.arange(K), np.arange(K) + 0.5], kind="stable")
+    twice = {k: np.r_[v, v] for k, v in d.items() if k.startswith("obs_")}
+    twice["obs_uv"] = np.r_[d["obs_uv"], d["obs_uv"] + rng.normal(0, 0.3, d["obs_uv"].shape)]
+    d.update({k: v[order].astype(d[k].dtype) for k, v in twice.items()})
+    return d
+
+
 def edge_case(name: str) -> tuple[dict, tuple[int, int]]:
     """The named edge case (numpy arrays) and its stages' iterations."""
     d = local_problem(0)
@@ -221,6 +254,12 @@ def _case(name: str) -> tuple[dict, tuple[int, int], TCam]:
         return local_problem(int(name[4:])), (5, 10), TCAM
     if name == "map_cap":
         return map_cap_problem(), (5, 10), FULL_CAM
+    if name == "many_groups":
+        return many_groups_problem(), (5, 10), FULL_CAM
+    if name == "repeated_obs":
+        return repeated_obs_problem(), (5, 10), TCAM
+    if name.startswith("frames"):
+        return frames_problem(int(name[6:])), (5, 10), TCAM
     if name.startswith("hybrid"):
         return hybrid_shaped_problem(int(name[6:])), (5, 10), FULL_CAM
     d, iters = edge_case(name)
@@ -235,7 +274,8 @@ WITHIN = ("seed0", "seed1", "six_frames")
 
 
 @pytest.mark.parametrize("name", ["seed0", "seed1", *EDGE_CASES, "map_cap", "hybrid0",
-                                  "hybrid1"])
+                                  "hybrid1", *(f"frames{m}" for m in range(1, 9)),
+                                  "many_groups", "repeated_obs"])
 def test_cuda_local_ba_matches_plain(cuda, name):
     """The kernel on a card problem is one launch, held to
     run_local_ba_plain by local_ba.parity beside a float64 run of the plain
@@ -314,6 +354,26 @@ def test_cuda_local_ba_rejects_a_nonfinite_candidate(cuda):
     assert same_bits(got.Xw, prob.Xw)
     want = tiba.run_local_ba_plain(prob, TCAM)
     assert torch.equal(got.obs_valid, want.obs_valid)
+
+
+def test_cuda_local_ba_takes_its_most_points(cuda):
+    """At local_ba.max_points (every block owning as many point groups as
+    its shared memory holds) the kernel is one launch, held to
+    run_local_ba_plain as test_cuda_local_ba_matches_plain holds it; one
+    point more is refused before any launch."""
+    n = lba.max_points(cuda)
+    assert n >= MAP_CAP
+    d = map_cap_problem(3, N=n, seen=2000, outliers=100)
+    prob = _to(problem_from(d), cuda)
+    rep = lba.compare(prob, FULL_CAM)
+    info = {k: v for k, v in rep.items() if k not in ("got", "want", "trace", "mid")}
+    assert rep["launches"] == 1 and rep["ok"], info
+    more = prob.replace(Xw=torch.cat([prob.Xw, prob.Xw[:1]]),
+                        point_valid=torch.cat([prob.point_valid, prob.point_valid[:1]]))
+    before = lba.local_ba_cuda.launches
+    with pytest.raises(ValueError, match="points"):
+        lba.local_ba_cuda(more, FULL_CAM)
+    assert lba.local_ba_cuda.launches == before
 
 
 def test_cuda_local_ba_refuses_what_it_does_not_take(cuda):

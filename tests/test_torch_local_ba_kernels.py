@@ -18,10 +18,13 @@ for it:
   system over the group's points in point order; the entries over the
   groups in group order;
 - the solve: the damped, frozen system rounded to float32 once and padded
-  to a multiple of 8 with identity rows, ba_common.cuh warp_solve's
-  elimination (tests/test_torch_ba_kernels.py _eliminate_warp: the pivot
-  rule, the reciprocal multipliers) and its back-substitution (each row's
-  sum a tree over the lanes' strided partial sums);
+  to a multiple of 8 with identity rows, csrc/local_ba.cu lu_solve's
+  elimination (eliminate_lu: the pivot from two integer reductions, the
+  reciprocal multipliers) and its back-substitution (back_substitute: each
+  row's sum a tree over the lanes' strided partial sums), held bit for bit
+  to ba_common.cuh warp_solve's elimination (the window BA's LU, which
+  this kernel ran before it had a solve sized to its system;
+  tests/test_torch_ba_kernels.py _eliminate_warp) at every size M 1-8;
 - the schedule: the candidate poses exp(-dx) o T, the points X -
   H_pp^-1 (b_p - sum_m W_m^T dx_m) in float64 rounded once, the accept test
   E_new < E with the finiteness rule, lambda x0.4 (floor 1e-9) or x5 (cap
@@ -85,6 +88,60 @@ def group_lists(pt: np.ndarray, N: int) -> tuple[np.ndarray, np.ndarray]:
     order = np.argsort(pt, kind="stable")
     off = np.r_[0, np.cumsum(np.bincount(pt, minlength=N))]
     return off, order
+
+
+def eliminate_lu(A: np.ndarray, steps: int | None = None) -> tuple[np.ndarray, np.ndarray, list]:
+    """csrc/local_ba.cu lu_solve's elimination of the (Dp, Dp + 1) system
+    A in float32: rows stay where they are, each with its position in
+    LAPACK's row order; the pivot of column k from two integer reductions:
+    the largest key (a row's magnitude as an ordered integer + 1 at
+    positions k and on, 0 for a NaN; the largest possible for a NaN at
+    position k), then the least position holding it; an interchange swaps
+    two rows' positions; every row below the pivot updated with the pivot
+    row's entries (its multiplier a_ik rcp_k, rcp_k = 1 / a_kk). Returns
+    the factors in position order, the reciprocals and the pivots. With
+    `steps`, only the first that many columns are eliminated (the kernel
+    stops at the real rows, D, of a padded system)."""
+    M = A.astype(np.float32).copy()
+    D = M.shape[0]
+    pos = np.arange(D)
+    rcp, piv = np.zeros(D, np.float32), []
+    with np.errstate(all="ignore"):
+        for k in range(D if steps is None else steps):
+            a = np.abs(M[:, k])
+            key = np.where(np.isnan(a) | (pos < k), 0, a.view(np.uint32).astype(np.int64) + 1)
+            key = np.where(np.isnan(a) & (pos == k), 2 ** 32 - 1, key)
+            p = int(pos[key == key.max()].min())
+            piv.append(p)
+            if p != k:
+                rk_, rp_ = np.flatnonzero(pos == k)[0], np.flatnonzero(pos == p)[0]
+                pos[rk_], pos[rp_] = p, k
+            owner = np.flatnonzero(pos == k)[0]
+            rk = np.float32(1.0) / M[owner, k]
+            rcp[k] = rk
+            below = pos > k
+            m = M[below, k] * rk
+            M[below, k + 1:] = M[below, k + 1:] - m[:, None] * M[owner, k + 1:][None, :]
+    return M[np.argsort(pos)], rcp, piv
+
+
+def back_substitute(U: np.ndarray, rcp: np.ndarray, n: int | None = None) -> np.ndarray:
+    """The solve's back-substitution in position order in float32 over the
+    first n unknowns (all by default): x_k = (y_k - sum_j>k u_kj x_j) rcp_k,
+    lane l of the warp adding the terms j = k + 1 + l, k + 33 + l in order,
+    then a tree over the lanes."""
+    Dp = U.shape[0]
+    n = Dp if n is None else n
+    x = np.zeros(Dp, np.float32)
+    with np.errstate(all="ignore"):
+        for k in range(n - 1, -1, -1):
+            lanes = np.zeros(32, np.float32)
+            for j in range(k + 1, n):
+                lanes[(j - k - 1) % 32] = lanes[(j - k - 1) % 32] + U[k, j] * x[j]
+            for o in (16, 8, 4, 2, 1):
+                lanes = lanes + lanes[np.arange(32) ^ o]
+            x[k] = (U[k, Dp] - lanes[0]) * rcp[k]
+    return x
 
 
 # faults planted in the model (and, on the card, in copies of the kernel by
@@ -252,15 +309,8 @@ class Model:
                     else:
                         A[r, c] = 0
                 A[r, Dp] = np.float32(sys[iu[0].size + r]) if fd[r] else 0
-            U, rcp, _ = _eliminate_warp(A)
-            x = np.zeros(Dp, np.float32)
-            for k in range(Dp - 1, -1, -1):
-                lanes = np.zeros(32, np.float32)
-                for j in range(k + 1, Dp):
-                    lanes[(j - k - 1) % 32] = lanes[(j - k - 1) % 32] + U[k, j] * x[j]
-                for o in (16, 8, 4, 2, 1):
-                    lanes = lanes + lanes[np.arange(32) ^ o]
-                x[k] = (U[k, Dp] - lanes[0]) * rcp[k]
+            U, rcp, _ = eliminate_lu(A, D)
+            x = back_substitute(U, rcp, D)
         return x[:D]
 
     def candidate(self, dx, W, Hinv, bp):
@@ -456,6 +506,57 @@ def test_identity_padding_keeps_the_elimination(D):
     np.testing.assert_array_equal(Up[:D, :D], U[:, :D])
     np.testing.assert_array_equal(Up[:D, Dp], U[:, D])
     np.testing.assert_array_equal(Up[:D, D:Dp], 0.0)
+
+
+def _padded(A: np.ndarray) -> np.ndarray:
+    """A (D, D + 1) system padded to Dp = 8 ceil(D / 8) with identity rows,
+    as the kernel pads the (6M)^2 system."""
+    D = A.shape[0]
+    Dp = 8 * (-(-D // 8))
+    P = np.zeros((Dp, Dp + 1), np.float32)
+    P[:D, :D], P[:D, Dp] = A[:, :D], A[:, D]
+    P[np.arange(D, Dp), np.arange(D, Dp)] = 1.0
+    return P
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan_column"])
+@pytest.mark.parametrize("M", range(1, 9))
+def test_sized_solve_keeps_warp_solve_bits(M, case):
+    """lu_solve (sized to Dp = 8 ceil(6M / 8), one row a lane up to Dp 32,
+    the pivot from two integer reductions, its steps and back-substitution
+    stopped at the real rows D = 6M) takes the same pivots, reciprocals,
+    factors and x on the real rows as warp_solve's full elimination of the
+    same padded system, bit for bit (a NaN by its bits): a damped random system,
+    one of small integers (ties for the pivot in most columns, the first
+    row of largest magnitude taken), and one with a NaN column (from a row
+    below the diagonal, and a NaN on the diagonal itself, which stays its
+    own pivot)."""
+    D = 6 * M
+    rng = np.random.default_rng(100 + M)
+    A = rng.normal(size=(D, D + 1)).astype(np.float32)
+    if case == "ties":
+        A = rng.integers(-3, 4, size=(D, D + 1)).astype(np.float32)
+    A[:, :D] += np.float32(D) * np.eye(D, dtype=np.float32) * rng.random(D).astype(np.float32)
+    if case == "nan_column":
+        c = D // 3
+        A[D // 2:, c] = np.nan
+        A[min(c + 1, D - 1), min(c + 1, D - 1)] = np.nan
+    P = _padded(A)
+    U, rcp, piv = eliminate_lu(P, D)
+    Uw, rcpw, pivw = _eliminate_warp(P)
+    Dp = P.shape[0]
+    upper = np.triu(np.ones((Dp, Dp + 1), bool))[:D]
+    assert piv == pivw[:D]
+    np.testing.assert_array_equal(_bits(rcp[:D]), _bits(rcpw[:D]))
+    np.testing.assert_array_equal(_bits(U[:D][upper]), _bits(Uw[:D][upper]))
+    np.testing.assert_array_equal(_bits(back_substitute(U, rcp, D)[:D]),
+                                  _bits(back_substitute(Uw, rcpw)[:D]))
+    if case == "ties":
+        assert any(p != k for k, p in enumerate(piv))
 
 
 def test_lane_tree_is_one_fixed_order():

@@ -132,9 +132,14 @@ class Build:
                 setattr(self.bk, f, p)
 
 
-def instrument(build: Build, out_dir: Path, prefix: str = "ba_") -> tuple[Path, list[str]]:
+def instrument(build: Build, out_dir: Path, prefix: str | tuple = "ba_", head: str = STAMP_HEAD,
+               tail: str = STAMP_TAIL, edit=None) -> tuple[Path, list[str]]:
     """A copy of the build's csrc/ in `out_dir` with stage stamps in its
-    sources whose names start with `prefix` (the BA sources by default).
+    sources whose names start with `prefix` (the BA sources by default; a
+    tuple of prefixes too): each `// stage: NAME` mark becomes
+    `ba_stage(k)`, one k a name, and each .cu source takes `head` (which
+    defines ba_stage) before its text and `tail` after it. `edit(name,
+    text)`, when given, first rewrites each such source (to add marks).
     Returns (the copy, the stage names by stamp index)."""
     if out_dir.exists():
         shutil.rmtree(out_dir)
@@ -149,9 +154,10 @@ def instrument(build: Build, out_dir: Path, prefix: str = "ba_") -> tuple[Path, 
 
     for f in files:
         path = out_dir / f
-        text = MARK.sub(sub, path.read_text())
+        text = path.read_text()
+        text = MARK.sub(sub, edit(f, text) if edit else text)
         if f.endswith(".cu"):
-            text = STAMP_HEAD + text + STAMP_TAIL
+            text = head + text + tail
         path.write_text(text)
     return out_dir, sorted(index, key=index.get)
 
