@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the eight hand-written kernels (csrc/hamming_match.cu,
+  1. build the nine hand-written kernel sources (csrc/hamming_match.cu,
      track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu,
-     trace_epipolar.cu, local_ba.cu) from the sources in this checkout, one
-     nvcc each, all started together.
+     trace_epipolar.cu, local_ba.cu, orb_extract.cu) from the sources in
+     this checkout, one nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -156,11 +156,33 @@ Phases (any failure exits non-zero, and no result line is printed):
      the plain form's, the bound (bytes: the problem read once, the result
      written once; or the plain form's f32 operations for its observations,
      points and frame pairs over the steps run) and its share.
-Every phase from 3 on reports the LM, BA, tracer and local BA kernels'
-launches of its run (counted from 0 just before it and read just after);
-phase 3 must launch track_lm on every tracked frame, the BA kernels, and
-trace_epipolar once on every frame whose pose is good; phase 4 pnp_lm twice
-a frame, phases 5 and 7 both LM kernels, phase 5 local_ba.
+ 17. the ORB kernels: orb_extract (FAST scores, NMS and each cell's top 4;
+     each level's stable top-k by rank; orientation and steered BRIEF: three
+     launches a call) against extract_orb_plain on the card on every
+     extract_orb call of phases 4, 5, 6 (budget 512) and 7 (the preset's
+     800) (oe.parity: the kernels' FAST maps within oe.SCORE_RTOL of
+     fast_score_map's, an NMS decided otherwise only at a tie within
+     oe.DECISION_TOL, the slots exactly select_level's on the kernels' own
+     maps, every angle within oe.ANGLE_ULP units in the last place of
+     oe.warp_order_angle's (the kernel's sums in its own order; the
+     largest difference from ic_angle printed), descriptor bits equal
+     except where |v_p - v_q| < oe.DESC_EDGE; each such slot printed);
+     each call's features bit for bit again; every extract_orb call of
+     phases 4-12 one kernel call, none reaching extract_orb_plain; three
+     planted faults (a copy of the source with one substitution each)
+     refused; at budgets 512 and 800 at most 3 launches a call (profiled),
+     no sync and no memcpy, cold and warm ms of the call and of each of its
+     three launches alone beside the launch floor, the plain form's, the
+     bound (bytes: the levels read
+     once, the slots written once; or the plain form's f32 operations for
+     the pixels' FAST and NMS and the slots' moments and BRIEF samples) and
+     its share.
+Every phase from 3 on reports the LM, BA, tracer, local BA and ORB
+kernels' launches of its run (counted from 0 just before it and read just
+after); phase 3 must launch track_lm on every tracked frame, the BA
+kernels, and trace_epipolar once on every frame whose pose is good; phase 4
+pnp_lm twice a frame and orb_extract once for frame 0 and each tracked
+frame, phases 5 and 7 both LM kernels, phase 5 local_ba.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection) and 12 (match_ratio), held to the plain
@@ -174,8 +196,9 @@ and the times and bound of phase 13's first case, each case beside them;
 for ba_sweep, ba_solve and ba_run the launches of every path's run and
 phase 14's times and bounds; for trace_epipolar the launches of every
 path's run and phase 15's times and bound; for local_ba the launches of
-every path's run and phase 16's times and bound), and the result line {"ok": true,
-"device": {...}} last.
+every path's run and phase 16's times and bound; for orb_extract the
+launches of every path's run and phase 17's times and bound), and the
+result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -214,6 +237,7 @@ from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
 from libcml_tpu_torch.ops import local_ba as lba
+from libcml_tpu_torch.ops import orb_extract as oe
 from libcml_tpu_torch.ops import trace_epipolar as te
 from libcml_tpu_torch.parallel.sharding import make_mesh
 from libcml_tpu_torch.runtime import hybrid, odometry
@@ -238,12 +262,12 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# the LM, BA, tracer and local BA kernels' wrappers, whose launch counts each
-# path's run reports
+# the LM, BA, tracer, local BA and ORB kernels' wrappers, whose launch counts
+# each path's run reports
 PATH_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
                 "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
                 "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda,
-                "local_ba": lba.local_ba_cuda}
+                "local_ba": lba.local_ba_cuda, "orb_extract": oe.orb_extract_cuda}
 
 
 def reset_launches() -> None:
@@ -254,8 +278,8 @@ def reset_launches() -> None:
 
 
 def path_launches() -> dict:
-    """The LM, BA, tracer and local BA kernels' launch counts since the last
-    reset_launches()."""
+    """The LM, BA, tracer, local BA and ORB kernels' launch counts since the
+    last reset_launches()."""
     return {name: fn.launches for name, fn in PATH_KERNELS.items()}
 
 
@@ -562,9 +586,11 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
 
 
 def hybrid_phase(dev, cam, traj, frames) -> dict:
+    orb_before = oe.orb_extract_cuda.launches
     map_, n_map = wl.build_map(cam, traj, frames, dev)
     feats = {i: wl.extract(frames[i]) for i in HYBRID_FRAMES}
     torch.cuda.synchronize()
+    orb_launches = oe.orb_extract_cuda.launches - orb_before
     reset_launches()
     per_frame = []
     for i in HYBRID_FRAMES:
@@ -595,13 +621,15 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
                 f"frame {i}: pose error {t_err:.4f} / {r_err:.4f} rad out of budget")
     launches = hm.hamming_resolve_cuda.launches
     res = {"phase": "hybrid_tracking", "frames": len(per_frame), "map_points": n_map,
-           "launches": launches, "lm_launches": path_launches(),
+           "launches": launches, "lm_launches": path_launches(), "orb_launches": orb_launches,
            "ms_per_frame": statistics.median(r["ms"] for r in per_frame),
            "min_inliers": min(r["inliers"] for r in per_frame),
            "max_t_err": max(r["t_err"] for r in per_frame),
            "max_r_err": max(r["r_err"] for r in per_frame)}
     print(json.dumps(res))
     require(launches == 2 * len(per_frame), "kernel launch count off")
+    require(orb_launches == 1 + len(per_frame),
+            f"ORB of frame 0 and {len(per_frame)} frames made {orb_launches} kernel calls")
     return res
 
 
@@ -2745,6 +2773,251 @@ def local_ba_phase(cap: LocalBACapture, card: str) -> tuple[dict, dict]:
     return public, timing
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+# the runs whose extract_orb calls phase 17 holds (phases 4, 5, 6 and 7)
+ORB_RUNS = ("hybrid_tracking", "hybrid", "relocalization", "cli_modslam")
+ORB_FIELDS = ("uv", "level", "angle", "score", "desc", "valid")
+# the plain form's f32 operations, for the bound: a pixel's FAST score
+# (c + t, c - t; a lane's two compares, its two terms, a difference less t
+# each, and two sums; the larger sum) and its NMS (8 maxima, 2 compares); a slot's
+# moment terms (a product and a sum for each of m10 and m01) over the
+# radius-15 disk's 709 offsets; a BRIEF point (the rotation's 4 products and
+# 2 sums, the pixel's 2 sums, the bilinear sample's 2 floors, 4 clamps, 2
+# differences, 2 complements, 6 products and 3 sums) and a pair's compare
+ORB_PIXEL_OPS = 2 + 16 * 8 + 1 + 10
+ORB_IC_TERMS, ORB_IC_TERM_OPS = 709, 4
+ORB_POINT_OPS = 4 + 2 + 2 + 2 + 4 + 2 + 2 + 6 + 3
+# a slot's outputs: uv, level, angle, score, 8 words, valid
+ORB_SLOT_BYTES = 2 * 4 + 4 + 4 + 4 + 8 * 4 + 1
+# planted faults (a source substitution each) that phase 17 builds beside the
+# kernel and runs on one call: parity must refuse each (the last changes only
+# the order of the moments' last five additions)
+ORB_FAULTS = {
+    "cell_ties_to_the_highest_index": ("__ffs(__ballot_sync(FULL, key == best)) - 1",
+                                       "31 - __clz(__ballot_sync(FULL, key == best))"),
+    "pattern_rotated_by_1.0001x_the_angle": (
+        "const float ca = cosf(ang), sa = sinf(ang)",
+        "const float ca = cosf(ang * 1.0001f), sa = sinf(ang * 1.0001f)"),
+    "moments_butterfly_reversed": ("for (int o = 16; o; o >>= 1) {\n    m10 =",
+                                   "for (int o = 1; o < 32; o <<= 1) {\n    m10 ="),
+}
+
+
+class OrbCapture:
+    """Watches every extract_orb call that the runs make through
+    runtime/hybrid.py (which looks `extract_orb` up at call time): the
+    orb_extract_cuda calls each made (one each), every extract_orb_plain call
+    on card tensors (none may happen), and, for an armed run, the pyramid,
+    budget, threshold and features (cloned), by run."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self.run: str | None = None
+        self.kernel_calls = Counter()
+        self.plain_on_card = 0
+        self._orig = hybrid.extract_orb
+        self._plain = orb.extract_orb_plain
+
+    def _call(self, pyramid, budget_per_level=512, threshold=12.0, cell=16, per_cell=4):
+        before = oe.orb_extract_cuda.launches
+        out = self._orig(pyramid, budget_per_level, threshold, cell, per_cell)
+        self.kernel_calls[oe.orb_extract_cuda.launches - before] += 1
+        if self.run is not None:
+            self.calls.setdefault(self.run, []).append(
+                (tuple(x.clone() for x in pyramid), budget_per_level, threshold,
+                 {f: getattr(out, f).clone() for f in ORB_FIELDS}))
+        return out
+
+    def _plain_call(self, pyramid, *args, **kw):
+        self.plain_on_card += int(pyramid[0].is_cuda)
+        return self._plain(pyramid, *args, **kw)
+
+    def __enter__(self):
+        hybrid.extract_orb = self._call
+        orb.extract_orb_plain = self._plain_call
+        return self
+
+    def __exit__(self, *exc):
+        hybrid.extract_orb = self._orig
+        orb.extract_orb_plain = self._plain
+
+
+def orb_bound(pyr, budget: int) -> tuple[float, str, dict]:
+    """Least time of one extract_orb, in ms: the larger of its bytes over the
+    HBM rate (every level read once, every slot's outputs written once) and
+    the plain form's f32 operations over the f32 rate (every pixel's FAST
+    score and NMS, every slot's moments and BRIEF samples)."""
+    pixels = oe.n_pixels(pyr)
+    slots = len(pyr) * budget
+    nbytes = 4 * pixels + slots * ORB_SLOT_BYTES
+    ops = float(pixels * ORB_PIXEL_OPS
+                + slots * (ORB_IC_TERMS * ORB_IC_TERM_OPS + 256 * (2 * ORB_POINT_OPS + 1)))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": ops, "pixels": pixels, "slots": slots}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def orb_check(pyr, budget: int, threshold: float, saved: dict) -> dict:
+    """The kernels with a probe against extract_orb_plain on the card
+    (oe.parity), and their features against the run's own call bit for bit."""
+    probe = oe.new_probe(pyr)
+    got = oe.orb_extract_cuda(pyr, budget, threshold, probe=probe)
+    want = orb.extract_orb_plain(pyr, budget, threshold)
+    rep = oe.parity(got, pyr, budget, threshold, probe, want)
+    rep["repeat_bits"] = all(torch.equal(getattr(got, f), saved[f]) for f in ORB_FIELDS)
+    return rep
+
+
+def orb_faults(pyr, budget: int, threshold: float) -> dict:
+    """Each planted fault, built from a copy of csrc/orb_extract.cu with one
+    substitution, run on one call through oe.parity: what it reads."""
+    text = oe.SOURCE.read_text()
+    paths = {}
+    for name, (old, new) in ORB_FAULTS.items():
+        require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
+        path = kernel_build.BUILD_DIR / "orb_faults" / name / "orb_extract.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text.replace(old, new))
+        paths[name] = path
+    kernel_build.build_many(list(paths.values()))
+    out, source = {}, oe.SOURCE
+    for name, path in paths.items():
+        oe.SOURCE = path
+        try:
+            probe = oe.new_probe(pyr)
+            got = oe.orb_extract_cuda(pyr, budget, threshold, probe=probe)
+        finally:
+            oe.SOURCE = source
+        rep = oe.parity(got, pyr, budget, threshold, probe)
+        out[name] = {k: rep[k] for k in ("ok", "selection_equal", "max_abs_err",
+                                          "angles_off_model", "max_angle_vs_model",
+                                          "bits_differing", "bits_beyond_edge",
+                                          "max_gap_differing_bit")}
+    return out
+
+
+def orb_stage_ms(pyr, budget: int, threshold: float) -> dict:
+    """Cold and warm ms of each of the call's three launches alone (the entry
+    point's stage mask), each on what a whole call left in the scratch."""
+    lib = kernel_build.load(oe.SOURCE, "orb_extract_launch", oe.ARGTYPES)
+    outs, args, scratch = oe.launch_args(pyr, budget, threshold, None)
+
+    def launch(mask: int):
+        def run():
+            err = lib.orb_extract_launch(mask, *args, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise kernel_build.KernelLaunchError(f"orb_extract stages {mask}: CUDA error {err}")
+        return run
+
+    launch(oe.ALL_STAGES)()
+    ms = {}
+    for k, name in enumerate(oe.STAGES):
+        ms[name] = cuda_ms(launch(1 << k))
+        ms[name + "_warm"] = cuda_ms(launch(1 << k), cold=False)
+    torch.cuda.synchronize()
+    del outs, scratch
+    return ms
+
+
+def orb_timing(pyr, budget: int, threshold: float, card: str) -> dict:
+    """One call's launches (profiled), host waits, cold and warm ms beside the
+    launch floor, each launch's alone, the plain form's ms, the bound and its
+    share."""
+    def kernel():
+        return orb.extract_orb(pyr, budget_per_level=budget, threshold=threshold)
+
+    def plain():
+        return orb.extract_orb_plain(pyr, budget, threshold)
+
+    host, device_ops = launches_per_call(kernel)
+    waits = _syncs(kernel)
+    bound, by, detail = orb_bound(pyr, budget)
+    ms, warm = cuda_ms(kernel), cuda_ms(kernel, cold=False)
+    floor = launch_floor()
+    return {"budget": budget, "levels": [list(x.shape) for x in pyr], "kernel_ms": ms,
+            "kernel_warm_ms": warm, **floor,
+            "above_floor_share": (ms - floor["floor_ms"]) / ms,
+            "above_floor_warm_share": (warm - floor["floor_warm_ms"]) / warm,
+            "stage_ms": orb_stage_ms(pyr, budget, threshold),
+            "plain_ms": cuda_ms(plain, reps=10, warmup=1), "launches_per_call": host,
+            "device_ops_per_call": device_ops, "host_waits": waits, "bound_ms": bound,
+            "bound_by": by, "bound_detail": detail, "bound_share": bound / ms,
+            "library_ms": None, "card": card}
+
+
+def orb_phase(cap: OrbCapture, card: str) -> tuple[dict, dict]:
+    """Phase 17: the ORB kernels against extract_orb_plain on the card
+    (oe.parity, with the kernels' FAST maps) on every extract_orb call of
+    phases 4, 5, 6 and 7; each run's call bit for bit again; every call of
+    phases 4-12 one kernel call and none reaching the plain form; the slots
+    at a tie (NMS flips, angles beyond ANGLE_TOL of ic_angle, bits at the
+    edge) printed; three planted faults refused; at budgets 512 (phase 5) and 800 (phase 7) the
+    launches (at most 3) and host waits (none) of a call, cold and warm ms
+    beside the launch floor, the plain form's, the bound and its share."""
+    require(cap.plain_on_card == 0,
+            f"a path on the card reached extract_orb_plain {cap.plain_on_card} times")
+    require(set(cap.kernel_calls) == {1},
+            f"extract_orb calls by kernel calls made: {dict(cap.kernel_calls)}")
+    require(all(cap.calls.get(run) for run in ORB_RUNS),
+            f"extract_orb calls not captured: { {r: len(cap.calls.get(r, [])) for r in ORB_RUNS} }")
+    reports = []
+    for run in ORB_RUNS:
+        for k, (pyr, budget, threshold, saved) in enumerate(cap.calls[run]):
+            rep = orb_check(pyr, budget, threshold, saved)
+            rep["case"] = f"{run} call {k} (budget {budget})"
+            reports.append(rep)
+            for d in rep["nms_flips"]:
+                print(f"  ORB {rep['case']}: NMS decided otherwise at a tie: {d}")
+            if rep["differing_slots"] or rep["angles_beyond_tol"] or rep["bits_differing"]:
+                print(f"  ORB {rep['case']}: {rep['differing_slots']} slots differ from the plain "
+                      f"form's, {rep['angles_beyond_tol']} angles beyond ANGLE_TOL of ic_angle "
+                      f"(largest {rep['max_abs_err']:.3g} rad, kappa from "
+                      f"{rep['min_kappa_beyond_tol'] or 0:.3g}), {rep['bits_differing']} bits at "
+                      f"the edge (largest |v_p - v_q| {rep['max_gap_differing_bit']:.3g})")
+            require(rep["ok"] and rep["repeat_bits"],
+                    f"orb_extract != plain on {rep['case']}: "
+                    f"{ {k: v for k, v in rep.items() if k != 'nms_flips'} }")
+    pyr, budget, threshold, _ = cap.calls["hybrid"][1]
+    faults = orb_faults(pyr, budget, threshold)
+    for name, f in faults.items():
+        print(f"  ORB planted fault {name}: {f}")
+        require(not f["ok"], f"the planted fault {name} passed parity")
+    timing = {str(cap.calls[run][1][1]): orb_timing(*cap.calls[run][1][:3], card)
+              for run in ("hybrid", "cli_modslam")}
+    public = {"calls": {run: len(cap.calls[run]) for run in ORB_RUNS},
+              "kernel_calls_per_extract_orb": dict(cap.kernel_calls),
+              "slots": sum(len(c[3]["valid"]) for run in ORB_RUNS for c in cap.calls[run]),
+              "nms_flips": sum(len(r["nms_flips"]) for r in reports),
+              "differing_slots": sum(r["differing_slots"] for r in reports),
+              "angles_off_model": sum(r["angles_off_model"] for r in reports),
+              "max_angle_vs_model": max(r["max_angle_vs_model"] for r in reports),
+              "angles_beyond_tol": sum(r["angles_beyond_tol"] for r in reports),
+              "min_kappa_beyond_tol": min((r["min_kappa_beyond_tol"] for r in reports
+                                           if r["min_kappa_beyond_tol"] is not None),
+                                          default=None),
+              "max_angle_per_kappa": max(r["max_angle_per_kappa"] for r in reports),
+              "bits_at_edge": sum(r["bits_differing"] for r in reports),
+              "max_gap_differing_bit": max(r["max_gap_differing_bit"] for r in reports),
+              "bits_differing_vs_plain": sum(r["bits_differing_vs_plain"] for r in reports),
+              "max_gap_vs_plain": max(r["max_gap_vs_plain"] for r in reports),
+              "max_angle_vs_plain": max(r["max_angle_vs_plain"] for r in reports),
+              "max_score_rel": max(r["max_score_rel"] for r in reports),
+              "max_abs_err": max(r["max_abs_err"] for r in reports),
+              "score_rtol": oe.SCORE_RTOL, "decision_tol": oe.DECISION_TOL,
+              "angle_ulp": oe.ANGLE_ULP, "angle_tol": oe.ANGLE_TOL, "desc_edge": oe.DESC_EDGE,
+              "faults": faults, "timing": timing}
+    print(json.dumps({"phase": "orb_public", **public}))
+    for t in timing.values():
+        require(t["launches_per_call"] <= 3 and t["device_ops_per_call"] <= 3,
+                f"extract_orb made {t['launches_per_call']} launches a call")
+        require(t["host_waits"]["syncs"] == 0 and t["host_waits"]["memcpys"] == 0,
+                f"extract_orb waits for the device: {t['host_waits']}")
+        require(t["bound_share"] <= 1.0, "orb_extract: under its bound: the bound is wrong")
+    return public, timing
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of libcml_tpu_torch on one CUDA card.")
@@ -2782,6 +3055,8 @@ def main(argv=None) -> int:
     # phases 3-12 run with the local BA's calls watched (captured for phase
     # 16 in phases 5, 7, 10 and 12)
     lba_cap = LocalBACapture().__enter__()
+    # and every extract_orb call watched (captured for phase 17 in phases 4-7)
+    orb_cap = OrbCapture().__enter__()
     with LMCapture() as cap, TraceCapture() as trace_cap:
         cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
@@ -2792,7 +3067,9 @@ def main(argv=None) -> int:
         print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
+        orb_cap.run = "hybrid_tracking"
         hyb = hybrid_phase(dev, cam, traj, frames)
+        orb_cap.run = None
         print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
 
         cap.arm("pnp_lm", PNP_FROM)
@@ -2800,14 +3077,16 @@ def main(argv=None) -> int:
             cap.sites = sites
             t0 = time.perf_counter()
             trace_cap.phase = "hybrid"
-            lba_cap.run = "hybrid"
+            lba_cap.run = orb_cap.run = "hybrid"
             with BACapture(every=("run_ba_mixed",)) as mixed_cap:
                 full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
-            lba_cap.run = None
+            lba_cap.run = orb_cap.run = None
             trace_cap.phase = None
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
+            orb_cap.run = "relocalization"
             reloc = relocalization_phase(dev, cam, traj, frames, sites)
+            orb_cap.run = None
             print(f"phase 6 (relocalization) {time.perf_counter() - t0:.1f} s")
     real = {"_epipolar_triangulate": "1536x1536 first keyframe's epipolar band (phase 5)",
             "match_descriptors": "1536x1536 relocalization match_descriptors (phase 6)"}
@@ -2821,9 +3100,9 @@ def main(argv=None) -> int:
     try:
         with CallSites() as sites:
             t0 = time.perf_counter()
-            lba_cap.run = "cli_modslam"
+            lba_cap.run = orb_cap.run = "cli_modslam"
             entry, seq = entry_points_phase(dev, work, sites)
-            lba_cap.run = None
+            lba_cap.run = orb_cap.run = None
             print(f"phase 7 (entry points) {time.perf_counter() - t0:.1f} s")
         row = kernel_case(CLI_CASE, sites.captured["_project_match_pnp"], card, popc_rate)
         rows.append(row)
@@ -2861,6 +3140,7 @@ def main(argv=None) -> int:
     sharded = sharded_phase(cam, traj, frames, direct_snap, hybrid_snap)
     lba_cap.__exit__()
     ratio, row = match_ratio_phase(frames, card, popc_rate)
+    orb_cap.__exit__()
     rows.append(row)
     max_err = max(max_err, row["max_abs_err"])
     print(f"phase 12 (sharded BA, match_ratio) {time.perf_counter() - t0:.1f} s")
@@ -2884,6 +3164,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lba_public, lba_timing = local_ba_phase(lba_cap, card)
     print(f"phase 16 (local BA kernel) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    orb_public, orb_timings = orb_phase(orb_cap, card)
+    print(f"phase 17 (ORB kernels) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
@@ -3005,6 +3289,23 @@ def main(argv=None) -> int:
         # frame the plain form drifts from float64 far more than the kernel
         "max_kernel_vs_f64": lba_public["max_kernel_vs_f64"],
         "max_plain_vs_f64": lba_public["max_plain_vs_f64"]})
+    by_path = {k: v["orb_extract"] for k, v in runs.items() if v["orb_extract"]}
+    by_path["hybrid_tracking"] = hyb["orb_launches"]
+    t = orb_timings["512"]
+    kernels.append({
+        "name": "orb_extract", "route": "cuda", "source": "libcml_tpu_torch/csrc/orb_extract.cu",
+        "replaces": "libcml_tpu/models/indirect/orb.py:137",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": orb_public["max_abs_err"],
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
+        "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
+        "floor_warm_ms": t["floor_warm_ms"], "device_launches_per_call": t["device_ops_per_call"],
+        "stage_ms": t["stage_ms"],
+        "case_budget_800": {k: orb_timings["800"][k] for k in (
+            "kernel_ms", "kernel_warm_ms", "stage_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share")},
+        "nms_flips": orb_public["nms_flips"], "bits_at_edge": orb_public["bits_at_edge"]})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
@@ -3012,7 +3313,7 @@ def main(argv=None) -> int:
                       "hybrid_staged": staged["staged"], "calib": calib,
                       "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
                       "ba_public": ba_public, "trace_public": trace_public,
-                      "local_ba_public": lba_public}))
+                      "local_ba_public": lba_public, "orb_public": orb_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

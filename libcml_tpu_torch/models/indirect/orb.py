@@ -4,6 +4,8 @@ PyTorch port of libcml_tpu/models/indirect/orb.py (the reference's ORB
 extractor, src/cml/features/corner/ORB.h:21, ORB.cpp:97 compute). Per-cell
 top-k on a fixed grid replaces the reference's octree spread; orientation
 (intensity centroid) and steered BRIEF are batched bilinear gathers.
+`extract_orb` runs the hand-written kernels of ops/orb_extract.py on the
+card and `extract_orb_plain` (this module's tensor code) on the CPU.
 
 Descriptors are (K, 8) 32-bit words holding the same bits as the JAX
 package's uint32 words, stored as torch.int32 bit patterns (the CPU build of
@@ -87,15 +89,20 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return v.to(torch.int32)
 
 
-def brief_descriptor(img: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
-    """Steered BRIEF: rotate the pattern by angle, sample, compare, pack.
-    Returns (K, 8) int32 bit patterns."""
+def brief_values(img: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """The steered pattern's samples (K, 256, 2): each pair's (v_p, v_q)."""
     pat = _pattern_dev(uv.device)                       # (256, 2, 2)
     ca, sa = torch.cos(angle), torch.sin(angle)
     R = torch.stack([torch.stack([ca, -sa], -1), torch.stack([sa, ca], -1)], dim=-2)
     rot = torch.einsum("kij,ntj->knti", R, pat)         # (K, 256, 2, 2)
     pts = uv[:, None, None, :] + rot
-    vals = bilinear(img, pts)                           # (K, 256, 2)
+    return bilinear(img, pts)
+
+
+def brief_descriptor(img: torch.Tensor, uv: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF: rotate the pattern by angle, sample, compare, pack.
+    Returns (K, 8) int32 bit patterns."""
+    vals = brief_values(img, uv, angle)
     return _pack_bits(vals[..., 0] < vals[..., 1])
 
 
@@ -119,12 +126,17 @@ def _grid_topk(score_map: torch.Tensor, cell: int, per_cell: int):
     return torch.stack([u, v], -1).reshape(-1, 2), top.reshape(-1)
 
 
-def _extract_level(img: torch.Tensor, threshold: float, budget: int, cell: int,
-                   per_cell: int):
-    score = fast_score_map(img, threshold)
-    nms = torch.where((score >= _maxpool3(score)) & (score > 0), score,
-                      torch.zeros_like(score))
-    uv, sc = _grid_topk(nms, cell, per_cell)
+def nms_map(score: torch.Tensor) -> torch.Tensor:
+    """The FAST score where it is a 3x3 maximum and positive, else 0."""
+    return torch.where((score >= _maxpool3(score)) & (score > 0), score, torch.zeros_like(score))
+
+
+def select_level(score: torch.Tensor, budget: int, cell: int, per_cell: int):
+    """A level's slots from its FAST score map: the NMS, the per-cell top
+    `per_cell`, the stable top `budget` of those candidates, padded to
+    `budget` (uv (0, 0), score 0). Returns (uv (budget, 2) level pixels,
+    score (budget,), valid (budget,))."""
+    uv, sc = _grid_topk(nms_map(score), cell, per_cell)
     # small pyramid levels can yield fewer candidates than the budget
     k = min(budget, sc.shape[0])
     top, idx = topk_stable(sc, k)
@@ -133,13 +145,18 @@ def _extract_level(img: torch.Tensor, threshold: float, budget: int, cell: int,
         pad = budget - k
         uv = torch.cat([uv, torch.zeros((pad, 2), dtype=uv.dtype, device=uv.device)])
         top = torch.cat([top, torch.zeros((pad,), dtype=top.dtype, device=top.device)])
-    ok = top > 0.0
+    return uv, top, top > 0.0
+
+
+def _extract_level(img: torch.Tensor, threshold: float, budget: int, cell: int,
+                   per_cell: int):
+    uv, top, ok = select_level(fast_score_map(img, threshold), budget, cell, per_cell)
     ang = ic_angle(img, uv)
     desc = brief_descriptor(img, uv, ang)
     return uv, top, ok, ang, desc
 
 
-def extract_orb(
+def extract_orb_plain(
     pyramid: tuple[torch.Tensor, ...],
     budget_per_level: int = 512,
     threshold: float = 12.0,
@@ -147,7 +164,8 @@ def extract_orb(
     per_cell: int = 4,
 ) -> OrbFeatures:
     """Extract ORB features on every pyramid level; coords are reported at
-    level 0 (scaled), levels recorded for scale-aware matching."""
+    level 0 (scaled), levels recorded for scale-aware matching. The plain
+    form: the CPU path, and the yardstick of the kernel on the card."""
     uvs, levels, angles, scores, descs, valids = [], [], [], [], [], []
     for l, img in enumerate(pyramid):
         uv, sc, ok, ang, desc = _extract_level(img, threshold, budget_per_level,
@@ -164,6 +182,29 @@ def extract_orb(
         uv=torch.cat(uvs), level=torch.cat(levels), angle=torch.cat(angles),
         score=torch.cat(scores), desc=torch.cat(descs), valid=torch.cat(valids),
     )
+
+
+def extract_orb(
+    pyramid: tuple[torch.Tensor, ...],
+    budget_per_level: int = 512,
+    threshold: float = 12.0,
+    cell: int = 16,
+    per_cell: int = 4,
+) -> OrbFeatures:
+    """extract_orb_plain's features. A pyramid on the card goes to the
+    hand-written kernels (ops/orb_extract.orb_extract_cuda: three launches,
+    no host read), which raise where they cannot build or launch; one on
+    the CPU to extract_orb_plain."""
+    dev = pyramid[0].device
+    if dev.type == "cuda":
+        # imported here: ops.orb_extract imports this module
+        from libcml_tpu_torch.ops.orb_extract import orb_extract_cuda
+
+        return orb_extract_cuda(tuple(img.contiguous() for img in pyramid), budget_per_level,
+                                threshold, cell, per_cell)
+    if dev.type == "cpu":
+        return extract_orb_plain(pyramid, budget_per_level, threshold, cell, per_cell)
+    raise ValueError(f"extract_orb: unsupported device {dev}")
 
 
 # ---------------------------------------------------------------------------
