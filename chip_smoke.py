@@ -156,9 +156,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      the plain form's, the bound (bytes: the problem read once, the result
      written once; or the plain form's f32 operations for its observations,
      points and frame pairs over the steps run) and its share.
- 17. the ORB kernels: orb_extract (FAST scores, NMS and each cell's top 4;
-     each level's stable top-k by rank; orientation and steered BRIEF: three
-     launches a call) against extract_orb_plain on the card on every
+ 17. the ORB kernel: orb_extract (FAST scores, NMS and each cell's top 4;
+     each level's stable top-k by a selection; orientation and steered
+     BRIEF: three passes of one cooperative launch a call) against
+     extract_orb_plain on the card on every
      extract_orb call of phases 4, 5, 6 (budget 512) and 7 (the preset's
      800) (oe.parity: the kernels' FAST maps within oe.SCORE_RTOL of
      fast_score_map's, an NMS decided otherwise only at a tie within
@@ -168,15 +169,23 @@ Phases (any failure exits non-zero, and no result line is printed):
      largest difference from ic_angle printed), descriptor bits equal
      except where |v_p - v_q| < oe.DESC_EDGE; each such slot printed);
      each call's features bit for bit again; every extract_orb call of
-     phases 4-12 one kernel call, none reaching extract_orb_plain; three
+     phases 4-12 one kernel call, none reaching extract_orb_plain; four
      planted faults (a copy of the source with one substitution each)
-     refused; at budgets 512 and 800 at most 3 launches a call (profiled),
-     no sync and no memcpy, cold and warm ms of the call and of each of its
-     three launches alone beside the launch floor, the plain form's, the
+     refused, the last on the call's pyramid rounded to whole grey levels
+     at the largest budget whose cut splits a group of equal nonzero scores,
+     where the kernel is held to the plain form too (and at the call's own
+     budget, whose cut falls among the zero scores); at budgets 512 and 800
+     one host launch a call, no sync and no memcpy, cold and warm ms of the call and of
+     each of its three passes alone (the stage mask) beside the launch
+     floor, the plain form's, the
      bound (bytes: the levels read
      once, the slots written once; or the plain form's f32 operations for
      the pixels' FAST and NMS and the slots' moments and BRIEF samples) and
-     its share.
+     its share; the kernel's stage stamps on those two calls (its `// stage:`
+     marks made %globaltimer stamps in a copy of the source by
+     tools/ba_stages.py's instrument: when the last block passed each mark,
+     when the first did, and the gap before each launch's first mark); one
+     sha256 over the six outputs of every captured call, in order.
 Every phase from 3 on reports the LM, BA, tracer, local BA and ORB
 kernels' launches of its run (counted from 0 just before it and read just
 after); phase 3 must launch track_lm on every tracked frame, the BA
@@ -206,6 +215,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -2791,17 +2802,25 @@ ORB_POINT_OPS = 4 + 2 + 2 + 2 + 4 + 2 + 2 + 6 + 3
 # a slot's outputs: uv, level, angle, score, 8 words, valid
 ORB_SLOT_BYTES = 2 * 4 + 4 + 4 + 4 + 8 * 4 + 1
 # planted faults (a source substitution each) that phase 17 builds beside the
-# kernel and runs on one call: parity must refuse each (the last changes only
-# the order of the moments' last five additions)
+# kernel and runs on one call: parity must refuse each (the third changes
+# only the order of the moments' last five additions; the last breaks the
+# selection's ties among equal nonzero keys the other way, so it runs on the
+# call's pyramid rounded to whole grey levels, where every score is an
+# integer and many tie, at a budget whose cut splits such a group)
 ORB_FAULTS = {
-    "cell_ties_to_the_highest_index": ("__ffs(__ballot_sync(FULL, key == best)) - 1",
-                                       "31 - __clz(__ballot_sync(FULL, key == best))"),
+    "cell_ties_to_the_highest_index": (
+        "__reduce_min_sync(FULL, mine == best ? (unsigned)(lane + 32 * mk) : ~0u)",
+        "__reduce_max_sync(FULL, mine == best ? (unsigned)(lane + 32 * mk) : 0u)"),
     "pattern_rotated_by_1.0001x_the_angle": (
         "const float ca = cosf(ang), sa = sinf(ang)",
         "const float ca = cosf(ang * 1.0001f), sa = sinf(ang * 1.0001f)"),
     "moments_butterfly_reversed": ("for (int o = 16; o; o >>= 1) {\n    m10 =",
                                    "for (int o = 1; o < 32; o <<= 1) {\n    m10 ="),
+    "level_ties_to_the_highest_index": ("((o.x == me.x) & (o.y < me.y))",
+                                        "((o.x == me.x) & (o.y > me.y))"),
 }
+# the faults run on the rounded pyramid (the others on the call's own)
+ORB_ROUNDED_FAULTS = ("level_ties_to_the_highest_index",)
 
 
 class OrbCapture:
@@ -2870,27 +2889,36 @@ def orb_check(pyr, budget: int, threshold: float, saved: dict) -> dict:
     return rep
 
 
-def orb_faults(pyr, budget: int, threshold: float) -> dict:
-    """Each planted fault, built from a copy of csrc/orb_extract.cu with one
-    substitution, run on one call through oe.parity: what it reads."""
+def write_orb_faults(out_dir: Path) -> dict:
+    """Each planted fault's source: a copy of csrc/orb_extract.cu with one
+    substitution, in out_dir/NAME/ beside copies of the headers it
+    includes. Returns {name: path}."""
     text = oe.SOURCE.read_text()
     paths = {}
     for name, (old, new) in ORB_FAULTS.items():
         require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
-        path = kernel_build.BUILD_DIR / "orb_faults" / name / "orb_extract.cu"
+        path = out_dir / name / oe.SOURCE.name
         path.parent.mkdir(parents=True, exist_ok=True)
+        for header in oe.SOURCE.parent.glob("*.cuh"):
+            shutil.copy(header, path.parent / header.name)
         path.write_text(text.replace(old, new))
         paths[name] = path
+    return paths
+
+
+def orb_faults(pyr, budget: int, threshold: float, tie_budget: int) -> dict:
+    """Each planted fault (write_orb_faults) built and run on one call
+    through oe.parity (ORB_ROUNDED_FAULTS on its pyramid rounded to whole
+    grey levels, at `tie_budget`): what it reads."""
+    paths = write_orb_faults(kernel_build.BUILD_DIR / "orb_faults")
     kernel_build.build_many(list(paths.values()))
-    out, source = {}, oe.SOURCE
+    out, rounded = {}, tuple(torch.round(x) for x in pyr)
     for name, path in paths.items():
-        oe.SOURCE = path
-        try:
-            probe = oe.new_probe(pyr)
-            got = oe.orb_extract_cuda(pyr, budget, threshold, probe=probe)
-        finally:
-            oe.SOURCE = source
-        rep = oe.parity(got, pyr, budget, threshold, probe)
+        p, b = (rounded, tie_budget) if name in ORB_ROUNDED_FAULTS else (pyr, budget)
+        with _orb_source(path):
+            probe = oe.new_probe(p)
+            got = oe.orb_extract_cuda(p, b, threshold, probe=probe)
+        rep = oe.parity(got, p, b, threshold, probe)
         out[name] = {k: rep[k] for k in ("ok", "selection_equal", "max_abs_err",
                                           "angles_off_model", "max_angle_vs_model",
                                           "bits_differing", "bits_beyond_edge",
@@ -2899,7 +2927,7 @@ def orb_faults(pyr, budget: int, threshold: float) -> dict:
 
 
 def orb_stage_ms(pyr, budget: int, threshold: float) -> dict:
-    """Cold and warm ms of each of the call's three launches alone (the entry
+    """Cold and warm ms of each of the call's three passes alone (the entry
     point's stage mask), each on what a whole call left in the scratch."""
     lib = kernel_build.load(oe.SOURCE, "orb_extract_launch", oe.ARGTYPES)
     outs, args, scratch = oe.launch_args(pyr, budget, threshold, None)
@@ -2919,6 +2947,60 @@ def orb_stage_ms(pyr, budget: int, threshold: float) -> dict:
     torch.cuda.synchronize()
     del outs, scratch
     return ms
+
+
+def _ba_stages():
+    """tools/ba_stages.py (Build, instrument, stage_report), loaded once; it
+    imports this module as chip_smoke, which is this run's own module."""
+    mod = sys.modules.get("ba_stages")
+    if mod is None:
+        sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+        path = Path(__file__).resolve().parent / "tools" / "ba_stages.py"
+        spec = importlib.util.spec_from_file_location("ba_stages", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["ba_stages"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _orb_source(path: Path):
+    """extract_orb launching the library built from `path`."""
+    before = oe.SOURCE
+    oe.SOURCE = path
+    try:
+        yield
+    finally:
+        oe.SOURCE = before
+
+
+def orb_stamps(pyr, budget: int, threshold: float, reps: int = 20) -> dict | None:
+    """The kernel's stage stamps on one call (tools/ba_stages.py orb_stamps:
+    its `// stage:` marks made %globaltimer stamps in a copy of csrc/)."""
+    bs = _ba_stages()
+    return bs.orb_stamps(bs.OrbBuild("tree"), pyr, budget, threshold, reps)
+
+
+def nonzero_tie_budget(pyr, budget: int, threshold: float) -> int | None:
+    """The largest budget up to `budget` at which some level's cut splits a
+    group of equal nonzero scores (its key, the score of rank budget - 1, is
+    nonzero and shared by a candidate below the cut), or None."""
+    best = None
+    for sc in oe.level_candidate_scores(pyr, threshold):
+        s = torch.sort(sc, descending=True).values[:budget + 1]
+        split = torch.nonzero((s[:-1] == s[1:]) & (s[:-1] > 0)).flatten()
+        if len(split):
+            best = max(best or 0, int(split[-1]) + 1)
+    return best
+
+
+def orb_digest(outputs) -> str:
+    """One sha256 over the six output tensors of every call, in order."""
+    h = hashlib.sha256()
+    for out in outputs:
+        for f in ORB_FIELDS:
+            h.update(out[f].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def orb_timing(pyr, budget: int, threshold: float, card: str) -> dict:
@@ -2953,9 +3035,13 @@ def orb_phase(cap: OrbCapture, card: str) -> tuple[dict, dict]:
     phases 4, 5, 6 and 7; each run's call bit for bit again; every call of
     phases 4-12 one kernel call and none reaching the plain form; the slots
     at a tie (NMS flips, angles beyond ANGLE_TOL of ic_angle, bits at the
-    edge) printed; three planted faults refused; at budgets 512 (phase 5) and 800 (phase 7) the
-    launches (at most 3) and host waits (none) of a call, cold and warm ms
-    beside the launch floor, the plain form's, the bound and its share."""
+    edge) printed; four planted faults refused and the kernel held on the
+    tie fault's rounded pyramid (at the call's budget and at one whose cut
+    splits a group of equal nonzero scores); at budgets 512 (phase 5) and
+    800 (phase 7) the launches (one host enqueue) and host waits (none) of a
+    call, cold and warm ms beside the launch floor, the plain form's, the
+    bound and its share, and the stage stamps; the digest of every captured
+    call's outputs."""
     require(cap.plain_on_card == 0,
             f"a path on the card reached extract_orb_plain {cap.plain_on_card} times")
     require(set(cap.kernel_calls) == {1},
@@ -2980,12 +3066,43 @@ def orb_phase(cap: OrbCapture, card: str) -> tuple[dict, dict]:
                     f"orb_extract != plain on {rep['case']}: "
                     f"{ {k: v for k, v in rep.items() if k != 'nms_flips'} }")
     pyr, budget, threshold, _ = cap.calls["hybrid"][1]
-    faults = orb_faults(pyr, budget, threshold)
+    # the pyramid rounded to whole grey levels, where scores are integers and
+    # many tie: at the call's budget (whose cut falls among the zero scores)
+    # and at the largest budget under it whose cut splits a group of equal
+    # nonzero scores, the kernel held to the plain form; the selection's tie
+    # fault runs at the latter
+    rounded = tuple(torch.round(x) for x in pyr)
+    tie_budget = nonzero_tie_budget(rounded, budget, threshold)
+    require(tie_budget is not None,
+            f"no budget up to {budget} cuts a group of equal nonzero scores of the rounded pyramid")
+    rounded_rep = {}
+    for b in (budget, tie_budget):
+        probe = oe.new_probe(rounded)
+        got = oe.orb_extract_cuda(rounded, b, threshold, probe=probe)
+        rep = oe.parity(got, rounded, b, threshold, probe,
+                        orb.extract_orb_plain(rounded, b, threshold))
+        rounded_rep[str(b)] = {"ok": rep["ok"], "selection_equal": rep["selection_equal"],
+                               "differing_slots": rep["differing_slots"],
+                               "ties_at_budget": oe.ties_at_budget(rounded, b, threshold)}
+        print(f"  ORB the rounded pyramid at budget {b}: {rounded_rep[str(b)]}")
+        require(rep["ok"], f"orb_extract != plain on the rounded pyramid at budget {b}: "
+                           f"{ {k: v for k, v in rep.items() if k != 'nms_flips'} }")
+    require(any(t["taken"] and t["left"] and t["key"]
+                for t in rounded_rep[str(tie_budget)]["ties_at_budget"]),
+            f"budget {tie_budget} cuts no group of equal nonzero scores: {rounded_rep}")
+    faults = orb_faults(pyr, budget, threshold, tie_budget)
     for name, f in faults.items():
         print(f"  ORB planted fault {name}: {f}")
         require(not f["ok"], f"the planted fault {name} passed parity")
-    timing = {str(cap.calls[run][1][1]): orb_timing(*cap.calls[run][1][:3], card)
-              for run in ("hybrid", "cli_modslam")}
+    digest = orb_digest(c[3] for run in ORB_RUNS for c in cap.calls[run])
+    print(json.dumps({"phase": "orb_digest", "calls": sum(len(cap.calls[r]) for r in ORB_RUNS),
+                      "digest": digest}))
+    timing = {}
+    for run in ("hybrid", "cli_modslam"):
+        pyr, budget, threshold = cap.calls[run][1][:3]
+        t = timing[str(budget)] = orb_timing(pyr, budget, threshold, card)
+        t["stamps"] = orb_stamps(pyr, budget, threshold)
+        print(json.dumps({"phase": "orb_stamps", "budget": budget, "stamps": t["stamps"]}))
     public = {"calls": {run: len(cap.calls[run]) for run in ORB_RUNS},
               "kernel_calls_per_extract_orb": dict(cap.kernel_calls),
               "slots": sum(len(c[3]["valid"]) for run in ORB_RUNS for c in cap.calls[run]),
@@ -3007,10 +3124,13 @@ def orb_phase(cap: OrbCapture, card: str) -> tuple[dict, dict]:
               "max_abs_err": max(r["max_abs_err"] for r in reports),
               "score_rtol": oe.SCORE_RTOL, "decision_tol": oe.DECISION_TOL,
               "angle_ulp": oe.ANGLE_ULP, "angle_tol": oe.ANGLE_TOL, "desc_edge": oe.DESC_EDGE,
-              "faults": faults, "timing": timing}
+              "faults": faults, "rounded": rounded_rep, "tie_budget": tie_budget,
+              "digest": digest, "timing": timing}
     print(json.dumps({"phase": "orb_public", **public}))
     for t in timing.values():
-        require(t["launches_per_call"] <= 3 and t["device_ops_per_call"] <= 3,
+        # host enqueues: the profiler sees no device operation for a
+        # cooperative launch, so its count cannot show this one
+        require(t["launches_per_call"] == 1,
                 f"extract_orb made {t['launches_per_call']} launches a call")
         require(t["host_waits"]["syncs"] == 0 and t["host_waits"]["memcpys"] == 0,
                 f"extract_orb waits for the device: {t['host_waits']}")
@@ -3300,8 +3420,8 @@ def main(argv=None) -> int:
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
         "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
-        "floor_warm_ms": t["floor_warm_ms"], "device_launches_per_call": t["device_ops_per_call"],
-        "stage_ms": t["stage_ms"],
+        "floor_warm_ms": t["floor_warm_ms"], "launches_per_call": t["launches_per_call"],
+        "stage_ms": t["stage_ms"], "digest": orb_public["digest"],
         "case_budget_800": {k: orb_timings["800"][k] for k in (
             "kernel_ms", "kernel_warm_ms", "stage_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share")},

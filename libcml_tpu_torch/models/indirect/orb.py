@@ -192,9 +192,9 @@ def extract_orb(
     per_cell: int = 4,
 ) -> OrbFeatures:
     """extract_orb_plain's features. A pyramid on the card goes to the
-    hand-written kernels (ops/orb_extract.orb_extract_cuda: three launches,
-    no host read), which raise where they cannot build or launch; one on
-    the CPU to extract_orb_plain."""
+    hand-written kernel (ops/orb_extract.orb_extract_cuda: one launch, no
+    host read), which raises where it cannot build or launch; one on the
+    CPU to extract_orb_plain."""
     dev = pyramid[0].device
     if dev.type == "cuda":
         # imported here: ops.orb_extract imports this module

@@ -112,6 +112,24 @@ def load(source: Path, symbol: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
+# csrc/grid_barrier.cuh BAR_WORDS: 8 arrival counts and the departures, one
+# 128-byte line each
+BARRIER_WORDS = 9 * 32
+_BARRIERS: dict[tuple[torch.device, str], torch.Tensor] = {}
+
+
+def grid_barrier(dev: torch.device, owner: str) -> torch.Tensor:
+    """The grid barrier (csrc/grid_barrier.cuh) of the cooperative kernel
+    `owner` on `dev`: its arrival counts and departure count, all 0 between
+    launches (the kernel's last block out resets them). One an owner and
+    device: an owner's launches on one device run in stream order."""
+    key = (torch.device(dev), owner)
+    c = _BARRIERS.get(key)
+    if c is None:
+        c = _BARRIERS[key] = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
+    return c
+
+
 def cluster_info(source: Path, symbol: str, device: torch.device | None = None) -> dict:
     """An LM kernel's cluster size and the clusters the card holds at once,
     from its `symbol(int* cluster, int* max_active)` query."""

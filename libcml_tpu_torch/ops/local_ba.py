@@ -82,22 +82,6 @@ class LocalArgs(ctypes.Structure):
                     "rval", "nxt", "part", "sys", "epart", "bad", "bar", "trace")])
 
 
-# csrc/local_ba.cu grid_sync: 8 arrival counts and the departures, one
-# 128-byte line each
-BARRIER_WORDS = 9 * 32
-_BARRIERS: dict[torch.device, torch.Tensor] = {}
-
-
-def _barrier(dev: torch.device) -> torch.Tensor:
-    """The kernel's grid barrier on `dev`: its arrival counts and departure
-    count, all 0 between launches (the kernel's last block out resets
-    them). One a device: launches on one device run in stream order."""
-    c = _BARRIERS.get(dev)
-    if c is None:
-        c = _BARRIERS[dev] = torch.zeros(BARRIER_WORDS, dtype=torch.int32, device=dev)
-    return c
-
-
 def _lib() -> ctypes.CDLL:
     lib = kb.load(SOURCE, "local_ba_launch", [ctypes.POINTER(LocalArgs), _VP])
     size = lib.local_ba_args_size
@@ -205,7 +189,7 @@ def local_ba_cuda(prob, cam: PinholeCamera, stage1_iters: int = 5, stage2_iters:
     a.nxt = a.order + 4 * K
     a.bad = a.nxt + 4 * K
     a.rval = a.bad + 4 * 2 * G
-    a.bar, a.trace = _barrier(dev).data_ptr(), _ptr(trace)
+    a.bar, a.trace = kb.grid_barrier(dev, "local_ba").data_ptr(), _ptr(trace)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.local_ba_launch(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)

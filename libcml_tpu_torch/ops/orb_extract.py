@@ -1,18 +1,22 @@
-"""ORB extraction on the card: three launches of hand-written kernels a call.
+"""ORB extraction on the card: one cooperative launch of a hand-written
+kernel a call.
 
-  orb_extract_cuda  hand-written sm_90a kernels (csrc/orb_extract.cu): the
-                    FAST-9 scores, the NMS and each cell's top 4 (a block a
-                    cell, every level in one launch), each level's stable
-                    top `budget` by rank (one launch), the orientation and
-                    the steered BRIEF words of every slot (a warp a slot, one
-                    launch); no host read. It replaces the XLA fusion of the
-                    JAX package's `extract_orb` (libcml_tpu/models/indirect/
+  orb_extract_cuda  a hand-written sm_90a kernel (csrc/orb_extract.cu) in
+                    three passes with a grid barrier between them: the
+                    FAST-9 scores, the NMS and each cell's top 4 (two warps
+                    a cell), each level's stable top `budget` (a selection
+                    by score buckets, split finer where one is full, the
+                    in-bucket counts spread over the grid's blocks), the
+                    orientation and the steered BRIEF words of every slot
+                    (a warp a slot, a level's pads described once a chunk);
+                    no host read. It replaces the XLA fusion of the JAX
+                    package's `extract_orb` (libcml_tpu/models/indirect/
                     orb.py:137, fast.py:46).
 
 Its plain PyTorch form, the CPU path and the yardstick on the card, is
 `models/indirect/orb.extract_orb_plain` (same arguments and results);
 `orb.extract_orb` dispatches between the two by the pyramid's device. The
-kernels build with nvcc on first use (ops/kernel_build.py).
+kernel builds with nvcc on first use (ops/kernel_build.py).
 
 `parity` is the verdict on a call (the kernel's features and its FAST score
 maps, written to an optional probe buffer, against the plain form on the
@@ -33,11 +37,12 @@ from libcml_tpu_torch.ops import kernel_build as kb
 from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 SOURCE = kb.CSRC / "orb_extract.cu"
-CELL, PER_CELL = 16, 4          # csrc/orb_extract.cu CELL, PER_CELL: a block a cell
+CELL, PER_CELL = 16, 4          # csrc/orb_extract.cu CELL, PER_CELL
+SELECT_PARTS = 4                # csrc/orb_extract.cu SELECT_PARTS: global lists a level too large for shared memory
 MAX_LEVELS = 8                  # csrc/orb_extract.cu MAX_LEVELS
 MAX_SIDE = 1 << 15              # a level pixel packs as (v << 16) | u
 PATTERN_ALIGN = 16              # a lane loads a pattern pair as one float4
-STAGES = ("fast_cells", "level_rank", "describe")   # bit k of the launch's mask
+STAGES = ("cells", "select", "describe")   # bit k of the launch's mask: pass k
 ALL_STAGES = 7
 
 # How far the kernel may sit from its plain form on the same pyramid.
@@ -73,7 +78,7 @@ ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes
 
 def _check(pyramid, budget: int, threshold: float, cell: int, per_cell: int,
            probe: torch.Tensor | None) -> torch.device:
-    """Raise on what the kernels do not take (before anything is built)."""
+    """Raise on what the kernel does not take (before anything is built)."""
     if not isinstance(pyramid, (tuple, list)) or not 0 < len(pyramid) <= MAX_LEVELS:
         raise ValueError(f"orb_extract_cuda takes 1-{MAX_LEVELS} pyramid levels")
     if cell != CELL or per_cell != PER_CELL:
@@ -110,13 +115,13 @@ def n_cells(pyramid) -> int:
 def orb_extract_cuda(pyramid, budget_per_level: int = 512, threshold: float = 12.0,
                      cell: int = CELL, per_cell: int = PER_CELL,
                      probe: torch.Tensor | None = None) -> orb.OrbFeatures:
-    """Launch the kernels on the current stream: extract_orb_plain's
+    """Launch the kernel on the current stream: extract_orb_plain's
     features. `pyramid`: 1-8 contiguous float32 (H, W) levels on one CUDA
     device. `probe`, when given, a float32 tensor of sum(H x W) elements
-    (the levels' maps one after the other): the kernels write each level's
+    (the levels' maps one after the other): the kernel writes each level's
     FAST score map (before the NMS) over its cropped cells and the pixel
-    ring that their NMS reads; the rest is left as it was. Counts its calls
-    in `orb_extract_cuda.launches` (three kernel launches each)."""
+    ring that its NMS reads; the rest is left as it was. Counts its calls
+    in `orb_extract_cuda.launches` (one cooperative launch each)."""
     dev = _check(pyramid, budget_per_level, threshold, cell, per_cell, probe)
     lib = kb.load(SOURCE, "orb_extract_launch", ARGTYPES)
     out, args, scratch = launch_args(pyramid, budget_per_level, threshold, probe)
@@ -133,7 +138,8 @@ def launch_args(pyramid, budget: int, threshold: float, probe: torch.Tensor | No
     """(outputs, C arguments less the stage mask and the stream, scratch) of
     a launch on checked inputs: new tensors, and the scratch tensors the
     arguments point into, which the caller holds until the launch is
-    enqueued."""
+    enqueued (the last, the grid barrier, is the device's own and lives
+    on)."""
     dev = pyramid[0].device
     L, B, C = len(pyramid), budget, n_cells(pyramid)
     pattern = orb._pattern_dev(dev)
@@ -142,7 +148,10 @@ def launch_args(pyramid, budget: int, threshold: float, probe: torch.Tensor | No
     scratch = (torch.empty(max(C, 1) * PER_CELL, dtype=torch.float32, device=dev),
                torch.empty(max(C, 1) * PER_CELL, dtype=torch.int32, device=dev),
                torch.empty(L * B, dtype=torch.int32, device=dev),
-               torch.empty(L * B, dtype=torch.float32, device=dev))
+               torch.empty(L * B, dtype=torch.float32, device=dev),
+               torch.empty(max(C, 1) * PER_CELL * SELECT_PARTS * 2, dtype=torch.int32,
+                           device=dev),
+               kb.grid_barrier(dev, "orb_extract"))
     out = orb.OrbFeatures(
         uv=torch.empty((L * B, 2), dtype=torch.float32, device=dev),
         level=torch.empty(L * B, dtype=torch.int32, device=dev),
@@ -154,12 +163,38 @@ def launch_args(pyramid, budget: int, threshold: float, probe: torch.Tensor | No
     args = (L, (ctypes.c_void_p * L)(*(img.data_ptr() for img in pyramid)),
             (ctypes.c_int * (2 * L))(*(int(d) for img in pyramid for d in img.shape)), B,
             float(threshold), pattern.data_ptr(), None if probe is None else probe.data_ptr(),
-            (ctypes.c_void_p * 4)(*(x.data_ptr() for x in scratch)),
+            (ctypes.c_void_p * len(scratch))(*(x.data_ptr() for x in scratch)),
             (ctypes.c_void_p * 6)(*(x.data_ptr() for x in outs)))
     return out, args, scratch
 
 
 orb_extract_cuda.launches = 0
+
+
+def vector_levels(pyramid) -> list[bool]:
+    """Per level, whether the kernel copies its rows 16 bytes at a time (a
+    16-byte aligned level whose width is a multiple of 4) rather than 4."""
+    L = len(pyramid)
+    lib = kb.load(SOURCE, "orb_extract_vector_levels",
+                  [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    out = (ctypes.c_int * L)()
+    err = lib.orb_extract_vector_levels(
+        L, (ctypes.c_void_p * L)(*(img.data_ptr() for img in pyramid)),
+        (ctypes.c_int * (2 * L))(*(int(d) for img in pyramid for d in img.shape)), out)
+    if err != 0:
+        raise KernelLaunchError(f"orb_extract_vector_levels: CUDA error {err}")
+    return [bool(v) for v in out]
+
+
+def grid_blocks(dev: torch.device) -> int:
+    """The blocks of the kernel's co-resident grid on CUDA device `dev`."""
+    lib = kb.load(SOURCE, "orb_extract_grid_blocks", [ctypes.c_void_p])
+    out = ctypes.c_int()
+    with torch.cuda.device(dev):
+        err = lib.orb_extract_grid_blocks(ctypes.byref(out))
+    if err != 0:
+        raise KernelLaunchError(f"orb_extract_grid_blocks: CUDA error {err}")
+    return out.value
 
 
 def new_probe(pyramid) -> torch.Tensor:
@@ -177,6 +212,34 @@ def probe_maps(probe: torch.Tensor, pyramid) -> list[torch.Tensor]:
     return maps
 
 
+def level_candidate_scores(pyramid, threshold: float, cell: int = CELL,
+                           per_cell: int = PER_CELL) -> list[torch.Tensor]:
+    """Per level, from the plain form: its candidates' scores (each cell's
+    top `per_cell` after the NMS), in candidate order."""
+    return [orb._grid_topk(orb.nms_map(fast_score_map(img, threshold)), cell, per_cell)[1]
+            for img in pyramid]
+
+
+def ties_at_budget(pyramid, budget: int, threshold: float, cell: int = CELL,
+                   per_cell: int = PER_CELL) -> list[dict]:
+    """Per level, from the plain form: its candidates, the score of rank
+    budget - 1 (the last that owns a slot; None where every candidate owns
+    one), and how many candidates share that score above the cut (taken)
+    and below it (left): both nonzero where the budget splits a group of
+    equal scores."""
+    out = []
+    for sc in level_candidate_scores(pyramid, threshold, cell, per_cell):
+        n = int(sc.shape[0])
+        if n <= budget:
+            out.append({"candidates": n, "key": None, "taken": 0, "left": 0})
+            continue
+        key = float(torch.sort(sc, descending=True).values[budget - 1])
+        equal = int((sc == key).sum())
+        taken = budget - int((sc > key).sum())
+        out.append({"candidates": n, "key": key, "taken": taken, "left": equal - taken})
+    return out
+
+
 def _unpack(desc: torch.Tensor) -> torch.Tensor:
     """(K, 8) int32 words -> (K, 256) bool, bit j of word w = pair 32 w + j."""
     shifts = torch.arange(32, dtype=torch.int64, device=desc.device)
@@ -184,7 +247,7 @@ def _unpack(desc: torch.Tensor) -> torch.Tensor:
 
 
 def warp_order_angle(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """describe_kernel's angle at the level pixels uv (K, 2), in float32:
+    """The kernel's angle at the level pixels uv (K, 2), in float32:
     lane k's sums of v dx and v dy over the 31 x 31 offsets q = k, k + 32,
     ... (0 outside the disk), in that order, a butterfly of 16, 8, 4, 2, 1,
     then atan2. One torch op a rounding, as the kernel's (no contraction)."""

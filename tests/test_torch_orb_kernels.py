@@ -1,18 +1,21 @@
-"""The ORB extraction kernels' algorithm (csrc/orb_extract.cu), modelled in
+"""The ORB extraction kernel's algorithm (csrc/orb_extract.cu), modelled in
 numpy and held, on the CPU, to the port's plain form extract_orb_plain and to
 the JAX package's extract_orb.
 
-The CUDA kernels cannot run here. The model follows their arithmetic: the
+The CUDA kernel cannot run here. The model follows its arithmetic: the
 FAST score's 16 terms added in lane order, the arc test as an AND of the
-doubled 16-bit mask shifted by 0..8, the NMS against the neighbours inside
-the image, each cell's and each level's stable top-k by rank (the count of
-greater scores plus equal scores at lower indices), the moment sums in warp
+doubled 16-bit mask shifted by 0..8 (the kernel's doubling form is held to
+it on every mask), the NMS against the neighbours inside the image, each
+cell's stable top-k by rank (the count of greater scores plus equal scores
+at lower indices), each level's by the kernel's selection (score buckets,
+the bucket holding the budget's rank, counts inside the buckets from it up,
+the zero scores in index order; held to the ranks), the moment sums in warp
 order (lane k takes the 31 x 31 offsets k, k + 32, ... inside the disk, then
 a butterfly of 16, 8, 4, 2, 1), the rotated pattern sampled with
 ops/image.bilinear's clamps, and the ballot's words, LSB first. It is held
-under ops/orb_extract.parity (the verdict the card applies to the kernels)
-and slot for slot; planted faults of the model must fail it. The kernels
-themselves are held to the plain form on the card
+under ops/orb_extract.parity (the verdict the card applies to the kernel)
+and slot for slot; planted faults of the model must fail it. The kernel
+itself is held to the plain form on the card
 (tests/test_torch_card_orb.py, whose cases these are, and chip_smoke.py's
 phase 17).
 """
@@ -93,6 +96,66 @@ def ranks(v: np.ndarray, fault=None) -> np.ndarray:
     return ((b > a) | ((b == a) & ties)).sum(-1)
 
 
+KEY_SHIFT, NB = 20, 2048      # csrc/orb_extract.cu: a score's bucket is its bits >> 20
+REFINE_AT = 128               # csrc/orb_extract.cu: a listed bucket's keys past which it splits
+
+
+def model_select(scores: np.ndarray, budget: int, fault=None) -> np.ndarray:
+    """The kernel's selection of a level (select_level): each candidate's
+    slot, -1 where it owns none. A histogram of the nonzero scores' bits by
+    bucket (bits >> KEY_SHIFT), the bucket b* holding rank budget - 1 (0
+    when fewer nonzero scores than the budget); where a bucket at or above
+    b* holds more than REFINE_AT keys, the listed buckets' range (from the
+    lowest nonempty one at or above b* to the highest) split into up to NB
+    finer buckets; then for each nonzero candidate in a bucket >= b* the
+    keys in higher buckets plus those of its own bucket greater than its own
+    or equal at a lower index (higher with the planted fault); then the zero
+    scores in index order. (The kernel ranks each candidate in the block
+    whose range of indices holds it: model_part_ranges.)"""
+    keys = scores.astype(np.float32).view(np.uint32).astype(np.int64)
+    nz = keys != 0
+    coarse = keys >> KEY_SHIFT
+    hist = np.bincount(coarse[nz], minlength=NB)
+    above = np.concatenate([np.cumsum(hist[::-1])[::-1][1:], [0]])
+    total = int(hist.sum())
+    bstar = 0
+    if total >= budget:
+        bstar = int(np.flatnonzero((above < budget) & (budget <= above + hist))[0])
+    listed = nz & (coarse >= bstar)
+    shift, base = KEY_SHIFT, 0
+    if hist[bstar:].max(initial=0) > REFINE_AT:
+        filled = np.flatnonzero(hist)
+        first = max(bstar, int(filled[0]))
+        span = int(filled[-1]) + 1 - first
+        finer = 0
+        while finer < KEY_SHIFT and (span << (finer + 1)) <= NB:
+            finer += 1
+        shift, base = KEY_SHIFT - finer, first << finer
+    bucket = (keys >> shift) - base
+    assert (bucket[listed] >= 0).all() and (bucket[listed] < NB).all()
+    hist = np.bincount(bucket[listed], minlength=NB)
+    above = np.concatenate([np.cumsum(hist[::-1])[::-1][1:], [0]])
+    slot = np.full(keys.size, -1, np.int64)
+    for b in np.unique(bucket[listed]):
+        idx = np.flatnonzero(listed & (bucket == b))
+        k = keys[idx]
+        later = idx[None, :] > idx[:, None] if fault == "ties_high" else idx[None, :] < idx[:, None]
+        rank = above[b] + ((k[None, :] > k[:, None]) | ((k[None, :] == k[:, None]) & later)).sum(1)
+        slot[idx[rank < budget]] = rank[rank < budget]
+    if total < budget:
+        zeros = np.flatnonzero(~nz)
+        rank = total + np.arange(zeros.size)
+        slot[zeros[rank < budget]] = rank[rank < budget]
+    return slot
+
+
+def model_part_ranges(n: int, parts: int) -> list[range]:
+    """select_level's candidates of each part: [part * span, part * span +
+    span) clipped to n, span = ceil(n / parts)."""
+    span = -(-n // parts)
+    return [range(min(p * span, n), min(p * span + span, n)) for p in range(parts)]
+
+
 def model_bilinear(img: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
     H, W = img.shape
     x0f = np.clip(np.floor(x), f32(0), f32(W - 2))
@@ -146,7 +209,7 @@ def model_desc(img, u, v, ang, fault=None) -> np.ndarray:
 
 
 def model_extract(pyramid, budget: int, threshold: float, fault=None):
-    """The three kernels' outputs as numpy: OrbFeatures fields and the probe
+    """The kernel's outputs as numpy: OrbFeatures fields and the probe
     (every level's FAST map, flat)."""
     out = {k: [] for k in ("uv", "level", "angle", "score", "desc", "valid")}
     maps = []
@@ -169,8 +232,8 @@ def model_extract(pyramid, budget: int, threshold: float, fault=None):
         u = np.zeros(budget, np.int64)
         v = np.zeros(budget, np.int64)
         sc = np.zeros(budget, f32)
-        rl = ranks(cand_s, fault)
-        take = rl < budget
+        rl = model_select(cand_s, budget, fault)
+        take = rl >= 0
         u[rl[take]], v[rl[take]], sc[rl[take]] = cand_u[take], cand_v[take], cand_s[take]
         ang = model_angle(img, u, v, fault)
         out["desc"].append(model_desc(img, u, v, ang, fault))
@@ -182,6 +245,177 @@ def model_extract(pyramid, budget: int, threshold: float, fault=None):
         out["score"].append(sc)
         out["valid"].append(sc > 0)
     return {k: np.concatenate(v) for k, v in out.items()}, np.concatenate(maps)
+
+
+def _level_candidates(img: torch.Tensor, threshold: float) -> np.ndarray:
+    """A level's candidate scores (each cell's top 4 after the NMS), from the
+    plain form's pieces."""
+    _, sc = torb._grid_topk(torb.nms_map(torb.fast_score_map(img, threshold)), 16, 4)
+    return sc.numpy()
+
+
+def _arrays_with_ties():
+    """Candidate score arrays that stress the selection: float scores, each
+    with many exact ties and zeros, scores straddling bucket edges, a tiny
+    and a huge score."""
+    rng = np.random.default_rng(7)
+    out = {}
+    s = rng.uniform(0, 300, 600).astype(f32)
+    s[rng.random(600) < 0.3] = 0
+    out["uniform_zeros"] = s
+    out["integers"] = rng.integers(0, 12, 900).astype(f32)
+    edge = np.float32(256.0)
+    out["bucket_edges"] = np.array([edge, np.nextafter(edge, f32(0)), np.nextafter(edge, f32(1e9)),
+                                    edge, 0, 1e-30, 3e38, edge, 1.0, 1.0], f32)
+    out["all_zero"] = np.zeros(100, f32)
+    out["one_value"] = np.full(100, 7.5, f32)
+    # most keys in one bucket (the kernel splits it finer), with ties
+    s = rng.uniform(2048, 2304, 3000).astype(f32)
+    s[rng.random(3000) < 0.1] = 0
+    s[rng.random(3000) < 0.2] = f32(2100.5)
+    out["one_bucket"] = s
+    out["one_bucket_integers"] = rng.integers(2048, 2304, 3000).astype(f32)
+    return out
+
+
+@pytest.mark.parametrize("budget", [1, 3, 50, 128, 300, 1000])
+@pytest.mark.parametrize("name", ["uniform_zeros", "integers", "bucket_edges", "all_zero",
+                                  "one_value", "one_bucket", "one_bucket_integers", "frame_b128",
+                                  "blobs", "blobs_b50", "flat", "640x480_noise_b512",
+                                  "640x480_whole_noise_b2000"])
+def test_model_selection_equals_ranks(name, budget):
+    """The kernel's selection by buckets gives every candidate the slot of
+    its stable rank (ranks(): greater scores, then equal ones at lower
+    indices) when that rank is under the budget, on arrays with ties at
+    the budget's key, zeros, and each level of the card cases."""
+    if name in _arrays_with_ties():
+        levels = [_arrays_with_ties()[name]]
+    else:
+        pyr, _, threshold = orb_case(name)
+        levels = [_level_candidates(img, threshold) for img in pyr]
+    for s in levels:
+        r = ranks(s)
+        want = np.where(r < budget, r, -1)
+        np.testing.assert_array_equal(model_select(s, budget), want)
+
+
+@pytest.mark.parametrize("n", [8, 280, 1200, 4800, 43200])
+@pytest.mark.parametrize("parts", [1, 4, 99, 132])
+def test_part_ranges_cover_each_candidate_once(n, parts):
+    """Every part of a level lists all the level's candidates in its own
+    order, so each candidate must be ranked by exactly one part: the parts'
+    ranges of indices partition [0, n)."""
+    got = [i for r in model_part_ranges(n, parts) for i in r]
+    assert got == list(range(n))
+
+
+def test_noise_splits_its_fullest_bucket():
+    """On 640x480 noise most of level 0's scores fall in one bucket, which
+    the model (as the kernel) counts again in finer buckets: its selection
+    still gives every candidate its stable rank."""
+    pyr, budget, threshold = orb_case("640x480_noise_b2000")
+    s = _level_candidates(pyr[0], threshold)
+    keys = s.view(np.uint32).astype(np.int64)
+    assert np.bincount(keys[keys != 0] >> KEY_SHIFT).max() > 10 * REFINE_AT
+    np.testing.assert_array_equal(model_select(s, budget), np.where(ranks(s) < budget,
+                                                                     ranks(s), -1))
+
+
+def test_blobs_b50_cuts_a_group_of_equal_scores():
+    """The card case for the selection's ties: at levels 0 and 1 the budget
+    takes some candidates of a group of equal scores and leaves others."""
+    pyr, budget, threshold = orb_case("blobs_b50")
+    ties = oe.ties_at_budget(pyr, budget, threshold)
+    assert all(t["taken"] > 0 and t["left"] > 0 for t in ties[:2]), ties
+    s = _level_candidates(pyr[0], threshold)
+    assert not np.array_equal(model_select(s, budget, "ties_high"), model_select(s, budget))
+
+
+@pytest.mark.parametrize("name", ["frame_b128", "frame_b512", "blobs"])
+def test_smoke_tie_budget_splits_a_nonzero_group(name):
+    """chip_smoke.py's phase 17 runs the selection's tie fault on the
+    rounded pyramid at nonzero_tie_budget: there some level's cut splits a
+    group of equal nonzero scores, so that the fault's order (the model's
+    "ties_high") takes other candidates than the kernel's; no larger budget
+    up to the case's own does."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    pyr, budget, threshold = orb_case(name)
+    rounded = tuple(torch.round(x) for x in pyr)
+    b = chip_smoke.nonzero_tie_budget(rounded, budget, threshold)
+    assert b is not None and 1 <= b <= budget
+    split = [k for k, t in enumerate(oe.ties_at_budget(rounded, b, threshold))
+             if t["taken"] and t["left"] and t["key"]]
+    assert split
+    s = _level_candidates(rounded[split[0]], threshold)
+    assert set(np.flatnonzero(model_select(s, b) >= 0)) != set(
+        np.flatnonzero(model_select(s, b, "ties_high") >= 0))
+    for larger in range(b + 1, budget + 1):
+        assert not any(t["taken"] and t["left"] and t["key"]
+                       for t in oe.ties_at_budget(rounded, larger, threshold)), larger
+
+
+def test_arc_test_doubling_equals_the_shift_loop():
+    """csrc/orb_extract.cu arc_reaches (x & x >> 1, then >> 2, >> 4, and
+    x >> 8) against the AND over shifts 0..8, on every 16-bit mask."""
+    m = np.arange(1 << 16, dtype=np.uint32)
+    x = m | (m << np.uint32(16))
+    loop = x.copy()
+    for k in range(1, 9):
+        loop &= x >> np.uint32(k)
+    r = x & (x >> np.uint32(1))
+    r &= r >> np.uint32(2)
+    r &= r >> np.uint32(4)
+    r &= x >> np.uint32(8)
+    np.testing.assert_array_equal((r & 0xFFFF) != 0, (loop & 0xFFFF) != 0)
+
+
+@pytest.mark.parametrize("case", ["frame_b128", "frame_t8", "blobs", "odd_sides",
+                                  "640x480_b512"])
+def test_compass_test_keeps_every_corner(case):
+    """csrc/orb_extract.cu scores only the pixels that pass may_be_corner
+    (at least 2 of the 4 compass samples brighter, or 2 darker) and gives
+    the rest 0: on every level every pixel it skips scores 0 in the model,
+    and it skips most of them."""
+    pyr, _, threshold = orb_case(case)
+    for img in pyr:
+        a = img.numpy()
+        H, W = a.shape
+        pad = np.pad(a, 3)
+        hi, lo = a + f32(threshold), a - f32(threshold)
+        compass = [pad[3 + dy:3 + dy + H, 3 + dx:3 + dx + W]
+                   for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+        nb = sum((v > hi).astype(int) for v in compass)
+        nd = sum((v < lo).astype(int) for v in compass)
+        skipped = (nb < 2) & (nd < 2)
+        assert (model_scores(a, threshold)[skipped] == 0).all()
+        if case.startswith("640"):
+            assert skipped.mean() > 0.3, skipped.mean()
+
+
+def test_stage_marks_are_found_by_ba_stages(tmp_path):
+    """Every `// stage:` mark of csrc/orb_extract.cu is one that
+    tools/ba_stages.py's MARK finds (so instrument stamps it), with names
+    that repeat nowhere, and the copy that instrument writes has a stamp for
+    each."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import ba_stages
+
+    text = oe.SOURCE.read_text()
+    written = [ln.strip()[len("// stage: "):] for ln in text.splitlines()
+               if ln.strip().startswith("// stage:")]
+    found = [m.group(2) for m in ba_stages.MARK.finditer(text)]
+    assert found == written and len(set(found)) == len(found) > 0, (written, found)
+
+    class Tree:
+        csrc = kb.CSRC
+
+    copy, stages = ba_stages.instrument(Tree(), tmp_path / "orb_stages", prefix="orb_")
+    stamped = (copy / oe.SOURCE.name).read_text()
+    assert stages == found
+    assert all(f"ba_stage({k});" in stamped for k in range(len(stages)))
+    assert not any(ln.strip().startswith("// stage:") for ln in stamped.splitlines())
 
 
 def _features(d: dict) -> torb.OrbFeatures:
@@ -249,7 +483,8 @@ def test_model_matches_jax(case):
 
 
 @pytest.mark.parametrize("fault,case", [("arc8", "frame_b128"), ("nms_gt", "blobs"),
-                                        ("ties_high", "blobs"), ("msb_first", "frame_b128"),
+                                        ("ties_high", "blobs"), ("ties_high", "blobs_b50"),
+                                        ("msb_first", "frame_b128"),
                                         ("butterfly_up", "frame_b128")])
 def test_planted_faults_fail_parity(fault, case):
     pyr, budget, threshold, got, probe = _model_case(case, fault)
@@ -315,3 +550,15 @@ def test_smoke_faults_name_lines_of_the_kernel():
     text = oe.SOURCE.read_text()
     for name, (old, new) in chip_smoke.ORB_FAULTS.items():
         assert text.count(old) == 1 and new != old, name
+
+
+def test_smoke_fault_sources_carry_their_headers(tmp_path):
+    """Each planted fault's copy of the source sits beside the headers it
+    includes, so that kernel_build can hash (and nvcc build) it."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    paths = chip_smoke.write_orb_faults(tmp_path)
+    assert set(paths) == set(chip_smoke.ORB_FAULTS)
+    libs = {kb.library_path(path).name for path in paths.values()}
+    assert len(libs) == len(paths) and kb.library_path(oe.SOURCE).name not in libs

@@ -28,7 +28,22 @@ module names, so each build runs its own wrappers on its own csrc/):
   turns (each in order, then in reverse).
 
 One JSON line a build and stage set, then the times; all of it also in
---out. Needs one CUDA card; no JAX.
+--out.
+
+    python3 tools/ba_stages.py --orb [--parent DIR] [--reps 20] [--out FILE]
+
+--orb takes the ORB call instead (ops/orb_extract.py orb_extract_cuda, which
+the hybrid's extract_orb launches on the card) at budgets 512, 800 and 2000
+(presets/orb2000.yaml), 3 levels, threshold 12, on two 640x480 pyramids:
+the smoke's second frame (`frame`: few corners, so each level's cut falls
+among the zero scores) and uniform noise in [0, 255) from a seed (`noise`:
+a corner in nearly every cell, so the selection ranks thousands of nonzero
+scores). For each input, budget and build: the sha256 of its six outputs
+(equal across builds where the kernels agree bit for bit) and its stage
+stamps (its `// stage: NAME` marks in csrc/orb_extract.cu, as
+chip_smoke.py phase 17 prints them for this tree); then the builds' cold
+and warm device ms in turns (each in order, then in reverse). Needs one
+CUDA card; no JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import importlib.util
 import json
 import re
@@ -54,9 +70,13 @@ from libcml_tpu_torch import workload as wl  # noqa: E402
 from libcml_tpu_torch.models.direct import ba as tree_ba  # noqa: E402
 from libcml_tpu_torch.ops import ba_sweep as tree_bk  # noqa: E402
 from libcml_tpu_torch.ops import kernel_build as kb  # noqa: E402
+from libcml_tpu_torch.ops import orb_extract as tree_oe  # noqa: E402
+from libcml_tpu_torch.ops.image import build_pyramid  # noqa: E402
 from libcml_tpu_torch.runtime.odometry import DirectOdometry  # noqa: E402
 
-MAXB, NSTAGE = 1024, 64
+# MAXB: blocks whose stamps the tables hold (the ORB kernel's cell pass has
+# 1,570 blocks at 640x480)
+MAXB, NSTAGE = 2048, 64
 STAMP_HEAD = f"""// stage stamps (tools/ba_stages.py; a throwaway copy, never shipped)
 #include <cuda_runtime.h>
 __device__ unsigned long long ba_stage_cycles[{MAXB}][{NSTAGE}];
@@ -132,7 +152,33 @@ class Build:
                 setattr(self.bk, f, p)
 
 
-def instrument(build: Build, out_dir: Path, prefix: str | tuple = "ba_", head: str = STAMP_HEAD,
+class OrbBuild:
+    """The ORB kernel of one tree: its wrapper module `oe` (for another
+    tree, its ops/orb_extract.py loaded from its files and pointed at its own
+    csrc/); inside `sources(dir)`, the wrapper launches the library built
+    from the source in `dir`."""
+
+    def __init__(self, name: str, tree: Path | None = None):
+        self.name = name
+        if tree is None:
+            self.oe, self.csrc = tree_oe, kb.CSRC
+        else:
+            pkg = tree / "libcml_tpu_torch"
+            self.csrc = pkg / "csrc"
+            self.oe = _load_module(f"_orb_extract_{name}", pkg / "ops" / "orb_extract.py")
+            self.oe.SOURCE = self.csrc / self.oe.SOURCE.name
+
+    @contextlib.contextmanager
+    def sources(self, csrc: Path):
+        before = self.oe.SOURCE
+        self.oe.SOURCE = csrc / before.name
+        try:
+            yield
+        finally:
+            self.oe.SOURCE = before
+
+
+def instrument(build: Build | OrbBuild, out_dir: Path, prefix: str | tuple = "ba_", head: str = STAMP_HEAD,
                tail: str = STAMP_TAIL, edit=None) -> tuple[Path, list[str]]:
     """A copy of the build's csrc/ in `out_dir` with stage stamps in its
     sources whose names start with `prefix` (the BA sources by default; a
@@ -174,7 +220,8 @@ def read_stamps(lib) -> tuple[np.ndarray, np.ndarray]:
 def stage_report(build: Build, copy: Path, stages: list[str], calls: dict, reps: int) -> dict:
     """For each named call, each stage in the order the blocks pass them:
     the median over `reps` launches of the time (us, globaltimer) at which
-    the last block passed it since the first block's first stamp, the
+    the last block passed it since the first block's first stamp (and the
+    same of the first block to pass it), the
     median over blocks and launches of a block's time (us) and cycles
     (clock64) from its previous stamp, and the blocks that passed it."""
     out = {}
@@ -185,7 +232,7 @@ def stage_report(build: Build, copy: Path, stages: list[str], calls: dict, reps:
             lib.ba_stage_read.restype = ctypes.c_int
             fn()
             torch.cuda.synchronize()
-            timeline, own_ns, own_cyc, blocks = [], {}, {}, {}
+            timeline, firsts, own_ns, own_cyc, blocks = [], [], {}, {}, {}
             for _ in range(reps):
                 if lib.ba_stage_clear() != 0:
                     raise RuntimeError("ba_stage_clear failed")
@@ -196,6 +243,8 @@ def stage_report(build: Build, copy: Path, stages: list[str], calls: dict, reps:
                 t0 = ns[hit].min()
                 timeline.append({stages[k]: float((ns[:, k][hit[:, k]].max() - t0) / 1e3)
                                  for k in range(len(stages)) if hit[:, k].any()})
+                firsts.append({stages[k]: float((ns[:, k][hit[:, k]].min() - t0) / 1e3)
+                               for k in range(len(stages)) if hit[:, k].any()})
                 for b in np.flatnonzero(hit.any(axis=1)):
                     ks = sorted(np.flatnonzero(hit[b]), key=lambda k: ns[b, k])
                     for prev, k in zip(ks[:-1], ks[1:]):
@@ -209,13 +258,70 @@ def stage_report(build: Build, copy: Path, stages: list[str], calls: dict, reps:
             total = done[order[-1]]
             rows, last = {}, 0.0
             for n in order:
-                rows[n] = {"done_at_us": done[n], "step_us": done[n] - last,
+                rows[n] = {"first_at_us": statistics.median(r[n] for r in firsts if n in r),
+                           "done_at_us": done[n], "step_us": done[n] - last,
                            "share": (done[n] - last) / total if total > 0 else None,
                            "block_us": statistics.median(own_ns[n]) if n in own_ns else None,
                            "block_cycles": statistics.median(own_cyc[n]) if n in own_cyc
                            else None, "blocks": blocks[n]}
                 last = done[n]
             out[name] = {"total_us": total, "stages": rows}
+    return out
+
+
+def orb_stamps(build: OrbBuild, pyr, budget: int, threshold: float, reps: int) -> dict | None:
+    """The build's ORB stage stamps on one call (stage_report over `reps`
+    calls of a copy of its csrc/ with its `// stage:` marks made stamps),
+    with, before a launch's first mark (a name ending in `_start`), the gap
+    from the last block's last stamp before it; None where the source has
+    no marks."""
+    copy, stages = instrument(build, kb.BUILD_DIR / "orb_stages" / build.name, prefix="orb_")
+    if not stages:
+        return None
+    kb.build_many([copy / build.oe.SOURCE.name])
+    call = (lambda: build.oe.orb_extract_cuda(pyr, budget, threshold), build.oe.SOURCE.name)
+    rep = stage_report(build, copy, stages, {"call": call}, reps)["call"]
+    prev = None
+    for stage, row in rep["stages"].items():
+        if stage.endswith("_start") and prev is not None:
+            row["gap_us"] = row["first_at_us"] - rep["stages"][prev]["done_at_us"]
+        prev = stage
+    return {**rep, "blocks_held": MAXB}
+
+
+def orb_main(a, dev, card: str) -> dict:
+    """--orb: the ORB call of each build on each input at each budget."""
+    builds = [OrbBuild("tree")] + ([OrbBuild("parent", a.parent.resolve())] if a.parent else [])
+    kb.build_many([b.oe.SOURCE for b in builds], verbose=True)
+    _, _, frames = wl.render_frames(dev, 2)
+    noise = np.random.default_rng(0).uniform(0.0, 255.0, (wl.H, wl.W)).astype(np.float32)
+    inputs = {"frame": build_pyramid(frames[1][0], wl.ORB_LEVELS),
+              "noise": build_pyramid(torch.from_numpy(noise).to(dev), wl.ORB_LEVELS)}
+    threshold, budgets = 12.0, (512, 800, 2000)
+    out = {"card": card, "builds": {}}
+    for b in builds:
+        for name, pyr in inputs.items():
+            for budget in budgets:
+                got = b.oe.orb_extract_cuda(pyr, budget, threshold)
+                h = hashlib.sha256()
+                for f in ("uv", "level", "angle", "score", "desc", "valid"):
+                    h.update(getattr(got, f).contiguous().cpu().numpy().tobytes())
+                row = {"digest": h.hexdigest(), "valid": int(got.valid.sum()),
+                       "stamps": orb_stamps(b, pyr, budget, threshold, a.reps)}
+                out["builds"].setdefault(b.name, {}).setdefault(name, {})[budget] = row
+                print(json.dumps({"build": b.name, "input": name, "budget": budget, **row,
+                                  "card": card}), flush=True)
+    times = {name: {budget: {b.name: {"cold": [], "warm": []} for b in builds}
+                    for budget in budgets} for name in inputs}
+    for b in builds + builds[::-1]:
+        for name, pyr in inputs.items():
+            for budget in budgets:
+                def call(b=b, pyr=pyr, budget=budget):
+                    b.oe.orb_extract_cuda(pyr, budget, threshold)
+                times[name][budget][b.name]["cold"].append(cs.cuda_ms(call))
+                times[name][budget][b.name]["warm"].append(cs.cuda_ms(call, cold=False))
+    out["ms"] = times
+    print(json.dumps({"ms": times, "card": card}), flush=True)
     return out
 
 
@@ -238,6 +344,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--orb", action="store_true",
+                    help="the ORB call at budgets 512, 800 and 2000 in place of the BA window")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ba_stages: CUDA is not available", file=sys.stderr)
@@ -245,6 +353,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.nvidia_smi("name,power.limit")
+    if a.orb:
+        out = orb_main(a, dev, card)
+        if a.out:
+            a.out.parent.mkdir(parents=True, exist_ok=True)
+            a.out.write_text(json.dumps(out, indent=1))
+        return 0
     builds = [Build("tree")] + ([Build("parent", a.parent.resolve())] if a.parent else [])
     stage_dir = kb.BUILD_DIR / "ba_stages"
     copies = {b.name: instrument(b, stage_dir / b.name) for b in builds}

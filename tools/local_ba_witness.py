@@ -193,7 +193,8 @@ STAGE_ANCHORS = (
     ("      group_prune(a, g, stage == 0 ? a.obs_valid_mid : nullptr);\n    __syncthreads();\n",
      "prune"),
 )
-BARRIER = re.compile(r"^([ \t]*)((?:ba::)?(?:grid_barrier|grid_sync)\(bar\);)", re.M)
+BARRIER = re.compile(r"^([ \t]*)((?:ba::)?(?:grid_barrier|grid_sync)\(bar(?:, b\.arrived)?\);)",
+                     re.M)
 
 
 def stage_edit(name: str, text: str) -> str:
