@@ -101,7 +101,8 @@ Phases (any failure exits non-zero, and no result line is printed):
  14. the BA kernels: ba_sweep (the window BA's residual sweep, reduced to
      the Schur-ready camera system, or the energy, or the residual status,
      or the marginalization pieces), ba_solve (the rest of an LM step) and
-     ba_run (a whole run_ba in one launch, from the same device functions)
+     ba_run (a whole run_ba or run_ba_mixed in one launch, from the same
+     device functions)
      against their plain forms on the card, on the inputs of every run_ba
      call of phase 3 (the initial BA included), an all-invalid window,
      ba_iters 0 and a run whose steps are all rejected: E, T and idepth
@@ -114,7 +115,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      both forms at the plain result (res_active and point_valid equal);
      every run_ba_mixed call of phase 5 against run_ba_mixed_plain (E, T,
      idepth and the indirect idepths within bk.MIXED_PARITY_TOL, the
-     decisions compared alike, 1 + 3 x ba_iters sweeps); each captured
+     decisions compared alike and the float64 run beside them), its
+     launches (1 ba_run, and no other kernel, copy or wait inside the call)
+     and on a world of one (the split route, with the one launch's bits);
+     two faults planted in copies of the run kernel (the reprojection Huber
+     threshold at 4, the factors' Schur pair left out) each refused by the
+     same verdict on a phase-5 call, their readings printed; each captured
      step's accept-test value from the same states in float32 (plain,
      kernels) against float64 (the witness behind bk.DECISION_TOL); phase
      3's first _marg_pieces call (the four sums within 1e-3, hosted equal);
@@ -122,7 +128,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      the plain form's float32) against float64 from the same states, the
      scale curvature's error at most the plain form's recorded worst (3.18 %);
      on the last window, the host waits inside run_ba (none), cold and warm
-     ms of a run_ba, a system sweep, an energy sweep and a solve, the plain
+     ms of a run_ba, a system sweep, an energy sweep and a solve (and of
+     the last phase-5 run_ba_mixed call), the plain
      forms' ms, torch.linalg.solve_ex's ms on the damped system, and each
      kernel's bound and share (a run_ba's: its inputs and texels read once,
      its result written once, its sweeps' and solves' operations).
@@ -1704,7 +1711,25 @@ def lm_phase(cap: LMCapture, card: str) -> tuple[list[dict], list[dict], dict]:
 BA_RESIDUAL_FMA, BA_PAIR_FEJ_FMA, BA_PAIR_SYSTEM_FMA = 40, 70, 100 * 4 + 16 * 2
 # an energy sweep's residual: the same less the 14 sums of Z and zr
 BA_ENERGY_RESIDUAL_FMA = BA_RESIDUAL_FMA - 14
+# the mixed BA's reprojection pair, counted from csrc/ba_common.cuh ind_pair
+# and ind_*_forms: its residual (unprojection, transform, projection, chi2,
+# the Huber weight and energy); its Jacobians J_uv, J_t, J_h, J_rho; and its
+# share of the camera system (three 6x6 products of two terms, the two
+# 6-vectors J^T W r, its H_rho, b_rho and H_xr shares); its valid points'
+# Schur outer products are counted as the photometric points' are
+BA_IND_RESIDUAL_FMA, BA_IND_JACOBIAN_FMA = 36, 99
+BA_IND_PAIR_SYSTEM_FMA = 3 * 36 * 2 + 2 * 6 * 2 + 16 * 2
 BA_KERNELS = ("ba_sweep", "ba_solve", "ba_run")
+# faults planted in a copy of csrc/ba_common.cuh (ba_run.cu beside it) that
+# phase 14 builds and runs on a run_ba_mixed call of phase 5: the
+# reprojection Huber threshold moved to 4, and the factors' Schur pair left
+# out of the damped system; the mixed case's verdict must refuse each
+BA_MIXED_FAULTS = {
+    "huber_threshold_4": (("constexpr float CHI2_2D = 5.991f;",
+                           "constexpr float CHI2_2D = 4.0f;"),),
+    "schur_pair_left_out": (("      if (a.Hi_corr) h = h - ldcg(a.Hi_corr + i);\n", ""),
+                            ("    if (a.bi_corr) g = g - ldcg(a.bi_corr + tid);\n", "")),
+}
 # the worst error of the scale curvature of H - H_corr against float64 over
 # phase 3's windows recorded for the one-block sweep with float64 partials
 # and for the plain form (PERF.md)
@@ -1950,47 +1975,63 @@ def solve_bound(st) -> tuple[float, str, dict]:
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
-def run_ba_bound(st, images, cam, cfg) -> tuple[float, str, dict]:
-    """Least time of one run_ba in one launch, in ms: the larger of its
-    bytes over the HBM rate (the state's point and frame data and the prior
-    read once, the texels that any of its sweeps gathers read once, 12
-    bytes each, and the result's frames, inverse depths and energy written
-    once; the system and the point rows stay on the chip) and its
-    arithmetic over the f32 rate (the operations that sweep_bound and
-    solve_bound count for each sweep and solve it makes, each at the state
-    it takes along the plain form's run: the energy sweep at the start; a
-    step's system sweep and solve at the held state, its energy sweep at
-    the candidate)."""
+def run_ba_bound(st, images, cam, cfg, ind=None) -> tuple[float, str, dict]:
+    """Least time of one run_ba (run_ba_mixed with the factors `ind`) in one
+    launch, in ms: the larger of its bytes over the HBM rate (the state's
+    point and frame data and the prior read once, the factors' read once,
+    the texels that any of its sweeps gathers read once, 12 bytes each, and
+    the result's frames, inverse depths and energy written once; the
+    systems and the point rows stay on the chip) and its arithmetic over
+    the f32 rate (the operations that sweep_bound and solve_bound count for
+    each sweep and solve it makes, and the factors' active pairs and valid
+    points in each sweep, each at the state it takes along the plain form's
+    run: the energy sweep at the start; a step's system sweep and solve at
+    the held state, its energy sweep at the candidate)."""
     P, F = st.num_points, st.num_frames
     D = 8 * F
-    flops, texels = 0, []
+    flops, texels, ind_pairs = 0, [], 0
 
-    def sweep(s, mode):
-        nonlocal flops
+    def sweep(s, i, mode):
+        nonlocal flops, ind_pairs
         flops += sweep_bound(s, images, cam, cfg, mode)[2]["flops"]
         texels.append(_active_pairs(s, images, cam, cfg)[1])
+        if i is not None:
+            n = int(ba._linearize_indirect(s, i, cam, cfg)[5].sum())
+            ind_pairs += n
+            fma = n * BA_IND_RESIDUAL_FMA
+            if mode == "system":
+                valid = int(i.point_valid.sum())
+                fma += n * (BA_IND_JACOBIAN_FMA + BA_IND_PAIR_SYSTEM_FMA) + valid * (
+                    D * (D + 1) // 2 + D)
+            flops += 2 * fma
 
-    sweep(st, "energy")
+    sweep(st, ind, "energy")
     lam = torch.full((), cfg.ba_lambda_init, dtype=torch.float32, device=images.device)
-    E = ba.total_energy_plain(st, images, cam, cfg)
+    E = ba.total_energy_plain(st, images, cam, cfg, ind)
     for _ in range(cfg.ba_iters):
-        cand, _ = ba.ba_step_plain(st, images, cam, cfg, lam)
-        sweep(st, "system")
+        step = ba.ba_step_plain(st, images, cam, cfg, lam, ind)
+        cand, cand_i = step[0], None if ind is None else step[1]
+        sweep(st, ind, "system")
         flops += solve_bound(st)[2]["flops"]
-        sweep(cand, "energy")
-        E_new = ba.total_energy_plain(cand, images, cam, cfg)
+        if ind is not None:
+            flops += 2 * int(ind.point_valid.sum()) * D
+        sweep(cand, cand_i, "energy")
+        E_new = ba.total_energy_plain(cand, images, cam, cfg, cand_i)
         accept = bool(E_new < E)
         if accept:
-            st, E = cand, E_new
+            st, ind, E = cand, cand_i, E_new
         lam = torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2)
     n_tex = int(torch.unique(torch.cat(texels)).numel())
+    Q = 0 if ind is None else ind.num_points
     nbytes = (12 * n_tex + P * (8 + 4 + 4 + 4 + 32 + 32 + 1 + F) + F * (2 * 48 + 2 * 8 + 32 + 1)
-              + D * D * 4 + D * 4 + 4 + F * (48 + 8 + 32) + P * 4 + 4)
+              + D * D * 4 + D * 4 + 4 + F * (48 + 8 + 32) + P * 4 + 4
+              + Q * (8 + 4 + 4 + 1 + F * (8 + 1 + 4)) + Q * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     detail = {"sweeps": 1 + 2 * cfg.ba_iters, "solves": cfg.ba_iters, "bytes": nbytes,
               "flops": flops, "texels": n_tex,
-              "texels_summed_over_sweeps": sum(x.numel() for x in texels)}
+              "texels_summed_over_sweeps": sum(x.numel() for x in texels),
+              "factor_points": Q, "factor_pairs_summed_over_sweeps": ind_pairs}
     return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
 
 
@@ -2057,35 +2098,118 @@ def ba_case(name: str, st, images, cam, cfg, card: str, mesh, rejected: bool = F
     return row
 
 
-def mixed_case(name: str, st, images, cam, cfg, ind, card: str) -> dict:
-    """One phase-14 case of the mixed BA: run_ba_mixed on the kernels (the
-    reprojection terms entering the solve as an additive system and a
-    second Schur pair, the reprojection energy in the FINISH launch, the
-    indirect inverse depths selected there) against run_ba_mixed_plain on
-    the card within bk.MIXED_PARITY_TOL (E, T, idepth, the indirect idepths;
-    point_valid equal), the accept decisions and the float64 evidence as in
-    ba_case, and its launches (1 + 3 x ba_iters sweeps, ba_iters solves)."""
-    before = path_launches()
+def mixed_verdict(st, images, cam, cfg, ind, plain: tuple, f64: dict) -> tuple[dict, dict]:
+    """run_ba_mixed on the kernels (one launch of the run kernel that
+    bk.RUN_SOURCE builds) against `plain` (run_ba_mixed_plain's state,
+    factors, E and (E, E_new) trace) and the float64 run `f64`
+    (run_ba_f64): run_ba_verdict at bk.MIXED_PARITY_TOL, and the decisions."""
+    want, want_ind, E_want, tr = plain
     trace = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
     got, got_i, E = ba._run_ba_cuda(st, images, cam, cfg, None, ind=ind, trace=trace)
-    torch.cuda.synchronize()
-    launches = _ba_launches(before)
+    dec = _decisions(trace, tr)
+    verdict = run_ba_verdict(got, E, want, E_want, dec, f64, bk.MIXED_PARITY_TOL,
+                             (got_i, want_ind.idepth))
+    verdict.update(E=float(E), run=(got, got_i, E, trace))
+    return verdict, dec
+
+
+def mixed_case(name: str, st, images, cam, cfg, ind, card: str, mesh) -> dict:
+    """One phase-14 case of the mixed BA: run_ba_mixed on the kernels (one
+    launch of the run kernel: the factors swept, their sums joining the
+    solve as an additive system and a second Schur pair, their inverse
+    depths back-substituted and selected, their energy in the finish)
+    against run_ba_mixed_plain on the card within bk.MIXED_PARITY_TOL (E, T,
+    idepth, the indirect idepths; point_valid equal), the accept decisions
+    and the float64 evidence as in ba_case; its launches (1 ba_run; no
+    other kernel enqueued, no copy or wait inside the call), and the same
+    run on `mesh`, a world of one (2 + 3 x ba_iters sweep and FINISH
+    launches and ba_iters solves, the factors whole in them), with the same
+    bits."""
+    before = path_launches()
     tr = []
     want, want_ind, E_want = ba.run_ba_mixed_plain(st, images, cam, cfg, ind, trace=tr)
-    dec = _decisions(trace, tr)
-    verdict = run_ba_verdict(got, E, want, E_want, dec, run_ba_f64(st, images, cam, cfg, ind),
-                             bk.MIXED_PARITY_TOL, (got_i, want_ind.idepth))
+    verdict, dec = mixed_verdict(st, images, cam, cfg, ind, (want, want_ind, E_want, tr),
+                                 run_ba_f64(st, images, cam, cfg, ind))
+    got, got_i, E, trace = verdict.pop("run")
+    torch.cuda.synchronize()
+    launches = _ba_launches(before)
+    before = path_launches()
+    trace_m = torch.empty((cfg.ba_iters, 2), dtype=torch.float32, device=images.device)
+    on_mesh, mesh_i, E_m = ba._run_ba_cuda(st, images, cam, cfg, mesh, ind=ind, trace=trace_m)
+    torch.cuda.synchronize()
+    launches_mesh = _ba_launches(before)
+    same = (_bits_equal(got, E, on_mesh, E_m) and bool(torch.equal(trace, trace_m))
+            and bool(torch.equal(got_i, mesh_i)))
+    inside = _syncs(lambda: ba.run_ba_mixed(st, images, cam, cfg, ind))
     row = {"case": name, "frames_valid": int(st.frame_valid.sum()),
            "points_valid": int(st.point_valid.sum()),
            "indirect_points_valid": int(ind.point_valid.sum()),
            "indirect_obs": int(ind.obs_valid.sum()), "E": float(E), "E_plain": float(E_want),
-           **{k: v for k, v in verdict.items() if k != "ok"}, "decisions": dec,
-           "launches": launches, "card": card}
+           **{k: v for k, v in verdict.items() if k not in ("ok", "E")}, "decisions": dec,
+           "launches": launches, "inside_the_call": inside, "launches_mesh": launches_mesh,
+           "mesh_bits_equal": same, "card": card}
     print(json.dumps(row))
-    require(launches == {"ba_sweep": 1 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
-                         "ba_run": 0}, f"{name}: launches {launches}")
+    require(launches == {"ba_sweep": 0, "ba_solve": 0, "ba_run": 1}, f"{name}: launches {launches}")
+    require(inside == {"syncs": 0, "memcpys": 0, "enqueues": 1},
+            f"{name}: run_ba_mixed enqueued or waited for more than its one launch: {inside}")
+    require(launches_mesh == {"ba_sweep": 2 + 3 * cfg.ba_iters, "ba_solve": cfg.ba_iters,
+                              "ba_run": 0}, f"{name}: a world of one's launches {launches_mesh}")
+    require(same, f"{name}: a world of one's split launches differ from the one launch")
     require(verdict["ok"], f"run_ba_mixed kernels != plain on {name}: {verdict} {dec}")
     return row
+
+
+def write_ba_faults(out_dir: Path) -> dict:
+    """Each planted fault's run kernel: a copy of csrc/ with the fault's
+    substitutions in ba_common.cuh, in out_dir/NAME/. Returns {name: the
+    copy's ba_run.cu}."""
+    csrc = bk.RUN_SOURCE.parent
+    header = (csrc / "ba_common.cuh").read_text()
+    paths = {}
+    for name, subs in BA_MIXED_FAULTS.items():
+        text = header
+        for old, new in subs:
+            require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
+            text = text.replace(old, new)
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        for src in csrc.glob("*.cu*"):
+            (d / src.name).write_text(text if src.name == "ba_common.cuh" else src.read_text())
+        paths[name] = d / bk.RUN_SOURCE.name
+    return paths
+
+
+@contextlib.contextmanager
+def ba_run_source(path: Path):
+    """bk.ba_run_cuda launching the run kernel built from `path` inside the
+    block."""
+    orig = bk.RUN_SOURCE
+    bk.RUN_SOURCE = path
+    try:
+        yield
+    finally:
+        bk.RUN_SOURCE = orig
+
+
+def mixed_faults(st, images, cam, cfg, ind) -> dict:
+    """Each planted fault (write_ba_faults) built and run on one
+    run_ba_mixed call through mixed_verdict: what it reads."""
+    paths = write_ba_faults(kernel_build.BUILD_DIR / "ba_faults")
+    kernel_build.build_many(list(paths.values()))
+    tr = []
+    plain = (*ba.run_ba_mixed_plain(st, images, cam, cfg, ind, trace=tr), tr)
+    f64 = run_ba_f64(st, images, cam, cfg, ind)
+    out = {}
+    for name, path in paths.items():
+        with ba_run_source(path):
+            verdict, dec = mixed_verdict(st, images, cam, cfg, ind, plain, f64)
+        verdict.pop("run")
+        out[name] = {"ok": verdict["ok"], "max_err": verdict["parity"]["max_err"],
+                     "within": verdict["parity"]["within"], "tol": bk.MIXED_PARITY_TOL,
+                     "decisions_kernel": dec["kernel"], "decisions_plain": dec["plain"],
+                     "first_differing": dec.get("first_differing"),
+                     "f64_evidence": verdict["f64_evidence"]["holds"]}
+    return out
 
 
 def decision_witness(st, images, cam, cfg, ind=None) -> list[dict]:
@@ -2237,11 +2361,15 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
         rows.append(ba_case("run_ba, every step rejected", st, images, cam,
                             dataclasses.replace(cfg, idepth_max=1e-3), card, mesh,
                             rejected=True))
+        mixed_rows = [mixed_case(f"run_ba_mixed, phase-5 call {k} "
+                                 f"({int(a[0].frame_valid.sum())} frames)", *a, card, mesh)
+                      for k, a in enumerate(mixed)]
     finally:
         dist.destroy_process_group()
-    mixed_rows = [mixed_case(f"run_ba_mixed, phase-5 call {k} "
-                             f"({int(a[0].frame_valid.sum())} frames)", *a, card)
-                  for k, a in enumerate(mixed)]
+    faults = mixed_faults(*mixed[0])
+    for name, f in faults.items():
+        print(f"  BA planted fault {name} on run_ba_mixed, phase-5 call 0: {json.dumps(f)}")
+        require(not f["ok"], f"the planted fault {name} passed the mixed BA's verdict")
     witness = ([w for a in runs for w in decision_witness(*a)]
                + [w for a in mixed for w in decision_witness(*a)])
     spread = {k: max(abs(w[k]) for w in witness) for k in ("plain_f32", "kernel")}
@@ -2283,9 +2411,14 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     e_bound, e_by, e_detail = sweep_bound(st, images, cam, cfg, "energy")
     v_bound, v_by, v_detail = solve_bound(st)
     r_bound, r_by, r_detail = run_ba_bound(st, images, cam, cfg)
+    mst, mimages, mcam, mcfg, mind = mixed[-1]   # the last phase-5 call
+    m_bound, m_by, m_detail = run_ba_bound(mst, mimages, mcam, mcfg, mind)
 
     def run():
         return ba.run_ba(st, images, cam, cfg)
+
+    def run_mixed():
+        return ba.run_ba_mixed(mst, mimages, mcam, mcfg, mind)
 
     def sweep():
         return bk.ba_sweep_cuda(st, images, cam, cfg, "system", lam=lam)
@@ -2296,12 +2429,22 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     def solve():
         return bk.ba_solve_cuda(system, st, cfg, lam, st)
 
+    mixed_host, mixed_device = launches_per_call(run_mixed)
+    require(mixed_host == 1, f"run_ba_mixed: {mixed_host} profiled launches a call")
     timing = {
         "run_ba": {"kernel_ms": cuda_ms(run), "kernel_warm_ms": cuda_ms(run, cold=False),
                    "plain_ms": cuda_ms(lambda: ba.run_ba_plain(st, images, cam, cfg), reps=5,
                                        warmup=1),
                    "host_waits": _syncs(run), "library_ms": None,
                    "bound_ms": r_bound, "bound_by": r_by, "bound_detail": r_detail},
+        "run_ba_mixed": {"kernel_ms": cuda_ms(run_mixed),
+                         "kernel_warm_ms": cuda_ms(run_mixed, cold=False),
+                         "plain_ms": cuda_ms(lambda: ba.run_ba_mixed_plain(
+                             mst, mimages, mcam, mcfg, mind), reps=5, warmup=1),
+                         "host_waits": _syncs(run_mixed), "library_ms": None,
+                         "bound_ms": m_bound, "bound_by": m_by, "bound_detail": m_detail,
+                         "launches_per_call": mixed_host,
+                         "device_ops_per_call": mixed_device},
         "ba_sweep": {"kernel_ms": cuda_ms(sweep), "kernel_warm_ms": cuda_ms(sweep, cold=False),
                      "energy_ms": cuda_ms(energy), "energy_warm_ms": cuda_ms(energy, cold=False),
                      "plain_ms": cuda_ms(lambda: ba._sweep_plain(st, images, cam, cfg, lam),
@@ -2314,24 +2457,26 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
                                          reps=5, warmup=1),
                      "library_ms": cuda_ms(lambda: torch.linalg.solve_ex(A, g)),
                      "bound_ms": v_bound, "bound_by": v_by, "bound_detail": v_detail}}
-    for k in ("run_ba", "ba_sweep", "ba_solve"):
+    for k in ("run_ba", "run_ba_mixed", "ba_sweep", "ba_solve"):
         timing[k]["bound_share"] = timing[k]["bound_ms"] / timing[k]["kernel_ms"]
     timing["ba_sweep"]["energy_bound_share"] = e_bound / timing["ba_sweep"]["energy_ms"]
     def err(reps):   # the largest T and idepth error of run_ba's kernels against plain
         return max(max(r["max_err"]["T"], r["max_err"]["idepth_abs"]) for r in reps)
 
-    # ba_run: its own launches (the one-launch runs); ba_sweep and ba_solve:
-    # the runs that launch them (a world of one's and the mixed BA's)
-    kernel_err = {"ba_run": err(r["parity"] for r in rows)}
-    kernel_err["ba_sweep"] = kernel_err["ba_solve"] = err(
-        [r["parity_mesh"] for r in rows] + [r["parity"] for r in mixed_rows])
+    # ba_run: its own launches (the one-launch runs, run_ba's and
+    # run_ba_mixed's); ba_sweep and ba_solve: the runs that launch them (a
+    # world of one's, whose mixed runs have the one launch's bits)
+    kernel_err = {"ba_run": err([r["parity"] for r in rows + mixed_rows])}
+    kernel_err["ba_sweep"] = kernel_err["ba_solve"] = err(r["parity_mesh"] for r in rows)
     public = {"timing": timing, "marg": marg, "run_ba_from_f64": from_f64,
-              "partials_worst": worst,
+              "partials_worst": worst, "run_max_groups": bk.run_max_groups(images.device),
               "max_abs_err": kernel_err,
               "partials_recorded_worst_scale_rel": SCALE_REL_RECORDED,
               "launches_per_run_ba": rows[0]["launches"],
               "launches_per_run_ba_mesh": rows[0]["launches_mesh"],
               "launches_per_run_ba_mixed": mixed_rows[0]["launches"],
+              "launches_per_run_ba_mixed_mesh": mixed_rows[0]["launches_mesh"],
+              "mixed_faults": faults,
               "decisions_differing": sum("first_differing" in r["decisions"]
                                          for r in rows + mixed_rows),
               "decision_witness": spread, "cases": len(rows), "mixed_cases": len(mixed_rows)}
@@ -2340,7 +2485,10 @@ def ba_phase(cap: BACapture, mixed_cap: BACapture, card: str) -> tuple[list[dict
     require(waits["syncs"] == 0 and waits["memcpys"] == 0, f"run_ba waits for the device: {waits}")
     require(worst["kernel"]["scale_rel"] <= SCALE_REL_RECORDED["plain_f32"],
             f"the scale curvature of H - H_corr is off by {worst['kernel']['scale_rel']}")
-    for k in ("run_ba", "ba_sweep", "ba_solve"):
+    waits = timing["run_ba_mixed"]["host_waits"]
+    require(waits == {"syncs": 0, "memcpys": 0, "enqueues": 1},
+            f"run_ba_mixed waits for the device or enqueues more than its launch: {waits}")
+    for k in ("run_ba", "run_ba_mixed", "ba_sweep", "ba_solve"):
         require(timing[k]["bound_share"] <= 1.0, f"{k}: under its bound: the bound is wrong")
     require(timing["ba_sweep"]["energy_bound_share"] <= 1.0, "energy sweep under its bound")
     return rows + mixed_rows, public
@@ -3373,9 +3521,14 @@ def main(argv=None) -> int:
         if name == "ba_sweep":
             row.update({k: t[k] for k in ("energy_ms", "energy_warm_ms", "energy_bound_ms",
                                           "energy_bound_share")})
+        row["launches_per_run_ba_mixed"] = ba_public["launches_per_run_ba_mixed"][name]
+        row["launches_per_run_ba_mixed_mesh"] = ba_public["launches_per_run_ba_mixed_mesh"][name]
         if name != "ba_run":
             row["launches_per_run_ba_mesh"] = ba_public["launches_per_run_ba_mesh"][name]
-            row["launches_per_run_ba_mixed"] = ba_public["launches_per_run_ba_mixed"][name]
+        else:
+            row["case_run_ba_mixed"] = {k: timing["run_ba_mixed"][k] for k in (
+                "kernel_ms", "kernel_warm_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "library_ms", "launches_per_call", "device_ops_per_call")}
         kernels.append(row)
     by_path = {k: v["trace_epipolar"] for k, v in runs.items() if v["trace_epipolar"]}
     t = trace_timing

@@ -1,8 +1,9 @@
 // Device code shared by the window BA's kernels for Hopper (sm_90a):
 // csrc/ba_sweep.cu (a sweep, or FINISH), csrc/ba_solve.cu (the rest of an
-// LM step) and csrc/ba_run.cu (a whole run_ba in one launch). Each of them
-// runs the same functions in the same orders, so a run split into launches
-// (with a mesh, or the mixed BA) gives the bits of the one-launch run.
+// LM step) and csrc/ba_run.cu (a whole run_ba or run_ba_mixed in one
+// launch). Each of them runs the same functions in the same orders, so a
+// run split into launches (with a mesh) gives the bits of the one-launch
+// run.
 //
 // The sweep. The residual of point p (host slot h) in target slot f at
 // pattern pixel k has Jacobians that factor through z_k = (gx_k, gy_k, c_k,
@@ -40,6 +41,22 @@
 //
 // A system sweep hands the solve the Schur complement S = H - H_corr and s =
 // b - b_corr, each difference of two double sums rounded once.
+//
+// The mixed BA's reprojection factors (_linearize_indirect, _assemble_indirect,
+// the second _schur_reduce of ba_step, indirect_energy) are point groups too:
+// NPB factor points, a pair a (point, target slot), swept by the same
+// phases (sweep_group's IND_SYSTEM and IND_ENERGY modes) after the
+// photometric groups. Phase A (ind_pair) linearizes a pair at the current
+// state (no FEJ): the 2-d residual, J_t, J_h, J_rho and the Huber weight
+// mixed_weight / sigma2 at chi2 5.991; phase F writes its 2 x 6 products into
+// a pair's forms (affine rows and columns zero), so phases B and C are the
+// photometric ones: the point's H_rho, b_rho and H_xr row, the damped Schur
+// scale, and the group's partials in point order. Phase D keeps their four
+// sums apart (H, b, H_corr, b_corr, each rounded once), and the solve adds
+// them to the photometric system in _solve_plain's order; the energy is
+// mixed_weight x the groups' sum, added last in the finish. The factors'
+// sums are never part of the photometric partials, so with a mesh, whose
+// ranks each hold them whole, they join after the all-reduce, once.
 //
 // The solve: one warp takes the damped (8F)^2 system through LU with
 // partial pivoting, two rows a lane held in registers and __syncwarp only
@@ -88,6 +105,34 @@ __constant__ float PAT_U[NPAT] = {0.0f, -1.0f, 1.0f, -2.0f, 0.0f, 2.0f, -1.0f, 0
 __constant__ float PAT_V[NPAT] = {-2.0f, -1.0f, -1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 2.0f};
 
 enum Mode { SYSTEM = 0, ENERGY = 1, STATUS = 2, MARG = 3, FINISH = 4 };
+// sweep_group's modes for the reprojection groups of a SYSTEM or ENERGY sweep
+enum IndMode { IND_SYSTEM = 5, IND_ENERGY = 6 };
+// the reprojection residuals' Huber threshold: chi2 with 2 dof at 95 %
+constexpr float CHI2_2D = 5.991f;
+
+// The mixed BA's reprojection factors (ba.py IndirectFactors; Q = 0: none)
+// and what a SYSTEM or ENERGY sweep makes of them (ops/ba_sweep.py IndArgs
+// mirrors it).
+struct Ind {
+  int Q;
+  float mixed_weight;
+  const float* uv;             // (Q, 2) anchor pixel in the host slot
+  const int32_t* host;         // (Q,) host slot
+  const float* idepth;         // (Q,) inverse depth in the host slot
+  const uint8_t* point_valid;  // (Q,)
+  const float* obs_uv;         // (Q, F, 2) observed corner in each target slot
+  const uint8_t* obs_valid;    // (Q, F)
+  const float* sigma2;         // (Q, F) measurement variance
+  float* H;                    // SYSTEM: (D, D) the additive system
+  float* b;                    // SYSTEM: (D,)
+  float* H_corr;               // SYSTEM: (D, D) the damped Schur pair
+  float* b_corr;               // SYSTEM: (D,)
+  float* H_rho_d;              // SYSTEM: (Q,) the damped inverse-depth block
+  float* b_rho;                // SYSTEM: (Q,)
+  float* H_xr;                 // SYSTEM: (Q, D)
+  float* e;                    // ENERGY: () mixed_weight x the robust energy
+  void* partials;              // scratch: the reprojection groups' partial sums (double)
+};
 enum Fin { FIN_NONE = 0, FIN_ENERGY = 1, FIN_ACCEPT = 2 };
 
 // A sweep's arguments (ops/ba_sweep.py SweepArgs mirrors them field for
@@ -147,14 +192,17 @@ struct Args {
   float* dst_R; float* dst_t; float* dst_ab; float* dst_delta; float* dst_idepth;
   const float* src_extra; const float* cand_extra; float* dst_extra;   // (Q,) or null
   float* trace;                // FIN_ACCEPT: (E, E_new) of the step, or null
+  Ind ind;                     // SYSTEM, ENERGY: the reprojection factors
 };
 
 // The solve's arguments (ops/ba_sweep.py SolveArgs mirrors them).
 struct SolveArgs {
   int F, P, mesh;
   float prior_a, prior_b, idepth_min, idepth_max;
+  int Q;                            // reprojection factor points (0: none)
   const float* H; const float* b;   // the reduced sweep: H - H_corr, b - b_corr
-  const float* Hi; const float* bi; const float* Hi_corr; const float* bi_corr;   // or null
+  // the reprojection terms (the sweep's Ind sums), or null
+  const float* Hi; const float* bi; const float* Hi_corr; const float* bi_corr;
   const float* H_m; const float* b_m;
   const float* R; const float* t; const float* ab; const float* delta;   // the state
   const uint8_t* frame_valid;
@@ -167,6 +215,10 @@ struct SolveArgs {
   float* d_rho_out;                 // (P,) with a mesh
   float* dx;                        // (D,) the step (written, then read back by every block)
   unsigned* bar;                    // the grid barrier
+  // the factor points' rows (Q > 0): (Q,), (Q,), (Q, D); their inverse depths
+  // in, and the candidate's out (every rank's whole, with a mesh too)
+  const float* Hi_rho_d; const float* bi_rho; const float* Hi_xr;
+  const uint8_t* ind_valid; const float* ind_idepth; float* ind_idepth_out;
 };
 
 // A (point, target) pair's sums and FEJ geometry.
@@ -179,6 +231,16 @@ struct Pair {
   float zr[4];    // sum w z r
 };
 
+// A reprojection pair's linearization at the current state (phase A of a
+// reprojection group; it takes a Pair's place).
+struct IndPair {
+  float Jt[12];   // d(pixel)/d(target pose), rows u then v
+  float Jh[12];   // d(pixel)/d(host pose)
+  float Jr[2];    // d(pixel)/d(idepth)
+  float r[2];     // proj(T_f T_h^-1 X_h) - obs
+  float w;        // mixed_weight x Huber weight / sigma2; 0 when inactive
+};
+
 // A block's shared memory during a sweep, a solve or a finish (a union: the
 // phases of a launch never overlap); the rows a block keeps across the
 // phases of a one-launch run_ba lie past it (ba_run.cu).
@@ -189,7 +251,10 @@ struct SweepShared {
   // then FEJ, ab, ab_fej, delta, frame_valid
   float fR[2][MAX_F][9], ft[2][MAX_F][3], fab[MAX_F][2], fabf[MAX_F][2], fdelta[MAX_F][8];
   int fvalid[MAX_F];
-  Pair pair[NPAIR];
+  union {
+    Pair pair[NPAIR];
+    IndPair ipair[NPAIR];
+  };
   float form[NPAIR][NFORM];
   float pv[NPAIR][NPB_VALS];         // hr, br, hx[8] of each pair
   float e[NPAIR];
@@ -872,6 +937,154 @@ __device__ __forceinline__ void pair_host_forms(SweepShared& s, int t) {
   }
 }
 
+// Phase A of a reprojection group (_linearize_indirect): pair t = pl * MAX_F
+// + f (thread t < NPAIR) of factor point q, at the current poses and inverse
+// depth (no FEJ): X_t = T_f T_h^-1 X_h, the residual proj(X_t) - obs, J_t =
+// J_uv [I | -skew(X_t)], J_h = -J_uv R [I | -skew(X_h)], J_rho = -J_uv (X_t -
+// t) / rho, the mask (the observation, the point, both slots valid, not the
+// host slot, z > 1e-6 and z > 1e-4) and the Huber weight and energy at
+// chi2 = |r|^2 / sigma2 against CHI2_2D, in the plain form's formulas (the
+// energy before mixed_weight). `sys`: the linearization kept for phase F.
+__device__ __forceinline__ void ind_pair(const Args& a, SweepShared& s, int t, int q, bool sys) {
+  const Ind& d = a.ind;
+  const int f = t % MAX_F, F = a.F;
+  float e = 0.0f, w = 0.0f, Jt[12], Jh[12], Jr[2] = {0.0f, 0.0f}, r[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 12; ++i) Jt[i] = Jh[i] = 0.0f;
+  bool active = false;
+  if (q < d.Q && f < F) {
+    const int h = d.host[q];
+    const float rho = ldcg(d.idepth + q);
+    const float depth = 1.0f / lm::clamp_min(rho, 1e-12f);
+    const float u = d.uv[2 * q], v = d.uv[2 * q + 1];
+    const float Xh[3] = {((u - a.cx) / a.fx) * depth, ((v - a.cy) / a.fy) * depth, 1.0f * depth};
+    const float* R = s.relR[0][h * MAX_F + f];
+    const float* tt = s.relt[0][h * MAX_F + f];
+    float Xt[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      Xt[k] = ((R[3 * k] * Xh[0] + R[3 * k + 1] * Xh[1]) + R[3 * k + 2] * Xh[2]) + tt[k];
+    const float z = Xt[2];
+    const float inv_z = 1.0f / (fabsf(z) < 1e-12f ? 1e-12f : z);
+    const size_t o = (size_t)q * F + f;
+    r[0] = (a.fx * Xt[0] * inv_z + a.cx) - d.obs_uv[2 * o];
+    r[1] = (a.fy * Xt[1] * inv_z + a.cy) - d.obs_uv[2 * o + 1];
+    const float iz = 1.0f / lm::clamp_min(z, 1e-8f);
+    const float iz2 = iz * iz;
+    const float Ju[3] = {a.fx * iz, 0.0f, (-a.fx * Xt[0]) * iz2};
+    const float Jv[3] = {0.0f, a.fy * iz, (-a.fy * Xt[1]) * iz2};
+    // -skew(X_t), -skew(X_h), and -R [I | -skew(X_h)]
+    const float St[3][3] = {{0.0f, Xt[2], -Xt[1]}, {-Xt[2], 0.0f, Xt[0]}, {Xt[1], -Xt[0], 0.0f}};
+    const float Sh[3][3] = {{0.0f, Xh[2], -Xh[1]}, {-Xh[2], 0.0f, Xh[0]}, {Xh[1], -Xh[0], 0.0f}};
+    float Mh[3][6];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        Mh[k][c] = -R[3 * k + c];
+        Mh[k][3 + c] =
+            -((R[3 * k] * Sh[0][c] + R[3 * k + 1] * Sh[1][c]) + R[3 * k + 2] * Sh[2][c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      if (c < 3) {
+        Jt[c] = Ju[c];
+        Jt[6 + c] = Jv[c];
+      } else {
+        Jt[c] = (Ju[0] * St[0][c - 3] + Ju[1] * St[1][c - 3]) + Ju[2] * St[2][c - 3];
+        Jt[6 + c] = (Jv[0] * St[0][c - 3] + Jv[1] * St[1][c - 3]) + Jv[2] * St[2][c - 3];
+      }
+      Jh[c] = (Ju[0] * Mh[0][c] + Ju[1] * Mh[1][c]) + Ju[2] * Mh[2][c];
+      Jh[6 + c] = (Jv[0] * Mh[0][c] + Jv[1] * Mh[1][c]) + Jv[2] * Mh[2][c];
+    }
+    const float rc = lm::clamp_min(rho, 1e-8f);
+    const float dX[3] = {-(Xt[0] - tt[0]) / rc, -(Xt[1] - tt[1]) / rc, -(Xt[2] - tt[2]) / rc};
+    Jr[0] = (Ju[0] * dX[0] + Ju[1] * dX[1]) + Ju[2] * dX[2];
+    Jr[1] = (Jv[0] * dX[0] + Jv[1] * dX[1]) + Jv[2] * dX[2];
+    active = d.obs_valid[o] && d.point_valid[q] && s.fvalid[f] && s.fvalid[h] && h != f &&
+             z > 1e-6f && z > 1e-4f;
+    const float sg = d.sigma2[o];
+    const float chi2 = (r[0] * r[0] + r[1] * r[1]) / sg;
+    const float hub = chi2 > CHI2_2D ? sqrtf(CHI2_2D / lm::clamp_min(chi2, 1e-12f)) : 1.0f;
+    if (active) {
+      w = (d.mixed_weight * hub) / sg;
+      e = chi2 <= CHI2_2D ? chi2 : 2.0f * sqrtf(CHI2_2D * lm::clamp_min(chi2, 1e-12f)) - CHI2_2D;
+    }
+  }
+  if (sys) {
+    IndPair& p = s.ipair[t];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      p.Jt[i] = Jt[i];
+      p.Jh[i] = Jh[i];
+    }
+    p.Jr[0] = Jr[0];
+    p.Jr[1] = Jr[1];
+    p.r[0] = r[0];
+    p.r[1] = r[1];
+    p.w = w;
+  }
+  s.e[t] = e;
+  s.act[t] = active;
+}
+
+// Phase F of a reprojection pair, its target side (thread t): J_t^T W J_t
+// and J_t^T W r into the pair's forms, the pair's shares of H_rho (J_rho^T
+// W J_rho), b_rho (J_rho^T W r) and the host block of the H_xr row (J_h^T W
+// J_rho), and the target block of the point's H_xr row (J_t^T W J_rho);
+// the affine rows and columns zero, and every value zero when inactive
+// (_assemble_indirect's pose-only terms, a form each as the photometric
+// pairs' in pair_target_forms).
+__device__ __forceinline__ void ind_target_forms(const Args& a, SweepShared& s, int t,
+                                                 float (*X)[XS]) {
+  const int pl = t / MAX_F, f = t % MAX_F;
+  const IndPair& q = s.ipair[t];
+  float* F = s.form[t];
+  float* pv = s.pv[t];
+  const bool on = s.act[t] != 0;
+  float wJr[2], wJ[12];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) wJr[u] = q.w * q.Jr[u];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) wJ[i] = q.w * q.Jt[i];
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      F[F_TT + d * 8 + e] = on && d < 6 && e < 6 ? wJ[d] * q.Jt[e] + wJ[6 + d] * q.Jt[6 + e] : 0.0f;
+    F[F_BT + d] = on && d < 6 ? wJ[d] * q.r[0] + wJ[6 + d] * q.r[1] : 0.0f;
+    pv[2 + d] = on && d < 6 ? q.Jh[d] * wJr[0] + q.Jh[6 + d] * wJr[1] : 0.0f;
+    if (f < a.F) X[pl][f * 8 + d] = on && d < 6 ? q.Jt[d] * wJr[0] + q.Jt[6 + d] * wJr[1] : 0.0f;
+  }
+  pv[0] = on ? wJr[0] * q.Jr[0] + wJr[1] * q.Jr[1] : 0.0f;
+  pv[1] = on ? wJr[0] * q.r[0] + wJr[1] * q.r[1] : 0.0f;
+}
+
+// Phase F of a reprojection pair, its host side (thread t + NPAIR): J_t^T W
+// J_h, J_h^T W J_h and J_h^T W r (zeros when inactive).
+__device__ __forceinline__ void ind_host_forms(SweepShared& s, int t) {
+  const IndPair& q = s.ipair[t];
+  float* F = s.form[t];
+  const bool on = s.act[t] != 0;
+  float wJt[12], wJh[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    wJt[i] = q.w * q.Jt[i];
+    wJh[i] = q.w * q.Jh[i];
+  }
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool in = on && d < 6 && e < 6;
+      F[F_TH + d * 8 + e] = in ? wJt[d] * q.Jh[e] + wJt[6 + d] * q.Jh[6 + e] : 0.0f;
+      F[F_HH + d * 8 + e] = in ? wJh[d] * q.Jh[e] + wJh[6 + d] * q.Jh[6 + e] : 0.0f;
+    }
+    F[F_BH + d] = on && d < 6 ? wJh[d] * q.r[0] + wJh[6 + d] * q.r[1] : 0.0f;
+  }
+}
+
 // One entry of a group's partial sums (SYSTEM / MARG layout, not the energy):
 // each quarter of the group's points (4 points) summed in point order, each
 // term added in double, then the quarters in order, ((q0 + q1) + q2) + q3. An
@@ -953,10 +1166,13 @@ __device__ __forceinline__ void group_energy(SweepShared& s) {
 }
 
 // Phases A-C of point group g in `mode` (every thread of the block): the
-// group's partial sums to part (Layout(F).total entries in SYSTEM / MARG,
-// the energy alone otherwise); its H_xr rows, H_rho_d and b_rho to the rows
-// at byte `rows` of shared memory (SYSTEM / MARG); STATUS writes the residual
-// status of its points. Expects rel_poses of the swept state.
+// group's partial sums to part (Layout(F).total entries in SYSTEM / MARG /
+// IND_SYSTEM, the energy alone otherwise); its H_xr rows, H_rho_d and b_rho
+// to the rows at byte `rows` of shared memory (SYSTEM / MARG / IND_SYSTEM);
+// STATUS writes the residual status of its points. IND_SYSTEM and
+// IND_ENERGY sweep group g of the reprojection factors a.ind instead of the
+// state's points (phases A and F their own, B and C the photometric ones).
+// Expects rel_poses of the swept state.
 //
 // This and the other functions that both the split kernels and the run
 // kernel call are __noinline__ (and the mode a template argument): compiled
@@ -970,15 +1186,21 @@ __device__ __noinline__ void sweep_group(const Args& a, int slot, float lam, int
   const Rows R = rows_at(rows);
   float(*X)[XS] = R.X;
   const int tid = threadIdx.x;
-  const bool sys = mode == SYSTEM || mode == MARG;
+  constexpr bool ind = mode == IND_SYSTEM || mode == IND_ENERGY;
+  constexpr bool sys = mode == SYSTEM || mode == MARG || mode == IND_SYSTEM;
+  const int n = ind ? a.ind.Q : a.P;
+  const int32_t* host = ind ? a.ind.host : a.host;
+  const uint8_t* pvalid = ind ? a.ind.point_valid : a.point_valid;
   const int base = g * NPB;
-  const int np = min(NPB, a.P - base);
+  const int np = min(NPB, n - base);
   if (sys)
     for (int i = tid; i < NPB * XS; i += THREADS) (&X[0][0])[i] = 0.0f;
-  if (tid < NPB) s.host[tid] = base + tid < a.P ? a.host[base + tid] : -1;
+  if (tid < NPB) s.host[tid] = base + tid < n ? host[base + tid] : -1;
   // stage: A0
   if (tid < NPAIR) {
-    if (mode == MARG)
+    if (ind)
+      ind_pair(a, s, tid, base + tid / MAX_F, sys);
+    else if (mode == MARG)
       marg_pair(a, s, tid, base + tid / MAX_F, slot);
     else
       sweep_pair(a, mode, s, tid, base + tid / MAX_F);
@@ -1005,8 +1227,13 @@ __device__ __noinline__ void sweep_group(const Args& a, int slot, float lam, int
   }
 
   // phase F: two threads a pair
-  if (tid < NPAIR) pair_target_forms(a, s, tid, X);
-  else pair_host_forms(s, tid - NPAIR);
+  if (ind) {
+    if (tid < NPAIR) ind_target_forms(a, s, tid, X);
+    else ind_host_forms(s, tid - NPAIR);
+  } else {
+    if (tid < NPAIR) pair_target_forms(a, s, tid, X);
+    else pair_host_forms(s, tid - NPAIR);
+  }
   __syncthreads();
   // stage: F
 
@@ -1020,8 +1247,8 @@ __device__ __noinline__ void sweep_group(const Args& a, int slot, float lam, int
         br += s.pv[pl * MAX_F + f][1];
       }
       float hd = 1.0f, sc = 0.0f;
-      if (p < a.P) {
-        bool valid = a.point_valid[p] != 0;
+      if (p < n) {
+        bool valid = pvalid[p] != 0;
         if (mode == MARG) valid = valid && s.host[pl] == slot;
         if (valid) {
           hd = hr * (1.0f + lam) + a.rho_eps;
@@ -1032,7 +1259,7 @@ __device__ __noinline__ void sweep_group(const Args& a, int slot, float lam, int
       R.brho[pl] = br;
       s.scale[pl] = sc;
       s.bs[pl] = br * sc;
-    } else if (p < a.P) {
+    } else if (p < n) {
       const int d = c - 1;
       float hx = 0.0f;
       for (int f = 0; f < a.F; ++f) hx += s.pv[pl * MAX_F + f][2 + d];
@@ -1183,6 +1410,28 @@ __device__ __forceinline__ void store_system(float* H, float* b, float* H_corr, 
   if (e_photo) *e_photo = v;
 }
 
+// Phase D of a SYSTEM sweep's reprojection groups (a.ind.Q > 0): their four
+// sums apart, each entry over the groups in group order and rounded once,
+// to a.ind.H, b, H_corr, b_corr. Chunks over the grid as reduce_entries.
+__device__ __forceinline__ void reduce_ind_system(const Args& a, const Layout& L) {
+  if (a.ind.Q == 0) return;
+  reduce_entries(static_cast<const double*>(a.ind.partials), L.total, L.total - 1,
+                 groups(a.ind.Q), [&](int task, double v) {
+                   store_system(a.ind.H, a.ind.b, a.ind.H_corr, a.ind.b_corr, nullptr, L, task,
+                                (float)v);
+                 });
+}
+
+// Phase D of the reprojection energy by warp 0 of the calling block
+// (a.ind.Q > 0): the groups' partials in group order, rounded, times
+// mixed_weight (indirect_energy), to *a.ind.e by thread 0. `buf`: 256
+// doubles of shared memory.
+__device__ __forceinline__ void reduce_ind_energy(const Args& a, double* buf) {
+  if (a.ind.Q == 0 || threadIdx.x >= 32) return;
+  const double e = reduce_one(static_cast<const double*>(a.ind.partials), 1, groups(a.ind.Q), buf);
+  if (threadIdx.x == 0) *a.ind.e = a.ind.mixed_weight * (float)e;
+}
+
 // out[r] = sum_j M[r][j] v[j] for r < D (M row-major D x D in device memory,
 // v in shared memory): a warp a row, lanes j and j + 32, then a tree over the
 // lanes. Every thread of the block calls it.
@@ -1297,12 +1546,12 @@ __device__ __noinline__ void build_system(const SolveArgs& a) {
       if (i >= D * D) break;
       const int r = i / D, c = i % D;
       float h = hv[u];
-      if (a.Hi) h = h + a.Hi[i];
+      if (a.Hi) h = h + ldcg(a.Hi + i);
       h = h + mv[u];
       const int f = r >> 3, k = r & 7;
       const bool fv = a.frame_valid[f] != 0;
       if (r == c) h = h + (fv ? (k == 6 ? a.prior_a : (k == 7 ? a.prior_b : 0.0f)) : 1.0f);
-      if (a.Hi_corr) h = h - a.Hi_corr[i];
+      if (a.Hi_corr) h = h - ldcg(a.Hi_corr + i);
       if (r == c) h = (h + lam * h) + 1e-6f;
       s.A[r][c] = h;
     }
@@ -1312,12 +1561,12 @@ __device__ __noinline__ void build_system(const SolveArgs& a) {
     const int f = tid >> 3, k = tid & 7;
     const bool fv = a.frame_valid[f] != 0;
     float g = ldcg(a.b + tid);
-    if (a.bi) g = g + a.bi[tid];
+    if (a.bi) g = g + ldcg(a.bi + tid);
     g = (g + a.b_m[tid]) + s.hd[tid];
     const float pw = k == 6 ? a.prior_a : (k == 7 ? a.prior_b : 0.0f);
     const float abv = k == 6 ? ldcg(a.ab + 2 * f) : (k == 7 ? ldcg(a.ab + 2 * f + 1) : 0.0f);
     g = g + (fv ? pw * abv : 0.0f);
-    if (a.bi_corr) g = g - a.bi_corr[tid];
+    if (a.bi_corr) g = g - ldcg(a.bi_corr + tid);
     s.A[tid][D] = g;
   }
   __syncthreads();

@@ -20,6 +20,11 @@
 // H_xr rows are read coalesced into shared memory, then a thread a row
 // forms d_rho = (b_rho - H_xr dx) / H_rho_d (0 where invalid) and idepth =
 // clamp(idepth - d_rho), or, with a mesh, writes d_rho for the all-gather.
+// The mixed BA's factor points (Q > 0) take tiles after the state's: their
+// rows from the system sweep's Ind outputs, their candidate inverse depths
+// written whole (every rank holds the factors whole). The sweep's
+// reprojection sums enter build_system as its additive system and second
+// Schur pair.
 //
 // What bounds it on the H100: not bytes (~0.5 MB of H_xr) or operations
 // (~60 k FMA for the LU, ~115 k for the rows at P 2048) but the
@@ -56,17 +61,27 @@ __global__ void __launch_bounds__(THREADS, 1) ba_solve_kernel(
   }
   grid_barrier(a.bar);
   if (tid < D) s.x[tid] = ldcg(a.dx + tid);
-  for (int base = blockIdx.x * ROWS; base < a.P; base += gridDim.x * ROWS) {
-    const int n = min(ROWS, a.P - base);
+  const int tiles = (a.P + ROWS - 1) / ROWS;
+  for (int k = blockIdx.x; k < tiles + (a.Q + ROWS - 1) / ROWS; k += gridDim.x) {
+    const bool ind = k >= tiles;   // a tile of the factor points
+    const int base = (ind ? k - tiles : k) * ROWS;
+    const int n = min(ROWS, (ind ? a.Q : a.P) - base);
+    const float* H_xr = ind ? a.Hi_xr : a.H_xr;
     __syncthreads();
-    for (int i = tid; i < n * D; i += THREADS) s.tile[i / D][i % D] = a.H_xr[(size_t)base * D + i];
+    for (int i = tid; i < n * D; i += THREADS) s.tile[i / D][i % D] = H_xr[(size_t)base * D + i];
     __syncthreads();
     if (tid < n) {
       const int p = base + tid;
-      const float d = point_step(smem_offset(s.tile[tid]), smem_offset(s.x), D, a.b_rho[p],
-                                 a.H_rho_d[p], a.point_valid[p] != 0);
-      if (a.mesh) a.d_rho_out[p] = d;
-      else a.idepth_out[p] = clamp_idepth(a.idepth[p] - d, a.idepth_min, a.idepth_max);
+      if (ind) {
+        const float d = point_step(smem_offset(s.tile[tid]), smem_offset(s.x), D, a.bi_rho[p],
+                                   a.Hi_rho_d[p], a.ind_valid[p] != 0);
+        a.ind_idepth_out[p] = clamp_idepth(a.ind_idepth[p] - d, a.idepth_min, a.idepth_max);
+      } else {
+        const float d = point_step(smem_offset(s.tile[tid]), smem_offset(s.x), D, a.b_rho[p],
+                                   a.H_rho_d[p], a.point_valid[p] != 0);
+        if (a.mesh) a.d_rho_out[p] = d;
+        else a.idepth_out[p] = clamp_idepth(a.idepth[p] - d, a.idepth_min, a.idepth_max);
+      }
     }
   }
   // stage: rows
@@ -80,6 +95,9 @@ extern "C" int ba_solve_launch(const void* args, void* stream) {
   const SolveArgs* a = static_cast<const SolveArgs*>(args);
   if (a->F < 1 || a->F > MAX_F || a->P < 0 || !a->dx || !a->bar) return (int)cudaErrorInvalidValue;
   if (a->mesh ? !a->d_rho_out : (!a->idepth_out || !a->idepth)) return (int)cudaErrorInvalidValue;
+  if (a->Q < 0 ||
+      (a->Q > 0 && (!a->Hi || !a->Hi_xr || !a->ind_idepth || !a->ind_idepth_out)))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(SolveShared);
   const void* kernel = reinterpret_cast<const void*>(ba_solve_kernel);
   cudaError_t e = cudaFuncSetAttribute(ba_solve_kernel,
@@ -87,7 +105,7 @@ extern "C" int ba_solve_launch(const void* args, void* stream) {
   if (e != cudaSuccess) return (int)e;
   const int cap = capacity(kernel, smem);
   if (cap < 1) return (int)cudaErrorLaunchOutOfResources;
-  const int blocks = max(1, min((a->P + ROWS - 1) / ROWS, cap));
+  const int blocks = max(1, min((a->P + ROWS - 1) / ROWS + (a->Q + ROWS - 1) / ROWS, cap));
   void* params[] = {const_cast<SolveArgs*>(a)};
   e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), params, smem,
                                   static_cast<cudaStream_t>(stream));

@@ -25,7 +25,14 @@
 //
 // Modes: SYSTEM (the LM system less its lambda-damped Schur corrections, per
 // point H_rho_d, b_rho and the H_xr row for the back-substitution, and the
-// energy); ENERGY (the photometric energy only); STATUS (update_residual_status:
+// energy); ENERGY (the photometric energy only); in both, with the mixed BA's
+// reprojection factors (a.ind.Q > 0), their groups after the photometric
+// ones and their own outputs (SYSTEM: the additive system, the Schur pair
+// and each factor point's rows; ENERGY: the reprojection energy, which the
+// finish adds last), kept apart from the photometric sums so that with a
+// mesh they join after the all-reduce (`_linearize_indirect` :175,
+// `_assemble_indirect` :231, the second `_schur_reduce` of `ba_step` :568,
+// `indirect_energy` :281); STATUS (update_residual_status:
 // the new res_active and point_valid, and the energy); MARG (_marg_pieces:
 // the points hosted in a slot, the gradient from the FEJ-shifted residual
 // r - J_t d_t - J_h d_h - J_rho d_rho, the Schur scale 1/(H_rho + 1e-12);
@@ -51,6 +58,19 @@ namespace {
 
 using namespace ba;
 
+// A system sweep's group rows (the H_xr rows, H_rho_d and b_rho of the np
+// points from `base`) from the block's shared memory to device memory, for
+// the solve's back-substitution.
+__device__ __forceinline__ void write_rows(const Rows& R, int base, int np, int D, float* H_xr,
+                                           float* H_rho_d, float* b_rho) {
+  for (int i = threadIdx.x; i < np * D; i += THREADS)
+    H_xr[(size_t)base * D + i] = R.X[i / D][i % D];
+  if (threadIdx.x < np) {
+    H_rho_d[base + threadIdx.x] = R.hrd[threadIdx.x];
+    b_rho[base + threadIdx.x] = R.brho[threadIdx.x];
+  }
+}
+
 __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_constant__ Args args) {
   __shared__ Args args_s;
   const Args& a = shared_args(args_s, args);
@@ -61,7 +81,7 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
   }
   SweepShared& s = sweep_smem();
   const bool sys = a.mode == SYSTEM || a.mode == MARG;
-  const int D = 8 * a.F, G = groups(a.P);
+  const int D = 8 * a.F, G = groups(a.P), NG = G + groups(a.ind.Q);
   const int slot = a.mode == MARG ? (a.slot ? (int)*a.slot : a.slot_host) : -1;
   const float lam = a.mode == SYSTEM ? ldcg(a.lam) : 0.0f;
   const Layout L(a.F);
@@ -69,10 +89,24 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
   const int rows = (int)sizeof(Shared);
   const Rows R = rows_at(rows);
   double* part = static_cast<double*>(a.partials);
+  double* ipart = static_cast<double*>(a.ind.partials);
   rel_poses(a);
   __syncthreads();
   // stage: poses
-  for (int g = blockIdx.x; g < G; g += gridDim.x) {
+  for (int g = blockIdx.x; g < NG; g += gridDim.x) {
+    if (g >= G) {   // a reprojection group (SYSTEM or ENERGY)
+      const int gi = g - G;
+      if (a.mode == SYSTEM) {
+        sweep_group<IND_SYSTEM>(a, slot, lam, gi, ipart + (size_t)gi * total, rows);
+        __syncthreads();
+        write_rows(R, gi * NPB, min(NPB, a.ind.Q - gi * NPB), D, a.ind.H_xr, a.ind.H_rho_d,
+                   a.ind.b_rho);
+      } else {
+        sweep_group<IND_ENERGY>(a, slot, lam, gi, ipart + gi, rows);
+      }
+      __syncthreads();
+      continue;
+    }
     double* pg = part + (size_t)g * total;
     switch (a.mode) {
       case SYSTEM: sweep_group<SYSTEM>(a, slot, lam, g, pg, rows); break;
@@ -81,15 +115,8 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
       default: sweep_group<MARG>(a, slot, lam, g, pg, rows); break;
     }
     __syncthreads();
-    if (sys && a.H_xr) {
-      const int base = g * NPB, np = min(NPB, a.P - base);
-      for (int i = threadIdx.x; i < np * D; i += THREADS)
-        a.H_xr[(size_t)base * D + i] = R.X[i / D][i % D];
-      if (threadIdx.x < np) {
-        a.H_rho_d[base + threadIdx.x] = R.hrd[threadIdx.x];
-        a.b_rho[base + threadIdx.x] = R.brho[threadIdx.x];
-      }
-    }
+    if (sys && a.H_xr)
+      write_rows(R, g * NPB, min(NPB, a.P - g * NPB), D, a.H_xr, a.H_rho_d, a.b_rho);
   }
   grid_barrier(a.bar);
   // stage: partials
@@ -99,6 +126,7 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
     if (blockIdx.x == 0 && threadIdx.x < 32) {
       const double e = reduce_one(part, 1, G, reinterpret_cast<double*>(s.form));
       if (threadIdx.x == 0) *a.e_photo = s.e_photo = (float)e;
+      reduce_ind_energy(a, reinterpret_cast<double*>(s.form));
     }
   } else if (a.mode == SYSTEM) {
     float* e_photo = &s.e_photo;
@@ -106,6 +134,7 @@ __global__ void __launch_bounds__(THREADS, 1) ba_sweep_kernel(const __grid_const
       *a.e_photo = (float)v;
       *e_photo = (float)v;
     });
+    reduce_ind_system(a, L);
   } else {
     float* e_photo = &s.e_photo;
     reduce_entries(part, total, total, G, [&](int task, double v) {
@@ -133,7 +162,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (e != cudaSuccess) return e;
   const int cap = capacity(kernel, smem);
   if (cap < 1) return cudaErrorLaunchOutOfResources;
-  const int blocks = a.mode == FINISH ? 1 : min(groups(a.P), cap);
+  const int blocks = a.mode == FINISH ? 1 : min(groups(a.P) + groups(a.ind.Q), cap);
   void* params[] = {const_cast<Args*>(&a)};
   e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), params, smem, stream);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -155,6 +184,9 @@ extern "C" int ba_sweep_plan(int P, int F, int* n_groups, long long* partial_byt
 extern "C" int ba_sweep_launch(const void* args, void* stream) {
   const Args* a = static_cast<const Args*>(args);
   if (a->F < 1 || a->F > MAX_F || a->P < 0 || (a->mode != FINISH && a->P == 0))
+    return (int)cudaErrorInvalidValue;
+  if (a->ind.Q < 0 ||
+      (a->ind.Q > 0 && ((a->mode != SYSTEM && a->mode != ENERGY) || !a->ind.partials)))
     return (int)cudaErrorInvalidValue;
   return (int)launch(*a, static_cast<cudaStream_t>(stream));
 }

@@ -994,15 +994,28 @@ def _contiguous(state: BAState) -> BAState:
     return BAState(**out)
 
 
-def _energy_cuda(state: BAState, images, cam, cfg, mesh, finish: bk.Finish | None):
-    """An energy sweep over this rank's rows, then `finish`: in the sweep's
-    launch without a mesh, after the all-reduce of the photometric sum with
-    one. Returns the photometric energy (reduced)."""
+def _contiguous_ind(ind: IndirectFactors | None) -> IndirectFactors | None:
+    """The factors with every tensor contiguous (the same tensors when they
+    already are, as the runtime's always are)."""
+    if ind is None:
+        return None
+    return IndirectFactors(**{f.name: getattr(ind, f.name).contiguous()
+                              for f in dataclasses.fields(IndirectFactors)})
+
+
+def _energy_cuda(state: BAState, images, cam, cfg, mesh, finish: bk.Finish | None, ind=None):
+    """An energy sweep over this rank's rows (and the factors `ind`, whole),
+    then `finish`: in the sweep's launch without a mesh, after the
+    all-reduce of the photometric sum with one (the reprojection energy
+    added last, not reduced). Returns the photometric energy (reduced)."""
     rows = local_rows(state, mesh)
     if mesh is None:
-        return bk.ba_sweep_cuda(rows, images, cam, cfg, "energy", finish=finish)["e_photo"]
-    (e_photo,) = mesh.all_reduce(bk.ba_sweep_cuda(rows, images, cam, cfg, "energy")["e_photo"])
+        return bk.ba_sweep_cuda(rows, images, cam, cfg, "energy", finish=finish,
+                                ind=ind)["e_photo"]
+    out = bk.ba_sweep_cuda(rows, images, cam, cfg, "energy", ind=ind)
+    (e_photo,) = mesh.all_reduce(out["e_photo"])
     if finish is not None:
+        finish.e_extra = out.get("e_ind")
         bk.ba_finish_cuda(e_photo, state, cfg, finish)
     return e_photo
 
@@ -1010,19 +1023,16 @@ def _energy_cuda(state: BAState, images, cam, cfg, mesh, finish: bk.Finish | Non
 def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
     """ba_step on the card: the system sweep over this rank's rows (its
     Schur-complemented H and b all-reduced with a mesh), then the solve. With `ind`, the
-    mixed BA's reprojection terms (plain PyTorch, _assemble_indirect) enter
-    the solve as additive (H, b) and a second Schur pair. Returns the
-    candidate state and, with `ind`, the candidate inverse depths of the
-    indirect points."""
+    same sweep also sweeps the mixed BA's reprojection factors (whole, on
+    every rank), whose additive system and second Schur pair enter the solve
+    after the all-reduce, and the solve back-substitutes their inverse
+    depths. Returns the candidate state and, with `ind`, the candidate
+    inverse depths of the factor points."""
     rows = local_rows(src, mesh)
-    system = bk.ba_sweep_cuda(rows, images, cam, cfg, "system", lam=lam)
+    system = bk.ba_sweep_cuda(rows, images, cam, cfg, "system", lam=lam, ind=ind)
     if mesh is not None:
         system.update(zip(("H", "b"), mesh.all_reduce(system["H"], system["b"])))
-    extra, back = (None, None) if ind is None else _indirect_terms(src, ind, cam, cfg, lam)
-    if extra is not None:
-        extra = tuple(x.contiguous() for x in extra)
-    cand = bk.ba_solve_cuda(system, src, cfg, lam, rows, mesh=mesh is not None, extra=extra,
-                            want_dx=ind is not None)
+    cand = bk.ba_solve_cuda(system, src, cfg, lam, rows, mesh=mesh is not None, ind=ind)
     if mesh is None:
         idepth = cand["idepth"]
     else:
@@ -1032,52 +1042,49 @@ def _step_cuda(src: BAState, images, cam, cfg, lam, mesh, ind=None):
                       idepth=idepth)
     if ind is None:
         return new, None
-    return new, _indirect_idepth(ind, back, cand["dx"], cfg)
+    return new, cand.get("ind_idepth", ind.idepth)
 
 
 def _run_ba_cuda(state: BAState, images, cam, cfg, mesh, ind=None,
                  trace: torch.Tensor | None = None):
     """run_ba (run_ba_mixed with `ind`) on the card, with no host read.
-    Without a mesh or `ind`, one launch of the run kernel.
-    Otherwise split launches of the same device functions in the same
-    orders (the same bits): the energy sweep at the start (which also sets
-    lambda), then each LM step's system sweep, solve and energy sweep of the
-    candidate, whose energy block takes the accept test, lambda's update and
-    the select into the result's buffers (with a mesh or `ind`, after the
-    all-reduce or the reprojection energy, in the sweep kernel's FINISH
-    launch). With `trace` (a (ba_iters, 2) float32 tensor on the card), each
+    Without a mesh, one launch of the run kernel. With one, split launches
+    of the same device functions in the same orders (the same bits): the
+    energy sweep at the start (which also sets lambda), then each LM step's
+    system sweep, solve and energy sweep of the candidate, and the sweep
+    kernel's FINISH launch after the all-reduce of the photometric energy:
+    the accept test, lambda's update and the select into the result's
+    buffers. The factors `ind` ride in the same launches, whole on every
+    rank. With `trace` (a (ba_iters, 2) float32 tensor on the card), each
     step's (E, E_new). Returns (state, E) or (state, indirect inverse
     depths, E)."""
     state = _contiguous(state)
     images = images.contiguous()
-    if mesh is None and ind is None:
-        out = bk.ba_run_cuda(state, images, cam, cfg, trace=trace)
-        return state.replace(T=SE3(R=out["R"], t=out["t"]), ab=out["ab"], delta=out["delta"],
-                             idepth=out["idepth"]), out["E"]
+    ind = _contiguous_ind(ind)
+    if mesh is None:
+        out = bk.ba_run_cuda(state, images, cam, cfg, trace=trace, ind=ind)
+        new = state.replace(T=SE3(R=out["R"], t=out["t"]), ab=out["ab"], delta=out["delta"],
+                            idepth=out["idepth"])
+        return (new, out["E"]) if ind is None else (new, out["idepth_i"], out["E"])
     dev = state.uv.device
     f32 = dict(dtype=torch.float32, device=dev)
     E, lam = torch.empty((), **f32), torch.empty((), **f32)
-    e_ind = None if ind is None else indirect_energy(state, ind, cam, cfg)
     _energy_cuda(state, images, cam, cfg, mesh,
-                 bk.Finish("energy", E=E, lam=lam, init_lam=True, e_extra=e_ind))
-    src, src_i = state, None if ind is None else ind.idepth.contiguous()
+                 bk.Finish("energy", E=E, lam=lam, init_lam=True), ind)
+    src, src_i = state, None if ind is None else ind.idepth
     F, P = state.num_frames, state.num_points
     dst = {"R": torch.empty((F, 3, 3), **f32), "t": torch.empty((F, 3), **f32),
            "ab": torch.empty((F, 2), **f32), "delta": torch.empty((F, _D), **f32),
            "idepth": torch.empty((P,), **f32)}
     dst_i = None if ind is None else torch.empty_like(src_i)
     for it in range(cfg.ba_iters):
-        cand, cand_i = _step_cuda(src, images, cam, cfg, lam, mesh,
-                                  None if ind is None else ind.replace(idepth=src_i))
+        cur_i = None if ind is None else ind.replace(idepth=src_i)
+        cand, cand_i = _step_cuda(src, images, cam, cfg, lam, mesh, cur_i)
         fin = bk.Finish("accept", E=E, lam=lam, src=src, cand_idepth=cand.idepth, dst=dst,
-                        trace=None if trace is None else trace[it])
-        if ind is None:
-            _energy_cuda(cand, images, cam, cfg, mesh, fin)
-        else:
-            fin.e_extra = indirect_energy(cand, ind.replace(idepth=cand_i), cam, cfg)
-            fin.extra = (src_i, cand_i, dst_i)
-            e_photo = _energy_cuda(cand, images, cam, cfg, mesh, None)
-            bk.ba_finish_cuda(e_photo, cand, cfg, fin)
+                        trace=None if trace is None else trace[it],
+                        extra=None if ind is None else (src_i, cand_i, dst_i))
+        _energy_cuda(cand, images, cam, cfg, mesh, fin,
+                     None if ind is None else ind.replace(idepth=cand_i))
         src = state.replace(T=SE3(R=dst["R"], t=dst["t"]), ab=dst["ab"], delta=dst["delta"],
                             idepth=dst["idepth"])
         src_i = dst_i
@@ -1090,15 +1097,15 @@ def total_energy(state: BAState, images: torch.Tensor, cam: PinholeCamera,
                  cfg: DirectConfig, ind: IndirectFactors | None = None,
                  mesh: Mesh | None = None) -> torch.Tensor:
     """total_energy_plain's functional: one energy sweep kernel (its last
-    block adds the prior and affine terms) for CUDA tensors, the plain form
-    for CPU tensors."""
+    block adds the prior and affine terms, and the reprojection energy of
+    `ind`, swept in the same launch) for CUDA tensors, the plain form for
+    CPU tensors."""
     if not _on_card(state):
         return total_energy_plain(state, images, cam, cfg, ind, mesh)
     state = _contiguous(state)
     E = torch.empty((), dtype=torch.float32, device=state.uv.device)
-    e_ind = None if ind is None else indirect_energy(state, ind, cam, cfg)
-    _energy_cuda(state, images.contiguous(), cam, cfg, mesh,
-                 bk.Finish("energy", E=E, e_extra=e_ind))
+    _energy_cuda(state, images.contiguous(), cam, cfg, mesh, bk.Finish("energy", E=E),
+                 _contiguous_ind(ind))
     return E
 
 
@@ -1112,6 +1119,7 @@ def ba_step(state: BAState, images: torch.Tensor, cam: PinholeCamera,
     if not _on_card(state):
         return ba_step_plain(state, images, cam, cfg, lam, ind, mesh)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=state.uv.device).reshape(())
+    ind = _contiguous_ind(ind)
     new, cand_i = _step_cuda(_contiguous(state), images.contiguous(), cam, cfg, lam, mesh, ind)
     if ind is None:
         return new, None
@@ -1131,9 +1139,10 @@ def run_ba(state: BAState, images: torch.Tensor, cam: PinholeCamera,
 def run_ba_mixed(state: BAState, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
                  ind: IndirectFactors, mesh: Mesh | None = None,
                  ) -> tuple[BAState, IndirectFactors, torch.Tensor]:
-    """run_ba_mixed_plain's joint LM loop: on the card the BA kernels (the
-    reprojection terms in plain PyTorch between them), on the CPU the plain
-    form."""
+    """run_ba_mixed_plain's joint LM loop: on the card the BA kernels with
+    no host read (one launch of the run kernel, the reprojection terms
+    inside it; with a mesh the split route, 2 + 3 x ba_iters sweep launches
+    and ba_iters solves), on the CPU the plain form."""
     if not _on_card(state):
         return run_ba_mixed_plain(state, images, cam, cfg, ind, mesh)
     new, idepth_i, E = _run_ba_cuda(state, images, cam, cfg, mesh, ind)

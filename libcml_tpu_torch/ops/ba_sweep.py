@@ -14,23 +14,30 @@
                   the groups by every block of the grid (phase D). With
                   `finish` the same launch ends total_energy (the prior and
                   affine terms) and, for run_ba, the accept test, lambda's
-                  update and the state select. `ba_finish_cuda` launches the
-                  same kernel's FINISH mode on an energy reduced elsewhere (an
-                  all-reduce, the mixed BA's reprojection term).
+                  update and the state select. With the mixed BA's
+                  reprojection factors (`ind`), a system or energy sweep
+                  also sweeps them, into sums of their own (the additive
+                  system, the second Schur pair and each factor point's
+                  rows; the reprojection energy). `ba_finish_cuda` launches
+                  the same kernel's FINISH mode on an energy reduced
+                  elsewhere (an all-reduce), the reprojection energy added
+                  last.
   ba_solve_cuda   hand-written sm_90a kernel (csrc/ba_solve.cu): the rest of
                   ba_step, from the reduced system to the candidate state (the
                   priors, the damped dense solve by one warp, the scale-gauge
                   projection, the pose / affine / delta update, and the
-                  inverse-depth back-substitution over the card).
+                  inverse-depth back-substitution over the card, the
+                  factor points' too).
   ba_run_cuda     hand-written sm_90a kernel (csrc/ba_run.cu): a whole
-                  run_ba without a mesh or reprojection terms in one
-                  persistent cooperative launch, from the same device
+                  run_ba, or run_ba_mixed with its factors, without a mesh
+                  in one persistent cooperative launch, from the same device
                   functions (csrc/ba_common.cuh) in the same orders as the
                   split launches above, so both routes give the same bits.
 
-They replace the JAX package's device program for the window BA, `run_ba`'s
-`lax.scan` (libcml_tpu/models/direct/ba.py:619) and the sweeps of
-`total_energy`, `update_residual_status` and `_marg_pieces`. Their plain
+They replace the JAX package's device programs for the window BA, `run_ba`'s
+and `run_ba_mixed`'s `lax.scan`s (libcml_tpu/models/direct/ba.py:619, :651)
+and the sweeps of `total_energy`, `update_residual_status` and
+`_marg_pieces`. Their plain
 PyTorch forms are those functions in models/direct/ba.py (`run_ba_plain`,
 `ba_step_plain`, ...); the public names there dispatch by the tensors'
 device. The kernels build with nvcc on first use (ops/kernel_build.py).
@@ -55,6 +62,11 @@ SWEEP_SOURCE = kb.CSRC / "ba_sweep.cu"
 SOLVE_SOURCE = kb.CSRC / "ba_solve.cu"
 RUN_SOURCE = kb.CSRC / "ba_run.cu"
 MAX_FRAMES = 8              # csrc/ba_common.cuh MAX_F
+GROUP_POINTS = 16           # csrc/ba_common.cuh NPB
+# The split launches take any number of points and reprojection factor
+# points. The run kernel keeps every point group's rows (the state's and the
+# factors') in the shared memory of a co-resident grid, so it takes at most
+# ba_run_max_groups groups (run_max_groups); ba_run_cuda refuses more.
 
 MODES = {"system": 0, "energy": 1, "status": 2, "marg": 3, "finish": 4}
 FIN = {None: 0, "energy": 1, "accept": 2}
@@ -82,12 +94,18 @@ DECISION_TOL = {"E_rel": 1e-4}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _struct(name: str, ints: tuple, floats: tuple, ints2: tuple, ptrs: tuple):
+def _struct(name: str, ints: tuple, floats: tuple, ints2: tuple, ptrs: tuple,
+            tail: tuple = ()):
     fields = ([(n, _I) for n in ints] + [(n, _F) for n in floats] + [(n, _I) for n in ints2]
-              + [(n, _VP) for n in ptrs])
+              + [(n, _VP) for n in ptrs] + list(tail))
     return type(name, (ctypes.Structure,), {"_fields_": fields})
 
 
+# csrc/ba_common.cuh Ind, field for field
+IndArgs = _struct(
+    "IndArgs", ("Q",), ("mixed_weight",), (),
+    ("uv", "host", "idepth", "point_valid", "obs_uv", "obs_valid", "sigma2", "H", "b", "H_corr",
+     "b_corr", "H_rho_d", "b_rho", "H_xr", "e", "partials"))
 # csrc/ba_common.cuh Args, field for field
 SweepArgs = _struct(
     "SweepArgs", ("mode", "fin", "P", "F", "img_h", "img_w", "slot_host", "init_lam"),
@@ -99,13 +117,14 @@ SweepArgs = _struct(
      "res_active_out", "point_valid_out", "partials", "bar", "H_m", "b_m", "e_in",
      "e_extra", "E", "lam_io", "src_R", "src_t", "src_ab", "src_delta", "src_idepth",
      "cand_idepth", "dst_R", "dst_t", "dst_ab", "dst_delta", "dst_idepth", "src_extra",
-     "cand_extra", "dst_extra", "trace"))
+     "cand_extra", "dst_extra", "trace"), (("ind", IndArgs),))
 # csrc/ba_common.cuh SolveArgs, field for field
 SolveArgs = _struct(
-    "SolveArgs", ("F", "P", "mesh"), ("prior_a", "prior_b", "idepth_min", "idepth_max"), (),
+    "SolveArgs", ("F", "P", "mesh"), ("prior_a", "prior_b", "idepth_min", "idepth_max"), ("Q",),
     ("H", "b", "Hi", "bi", "Hi_corr", "bi_corr", "H_m", "b_m", "R", "t",
      "ab", "delta", "frame_valid", "lam", "H_rho_d", "b_rho", "H_xr", "point_valid", "idepth",
-     "R_out", "t_out", "ab_out", "delta_out", "idepth_out", "d_rho_out", "dx", "bar"))
+     "R_out", "t_out", "ab_out", "delta_out", "idepth_out", "d_rho_out", "dx", "bar",
+     "Hi_rho_d", "bi_rho", "Hi_xr", "ind_valid", "ind_idepth", "ind_idepth_out"))
 
 
 # csrc/ba_run.cu RunArgs
@@ -183,6 +202,44 @@ def _check_state(state, images: torch.Tensor, cam: PinholeCamera, dev: torch.dev
         raise ValueError(f"the BA kernels need CUDA tensors, got {dev}")
 
 
+def _check_ind(ind, F: int, dev: torch.device) -> None:
+    """Raise unless `ind` (ba.IndirectFactors) is what the kernels take:
+    every tensor contiguous on `dev`."""
+    Q = ind.uv.shape[0]
+    f32, b8 = torch.float32, torch.bool
+    for name, shape, dtype in (("uv", (Q, 2), f32), ("host", (Q,), torch.int32),
+                               ("idepth", (Q,), f32), ("point_valid", (Q,), b8),
+                               ("obs_uv", (Q, F, 2), f32), ("obs_valid", (Q, F), b8),
+                               ("sigma2", (Q, F), f32)):
+        kb.check_tensor(f"ind.{name}", getattr(ind, name), shape, dtype, dev)
+
+
+def _ind_fields(args, ind, cfg: DirectConfig, sysmode: bool, idepth=None) -> dict:
+    """args.ind from the factors `ind` (their inverse depths `idepth`, or
+    ind.idepth) with fresh outputs and scratch for a system (`sysmode`) or
+    energy sweep; returns the outputs: the sums Hi, bi, Hi_corr, bi_corr
+    (system; the split sweep adds the rows) or e_ind (energy)."""
+    Q, F = ind.uv.shape[0], ind.obs_valid.shape[1]
+    D, dev = 8 * F, ind.uv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = args.ind
+    x.Q, x.mixed_weight = Q, cfg.mixed_weight
+    x.uv, x.host, x.point_valid = _ptr(ind.uv), _ptr(ind.host), _ptr(ind.point_valid)
+    x.idepth = _ptr(ind.idepth if idepth is None else idepth)
+    x.obs_uv, x.obs_valid, x.sigma2 = _ptr(ind.obs_uv), _ptr(ind.obs_valid), _ptr(ind.sigma2)
+    part = _partials(Q, F, sysmode, dev)
+    x.partials = part.data_ptr()
+    if sysmode:
+        out = {"Hi": torch.empty((D, D), **f32), "bi": torch.empty((D,), **f32),
+               "Hi_corr": torch.empty((D, D), **f32), "bi_corr": torch.empty((D,), **f32)}
+        x.H, x.b, x.H_corr, x.b_corr = (_ptr(out[k]) for k in ("Hi", "bi", "Hi_corr", "bi_corr"))
+    else:
+        out = {"e_ind": torch.empty((), **f32)}
+        x.e = out["e_ind"].data_ptr()
+    out["_partials"] = part
+    return out
+
+
 @dataclasses.dataclass
 class Finish:
     """What the sweep's energy block (or FINISH) does after the photometric
@@ -191,7 +248,8 @@ class Finish:
     keeps the lower in E, updates lam and writes dst = accept ? swept : src
     (R, t, ab, delta of the frames, idepth of every point, and `extra`: the
     mixed BA's indirect inverse depths as (src, cand, dst)); with `trace`
-    (a (2,) float32 tensor) the step's E and E_new."""
+    (a (2,) float32 tensor) the step's E and E_new. `e_extra` (0-d): the
+    reprojection energy, added last."""
 
     mode: str
     E: torch.Tensor
@@ -278,7 +336,7 @@ def _partials(P: int, F: int, sysmode: bool, dev: torch.device) -> torch.Tensor:
 
 def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
                   mode: str, lam: torch.Tensor | None = None, slot=None,
-                  finish: Finish | None = None) -> dict:
+                  finish: Finish | None = None, ind=None) -> dict:
     """One sweep over the point rows of `state` (a BAState, every tensor
     contiguous on one CUDA device; with a mesh, this rank's rows) and the
     window's level-0 gradient images (F, H, W, 3). `mode`: "system" (needs
@@ -287,7 +345,12 @@ def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectCo
     (0-d) always; H, b (system: the differences H - H_corr, b - b_corr,
     each taken in double and rounded once), H_rho_d, b_rho, H_xr (system);
     H, b, H_corr, b_corr (marg); res_active, point_valid (status). With `finish`, the launch
-    also ends total_energy at `state` (and run_ba's accept step)."""
+    also ends total_energy at `state` (and run_ba's accept step). `ind`: the
+    mixed BA's reprojection factors (ba.IndirectFactors, contiguous, every
+    rank's whole; system and energy modes), swept too: the system mode adds
+    their Hi, bi, Hi_corr, bi_corr (the additive system and the damped
+    Schur pair, never mixed into H and b), Hi_rho_d, bi_rho and Hi_xr; the
+    energy mode their energy e_ind, which `finish` adds last."""
     dev = state.uv.device
     _check_state(state, images, cam, dev)
     P, F = state.uv.shape[0], state.ab.shape[0]
@@ -312,6 +375,17 @@ def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectCo
         out.update(res_active=torch.empty((P, F), dtype=torch.bool, device=dev),
                    point_valid=torch.empty((P,), dtype=torch.bool, device=dev))
     args = _sweep_args(state, images, cam, cfg, mode, lam)
+    if ind is not None and ind.uv.shape[0] > 0:
+        if mode not in ("system", "energy"):
+            raise ValueError(f"the {mode} sweep takes no reprojection factors")
+        _check_ind(ind, F, dev)
+        out.update(_ind_fields(args, ind, cfg, mode == "system"))
+        if mode == "system":   # the factors' rows, for the solve's back-substitution
+            Q = ind.uv.shape[0]
+            out.update(Hi_rho_d=torch.empty((Q,), **f32), bi_rho=torch.empty((Q,), **f32),
+                       Hi_xr=torch.empty((Q, D), **f32))
+            args.ind.H_rho_d, args.ind.b_rho, args.ind.H_xr = (
+                _ptr(out[k]) for k in ("Hi_rho_d", "bi_rho", "Hi_xr"))
     if mode == "marg":
         if isinstance(slot, torch.Tensor):
             slot = slot.to(torch.int64).reshape(())
@@ -328,7 +402,10 @@ def ba_sweep_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectCo
     args.point_valid_out = _ptr(out.get("point_valid"))
     args.partials, args.bar = partials.data_ptr(), _barrier(dev).data_ptr()
     _finish_fields(args, finish, state, cfg)
+    if "e_ind" in out:
+        args.e_extra = out["e_ind"].data_ptr()
     _launch_sweep(args, dev)
+    out.pop("_partials", None)
     return out
 
 
@@ -376,14 +453,15 @@ def _frames(F: int, dev: torch.device) -> dict:
 
 
 def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, rows,
-                  mesh: bool = False, extra: tuple | None = None, want_dx: bool = False) -> dict:
+                  mesh: bool = False, ind=None) -> dict:
     """The rest of ba_step on the card (one launch): `system` is the reduced
     sweep (H, b: H - H_corr, b - b_corr; with a mesh all-reduced) and its per-row
     H_rho_d, b_rho, H_xr for `rows` (the BAState whose point rows were
-    swept); `state` the whole state. `extra`: the mixed BA's (Hi, bi,
-    Hi_corr, bi_corr). Returns the candidate's R, t, ab, delta and either
-    idepth (every row; no mesh) or d_rho (the rows; mesh), and dx when
-    `want_dx`."""
+    swept); `state` the whole state. `ind`: the mixed BA's factors, whose
+    terms the same sweep made (system's Hi, bi, Hi_corr, bi_corr, Hi_rho_d,
+    bi_rho, Hi_xr; not all-reduced). Returns the candidate's R, t, ab, delta
+    and either idepth (every row; no mesh) or d_rho (the rows; mesh), and,
+    with `ind`, ind_idepth (the factors' candidate inverse depths, whole)."""
     dev = state.uv.device
     F, P = state.ab.shape[0], rows.uv.shape[0]
     D = 8 * F
@@ -394,15 +472,18 @@ def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, row
     out = _frames(F, dev)
     out["d_rho" if mesh else "idepth"] = torch.empty((P,), dtype=torch.float32, device=dev)
     dx = torch.empty((D,), dtype=torch.float32, device=dev)
-    if want_dx:
-        out["dx"] = dx
     args = _solve_args(system, state, cfg, lam, out, dx)
     args.P, args.mesh = P, int(mesh)
-    if extra is not None:
-        for name, x, shape in zip(("Hi", "bi", "Hi_corr", "bi_corr"), extra,
-                                  ((D, D), (D,), (D, D), (D,))):
-            kb.check_tensor(name, x, shape, torch.float32, dev)
-            setattr(args, name, x.data_ptr())
+    if ind is not None and ind.uv.shape[0] > 0:
+        Q = ind.uv.shape[0]
+        _check_ind(ind, F, dev)
+        for name, shape in (("Hi", (D, D)), ("bi", (D,)), ("Hi_corr", (D, D)), ("bi_corr", (D,)),
+                            ("Hi_rho_d", (Q,)), ("bi_rho", (Q,)), ("Hi_xr", (Q, D))):
+            kb.check_tensor(name, system[name], shape, torch.float32, dev)
+            setattr(args, name, system[name].data_ptr())
+        out["ind_idepth"] = torch.empty((Q,), dtype=torch.float32, device=dev)
+        args.Q, args.ind_valid, args.ind_idepth = Q, _ptr(ind.point_valid), _ptr(ind.idepth)
+        args.ind_idepth_out = _ptr(out["ind_idepth"])
     args.H_rho_d, args.b_rho, args.H_xr = (_ptr(system["H_rho_d"]), _ptr(system["b_rho"]),
                                            _ptr(system["H_xr"]))
     args.point_valid, args.idepth = _ptr(rows.point_valid), _ptr(rows.idepth)
@@ -419,19 +500,49 @@ def ba_solve_cuda(system: dict, state, cfg: DirectConfig, lam: torch.Tensor, row
 ba_solve_cuda.launches = 0
 
 
+_RUN_MAX_GROUPS: dict[torch.device, int] = {}
+
+
+def run_max_groups(dev: torch.device) -> int:
+    """The most point groups (the state's and the factors', GROUP_POINTS
+    points each) the run kernel takes on CUDA device `dev`."""
+    n = _RUN_MAX_GROUPS.get(dev)
+    if n is None:
+        out = _I()
+        with torch.cuda.device(dev):
+            err = _run_lib().ba_run_max_groups(ctypes.byref(out))
+        if err != 0:
+            raise KernelLaunchError(f"ba_run_max_groups failed: CUDA error {err}")
+        n = _RUN_MAX_GROUPS[dev] = out.value
+    return n
+
+
+def _check_run_groups(P: int, Q: int, dev: torch.device) -> None:
+    """Raise unless the run kernel takes P points and Q factor points."""
+    n = -(-P // GROUP_POINTS) + -(-Q // GROUP_POINTS)
+    if n > run_max_groups(dev):
+        raise ValueError(f"the run kernel takes at most {run_max_groups(dev)} point groups "
+                         f"of {GROUP_POINTS} on {dev}, got {n} ({P} points, {Q} factor points)")
+
+
 def ba_run_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConfig,
-                trace: torch.Tensor | None = None) -> dict:
-    """run_ba_plain's LM loop (cfg.ba_iters steps, no mesh, no reprojection
-    terms) in one launch: `state` a BAState, every tensor contiguous on one
-    CUDA device, and the window's level-0 gradient images. Returns the
-    result's R, t, ab, delta, idepth and E (0-d); with `trace` (a (ba_iters,
-    2) float32 tensor on the card), each step's (E, E_new) in it."""
+                trace: torch.Tensor | None = None, ind=None) -> dict:
+    """run_ba_plain's LM loop (cfg.ba_iters steps, no mesh) in one launch,
+    or with `ind` (ba.IndirectFactors) run_ba_mixed_plain's: `state` a
+    BAState, every tensor contiguous on one CUDA device, and the window's
+    level-0 gradient images. Returns the result's R, t, ab, delta, idepth, E
+    (0-d) and, with `ind`, idepth_i (the factors' inverse depths); with
+    `trace` (a (ba_iters, 2) float32 tensor on the card), each step's (E,
+    E_new) in it."""
     dev = state.uv.device
     _check_state(state, images, cam, dev)
     P, F = state.uv.shape[0], state.ab.shape[0]
+    if ind is not None:
+        _check_ind(ind, F, dev)
     D = 8 * F
     if P == 0:
         raise ValueError("ba_run_cuda needs at least one point row")
+    _check_run_groups(P, 0 if ind is None else ind.uv.shape[0], dev)
     f32 = dict(dtype=torch.float32, device=dev)
     if trace is not None:
         kb.check_tensor("trace", trace, (cfg.ba_iters, 2), torch.float32, dev)
@@ -460,6 +571,26 @@ def ba_run_cuda(state, images: torch.Tensor, cam: PinholeCamera, cfg: DirectConf
     r.solve.idepth_out = _ptr(cand["idepth"])
     for args in (r.init, r.cur, r.cand):
         args.partials, args.bar = partials.data_ptr(), bar
+    if ind is not None and ind.uv.shape[0] > 0:
+        # the held inverse depths in the output, the candidate's, cur's
+        # sums, rows and partials (init's and cand's too) and the energy in
+        # scratch
+        Q = ind.uv.shape[0]
+        out["idepth_i"], cand_i = torch.empty((Q,), **f32), torch.empty((Q,), **f32)
+        sums = _ind_fields(r.cur, ind, cfg, True, out["idepth_i"])
+        e_ind = torch.empty((), **f32)
+        for args, idepth in ((r.init, ind.idepth), (r.cand, cand_i)):
+            args.ind = r.cur.ind
+            args.ind.idepth, args.ind.e, args.e_extra = _ptr(idepth), _ptr(e_ind), _ptr(e_ind)
+        r.cand.src_extra, r.cand.cand_extra = _ptr(out["idepth_i"]), _ptr(cand_i)
+        r.cand.dst_extra = _ptr(out["idepth_i"])
+        r.solve.Q = Q
+        r.solve.Hi, r.solve.bi, r.solve.Hi_corr, r.solve.bi_corr = (
+            _ptr(sums[k]) for k in ("Hi", "bi", "Hi_corr", "bi_corr"))
+        r.solve.ind_valid = _ptr(ind.point_valid)
+        r.solve.ind_idepth, r.solve.ind_idepth_out = _ptr(out["idepth_i"]), _ptr(cand_i)
+    elif ind is not None:
+        out["idepth_i"] = ind.idepth.clone()
     r.iters, r.trace, r.flag = cfg.ba_iters, _ptr(trace), flag.data_ptr()
     lib = _run_lib()
     with torch.cuda.device(dev):

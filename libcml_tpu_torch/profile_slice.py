@@ -8,7 +8,9 @@ last 10, then profiles 10 frames of the hybrid's tracking programs
 (_project_match_pnp + _local_map_pass2 against the 4096-slot map), then runs
 bench.py's sequential HybridOdometry for 40 frames, profiling the last 10
 (its stages carry the names of the hybrid's stats timers: time_orb,
-time_pnp, time_ind_post, time_mixed_ba, time_local_ba). For each window it
+time_pnp, time_ind_post, time_mixed_ba, time_local_ba; inside
+time_mixed_ba, `_build_mixed_factors`, the factors' host loop, and
+`run_ba_mixed`). For each window it
 prints one JSON line: wall milliseconds per frame, the device's
 busy share (summed device time of kernels, copies and fills over wall time),
 kernel launches and host-to-device synchronizations per frame, the kernels
@@ -80,6 +82,7 @@ STAGES = (
     (hybrid, "_epipolar_triangulate", "_epipolar_triangulate"),
     (HYB, "_dispatch_mixed_window_ba", "time_mixed_ba"),
     (HYB, "_complete_mixed_window_ba", "time_mixed_ba"),
+    (HYB, "_build_mixed_factors", "_build_mixed_factors"), (ba, "run_ba_mixed", "run_ba_mixed"),
     (HYB, "_dispatch_indirect_local_ba", "time_local_ba"),
     (HYB, "_complete_indirect_local_ba", "time_local_ba"),
     (indirect_ba, "local_ba_cuda", "local_ba"),

@@ -25,13 +25,21 @@ their arithmetic (csrc/ba_common.cuh) stands in for them:
 - run_ba's schedule: the energy at the start, then a system sweep, a solve
   and an energy sweep of the candidate a step, the accept test E_new < E,
   lambda x0.4 (floor 1e-7) or x5 (cap 1e2), the select (a rejected step
-  keeps the state's bits).
+  keeps the state's bits);
+- the mixed BA's reprojection factors: each (point, target) pair's
+  linearization at the current state, its 2 x 6 products as the pair's
+  forms (affine rows zero), a point's H_rho, b_rho and H_xr row in slot
+  order, the group partials in point order and phase D as the photometric
+  groups', the four sums kept apart and added to the solve's system in
+  _solve_plain's order, the factors' back-substitution, and the energy,
+  mixed_weight x the groups' tree sums, added last in the finish.
 The model is held to the plain forms (`run_ba_plain`, `ba_step_plain`,
 `update_residual_status_plain`, `_marg_pieces_plain`, `run_ba_mixed_plain`)
-and to `libcml_tpu.models.direct.ba.run_ba` at the bounds of
+and to `libcml_tpu.models.direct.ba.run_ba` and `run_ba_mixed` at the bounds of
 tests/test_torch_direct.py's run_ba test, on a 160x120 window of 4 keyframes
 and 256 point slots (rejected steps, an all-invalid window, ba_iters 0, the
-marginalization pieces and the mixed BA among the cases), and its orders to
+marginalization pieces and the mixed BA with its edge cases among the
+cases), and its orders to
 the one-block kernels' where they agree (the elimination, phase D's
 per-entry order). The
 kernels themselves are held to the plain forms on the card by
@@ -59,11 +67,13 @@ from libcml_tpu.models.direct.config import DirectConfig as JCfg
 import libcml_tpu_torch.models.direct.ba as tba
 from libcml_tpu_torch import convert
 from libcml_tpu_torch.core.lie import SE3, se3_exp, skew
+from libcml_tpu_torch.models.direct.config import DirectConfig as TDirectConfig
 from libcml_tpu_torch.models.direct.residuals import huber_energy, huber_weight, pattern_uv
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops.image import bilinear_stack
 from test_torch_card_ba import (
-    CAM_ARGS, CFG_KW, KF_FRAMES, REJECTING, TCAM, TCFG, TOL, assert_run_close, build_window)
+    CAM_ARGS, CFG_KW, MIXED_TOL, REJECTING, TCAM, TCFG, assert_run_close, build_factors,
+    build_window)
 
 # The suite runs in several worker processes that share a few cores: one
 # torch thread each, since with torch's default thread pool per process the
@@ -72,6 +82,7 @@ torch.set_num_threads(1)
 
 JCAM, JCFG = JCam.make(*CAM_ARGS), JCfg(**CFG_KW)
 NPB = 16                          # csrc/ba_common.cuh: points a group
+MIXED_POINTS = TDirectConfig().mixed_points   # the hybrid's factor points, 256
 
 
 def _np(x):
@@ -292,6 +303,84 @@ def _partial(points, F, D, act, host, Ftt, Fth, Fhh, bt, bh, X, scale, b_rho) ->
     return torch.cat([H.permute(0, 2, 1, 3).reshape(-1), bv.reshape(-1), Hc.reshape(-1), bc])
 
 
+def _ind_forms(st: tba.BAState, ind: tba.IndirectFactors, cam, cfg) -> dict:
+    """Phases A and F of the factor groups (csrc/ba_common.cuh ind_pair,
+    ind_target_forms, ind_host_forms) for every (point, target) pair: the
+    mask, the energy before mixed_weight, and the pair's forms J^T W J,
+    J^T W r, its shares of H_rho, b_rho and the H_xr row, lifted to the
+    8-dof slot layout (affine rows and columns zero), zeros when inactive."""
+    r, w, Jt, Jh, Jr, act, _ = tba._linearize_indirect(st, ind, cam, cfg)
+    chi2 = torch.sum(r * r, -1) / ind.sigma2
+    e = torch.where(chi2 <= tba._CHI2_2D, chi2,
+                    2.0 * torch.sqrt(tba._CHI2_2D * torch.clamp(chi2, min=1e-12)) - tba._CHI2_2D)
+    zero = torch.zeros(())
+    e = torch.where(act, e, zero)
+    Jt8, Jh8 = torch.nn.functional.pad(Jt, (0, 2)), torch.nn.functional.pad(Jh, (0, 2))
+    wJt, wJh, wJr = w[..., None, None] * Jt8, w[..., None, None] * Jh8, w[..., None] * Jr
+
+    def outer(a, b):   # sum over u of a[u][d] b[u][e], u = 0 then 1
+        return a[..., 0, :, None] * b[..., 0, None, :] + a[..., 1, :, None] * b[..., 1, None, :]
+
+    def vec(a, v):     # sum over u of a[u][d] v[u]
+        return a[..., 0, :] * v[..., 0, None] + a[..., 1, :] * v[..., 1, None]
+
+    on, on2 = act[..., None], act[..., None, None]
+    return {"act": act, "e": e, "host": ind.host.long(),
+            "Ftt": torch.where(on2, outer(wJt, Jt8), zero),
+            "Fth": torch.where(on2, outer(wJt, Jh8), zero),
+            "Fhh": torch.where(on2, outer(wJh, Jh8), zero),
+            "bt": torch.where(on, vec(wJt, r), zero), "bh": torch.where(on, vec(wJh, r), zero),
+            "hr": torch.where(act, wJr[..., 0] * Jr[..., 0] + wJr[..., 1] * Jr[..., 1], zero),
+            "br": torch.where(act, wJr[..., 0] * r[..., 0] + wJr[..., 1] * r[..., 1], zero),
+            "hx": torch.where(on, vec(Jh8, wJr), zero), "xt": torch.where(on, vec(Jt8, wJr), zero)}
+
+
+def _ind_sweep(st: tba.BAState, ind: tba.IndirectFactors, cam, cfg, mode: str,
+               lam=0.0) -> dict:
+    """The factor groups of a system or energy sweep on the CPU: phases A
+    and F (_ind_forms), phase B (a point's terms over its pairs in slot
+    order, the damped Schur scale), phase C (each group's partials in
+    float64, the quarters' points in point order, then the quarters) and
+    phase D (the groups in group order), the four sums apart, each rounded
+    once: "system" gives Hi, bi, Hi_corr, bi_corr, Hi_rho_d, bi_rho, Hi_xr;
+    "energy" e_ind, mixed_weight x the groups' tree sums rounded."""
+    acc = torch.float64
+    Q, F = ind.num_points, st.num_frames
+    D = 8 * F
+    q = _ind_forms(st, ind, cam, cfg)
+    groups = range(0, Q, NPB)
+    if mode == "energy":
+        e_pad = torch.zeros(len(groups) * NPB, 8, dtype=acc)
+        e_pad[:Q, :F] = q["e"].to(acc)
+        e = _phase_d([_tree(e_pad[b:b + NPB].reshape(-1)) for b in groups]) if Q else 0.0
+        return {"e_ind": torch.tensor(cfg.mixed_weight, dtype=torch.float32)
+                * torch.as_tensor(e, dtype=acc).float()}
+    X = q["xt"].reshape(Q, D).clone()
+    H_rho, b_rho, hsum = torch.zeros(Q), torch.zeros(Q), torch.zeros(Q, 8)
+    for g in range(F):   # phase B: a point's pairs in slot order
+        H_rho = H_rho + q["hr"][:, g]
+        b_rho = b_rho + q["br"][:, g]
+        hsum = hsum + q["hx"][:, g]
+    for p in range(Q):
+        h = int(q["host"][p])
+        X[p, 8 * h:8 * h + 8] += hsum[p]
+    valid = ind.point_valid
+    lam_t = torch.tensor(lam, dtype=torch.float32)
+    H_rho_d = torch.where(valid, H_rho * (1.0 + lam_t) + 1e-10, torch.ones(()))
+    scale = torch.where(valid, 1.0 / H_rho_d, torch.zeros(()))
+    parts = []
+    for b0 in groups:
+        quarters = [_partial(range(q0, min(q0 + 4, Q)), F, D, q["act"], q["host"], q["Ftt"],
+                             q["Fth"], q["Fhh"], q["bt"], q["bh"], X, scale, b_rho)
+                    for q0 in range(b0, b0 + NPB, 4)]
+        parts.append(((quarters[0] + quarters[1]) + quarters[2]) + quarters[3])
+    total = _phase_d(parts) if Q else torch.zeros(2 * D * D + 2 * D, dtype=acc)
+    return {"Hi": total[:D * D].reshape(D, D).float(), "bi": total[D * D:D * D + D].float(),
+            "Hi_corr": _upper_mirrored(total[D * D + D:2 * D * D + D].reshape(D, D)).float(),
+            "bi_corr": total[2 * D * D + D:].float(), "Hi_rho_d": H_rho_d, "bi_rho": b_rho,
+            "Hi_xr": X}
+
+
 # -- the model of csrc/ba_solve.cu and of run_ba's schedule ------------------------------
 
 
@@ -375,24 +464,34 @@ def _energy(st: tba.BAState, images, cam, cfg, e_extra=None) -> torch.Tensor:
     return E if e_extra is None else E + e_extra
 
 
+def _ind_energy(st, ind, cam, cfg):
+    """The factors' energy as the finish adds it (None without factors)."""
+    return None if ind is None else _ind_sweep(st, ind, cam, cfg, "energy")["e_ind"]
+
+
 def _model_run_ba(st, images, cam, cfg, ind=None):
     """run_ba (run_ba_mixed with `ind`) on the model: E0, then a system
-    sweep, a solve and an energy sweep a step, the accept test, lambda's
-    update and the select. Returns (state, ind idepth or None, E, the
-    accept decisions with E and E_new)."""
-    ie = None if ind is None else tba.indirect_energy(st, ind, cam, cfg)
-    E = _energy(st, images, cam, cfg, ie)
+    sweep (with the factors' groups), a solve (their four sums joining the
+    system in _solve_plain's order) and their back-substitution, and an
+    energy sweep a step, the reprojection energy added last; the accept
+    test, lambda's update and the select. Returns (state, ind idepth or
+    None, E, the accept decisions with E and E_new)."""
+    E = _energy(st, images, cam, cfg, _ind_energy(st, ind, cam, cfg))
     lam = torch.tensor(cfg.ba_lambda_init, dtype=torch.float32)
     steps = []
     for _ in range(cfg.ba_iters):
         system = _sweep(st, images, cam, cfg, "system", lam=float(lam))
-        extra, back = (None, None) if ind is None else tba._indirect_terms(st, ind, cam, cfg,
-                                                                            lam)
+        isys = None if ind is None else _ind_sweep(st, ind, cam, cfg, "system", float(lam))
+        extra = None if ind is None else tuple(isys[k] for k in ("Hi", "bi", "Hi_corr",
+                                                                 "bi_corr"))
         cand, dx = _solve(system, st, float(lam), cfg, extra)
-        cand_i = None if ind is None else ind.replace(
-            idepth=tba._indirect_idepth(ind, back, dx, cfg))
-        E_new = _energy(cand, images, cam, cfg,
-                        None if ind is None else tba.indirect_energy(cand, cand_i, cam, cfg))
+        cand_i = None
+        if ind is not None:
+            d = (isys["bi_rho"] - isys["Hi_xr"] @ dx) / isys["Hi_rho_d"]
+            d = torch.where(ind.point_valid, d, torch.zeros(()))
+            cand_i = ind.replace(idepth=torch.clamp(ind.idepth - d, cfg.idepth_min,
+                                                    cfg.idepth_max))
+        E_new = _energy(cand, images, cam, cfg, _ind_energy(cand, cand_i, cam, cfg))
         accept = bool(E_new < E)
         steps.append((accept, float(E), float(E_new)))
         if accept:
@@ -400,15 +499,6 @@ def _model_run_ba(st, images, cam, cfg, ind=None):
             ind = cand_i
         lam = (torch.clamp(lam * 0.4, min=1e-7) if accept else torch.clamp(lam * 5.0, max=1e2))
     return st, None if ind is None else ind.idepth, E, steps
-
-
-def assert_run_close(st, E, ref_st, ref_E):
-    np.testing.assert_allclose(_np(E), _np(ref_E), rtol=TOL["E_rel"])
-    np.testing.assert_allclose(_np(st.T.t), _np(ref_st.T.t), atol=TOL["T"])
-    np.testing.assert_allclose(_np(st.T.R), _np(ref_st.T.R), atol=TOL["T"])
-    np.testing.assert_allclose(_np(st.idepth), _np(ref_st.idepth), rtol=TOL["idepth_rel"],
-                               atol=TOL["idepth_abs"])
-    np.testing.assert_array_equal(_np(st.point_valid), _np(ref_st.point_valid))
 
 
 # -- the tests ------------------------------------------------------------------------------
@@ -535,32 +625,6 @@ def test_marg_model_nearer_float64_than_plain(window, slot):
         assert e_model <= e_plain and e_model <= 2e-7, (name, e_model, e_plain)
 
 
-def _factors(window, Q=32, seed=5) -> tba.IndirectFactors:
-    """Indirect factors hosted in slot 0: frame 0's pixels at their rendered
-    depth, projected with the true poses into slots 1-3, 0.5 px noise."""
-    rng = np.random.default_rng(seed)
-    F = TCFG.max_frames
-    _, idep = window["rendered"][0]
-    uv = np.c_[rng.uniform(10, 150, Q), rng.uniform(10, 110, Q)].astype(np.float32)
-    rho = idep[uv[:, 1].astype(int), uv[:, 0].astype(int)].astype(np.float32)
-    Xh = _np(TCAM.unproject(torch.tensor(uv), torch.tensor(rho))).astype(np.float64)
-    R0, t0 = window["poses"][0]
-    Xw = (Xh - t0) @ R0
-    obs = np.zeros((Q, F, 2), np.float32)
-    ok = np.zeros((Q, F), bool)
-    for s, i in enumerate(KF_FRAMES[1:], start=1):
-        R, t = window["poses"][i]
-        Xc = Xw @ R.T + t
-        pix = np.c_[110.0 * Xc[:, 0] / Xc[:, 2] + 79.5, 110.0 * Xc[:, 1] / Xc[:, 2] + 59.5]
-        obs[:, s] = pix + rng.normal(0, 0.5, pix.shape)
-        ok[:, s] = (Xc[:, 2] > 0.1) & (pix[:, 0] > 2) & (pix[:, 0] < 157) & (pix[:, 1] > 2) \
-            & (pix[:, 1] < 117)
-    rho0 = (rho * rng.uniform(0.97, 1.03, Q)).astype(np.float32)
-    return convert.from_np(tba.IndirectFactors, dict(
-        uv=uv, host=np.zeros(Q, np.int32), idepth=rho0, point_valid=rho > 1e-3, obs_uv=obs,
-        obs_valid=ok, sigma2=np.ones((Q, F), np.float32)))
-
-
 def test_mixed_model_matches_plain(window):
     """run_ba_mixed on the model (the reprojection terms as an additive
     system and a second Schur pair in the solve, the reprojection energy
@@ -568,7 +632,7 @@ def test_mixed_model_matches_plain(window):
     poses to 5e-4, inverse depths to 1e-2 (tests/test_torch_hybrid.py's
     bounds)."""
     st, images = window["ba"], window["images"]
-    ind = _factors(window)
+    ind = build_factors(window)
     got, rho_i, E, _ = _model_run_ba(st, images, TCAM, TCFG, ind=ind)
     want, ind_w, E_w = tba.run_ba_mixed(st, images, TCAM, TCFG, ind)
     np.testing.assert_allclose(_np(E), _np(E_w), rtol=3e-3)
@@ -576,6 +640,120 @@ def test_mixed_model_matches_plain(window):
     np.testing.assert_allclose(_np(got.T.R), _np(want.T.R), atol=5e-4)
     np.testing.assert_allclose(_np(got.idepth), _np(want.idepth), rtol=1e-2, atol=1e-3)
     np.testing.assert_allclose(_np(rho_i), _np(ind_w.idepth), rtol=1e-2, atol=1e-3)
+
+
+def _jax_factors(ind: tba.IndirectFactors) -> jba.IndirectFactors:
+    return jba.IndirectFactors(**{k: jnp.asarray(v) for k, v in convert.to_np(ind).items()})
+
+
+def test_mixed_model_matches_jax(window):
+    """run_ba_mixed on the model against the JAX package's run_ba_mixed on
+    the same numpy inputs, at bk.MIXED_PARITY_TOL (tests/test_torch_hybrid.py's
+    run_ba_mixed bounds: E 3e-3 relative, T 5e-4, inverse depths 1e-2
+    relative above 1e-3), the factors' inverse depths held like idepth."""
+    st, images = window["ba"], window["images"]
+    ind = build_factors(window)
+    got, rho_i, E, steps = _model_run_ba(st, images, TCAM, TCFG, ind=ind)
+    bj, ij, Ej = jba.run_ba_mixed(_jax_state(st), jnp.asarray(_np(images)), JCAM, JCFG,
+                                  _jax_factors(ind))
+    jst = convert.from_np(tba.BAState, convert.to_np(jax.device_get(bj)))
+    assert_run_close(got, E, jst, torch.tensor(np.asarray(Ej)), MIXED_TOL,
+                     (rho_i, torch.tensor(np.asarray(ij.idepth))))
+    assert steps[0][0], "the first step is accepted"
+
+
+def _edge_factors(window, case: str):
+    """(state, factors, what the case must show) for test_mixed_model_edge_cases."""
+    st = window["ba"]
+    ind = build_factors(window)
+    Q = ind.num_points
+    if case == "no_factors":
+        ind = build_factors(window, Q=0)
+    elif case == "all_invalid":
+        ind = ind.replace(point_valid=torch.zeros(Q, dtype=torch.bool))
+    elif case == "own_host_slot":   # observations in the host slot, far off: masked
+        ok = ind.obs_valid.clone()
+        ok[:, 0] = True
+        ind = ind.replace(obs_valid=ok, obs_uv=torch.where(
+            torch.arange(4)[None, :, None] == 0, ind.obs_uv + 40.0, ind.obs_uv))
+    elif case == "behind_target":   # 8 points at depth 0.05: behind slots 1-3
+        rho = ind.idepth.clone()
+        rho[:8] = 20.0
+        ind = ind.replace(idepth=rho)
+    elif case == "chi2_above":      # 3 px of noise at sigma2 1: most chi2 over 5.991
+        ind = build_factors(window, noise=3.0)
+    elif case == "invalid_host_slot":   # 8 points hosted in slot 3, made invalid
+        host = ind.host.clone()
+        host[:8] = 3
+        fv = st.frame_valid.clone()
+        fv[3] = False
+        st, ind = st.replace(frame_valid=fv), ind.replace(host=host)
+    elif case == "capacity":
+        ind = build_factors(window, Q=MIXED_POINTS, seed=7)
+    return st, ind
+
+
+@pytest.mark.parametrize("case", ["no_factors", "all_invalid", "own_host_slot", "behind_target",
+                                  "chi2_above", "invalid_host_slot", "capacity"])
+def test_mixed_model_edge_cases(window, case, monkeypatch):
+    """The model's run_ba_mixed against run_ba_mixed_plain (E, T, the
+    inverse depths and the factors' at bk.MIXED_PARITY_TOL) where the
+    factors' masks and Huber branch decide: no factor points or none valid
+    (then the model's run is its run_ba's, bit for bit, and the factors keep
+    their inverse depths), observations in a point's own host slot, points
+    behind their targets (depth 0.05 against slots 0.16-0.48 ahead), chi2
+    over 5.991, an invalid host slot, and Q at the hybrid's mixed_points
+    (256), with the run wrapper's refusal of one factor group more than a
+    card's capacity (run_max_groups, planted here: the CPU has no card)."""
+    st, images = window["ba"], window["images"]
+    st, ind = _edge_factors(window, case)
+    got, rho_i, E, _ = _model_run_ba(st, images, TCAM, TCFG, ind=ind)
+    want, ind_w, E_w = tba.run_ba_mixed(st, images, TCAM, TCFG, ind)
+    assert_run_close(got, E, want, E_w, MIXED_TOL, (rho_i, ind_w.idepth))
+    r, w, *_, act, _ = tba._linearize_indirect(st, ind, TCAM, TCFG)
+    chi2 = torch.sum(r * r, -1) / ind.sigma2
+    if case in ("no_factors", "all_invalid"):
+        plain, _, E_p, _ = _model_run_ba(st, images, TCAM, TCFG)
+        assert float(E) == float(E_p) and torch.equal(got.T.t, plain.T.t)
+        assert torch.equal(rho_i, ind.idepth)
+    elif case == "own_host_slot":
+        assert ind.obs_valid[:, 0].all() and not act[:, 0].any()
+    elif case == "behind_target":
+        seen = ind.obs_valid[:8] & ind.point_valid[:8, None]
+        assert seen.any() and not act[:8].any()
+    elif case == "chi2_above":
+        assert int((act & (chi2 > tba._CHI2_2D)).sum()) > int((act & (chi2 <= tba._CHI2_2D)).sum())
+    elif case == "invalid_host_slot":
+        assert not act[:8].any() and act[8:].any()
+    elif case == "capacity":
+        assert ind.num_points == MIXED_POINTS and int(act.sum()) > 300
+        cuda, P = torch.device("cuda"), st.uv.shape[0]
+        most = -(-P // NPB) + MIXED_POINTS // NPB
+        monkeypatch.setitem(bk._RUN_MAX_GROUPS, cuda, most)
+        bk._check_run_groups(P, MIXED_POINTS, cuda)
+        with pytest.raises(ValueError, match=f"at most {most} point groups"):
+            bk._check_run_groups(P, MIXED_POINTS + 1, cuda)
+
+
+@pytest.mark.parametrize("lam", [1e-3, 1e2], ids=["lam_init", "lam_cap"])
+def test_ind_sweep_model_equals_plain_terms(window, lam):
+    """The factor groups' block-ordered sums equal _indirect_terms (the
+    additive system, the damped Schur pair, each point's rows) at run_ba's
+    first and largest lambda, to 1e-4 of each sum's largest entry, and the
+    energy indirect_energy's to 1e-5."""
+    st = window["ba"]
+    ind = build_factors(window)
+    lam_t = torch.tensor(lam)
+    got = _ind_sweep(st, ind, TCAM, TCFG, "system", lam)
+    (Hi, bi, Hc, bc), (b_rho, H_xr, H_rho_d) = tba._indirect_terms(st, ind, TCAM, TCFG, lam_t)
+    for name, want in (("Hi", Hi), ("bi", bi), ("Hi_corr", Hc), ("bi_corr", bc),
+                       ("bi_rho", b_rho), ("Hi_xr", H_xr), ("Hi_rho_d", H_rho_d)):
+        ref = _np(want)
+        np.testing.assert_allclose(_np(got[name]), ref, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(ref).max())), err_msg=name)
+    e = _ind_sweep(st, ind, TCAM, TCFG, "energy")["e_ind"]
+    np.testing.assert_allclose(_np(e), _np(tba.indirect_energy(st, ind, TCAM, TCFG)), rtol=1e-5)
+    assert float(torch.abs(Hi).max()) > 0 and int(ind.point_valid.sum()) > 20
 
 
 def test_lu_pivot_rule_and_reciprocals():
@@ -721,11 +899,14 @@ def test_cpu_tensors_take_the_plain_forms(window, monkeypatch):
 
 
 @pytest.mark.parametrize("fn", ["run_ba", "ba_step", "total_energy", "update_residual_status",
-                                "_marg_pieces", "run_ba_mixed"])
+                                "_marg_pieces", "run_ba_mixed", "run_ba_mixed_one_launch",
+                                "ba_step_mixed", "total_energy_mixed"])
 def test_card_tensors_never_take_the_plain_forms(window, monkeypatch, fn):
     """The card's path launches the kernels or raises: with the device test
-    answering "card" for these CPU tensors, every entry point reaches the
-    sweep wrapper, which refuses them, and no plain form runs."""
+    answering "card" for these CPU tensors, every entry point reaches a
+    kernel wrapper, which refuses them, and no plain form runs, the
+    reprojection terms' PyTorch forms neither; run_ba_mixed without a mesh
+    reaches the run kernel's wrapper (the one launch) and no other."""
     st, images = window["ba"], window["images"]
 
     def boom(*a, **k):
@@ -733,16 +914,34 @@ def test_card_tensors_never_take_the_plain_forms(window, monkeypatch, fn):
 
     for name in ("run_ba_plain", "ba_step_plain", "total_energy_plain",
                  "update_residual_status_plain", "_marg_pieces_plain", "run_ba_mixed_plain",
-                 "linearize", "_assemble"):
+                 "linearize", "_assemble", "_linearize_indirect", "_assemble_indirect",
+                 "_indirect_terms", "_indirect_idepth", "indirect_energy", "_schur_terms"):
         monkeypatch.setattr(tba, name, boom)
     monkeypatch.setattr(tba, "_on_card", lambda s: True)
-    ind = _factors(window, Q=4)
+    ind = build_factors(window, Q=4)
+    if fn == "run_ba_mixed_one_launch":
+        class OneLaunch(Exception):
+            pass
+
+        def run_kernel(state, images_, cam, cfg, trace=None, ind=None):
+            assert ind is not None and ind.num_points == 4
+            raise OneLaunch
+
+        monkeypatch.setattr(bk, "ba_run_cuda", run_kernel)
+        monkeypatch.setattr(bk, "ba_sweep_cuda", boom)
+        monkeypatch.setattr(bk, "ba_solve_cuda", boom)
+        with pytest.raises(OneLaunch):
+            tba.run_ba_mixed(st, images, TCAM, TCFG, ind)
+        return
+    lam = torch.tensor(1e-3)
     calls = {"run_ba": lambda: tba.run_ba(st, images, TCAM, TCFG),
-             "ba_step": lambda: tba.ba_step(st, images, TCAM, TCFG, torch.tensor(1e-3)),
+             "ba_step": lambda: tba.ba_step(st, images, TCAM, TCFG, lam),
              "total_energy": lambda: tba.total_energy(st, images, TCAM, TCFG),
              "update_residual_status": lambda: tba.update_residual_status(st, images, TCAM, TCFG),
              "_marg_pieces": lambda: tba._marg_pieces(st, images, TCAM, TCFG, 1),
-             "run_ba_mixed": lambda: tba.run_ba_mixed(st, images, TCAM, TCFG, ind)}
+             "run_ba_mixed": lambda: tba.run_ba_mixed(st, images, TCAM, TCFG, ind),
+             "ba_step_mixed": lambda: tba.ba_step(st, images, TCAM, TCFG, lam, ind),
+             "total_energy_mixed": lambda: tba.total_energy(st, images, TCAM, TCFG, ind)}
     with pytest.raises(ValueError, match="need CUDA tensors"):
         calls[fn]()
 

@@ -32,8 +32,8 @@ import chip_smoke as cs  # noqa: E402
 import libcml_tpu_torch.models.direct.ba as tba  # noqa: E402
 from libcml_tpu_torch.core.lie import SE3  # noqa: E402
 from libcml_tpu_torch.ops import ba_sweep as bk  # noqa: E402
-from test_torch_ba_kernels import _factors  # noqa: E402
 from test_torch_card_ba import TCAM, TCFG, build_window  # noqa: E402
+from test_torch_card_ba import build_factors as _factors  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -170,3 +170,27 @@ def test_f64_checks_fail_a_planted_fault(marg, runs, fault):
     v = _verdict((bad, E, gi, trace), plain, f64, False)
     assert not v["parity"]["ok"], v
     assert not v["f64_evidence"]["holds"] and not v["ok"], v
+
+
+def test_mixed_faults_change_only_their_lines(tmp_path):
+    """Phase 14's planted faults in the mixed BA's run kernel
+    (cs.BA_MIXED_FAULTS): each copy of csrc/ differs from the shipped
+    sources only in ba_common.cuh, there only by the fault's substitutions,
+    each of whose lines the shipped header holds once; the shipped sources
+    stay as they are."""
+    shipped = {p.name: p.read_text() for p in bk.RUN_SOURCE.parent.glob("*.cu*")}
+    paths = cs.write_ba_faults(tmp_path)
+    assert set(paths) == set(cs.BA_MIXED_FAULTS)
+    for name, path in paths.items():
+        assert path.name == "ba_run.cu" and path.parent == tmp_path / name
+        copy = {p.name: p.read_text() for p in path.parent.glob("*.cu*")}
+        assert copy.keys() == shipped.keys()
+        for fname, text in copy.items():
+            want = shipped[fname]
+            if fname == "ba_common.cuh":
+                for old, new in cs.BA_MIXED_FAULTS[name]:
+                    assert want.count(old) == 1
+                    want = want.replace(old, new)
+                assert text != shipped[fname]
+            assert text == want, (name, fname)
+    assert {p.name: p.read_text() for p in bk.RUN_SOURCE.parent.glob("*.cu*")} == shipped

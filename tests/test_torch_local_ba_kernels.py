@@ -90,7 +90,8 @@ def group_lists(pt: np.ndarray, N: int) -> tuple[np.ndarray, np.ndarray]:
     return off, order
 
 
-def eliminate_lu(A: np.ndarray, steps: int | None = None) -> tuple[np.ndarray, np.ndarray, list]:
+def eliminate_lu(A: np.ndarray, steps: int | None = None,
+                 keep: dict | None = None) -> tuple[np.ndarray, np.ndarray, list]:
     """csrc/local_ba.cu lu_solve's elimination of the (Dp, Dp + 1) system
     A in float32: rows stay where they are, each with its position in
     LAPACK's row order; the pivot of column k from two integer reductions:
@@ -101,11 +102,16 @@ def eliminate_lu(A: np.ndarray, steps: int | None = None) -> tuple[np.ndarray, n
     row's entries (its multiplier a_ik rcp_k, rcp_k = 1 / a_kk). Returns
     the factors in position order, the reciprocals and the pivots. With
     `steps`, only the first that many columns are eliminated (the kernel
-    stops at the real rows, D, of a padded system)."""
+    stops at the real rows, D, of a padded system). With `keep` (a dict),
+    what the kernel keeps for a second right-hand side (LuKeep): each step's
+    multiplier of every row by its place ("m", 0 for a row not below the
+    pivot) and its pivot row's place ("owner")."""
     M = A.astype(np.float32).copy()
     D = M.shape[0]
     pos = np.arange(D)
     rcp, piv = np.zeros(D, np.float32), []
+    if keep is not None:
+        keep["m"], keep["owner"] = np.zeros((D, D), np.float32), []
     with np.errstate(all="ignore"):
         for k in range(D if steps is None else steps):
             a = np.abs(M[:, k])
@@ -122,7 +128,26 @@ def eliminate_lu(A: np.ndarray, steps: int | None = None) -> tuple[np.ndarray, n
             below = pos > k
             m = M[below, k] * rk
             M[below, k + 1:] = M[below, k + 1:] - m[:, None] * M[owner, k + 1:][None, :]
+            if keep is not None:
+                keep["m"][k, below] = m
+                keep["owner"].append(int(owner))
     return M[np.argsort(pos)], rcp, piv
+
+
+def resolve_lu(U: np.ndarray, rcp: np.ndarray, keep: dict, rhs: np.ndarray, n: int) -> np.ndarray:
+    """csrc/local_ba.cu lu_resolve: the system that eliminate_lu factored
+    (U, rcp and its `keep`) at another right-hand side `rhs` (by row): the
+    elimination's updates of the right-hand side replayed (each step's
+    pivot row's value into U's last column, then every row less its
+    multiplier times it), then back_substitute."""
+    y = np.asarray(rhs, np.float32).copy()
+    U = U.copy()
+    with np.errstate(all="ignore"):
+        for k in range(n):
+            uy = y[keep["owner"][k]]
+            U[k, -1] = uy
+            y = y - keep["m"][k] * uy
+    return back_substitute(U, rcp, n)
 
 
 def back_substitute(U: np.ndarray, rcp: np.ndarray, n: int | None = None) -> np.ndarray:
@@ -287,6 +312,11 @@ class Model:
         return sys, W, Hinv, bp
 
     def solve(self, sys, lam) -> np.ndarray:
+        """The kernel's solve_step: the damped system rounded to float32,
+        padded, solved by the warp's LU; then one step of iterative
+        refinement, the damped system's residual in double solved by the
+        same LU's factors (resolve_lu) and added in double, the sum rounded
+        once."""
         D = 6 * self.M
         Dp = 8 * (-(-D // 8))
         iu = np.triu_indices(D)
@@ -295,7 +325,9 @@ class Model:
         S = S + np.triu(S, 1).T
         fd = np.repeat(self.free, 6)
         A = np.eye(Dp + 1, dtype=np.float32)[:Dp]
+        A64 = np.zeros((D, D))
         A[:, Dp] = 0
+        g = np.zeros(D)
         with np.errstate(all="ignore"):
             for r in range(D):
                 for c in range(D):
@@ -303,15 +335,21 @@ class Model:
                         h = S[r, c]
                         if r == c:
                             h = (h + np.float64(lam) * h) + 1e-7
-                        A[r, c] = np.float32(h)
+                        A[r, c], A64[r, c] = np.float32(h), h
                     elif r == c:
                         A[r, c] = (np.float32(1) + np.float32(lam)) + np.float32(1e-7)
+                        A64[r, c] = A[r, c]
                     else:
                         A[r, c] = 0
-                A[r, Dp] = np.float32(sys[iu[0].size + r]) if fd[r] else 0
-            U, rcp, _ = eliminate_lu(A, D)
-            x = back_substitute(U, rcp, D)
-        return x[:D]
+                g[r] = sys[iu[0].size + r] if fd[r] else 0.0
+            A[:D, Dp] = g.astype(np.float32)
+            keep = {}
+            U, rcp, _ = eliminate_lu(A, D, keep)
+            x0 = back_substitute(U, rcp, D)[:D].astype(np.float64)
+            res = np.zeros(Dp, np.float32)
+            res[:D] = (g - A64 @ x0).astype(np.float32)
+            x = x0 + resolve_lu(U, rcp, keep, res, D)[:D]
+        return x.astype(np.float32)
 
     def candidate(self, dx, W, Hinv, bp):
         M = self.M
@@ -555,6 +593,35 @@ def test_sized_solve_keeps_warp_solve_bits(M, case):
     np.testing.assert_array_equal(_bits(U[:D][upper]), _bits(Uw[:D][upper]))
     np.testing.assert_array_equal(_bits(back_substitute(U, rcp, D)[:D]),
                                   _bits(back_substitute(Uw, rcpw)[:D]))
+    if case == "ties":
+        assert any(p != k for k, p in enumerate(piv))
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+@pytest.mark.parametrize("M", range(1, 9))
+def test_resolve_keeps_a_second_eliminations_bits(M, case):
+    """The refinement's solve (lu_resolve: the first elimination's
+    multipliers and pivots replayed on a new right-hand side) gives the x
+    that eliminating the same padded system again at that right-hand side
+    gives, bit for bit, so keeping the factors changes no step: a damped
+    random system and one of small integers (ties for the pivot)."""
+    D = 6 * M
+    rng = np.random.default_rng(200 + M)
+    A = rng.normal(size=(D, D + 1)).astype(np.float32)
+    if case == "ties":
+        A = rng.integers(-3, 4, size=(D, D + 1)).astype(np.float32)
+    A[:, :D] += np.float32(D) * np.eye(D, dtype=np.float32) * rng.random(D).astype(np.float32)
+    P = _padded(A)
+    keep = {}
+    U, rcp, piv = eliminate_lu(P, D, keep)
+    rhs = np.zeros(P.shape[0], np.float32)
+    rhs[:D] = rng.normal(size=D).astype(np.float32) * np.float32(1e-3)
+    P2 = P.copy()
+    P2[:, -1] = rhs
+    U2, rcp2, piv2 = eliminate_lu(P2, D)
+    assert piv2 == piv and len(keep["owner"]) == D
+    np.testing.assert_array_equal(_bits(resolve_lu(U, rcp, keep, rhs, D)[:D]),
+                                  _bits(back_substitute(U2, rcp2, D)[:D]))
     if case == "ties":
         assert any(p != k for k, p in enumerate(piv))
 
