@@ -1,14 +1,14 @@
 """Smoke run of libcml_tpu_torch on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py [--save-local-ba FILE]
+    python3 chip_smoke.py [--save-local-ba FILE] [--save-tri FILE]
 
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the nine hand-written kernel sources (csrc/hamming_match.cu,
+  1. build the ten hand-written kernel sources (csrc/hamming_match.cu,
      track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu,
-     trace_epipolar.cu, local_ba.cu, orb_extract.cu) from the sources in
-     this checkout, one nvcc each, all started together.
+     trace_epipolar.cu, local_ba.cu, orb_extract.cu, triangulate.cu) from
+     the sources in this checkout, one nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -193,19 +193,41 @@ Phases (any failure exits non-zero, and no result line is printed):
      tools/ba_stages.py's instrument: when the last block passed each mark,
      when the first did, and the gap before each launch's first mark); one
      sha256 over the six outputs of every captured call, in order.
-Every phase from 3 on reports the LM, BA, tracer, local BA and ORB
-kernels' launches of its run (counted from 0 just before it and read just
-after); phase 3 must launch track_lm on every tracked frame, the BA
-kernels, and trace_epipolar once on every frame whose pose is good; phase 4
-pnp_lm twice a frame and orb_extract once for frame 0 and each tracked
-frame, phases 5 and 7 both LM kernels, phase 5 local_ba.
+ 18. the pair tests computed in the Hamming kernel and the triangulation
+     kernel: every match_projection call of phases 4-12 (PairCapture) as
+     one launch of hamming_match.cu's projection test against the mask
+     mode fed projection_pair_mask's mask and _finish (hm.pair_parity: bit
+     for bit except rows and columns touching a pair whose float64 squared
+     distance lies within hm.EDGE_REL of r^2, or a row at a visibility
+     edge; the projected pixels within 1e-3 px); every _epipolar_triangulate
+     call (two launches: the epipolar test with T_10 and F made in the
+     match's launch, then csrc/triangulate.cu) against the plain form: the
+     match by the same rule, the triangulation kernel on the plain form's
+     match against plain_triangulate, its numpy model and the plain form in
+     float64 (tr.tri_parity: corrected pixels, X0's pixel in keyframe 0 and
+     its inverse depth; basin flips and depth edges counted), ok equal where
+     the matches agree; the edges by run; the launches of every kernel by
+     call site in phases 5, 6, 7 and 10 (one projection launch a projection
+     site call, two a triangulation); no plain form on card tensors; three
+     planted faults (the grid's last index on ties and the asymptote left
+     out, on triangulate.FAULT_PENCILS; the level window widened to 2, on
+     phase 4's first match) refused; one _epipolar_triangulate call with no
+     sync and no memcpy; cold and warm ms of the three entry points beside
+     the launch floor, their plain forms', bounds and shares.
+Every phase from 3 on reports every kernel's launches of its run (counted
+from 0 just before it and read just after); phase 3 must launch track_lm on
+every tracked frame, the BA kernels, and trace_epipolar once on every frame
+whose pose is good; phase 4 the projection test and pnp_lm twice a frame
+and orb_extract once for frame 0 and each tracked frame, phases 5 and 7
+both LM kernels, phase 5 local_ba.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
-staged tick's match_projection) and 12 (match_ratio), held to the plain
-version exactly; the phases' results, the card's name and power limit, the
-kernel table ({"kernels": [...]}: for hamming_resolve the launches of the
-paths' runs, phases 5, 7, 8, 10, 11 and 12, each counted from 0 just before
-its run and read just after, with each path's count beside them; times and
+staged tick's match_projection; the masks made by the plain forms from the
+calls' arguments) and 12 (match_ratio), held to the plain version exactly;
+the phases' results, the card's name and power limit, the kernel table
+({"kernels": [...]}: for hamming_resolve its launches in the paths' runs,
+phases 4-8, 10, 11 and 12, each counted from 0 just before its run and read
+just after, with each path's count beside them; times and
 bound of the phase-4 masks case, cold, and of the staged-tick and
 match_ratio cases; for track_lm and pnp_lm the launches of every path's run
 and the times and bound of phase 13's first case, each case beside them;
@@ -213,8 +235,10 @@ for ba_sweep, ba_solve and ba_run the launches of every path's run and
 phase 14's times and bounds; for trace_epipolar the launches of every
 path's run and phase 15's times and bound; for local_ba the launches of
 every path's run and phase 16's times and bound; for orb_extract the
-launches of every path's run and phase 17's times and bound), and the
-result line {"ok": true, "device": {...}} last.
+launches of every path's run and phase 17's times and bound; for
+hamming_projection, hamming_epipolar and triangulate the launches of every
+path's run and phase 18's times and bounds), and the result line
+{"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -251,12 +275,14 @@ from libcml_tpu_torch.models.indirect import indirect_ba as iba
 from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect import pnp as pnp_mod
 from libcml_tpu_torch.models.indirect.bow import default_vocabulary
+from libcml_tpu_torch.models.indirect.triangulation import fundamental
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
 from libcml_tpu_torch.ops import local_ba as lba
 from libcml_tpu_torch.ops import orb_extract as oe
 from libcml_tpu_torch.ops import trace_epipolar as te
+from libcml_tpu_torch.ops import triangulate as tr
 from libcml_tpu_torch.parallel.sharding import make_mesh
 from libcml_tpu_torch.runtime import hybrid, odometry
 from libcml_tpu_torch.runtime.odometry import DirectOdometry
@@ -280,25 +306,35 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# the LM, BA, tracer, local BA and ORB kernels' wrappers, whose launch counts
-# each path's run reports
-PATH_KERNELS = {"track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
+# every kernel's wrapper, whose launch counts each path's run reports: the
+# Hamming kernel's three entry points (the mask modes; the projection and
+# epipolar pair tests computed in the kernel), the triangulation, the LM,
+# BA, tracer, local BA and ORB kernels
+PATH_KERNELS = {"hamming_resolve": hm.hamming_resolve_cuda,
+                "hamming_projection": hm.match_projection_cuda,
+                "hamming_epipolar": hm.match_epipolar_cuda, "triangulate": tr.triangulate_cuda,
+                "track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
                 "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
                 "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda,
                 "local_ba": lba.local_ba_cuda, "orb_extract": oe.orb_extract_cuda}
+HAMMING_MODES = ("hamming_resolve", "hamming_projection", "hamming_epipolar")
 
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0 (just before a path's run)."""
-    hm.hamming_resolve_cuda.launches = 0
     for fn in PATH_KERNELS.values():
         fn.launches = 0
 
 
 def path_launches() -> dict:
-    """The LM, BA, tracer, local BA and ORB kernels' launch counts since the
-    last reset_launches()."""
+    """Every kernel's launch count since the last reset_launches()."""
     return {name: fn.launches for name, fn in PATH_KERNELS.items()}
+
+
+def hamming_launches() -> int:
+    """Launches of csrc/hamming_match.cu in any mode since the last
+    reset_launches()."""
+    return sum(PATH_KERNELS[k].launches for k in HAMMING_MODES)
 
 
 def require(cond: bool, what: str) -> None:
@@ -574,7 +610,7 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     wall = t_end - t0
-    launches = hm.hamming_resolve_cuda.launches   # the direct path runs no Hamming kernel
+    launches = hamming_launches()   # the direct path runs no Hamming kernel
     lm = path_launches()
     for R, t in traj[:N_DIRECT]:
         M = np.eye(4)
@@ -612,7 +648,8 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
     reset_launches()
     per_frame = []
     for i in HYBRID_FRAMES:
-        before = hm.hamming_resolve_cuda.launches
+        before = hamming_launches()
+        proj_before = hm.match_projection_cuda.launches
         pnp_before = pnp_lm.pnp_lm_cuda.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -623,7 +660,8 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
         R_est = res.T.R.cpu().numpy().astype(np.float64)
         t_err = float(np.linalg.norm(res.T.t.cpu().numpy() - t_gt))
         r_err = float(np.arccos(np.clip((np.trace(R_est @ R_gt.T) - 1) / 2, -1, 1)))
-        launched = hm.hamming_resolve_cuda.launches - before
+        launched = hamming_launches() - before
+        proj_launched = hm.match_projection_cuda.launches - proj_before
         pnp_launched = pnp_lm.pnp_lm_cuda.launches - pnp_before
         row = {"frame": i, "matches": int(b1[0]), "inliers": int(b1[1]),
                "pass2_matches": int(b2[0]), "pass2_inliers": int(b2[1]),
@@ -631,13 +669,15 @@ def hybrid_phase(dev, cam, traj, frames) -> dict:
                "pnp_lm_launches": pnp_launched}
         per_frame.append(row)
         print(json.dumps(row))
-        require(launched == 2, f"frame {i}: {launched} kernel launches, expected 2")
+        require(launched == 2 and proj_launched == 2,
+                f"frame {i}: {launched} Hamming launches ({proj_launched} with the projection "
+                "test), expected 2 and 2")
         require(pnp_launched == 2, f"frame {i}: {pnp_launched} PnP kernel launches, expected 2")
         require(b1[2] > 0.5 and b1[1] >= 12 and b2[1] >= 12,
                 f"frame {i}: PnP failed ({b1[1]} / {b2[1]} inliers)")
         require(t_err < 0.04 and r_err < 0.01,
                 f"frame {i}: pose error {t_err:.4f} / {r_err:.4f} rad out of budget")
-    launches = hm.hamming_resolve_cuda.launches
+    launches = hamming_launches()
     res = {"phase": "hybrid_tracking", "frames": len(per_frame), "map_points": n_map,
            "launches": launches, "lm_launches": path_launches(), "orb_launches": orb_launches,
            "ms_per_frame": statistics.median(r["ms"] for r in per_frame),
@@ -659,49 +699,107 @@ CALL_SITES = ("_project_match_pnp", "_local_map_pass2", "_epipolar_triangulate",
               "_map_projection_match", "match_window", "match_descriptors")
 
 
+def _clone_arg(x):
+    """A tensor or pose argument cloned (anything else as it is)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, SE3):
+        return SE3(R=x.R.clone(), t=x.t.clone())
+    return x
+
+
 class CallSites:
-    """Counts the kernel's launches inside each call site, and keeps (cloned)
-    the resolution inputs of the first call of the sites named in
-    `capture_at`, for phase 2's real-input cases."""
+    """Counts the Hamming kernel's launches (every mode) inside each call
+    site, and every kernel's launches by site (`kernels`); keeps (cloned) the
+    arguments of the first match_projection (the hybrid's name),
+    _epipolar_triangulate or mask-mode resolution (matching.hamming_resolve)
+    call of the sites named in `capture_at`, as (args, kwargs), for phase 2's
+    real-input cases (mask_case builds the plain form's mask from the
+    first two)."""
 
     def __init__(self):
         self.launches = Counter()
+        self.kernels: dict[str, Counter] = {}
         self.calls = Counter()
         self.captured: dict[str, tuple] = {}
         self.capture_at: set[str] = set()
-        self.capture_live = False    # capture only a call with a live query row
+        self.capture_live = False    # capture only a call with a valid map point
         self._site: str | None = None
         self._saved = {name: getattr(hybrid, name) for name in CALL_SITES}
+        self._match_projection = hybrid.match_projection
         self._resolve = matching.hamming_resolve
 
     def _wrap(self, name, fn):
         def run(*args, **kw):
-            before, outer = hm.hamming_resolve_cuda.launches, self._site
+            before, outer = path_launches(), self._site
             self._site = name
+            if name == "_epipolar_triangulate":
+                self._keep(name, args, kw)
             try:
                 return fn(*args, **kw)
             finally:
                 self._site = outer
-                self.launches[name] += hm.hamming_resolve_cuda.launches - before
+                after = path_launches()
+                d = Counter({k: after[k] - before[k] for k in after if after[k] > before[k]})
+                self.kernels.setdefault(name, Counter()).update(d)
+                self.launches[name] += sum(d[k] for k in HAMMING_MODES)
                 self.calls[name] += 1
         return run
 
-    def _capture(self, *args):
+    def _keep(self, site, args, kw):
+        if (site in self.capture_at and site not in self.captured
+                and (not self.capture_live or bool(args[2].any()))):
+            self.captured[site] = (tuple(_clone_arg(a) for a in args),
+                                   {k: _clone_arg(v) for k, v in kw.items()})
+
+    def _projection(self, *args, **kw):
+        if self._site is not None:
+            self._keep(self._site, args, kw)
+        return self._match_projection(*args, **kw)
+
+    def _resolution(self, *args):
         if (self._site in self.capture_at and self._site not in self.captured
                 and (not self.capture_live or bool(args[1].any()))):
-            self.captured[self._site] = tuple(None if a is None else a.clone() for a in args)
+            self.captured[self._site] = (tuple(_clone_arg(a) for a in args), {"mask": True})
         return self._resolve(*args)
 
     def __enter__(self):
         for name, fn in self._saved.items():
             setattr(hybrid, name, self._wrap(name, fn))
-        matching.hamming_resolve = self._capture
+        hybrid.match_projection = self._projection
+        matching.hamming_resolve = self._resolution
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._saved.items():
             setattr(hybrid, name, fn)
+        hybrid.match_projection = self._match_projection
         matching.hamming_resolve = self._resolve
+
+
+def _site_table(sites: CallSites) -> tuple[dict, Counter]:
+    """A copy of a run's launches by site and kernel, and its calls by site."""
+    return {k: Counter(v) for k, v in sites.kernels.items()}, Counter(sites.calls)
+
+
+def _radius(kw: dict, args: tuple) -> float:
+    return kw.get("radius", args[10] if len(args) > 10 else 15.0)
+
+
+def mask_case(site: str, captured: tuple) -> tuple:
+    """The mask mode's arguments (desc_q, mask_q, desc_t, mask_t, pair) for a
+    captured call: its plain form's (N, M) mask, made on the card."""
+    args, kw = captured
+    if kw.get("mask"):
+        return args
+    if site == "_epipolar_triangulate":
+        desc0, uv0, valid0, _, desc1, uv1, valid1, _, T_new, T0, cam = args[:11]
+        F = fundamental(T_new.compose(T0.inverse()), cam)
+        return desc0, valid0, desc1, valid1, matching.epipolar_pair_mask(uv0, uv1, F)
+    Xw, desc_p, valid_p, level_p, T, cam, desc_f, uv_f, level_f, valid_f = args[:10]
+    vis, pair, _ = matching.projection_pair_mask(Xw, valid_p, level_p, T, cam, uv_f, level_f,
+                                                 _radius(kw, args))
+    return desc_p, vis, desc_f, valid_f, pair
 
 
 def gt_centres(traj) -> np.ndarray:
@@ -735,10 +833,10 @@ def watch_hybrid(odo) -> Counter:
 
     def kf_start(*_):
         ev["indirect_keyframes"] += 1
-        cur.update(tri=0, lba=False, launches=hm.hamming_resolve_cuda.launches)
+        cur.update(tri=0, lba=False, launches=hamming_launches())
 
     def kf_end(*_):
-        ev["kf_launches"] += hm.hamming_resolve_cuda.launches - cur["launches"]
+        ev["kf_launches"] += hamming_launches() - cur["launches"]
         ev["ok_kf"] += int(cur["tri"] > 0 and cur["lba"])
 
     def added(Xw, desc, level, ok):
@@ -773,6 +871,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     torch.cuda.synchronize()
     reset_launches()
     sites.launches.clear()
+    sites.kernels.clear()
     sites.calls.clear()
     t0 = time.perf_counter()
     for i, img in enumerate(imgs):
@@ -784,7 +883,7 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
         lost += int(out.get("state") == "LOST")
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = hm.hamming_resolve_cuda.launches
+    launches = hamming_launches()
     lm = path_launches()
     wall = t_end - t0
     _, est = odo.trajectory_c2w()
@@ -833,6 +932,7 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     sites.launches.clear()
+    sites.kernels.clear()
     sites.calls.clear()
     states, at, view_before = [], None, None
     t0 = time.perf_counter()
@@ -848,7 +948,7 @@ def relocalization_phase(dev, cam, traj, frames, sites: CallSites) -> dict:
             break
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hm.hamming_resolve_cuda.launches
+    launches = hamming_launches()
     lm = path_launches()
     require(at is not None, f"never relocalized (states {states})")
     _, est = odo.trajectory_c2w()
@@ -885,6 +985,7 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
     log_path = os.path.join(work, "cli.log")
     sites.capture_at = {"_project_match_pnp"}
     sites.launches.clear()
+    sites.kernels.clear()
     sites.calls.clear()
     torch.cuda.synchronize()
     reset_launches()
@@ -893,7 +994,7 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
         rc = cli.main(["-d", seq, "-c", CLI_PRESET, "-r", out_dir, "-f", "all", "-z"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hm.hamming_resolve_cuda.launches
+    launches = hamming_launches()
     lm = path_launches()
     with open(log_path) as f:
         lines = f.read().splitlines()
@@ -919,8 +1020,8 @@ def entry_points_phase(dev, work: str, sites: CallSites) -> tuple[dict, str]:
     require(run.get("segments") == 0, "the CLI run lost tracking")
     require(launches > 0, "the CLI run launched no Hamming kernel")
     require("_project_match_pnp" in sites.captured, "no match_projection captured")
-    shape = (sites.captured["_project_match_pnp"][0].shape[0],
-             sites.captured["_project_match_pnp"][2].shape[0])
+    shape = (sites.captured["_project_match_pnp"][0][0].shape[0],
+             sites.captured["_project_match_pnp"][0][6].shape[0])
     require(shape == (4096, 2400), f"the modslam preset's match_projection is {shape}")
     return res, seq
 
@@ -977,7 +1078,7 @@ def repeat_and_resume(make, imgs, work: str, name: str) -> dict:
         c.process(imgs[i], i * 0.1)
     snap_c = _snapshot(c)
     torch.cuda.synchronize()
-    launches = hm.hamming_resolve_cuda.launches
+    launches = hamming_launches()
     lm = path_launches()
     wall = time.perf_counter() - t0
     cpu = make("cpu")
@@ -1102,7 +1203,7 @@ def timed_run(odo, imgs) -> dict:
     t_end = time.perf_counter()
     return {"wall_s": t_end - t0, "fps": len(imgs) / (t_end - t0),
             "steady_fps": (len(imgs) - WARMUP) / (t_end - t_steady),
-            "kernel_launches": hm.hamming_resolve_cuda.launches, "lm_launches": path_launches(),
+            "kernel_launches": hamming_launches(), "lm_launches": path_launches(),
             "lost_frames": lost, "est": est}
 
 
@@ -1174,6 +1275,7 @@ def staged_hybrid_phase(cam, traj, frames, sites: CallSites, mode: str) -> dict:
     sites.capture_at = {"_map_projection_match"}
     sites.capture_live = True
     sites.launches.clear()
+    sites.kernels.clear()
     sites.calls.clear()
     run = timed_run(odo, imgs)
     ate = ate_rmse(run.pop("est")[:, :3, 3], gt_centres(traj[:STAGED_FRAMES]), with_scale=True)
@@ -3063,7 +3165,7 @@ def orb_faults(pyr, budget: int, threshold: float, tie_budget: int) -> dict:
     out, rounded = {}, tuple(torch.round(x) for x in pyr)
     for name, path in paths.items():
         p, b = (rounded, tie_budget) if name in ORB_ROUNDED_FAULTS else (pyr, budget)
-        with _orb_source(path):
+        with _module_source(oe, path):
             probe = oe.new_probe(p)
             got = oe.orb_extract_cuda(p, b, threshold, probe=probe)
         rep = oe.parity(got, p, b, threshold, probe)
@@ -3112,14 +3214,15 @@ def _ba_stages():
 
 
 @contextlib.contextmanager
-def _orb_source(path: Path):
-    """extract_orb launching the library built from `path`."""
-    before = oe.SOURCE
-    oe.SOURCE = path
+def _module_source(mod, path: Path):
+    """`mod`'s wrappers (an ops module) launching the library built from
+    `path`."""
+    before = mod.SOURCE
+    mod.SOURCE = path
     try:
         yield
     finally:
-        oe.SOURCE = before
+        mod.SOURCE = before
 
 
 def orb_stamps(pyr, budget: int, threshold: float, reps: int = 20) -> dict | None:
@@ -3286,9 +3389,443 @@ def orb_phase(cap: OrbCapture, card: str) -> tuple[dict, dict]:
     return public, timing
 
 
+# -- phase 18 ----------------------------------------------------------------------
+
+# arithmetic the plain forms do, counted from them (an FMA as 2, a division,
+# a square root or a tan as 1, compares not counted): match_projection's
+# point (transform 15 + 3, projection 7, radius 3) and pair (2 differences,
+# 2 squares, a sum); match_epipolar's line (6) and pair (the dot product 5,
+# its square, a division); the triangulation's row: the bins 3, F' 30, two
+# SVDs counted as 2 x 100, F'' 54, the pencil cost 17 + its tan at 129 grid
+# points, 80 golden-section points and t_best, the golden bookkeeping 6 a
+# step, the asymptote, lines and transfers 60, the DLT 120
+PROJ_POINT_OPS = 15 + 3 + 7 + 3
+# the kernel's projected pixels (float64 rounded once) against float64's on
+# the visible points: one float32 rounding of up to ~1e3 px is 6e-5
+UV_TOL = 1e-4
+PROJ_PAIR_OPS = 5
+EPI_LINE_OPS = 6
+EPI_PAIR_OPS = 7
+TRI_COST_OPS = 18
+TRI_ROW_OPS = 3 + 30 + 200 + 54 + TRI_COST_OPS * (129 + 80 + 1) + 6 * 40 + 60 + 120
+TRI_ROW_OPS_NO_CORRECTION = 3 + 120
+# faults planted in copies of the sources, each a substitution: the grid's
+# argmin taking the last index on ties, the t -> inf asymptote left out, and
+# the projection test's level window widened to 2; each must fail its
+# verdict (triangulate.tri_parity on triangulate.FAULT_PENCILS, or
+# hamming_match.pair_parity on phase 4's first projection match)
+TRI_FAULTS = {
+    "grid_ties_to_the_last_index": (tr.SOURCE, "if (i == 0 || c < best_c) {",
+                                    "if (i == 0 || c <= best_c) {"),
+    "asymptote_left_out": (tr.SOURCE, "const bool use_inf = cost_inf < cost_best;",
+                           "const bool use_inf = false;"),
+    "level_window_of_2": (hm.SOURCE, "abs(rt.lev - s.lev[c]) <= 1", "abs(rt.lev - s.lev[c]) <= 2"),
+}
+
+
+class PairCapture:
+    """Keeps (cloned) the arguments of every match_projection and
+    _epipolar_triangulate call that runtime/hybrid.py makes (it looks both
+    names up at call time), by run, and counts the calls of the plain forms
+    (match_projection_plain, match_epipolar_plain,
+    _epipolar_triangulate_plain) on card tensors, which must be none."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {"projection": [], "epipolar": []}
+        self.run: str | None = None
+        self.plain_on_card = Counter()
+        self._orig = {"match_projection": hybrid.match_projection,
+                      "_epipolar_triangulate": hybrid._epipolar_triangulate}
+        self._plain = {(matching, "match_projection_plain"): matching.match_projection_plain,
+                       (matching, "match_epipolar_plain"): matching.match_epipolar_plain,
+                       (hybrid, "_epipolar_triangulate_plain"):
+                           hybrid._epipolar_triangulate_plain}
+
+    def _keep(self, kind, fn):
+        def call(*args, **kw):
+            self.calls[kind].append((self.run, tuple(_clone_arg(a) for a in args),
+                                     {k: _clone_arg(v) for k, v in kw.items()}))
+            return fn(*args, **kw)
+        return call
+
+    def _count(self, name, fn):
+        def call(*args, **kw):
+            self.plain_on_card[name] += int(args[0].is_cuda)
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        hybrid.match_projection = self._keep("projection", self._orig["match_projection"])
+        hybrid._epipolar_triangulate = self._keep("epipolar",
+                                                  self._orig["_epipolar_triangulate"])
+        for (mod, name), fn in self._plain.items():
+            setattr(mod, name, self._count(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(hybrid, name, fn)
+        for (mod, name), fn in self._plain.items():
+            setattr(mod, name, fn)
+
+
+def projection_check(args, kw) -> tuple[dict, tuple]:
+    """One captured match_projection call: the kernel (one launch) against
+    the mask mode fed projection_pair_mask's mask, and _finish
+    (hm.pair_parity), its projected pixels against the plain form's."""
+    Xw, desc_p, valid_p, level_p, T, cam, desc_f, uv_f, level_f, valid_f = args[:10]
+    radius = _radius(kw, args)
+    kargs = (Xw, desc_p, valid_p, level_p, T.R, T.t, cam, desc_f, uv_f, level_f, valid_f, radius)
+    got = hm.match_projection_cuda(*kargs)
+    vis, pair, uv_plain = matching.projection_pair_mask(Xw, valid_p, level_p, T, cam, uv_f,
+                                                        level_f, radius)
+    want = hm.hamming_resolve_cuda(desc_p, vis, desc_f, valid_f, pair)
+    best, _, ok = matching._finish(*want, matching.TH_HIGH, 0.9)
+    edges = hm.projection_edges(Xw, valid_p, level_p, T.R, T.t, cam, uv_f, level_f, valid_f,
+                                radius)
+    rep = hm.pair_parity(got, (*want, best, ok), edges)
+    # the pixels of the points visible in float64 (the rows whose pixels the
+    # pair test reads): the kernel's against float64's, held; the plain
+    # float32 form's against the kernel's, read (its transform's rounding
+    # reaches ~2e-3 px at the corridor's focal length, and off the frame a
+    # point whose depth cancels to near 0 projects to 1e5 px and more)
+    zero = torch.zeros(Xw.shape[0], dtype=torch.float64, device=Xw.device)
+    err64 = (got.uv_p.double() - edges["uv"]).abs().amax(1)
+    err = (got.uv_p - uv_plain).abs().amax(1).double()
+    rep["uv_vs_f64"] = float(torch.where(edges["vis"], err64, zero).max())
+    rep["uv_max_err"] = float(torch.where(edges["vis"], err, zero).max())
+    rep["uv_max_err_off_frame"] = float(err.max())
+    rep["ok"] = rep["ok"] and rep["uv_vs_f64"] <= UV_TOL
+    rep["max_abs_err"] = max(rep["max_abs_err"], rep["uv_max_err"])
+    live = int((vis[:, None] & valid_f[None, :] & pair).sum())
+    return rep, (kargs, live, int(vis.sum()), int(valid_f.sum()))
+
+
+def epipolar_check(args, kw) -> tuple[dict, dict]:
+    """One captured _epipolar_triangulate call: the two launches against the
+    plain form: the match against the mask mode fed the plain form's mask
+    (hm.pair_parity, the edges from the kernel's own float64 F); the
+    triangulation kernel on the plain form's match against
+    triangulate.plain_triangulate, the model and the plain form in float64
+    (tr.tri_parity); and, where the two matches agree, the whole call's ok
+    equal to the triangulation kernel's on that match."""
+    desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1, T_new, T0, cam = args[:11]
+    optimal = kw.get("optimal", args[11] if len(args) > 11 else True)
+    m, X0, ok, t_norm = tr.epipolar_triangulate_cuda(*args[:11], optimal)
+    mp, Xp, okp, tnp = hybrid._epipolar_triangulate_plain(*args[:11], optimal)
+    T_10 = T_new.compose(T0.inverse())
+    F = fundamental(T_10, cam)
+    pair = matching.epipolar_pair_mask(uv0, uv1, F)
+    want = hm.hamming_resolve_cuda(desc0, valid0, desc1, valid1, pair)
+    best, _, okw = matching._finish(*want, matching.TH_LOW, 0.8)
+    Fk = m.geom[:9].reshape(3, 3)
+    edges = hm.epipolar_edges(uv0, valid0, uv1, valid1, Fk)
+    mrep = hm.pair_parity(m, (*want, best, okw), edges)
+    probe = torch.full((uv0.shape[0], 4), float("nan"), device=uv0.device)
+    Xk, okk = tr.triangulate_cuda(uv0, uv1, angle0, angle1, mp.idx, mp.valid, m.geom, cam,
+                                  optimal, probe)
+    plain = tr.plain_triangulate(uv0, uv1, angle0, angle1, mp.idx, mp.valid, F, T_10, cam,
+                                 optimal)
+    geom = m.geom.cpu().numpy()
+    model = tr.model_triangulate(*(x.cpu().numpy() for x in (uv0, uv1, angle0, angle1, mp.idx,
+                                                              mp.valid)), geom, cam, optimal)
+    f64 = tr.plain_triangulate(uv0.double(), uv1.double(), angle0, angle1, mp.idx, mp.valid,
+                               Fk, SE3(R=m.geom[9:18].reshape(3, 3), t=m.geom[18:21]), cam,
+                               optimal)
+    trep = tr.tri_parity({"X0": Xk, "ok": okk, "corrected": probe}, plain, model, f64, cam)
+    same_match = bool(torch.equal(m.best, mp.idx) and torch.equal(m.ok, mp.valid))
+    whole = {"same_match": same_match,
+             "ok_equal_to_kernel_on_plain_match": same_match and bool(torch.equal(ok, okk)),
+             "ok": int(ok.sum()), "ok_plain": int(okp.sum()),
+             "ok_differing_from_plain": int((ok != okp).sum()),
+             "t_norm_err": abs(float(t_norm) - float(tnp))}
+    verdict = (mrep["ok"] and trep["ok"] and (not same_match
+                                             or whole["ok_equal_to_kernel_on_plain_match"])
+               and whole["t_norm_err"] <= 1e-6 * max(float(tnp), 1.0))
+    return {"ok": bool(verdict), "match": mrep, "triangulation": trep, "whole": whole,
+            "optimal": bool(optimal)}, {"m": m, "plain_match": mp, "X0": Xk, "ok": okk,
+                                        "probe": probe}
+
+
+def write_tri_faults(out_dir: Path) -> dict:
+    """Each TRI_FAULTS source: a copy of its kernel with one substitution in
+    out_dir/NAME/. Returns {name: path}."""
+    paths = {}
+    for name, (src, old, new) in TRI_FAULTS.items():
+        text = src.read_text()
+        require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
+        path = out_dir / name / src.name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text.replace(old, new))
+        paths[name] = path
+    return paths
+
+
+def pencil_check(name: str, dev, cam) -> dict:
+    """triangulate_cuda on one FAULT_PENCILS case against the plain form, the
+    model and the plain form in float64 (tr.tri_parity)."""
+    case = tr.fault_case(name)
+    c = {k: torch.as_tensor(v).to(dev) for k, v in case.items()}
+    probe = torch.full((1, 4), float("nan"), device=dev)
+    X0, ok = tr.triangulate_cuda(c["uv0"], c["uv1"], c["angle0"], c["angle1"], c["idx"],
+                                 c["valid"], c["geom"], cam, True, probe)
+    g = c["geom"]
+    F, T = g[:9].reshape(3, 3), SE3(R=g[9:18].reshape(3, 3), t=g[18:21])
+    plain = tr.plain_triangulate(c["uv0"], c["uv1"], c["angle0"], c["angle1"], c["idx"],
+                                 c["valid"], F.float(), SE3(R=T.R.float(), t=T.t.float()),
+                                 cam)
+    f64 = tr.plain_triangulate(c["uv0"].double(), c["uv1"].double(), c["angle0"], c["angle1"],
+                               c["idx"], c["valid"], F, T, cam)
+    model = tr.model_triangulate(*(case[k] for k in ("uv0", "uv1", "angle0", "angle1", "idx",
+                                                      "valid", "geom")), cam)
+    rep = tr.tri_parity({"X0": X0, "ok": ok, "corrected": probe}, plain, model, f64, cam)
+    rep["corrected"] = [float(x) for x in probe[0].cpu()]
+    return rep
+
+
+def tri_faults(proj_call, dev) -> dict:
+    """Each planted fault built and run where it shows: the triangulation's
+    on both FAULT_PENCILS, the level window on phase 4's first projection
+    match; a fault is refused when its verdict fails (the honest kernel's
+    verdicts on the same inputs are printed beside)."""
+    paths = write_tri_faults(kernel_build.BUILD_DIR / "tri_faults")
+    kernel_build.build_many(list(paths.values()))
+    cam = proj_call[0][5]
+    out = {"honest": {p: pencil_check(p, dev, cam)["ok"] for p in tr.FAULT_PENCILS}}
+    out["honest"]["level_window"] = projection_check(*proj_call)[0]["ok"]
+    for name, path in paths.items():
+        if TRI_FAULTS[name][0] == tr.SOURCE:
+            with _module_source(tr, path):
+                reps = {p: pencil_check(p, dev, cam) for p in tr.FAULT_PENCILS}
+            out[name] = {"refused": not all(r["ok"] for r in reps.values()),
+                         **{p: {"ok": r["ok"], "vs_model": r["vs_model"],
+                                "corrected": r["corrected"]} for p, r in reps.items()}}
+        else:
+            with _module_source(hm, path):
+                rep = projection_check(*proj_call)[0]
+            out[name] = {"refused": not rep["ok"],
+                         **{k: rep[k] for k in ("rows_beyond_edge", "cols_beyond_edge",
+                                                "ok_beyond_edge", "num", "num_plain")}}
+    return out
+
+
+def pair_bound(kind: str, n_rows: int, n_cols: int, N: int, M: int, n_live: int,
+               popc_rate: float) -> tuple[float, str, dict]:
+    """Least time of one predicate-mode match, in ms: the larger of its
+    bytes over the HBM rate (every input read once: the descriptors, pixels,
+    points, levels and masks; every output written once) and its operations
+    (the pair tests of the live rows against the valid columns in f32, or
+    the popcounts of the live entries, whichever takes longer)."""
+    nbytes = (N * (32 + 1) + M * (32 + 1 + 8) + N * 12 + M * 4 + N * 8 + N + 8
+              + (N * (12 + 4 + 8) + M * 4 if kind == "projection" else N * 8))
+    row_ops = PROJ_POINT_OPS if kind == "projection" else EPI_LINE_OPS
+    pair_ops = PROJ_PAIR_OPS if kind == "projection" else EPI_PAIR_OPS
+    flops = float(N * row_ops + n_rows * n_cols * pair_ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / F32_FLOP_PER_S, 8.0 * n_live / popc_rate) * 1e3
+    detail = {"bytes": nbytes, "flops": flops, "live_entries": n_live}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def tri_bound(N: int, optimal: bool) -> tuple[float, str, dict]:
+    """Least time of one triangulation launch, in ms: its bytes (uv0,
+    angle0, idx, valid, the gathered uv1 and angle1, the geometry read
+    once; X0 and ok written once) or the plain form's f32 operations."""
+    nbytes = N * (8 + 4 + 8 + 1 + 8 + 4) + 22 * 8 + N * (12 + 1)
+    flops = float(N * (TRI_ROW_OPS if optimal else TRI_ROW_OPS_NO_CORRECTION))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "flops": flops}
+    return (t_ops, "operations", detail) if t_ops >= t_bytes else (t_bytes, "bytes", detail)
+
+
+def _timed(fn, plain, bound: tuple, floor: dict) -> dict:
+    kernel_ms = cuda_ms(fn)
+    launches, device_ops = launches_per_call(fn)
+    row = {"kernel_ms": kernel_ms, "kernel_warm_ms": cuda_ms(fn, cold=False),
+           "plain_ms": cuda_ms(plain, reps=10), "bound_ms": bound[0], "bound_by": bound[1],
+           "bound_share": bound[0] / kernel_ms, "bound_detail": bound[2],
+           "launches_per_call": launches, "device_ops_per_call": device_ops, **floor}
+    require(row["bound_share"] <= 1.0, f"{kernel_ms} ms is under its bound {bound[0]} ms")
+    return row
+
+
+EPI_ARGS = ("desc0", "uv0", "valid0", "angle0", "desc1", "uv1", "valid1", "angle1")
+
+
+def save_tri_calls(path: Path, calls: list) -> None:
+    """Writes captured _epipolar_triangulate calls, [(run, args, kwargs,
+    kernel outputs)], to an .npz: each call's eight feature arrays, both
+    poses, the camera, `optimal`, and the triangulation kernel's outputs on
+    the plain form's match (X0, ok, the corrected pixels) with the
+    match's geometry and the plain match (idx, valid)."""
+    out = {"n": np.array(len(calls))}
+    for k, (run, args, kw, res) in enumerate(calls):
+        cam = args[10]
+        out.update({f"c{k}_{name}": a for name, a in zip(EPI_ARGS, args[:8])})
+        out.update({f"c{k}_run": np.array(run), f"c{k}_R_new": args[8].R, f"c{k}_t_new": args[8].t,
+                    f"c{k}_R0": args[9].R, f"c{k}_t0": args[9].t,
+                    f"c{k}_cam": np.array([cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+                                           cam.height], np.float64),
+                    f"c{k}_optimal": np.array(bool(kw.get("optimal", True))),
+                    f"c{k}_geom": res["m"].geom, f"c{k}_idx": res["plain_match"].idx,
+                    f"c{k}_valid": res["plain_match"].valid, f"c{k}_X0": res["X0"],
+                    f"c{k}_ok": res["ok"], f"c{k}_probe": res["probe"]})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                                 else v for k, v in out.items()})
+
+
+def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: float,
+              save: Path | None = None) -> tuple:
+    """Phase 18: every captured match_projection call of phases 4-12 and
+    every _epipolar_triangulate call held to the plain forms
+    (projection_check, epipolar_check), the launches per call site of every
+    kernel in phases 5, 7 and 10, the three planted faults, one
+    _epipolar_triangulate call's host waits, and cold and warm ms of the
+    three new entry points beside their bounds and plain forms."""
+    dev = torch.device("cuda")
+    require(not cap.plain_on_card, f"a plain form ran on card tensors: {cap.plain_on_card}")
+    proj = cap.calls["projection"]
+    epi = cap.calls["epipolar"]
+    require(proj and epi, f"{len(proj)} match_projection and {len(epi)} "
+                          "_epipolar_triangulate calls captured")
+    by_run: dict[str, Counter] = {}
+    edge = Counter()
+    worst = {"uv": 0.0, "uv_vs_f64": 0.0, "uv_off_frame": 0.0, "hamming_projection": 0.0,
+             "hamming_epipolar": 0.0}
+    failed = []
+    for k, (run, args, kw) in enumerate(proj):
+        rep, _ = projection_check(args, kw)
+        c = by_run.setdefault(f"projection/{run}", Counter())
+        c["calls"] += 1
+        for key in ("edge_pairs", "edge_rows", "rows_differing", "cols_differing",
+                    "ok_differing"):
+            c[key] += rep[key]
+        worst["uv"] = max(worst["uv"], rep["uv_max_err"])
+        worst["uv_off_frame"] = max(worst["uv_off_frame"], rep["uv_max_err_off_frame"])
+        worst["uv_vs_f64"] = max(worst["uv_vs_f64"], rep["uv_vs_f64"])
+        worst["hamming_projection"] = max(worst["hamming_projection"], rep["max_abs_err"])
+        if not rep["ok"]:
+            failed.append({"kind": "projection", "run": run, "call": k, **rep})
+    tri_readings, kept = [], []
+    for k, (run, args, kw) in enumerate(epi):
+        rep, res = epipolar_check(args, kw)
+        if save is not None:
+            kept.append((run, args, kw, res))
+        c = by_run.setdefault(f"epipolar/{run}", Counter())
+        c["calls"] += 1
+        for key in ("edge_pairs", "edge_rows", "rows_differing", "ok_differing"):
+            c[key] += rep["match"][key]
+        t = rep["triangulation"]
+        c["basin_edges"] += t["basin_edges"]
+        c["depth_edges"] += t["depth_edges"]
+        c["plain_further_beyond_tol"] += t["plain_further_beyond_tol"]
+        c["calls_match_differing"] += int(not rep["whole"]["same_match"])
+        worst["hamming_epipolar"] = max(worst["hamming_epipolar"], rep["match"]["max_abs_err"])
+        tri_readings.append(t)
+        if not rep["ok"]:
+            failed.append({"kind": "epipolar", "run": run, "call": k, **rep})
+    if save is not None:
+        save_tri_calls(save, kept)
+    edge_totals = {run: dict(c) for run, c in by_run.items()}
+    print(json.dumps({"phase": "tri_edges", "by_run": edge_totals}))
+    shown = Counter()
+    for f in failed:
+        shown[f["kind"]] += 1
+        if shown[f["kind"]] <= 3:
+            print(json.dumps({"phase": "tri_failed", **f}, default=str))
+    print(json.dumps({"phase": "tri_failed_by_kind",
+                      **Counter(f"{f['kind']}/{f['run']}" for f in failed)}))
+    require(not failed, f"phase 18: {len(failed)} captured calls outside their verdicts")
+    per_site = {ph: {site: dict(c) for site, c in kern.items()}
+                for ph, (kern, _) in sites_by_phase.items()}
+    print(json.dumps({"phase": "tri_launches_per_site", "sites": per_site}))
+    for ph, sites in per_site.items():
+        for site, c in sites.items():
+            calls = sites_by_phase[ph][1][site]
+            if site == "_epipolar_triangulate":
+                require(c.get("hamming_epipolar", 0) == calls and c.get("triangulate", 0) == calls
+                        and sum(c.values()) == 2 * calls,
+                        f"{ph}: _epipolar_triangulate made {c} launches in {calls} calls")
+            if site in ("_project_match_pnp", "_local_map_pass2", "_map_projection_match"):
+                require(c.get("hamming_projection", 0) == calls and not c.get("hamming_resolve"),
+                        f"{ph}: {site} made {c} Hamming launches in {calls} calls")
+
+    t0 = time.perf_counter()
+    faults = tri_faults(proj[0][1:], dev)
+    print(json.dumps({"phase": "tri_faults", "seconds": time.perf_counter() - t0, **faults}))
+    require(all(faults["honest"].values()), f"the honest kernels on the fault inputs: {faults}")
+    for name in TRI_FAULTS:
+        require(faults[name]["refused"], f"planted fault {name} passed its verdict")
+
+    # timing: phase 4's first projection match, phase 5's first keyframe pair
+    floor = launch_floor()
+    _, (kargs, live, rows, cols) = projection_check(*proj[0][1:])
+    N, M = kargs[0].shape[0], kargs[7].shape[0]
+    args, kw = proj[0][1], proj[0][2]
+    projection = _timed(lambda: hm.match_projection_cuda(*kargs),
+                        lambda: matching.match_projection_plain(*args[:10], _radius(kw, args)),
+                        pair_bound("projection", rows, cols, N, M, live, popc_rate), floor)
+    run5 = [c for c in epi if c[0] == "hybrid"] or epi
+    _, args, kw = run5[0]
+    optimal = kw.get("optimal", True)
+    rep, out = epipolar_check(args, kw)
+    desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1, T_new, T0, cam = args[:11]
+    poses = (T_new.R, T_new.t, T0.R, T0.t)
+    T_10 = T_new.compose(T0.inverse())
+    F = fundamental(T_10, cam)
+    pair = matching.epipolar_pair_mask(uv0, uv1, F)
+    live_e = int((valid0[:, None] & valid1[None, :] & pair).sum())
+    epipolar = _timed(
+        lambda: hm.match_epipolar_cuda(desc0, uv0, valid0, desc1, uv1, valid1, poses=poses,
+                                       cam=cam),
+        lambda: matching.match_epipolar_plain(desc0, uv0, valid0, desc1, uv1, valid1, F),
+        pair_bound("epipolar", int(valid0.sum()), int(valid1.sum()), uv0.shape[0],
+                   uv1.shape[0], live_e, popc_rate), floor)
+    m = out["m"]
+    triangulate = _timed(
+        lambda: tr.triangulate_cuda(uv0, uv1, angle0, angle1, m.best, m.ok, m.geom, cam,
+                                    optimal),
+        lambda: tr.plain_triangulate(uv0, uv1, angle0, angle1, m.best, m.ok, F, T_10, cam,
+                                     optimal),
+        tri_bound(uv0.shape[0], optimal), floor)
+    whole = {"kernel_ms": cuda_ms(lambda: hybrid._epipolar_triangulate(*args[:11], optimal)),
+             "plain_ms": cuda_ms(lambda: hybrid._epipolar_triangulate_plain(*args[:11], optimal),
+                                 reps=10),
+             **_syncs(lambda: hybrid._epipolar_triangulate(*args[:11], optimal))}
+    require(whole["syncs"] == 0 and whole["memcpys"] == 0 and whole["enqueues"] == 2,
+            f"_epipolar_triangulate on the card: {whole}")
+    for name, row in (("projection", projection), ("epipolar", epipolar),
+                      ("triangulate", triangulate)):
+        require(row["launches_per_call"] == 1, f"{name}: {row['launches_per_call']} launches")
+    timing = {"hamming_projection": {**projection, "N": N, "M": M},
+              "hamming_epipolar": {**epipolar, "N": uv0.shape[0], "M": uv1.shape[0]},
+              "triangulate": {**triangulate, "N": uv0.shape[0], "optimal": bool(optimal)},
+              "epipolar_triangulate": whole, "card": card}
+    print(json.dumps({"phase": "tri_timing", **timing}))
+    public = {"projection_calls": len(proj), "epipolar_calls": len(epi),
+              "edges_by_run": edge_totals, "max_uv_err": worst["uv"],
+              "max_uv_err_off_frame": worst["uv_off_frame"],
+              "max_uv_vs_f64": worst["uv_vs_f64"],
+              "max_abs_err": {"hamming_projection": worst["hamming_projection"],
+                              "hamming_epipolar": worst["hamming_epipolar"],
+                              "triangulate": max(t["max_abs_err"] for t in tri_readings)},
+              "triangulation_worst": {
+                  "vs_f64_px": max(t["vs_f64"]["max_pixel"] for t in tri_readings),
+                  "vs_plain_px": max(t["vs_plain"]["max_pixel"] for t in tri_readings),
+                  "plain_vs_f64_px": max(t["plain_vs_f64_max_pixel"] for t in tri_readings)},
+              "faults": {k: v["refused"] for k, v in faults.items() if k != "honest"},
+              "launches_per_site": per_site}
+    return public, timing
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of libcml_tpu_torch on one CUDA card.")
+    ap.add_argument("--save-tri", type=Path, default=None, metavar="FILE",
+                    help="also write phase 18's captured _epipolar_triangulate calls and the "
+                         "triangulation kernel's outputs to FILE (.npz)")
     ap.add_argument("--save-local-ba", type=Path, default=None, metavar="FILE",
                     help="also write phase 16's captured run_local_ba calls to FILE (.npz; "
                          "tools/local_ba_witness.py --calls reads it)")
@@ -3334,8 +3871,12 @@ def main(argv=None) -> int:
         trace_cap.phase = None
         print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
+        # every match_projection and _epipolar_triangulate call of phases 4-12
+        # kept for phase 18
+        pair_cap = PairCapture().__enter__()
+        site_tables = {}
         t0 = time.perf_counter()
-        orb_cap.run = "hybrid_tracking"
+        orb_cap.run = pair_cap.run = "hybrid_tracking"
         hyb = hybrid_phase(dev, cam, traj, frames)
         orb_cap.run = None
         print(f"phase 4 (hybrid tracking) {time.perf_counter() - t0:.1f} s")
@@ -3345,22 +3886,24 @@ def main(argv=None) -> int:
             cap.sites = sites
             t0 = time.perf_counter()
             trace_cap.phase = "hybrid"
-            lba_cap.run = orb_cap.run = "hybrid"
+            lba_cap.run = orb_cap.run = pair_cap.run = "hybrid"
             with BACapture(every=("run_ba_mixed",)) as mixed_cap:
                 full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
+            site_tables["hybrid"] = _site_table(sites)
             lba_cap.run = orb_cap.run = None
             trace_cap.phase = None
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
-            orb_cap.run = "relocalization"
+            orb_cap.run = pair_cap.run = "relocalization"
             reloc = relocalization_phase(dev, cam, traj, frames, sites)
+            site_tables["relocalization"] = _site_table(sites)
             orb_cap.run = None
             print(f"phase 6 (relocalization) {time.perf_counter() - t0:.1f} s")
     real = {"_epipolar_triangulate": "1536x1536 first keyframe's epipolar band (phase 5)",
             "match_descriptors": "1536x1536 relocalization match_descriptors (phase 6)"}
     for site, name in real.items():
         require(site in sites.captured, f"no resolution captured at {site}")
-        row = kernel_case(name, sites.captured[site], card, popc_rate)
+        row = kernel_case(name, mask_case(site, sites.captured[site]), card, popc_rate)
         rows.append(row)
         max_err = max(max_err, row["max_abs_err"])
 
@@ -3368,14 +3911,18 @@ def main(argv=None) -> int:
     try:
         with CallSites() as sites:
             t0 = time.perf_counter()
-            lba_cap.run = orb_cap.run = "cli_modslam"
+            lba_cap.run = orb_cap.run = pair_cap.run = "cli_modslam"
             entry, seq = entry_points_phase(dev, work, sites)
+            site_tables["cli_modslam"] = _site_table(sites)
             lba_cap.run = orb_cap.run = None
             print(f"phase 7 (entry points) {time.perf_counter() - t0:.1f} s")
-        row = kernel_case(CLI_CASE, sites.captured["_project_match_pnp"], card, popc_rate)
+        row = kernel_case(CLI_CASE, mask_case("_project_match_pnp",
+                                              sites.captured["_project_match_pnp"]),
+                          card, popc_rate)
         rows.append(row)
         max_err = max(max_err, row["max_abs_err"])
         t0 = time.perf_counter()
+        pair_cap.run = "repeat_resume"
         repeat = repeatability_phase(seq, work)
         print(f"phase 8 (repeatability and resume) {time.perf_counter() - t0:.1f} s")
     finally:
@@ -3388,25 +3935,30 @@ def main(argv=None) -> int:
     with CallSites() as sites:
         for mode in ("pipelined", "staged"):
             t0 = time.perf_counter()
-            lba_cap.run = f"hybrid_{mode}"
+            lba_cap.run = pair_cap.run = f"hybrid_{mode}"
             staged[mode] = staged_hybrid_phase(cam, traj, frames, sites, mode)
+            site_tables[f"hybrid_{mode}"] = _site_table(sites)
             lba_cap.run = None
             print(f"phase 10 (hybrid {mode}) {time.perf_counter() - t0:.1f} s")
             if mode == "pipelined":
                 require("_map_projection_match" in sites.captured,
                         "no staged-tick match_projection captured")
-                row = kernel_case(STAGED_CASE, sites.captured["_map_projection_match"], card,
+                row = kernel_case(STAGED_CASE, mask_case("_map_projection_match",
+                                                         sites.captured["_map_projection_match"]),
+                                  card,
                                   popc_rate)
                 rows.append(row)
                 max_err = max(max_err, row["max_abs_err"])
     t0 = time.perf_counter()
+    pair_cap.run = "calib"
     calib = calib_phase(cam, traj, frames)
     print(f"phase 11 (calib SLAM, depth prior) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    lba_cap.run = "sharded_hybrid"
+    lba_cap.run = pair_cap.run = "sharded_hybrid"
     sharded = sharded_phase(cam, traj, frames, direct_snap, hybrid_snap)
     lba_cap.__exit__()
+    pair_cap.__exit__()
     ratio, row = match_ratio_phase(frames, card, popc_rate)
     orb_cap.__exit__()
     rows.append(row)
@@ -3437,26 +3989,35 @@ def main(argv=None) -> int:
     orb_public, orb_timings = orb_phase(orb_cap, card)
     print(f"phase 17 (ORB kernels) {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    tri_public, tri_timing = tri_phase(pair_cap, site_tables, card, popc_rate, opts.save_tri)
+    print(f"phase 18 (pair tests in the Hamming kernel, triangulation) "
+          f"{time.perf_counter() - t0:.1f} s")
+
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
     staged_row = next(r for r in rows if r["case"] == STAGED_CASE)
     ratio_row = next(r for r in rows if r["case"] == RATIO_CASE)
-    by_path = {"hybrid": full["kernel_launches"], "cli_modslam": entry["kernel_launches"],
-               "repeat_resume_hybrid": repeat["hybrid"]["kernel_launches"],
-               "hybrid_pipelined": staged["pipelined"]["kernel_launches"],
-               "hybrid_staged": staged["staged"]["kernel_launches"],
-               "calib_slam": calib["kernel_launches"],
-               "sharded_hybrid": sharded["hybrid"]["kernel_launches"],
-               "match_ratio": ratio["launches"]}
+    # each Hamming entry point's launches by path (the mask modes: the
+    # bootstrap's match_window, relocalization's match_descriptors,
+    # match_ratio; the pair tests: the projection and epipolar matches)
+    paths = {"hybrid": full["lm_launches"], "cli_modslam": entry["lm_launches"],
+             "repeat_resume_hybrid": repeat["hybrid"]["lm_launches"],
+             "hybrid_pipelined": staged["pipelined"]["lm_launches"],
+             "hybrid_staged": staged["staged"]["lm_launches"],
+             "calib_slam": calib["lm_launches"],
+             "sharded_hybrid": sharded["hybrid"]["lm_launches"],
+             "hybrid_tracking": hyb["lm_launches"], "relocalization": reloc["lm_launches"]}
+    by_path = {k: v["hamming_resolve"] for k, v in paths.items() if v["hamming_resolve"]}
+    by_path["match_ratio"] = ratio["launches"]
     kernels = [{
         "name": "hamming_resolve",
         "route": "cuda",
         "source": "libcml_tpu_torch/csrc/hamming_match.cu",
         "replaces": "libcml_tpu/ops/pallas_match.py:107",
         "launches": sum(by_path.values()),
-        "launches_by_path": {**by_path, "hybrid_tracking": hyb["launches"],
-                             "relocalization": reloc["kernel_launches"]},
-        "launches_per_hybrid_frame": full["kernel_launches_per_frame"],
+        "launches_by_path": by_path,
+        "launches_per_hybrid_frame": full["lm_launches"]["hamming_resolve"] / full["frames"],
         "max_abs_err": max_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3579,6 +4140,29 @@ def main(argv=None) -> int:
             "kernel_ms", "kernel_warm_ms", "stage_ms", "plain_ms", "bound_ms", "bound_by",
             "bound_share")},
         "nms_flips": orb_public["nms_flips"], "bits_at_edge": orb_public["bits_at_edge"]})
+    for name, replaces, program in (
+            ("hamming_projection", "libcml_tpu/ops/pallas_match.py:107",
+             "libcml_tpu/models/indirect/matching.py:185 match_projection"),
+            ("hamming_epipolar", "libcml_tpu/ops/pallas_match.py:107",
+             "libcml_tpu/models/indirect/matching.py:223 match_epipolar"),
+            ("triangulate", "libcml_tpu/runtime/hybrid.py:195",
+             "libcml_tpu/runtime/hybrid.py:195 _epipolar_triangulate after its match")):
+        by_path = {k: v[name] for k, v in paths.items() if v[name]}
+        t = tri_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "libcml_tpu_torch/csrc/"
+                      + ("triangulate.cu" if name == "triangulate" else "hamming_match.cu"),
+            "replaces": replaces, "program": program,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_per_hybrid_frame": full["lm_launches"][name] / full["frames"],
+            "max_abs_err": tri_public["max_abs_err"][name],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
+            "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
+            "floor_warm_ms": t["floor_warm_ms"], "launches_per_call": t["launches_per_call"],
+            "N": t["N"]})
+    kernels[-1]["epipolar_triangulate"] = tri_timing["epipolar_triangulate"]
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
@@ -3586,7 +4170,8 @@ def main(argv=None) -> int:
                       "hybrid_staged": staged["staged"], "calib": calib,
                       "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
                       "ba_public": ba_public, "trace_public": trace_public,
-                      "local_ba_public": lba_public, "orb_public": orb_public}))
+                      "local_ba_public": lba_public, "orb_public": orb_public,
+                      "tri_public": tri_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

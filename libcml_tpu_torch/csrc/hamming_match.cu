@@ -61,6 +61,32 @@
 // 16 bytes that hold a valid byte (allocations are 256-byte aligned).
 // A tensor-core (b1 mma, AND + POPC) formulation of the dense path is later
 // work.
+//
+// Pair tests computed in the kernel (no pair mask written or read). Two
+// callers test each (query, train) pair with a formula of their pixels,
+// which the XLA program (libcml_tpu/models/indirect/matching.py:185
+// match_projection, :223 match_epipolar) evaluates as an (N, M) mask before
+// the Pallas resolve; here each warp evaluates it over its chunk's columns:
+//   MODE_EPI   the epipolar band: l = F [uv_q, 1] per query row, and
+//              (l . [uv_t, 1])^2 / max(l0^2 + l1^2, 1e-9) <= epi_tol. F is
+//              read (9 floats) or made from the two poses, T_10 = T_new
+//              T_0^-1 and F = K^-T [t_10]x R_10 K^-1 (block 0 writes them
+//              for the triangulation kernel, csrc/triangulate.cu);
+//   MODE_PROJ  the projection window: X_c = R X_w + t per query row (a map
+//              point), its pixel (written to uv_p), the row visible when
+//              valid, z > 1e-6 and 2 px inside the frame; then
+//              |uv_p - uv_f|^2 <= (radius 1.5^level_p)^2 and
+//              |level_p - level_f| <= 1.
+// Both evaluate in double from the float32 inputs, so a pair sits on
+// float64's side of its limit; the plain float32 forms can flip a pair
+// within ~1e-5 of it, and the card's checks count those pairs. A block
+// stages its chunk's train pixels, levels and mask in shared memory; a
+// warp owns a query row, its lanes test 32 columns at once and queue the
+// live ones by ballot, and the queue is drained as in the mask mode.
+// With `ok` given, the last block of all (a third ticket) also applies
+// matching._finish: the distance gate, the Lowe ratio (d1 < ratio d2 in
+// float32) and the mutual check, and writes the row's column as int64 and
+// the number of matches, so a predicate match is one launch.
 
 #include <climits>
 #include <cstdint>
@@ -77,6 +103,10 @@ constexpr int SPARSE_ROWS = WARPS;               // rows per unit with a pair ma
 constexpr int DENSE_ROWS = 32;                   // rows per unit without (a lane each)
 constexpr int SPARSE_CW = 2048;                  // most columns per unit
 constexpr int DENSE_CW = 512;
+constexpr int PRED_CW = 1024;                    // with a pair test computed here
+// the kernel's modes: no pair mask, a pair mask, the epipolar and the
+// projection pair tests (ops/hamming_match.py MODE_*)
+constexpr int MODE_DENSE = 0, MODE_MASK = 1, MODE_EPI = 2, MODE_PROJ = 3;
 constexpr int UNROLL = 4;                        // 16-byte pair loads in flight a lane
 constexpr int QUEUE = 32 * 16;                   // a warp's queued live columns: one
                                                  // granule's worth for every lane
@@ -102,7 +132,31 @@ struct Args {
   int32_t* col_row;
   int2* row_part;             // chunks * N partials (chunks > 1 only)
   unsigned long long* col_best;
-  unsigned int* tickets;      // [groups] row-group, then [chunks] column-chunk
+  unsigned int* tickets;      // [groups] row-group, [chunks] column-chunk, then
+                              // one for the finish
+  // the pair tests (MODE_EPI, MODE_PROJ)
+  const float* uv_q;          // (N, 2) query pixels (MODE_EPI)
+  const float* uv_t;          // (M, 2) train pixels
+  const float* Xw;            // (N, 3) map points (MODE_PROJ)
+  const int32_t* level_q;     // (N,) (MODE_PROJ)
+  const int32_t* level_t;     // (M,) (MODE_PROJ)
+  const float* R1;            // MODE_PROJ: the pose; MODE_EPI: T_new
+  const float* t1;
+  const float* R0;            // MODE_EPI: T_0
+  const float* t0;
+  const float* F;             // MODE_EPI: F given (then no poses)
+  float fx, fy, cx, cy;
+  int width, height;
+  float tol;                  // epi_tol, or the projection radius
+  float* uv_p;                // (N, 2) projected pixels (MODE_PROJ)
+  double* geom;               // MODE_EPI from poses: F, R_10, t_10, |t_10|
+  float* t_norm;              // () |t_10| (MODE_EPI from poses)
+  // the finish (nullptr ok: none)
+  int max_dist;
+  float ratio;
+  int64_t* best;              // (N,) idx as int64
+  uint8_t* ok;                // (N,) bool
+  int64_t* num;               // () matches
 };
 
 struct SparseSmem {
@@ -117,9 +171,19 @@ struct DenseSmem {
   uint32_t tbits[DENSE_CW / 32];  // train-mask bits, word w: columns c0 + 32 w + 0..31
 };
 
+struct PredSmem {
+  unsigned long long col[PRED_CW];
+  uint16_t queue[WARPS][QUEUE];
+  float2 uv[PRED_CW];         // the chunk's train pixels, levels and mask
+  int lev[PRED_CW];
+  uint8_t tm[PRED_CW];
+  double F[9];
+};
+
 union Smem {
   SparseSmem s;
   DenseSmem d;
+  PredSmem p;
 };
 
 // the partial of no live entry
@@ -354,16 +418,236 @@ __device__ void dense_unit(const Args& a, DenseSmem& s, int group, int chunk, in
   }
 }
 
-template <bool SPARSE>
+// MODE_EPI: F in double, read or made from the two poses (T_10 = T_new
+// T_0^-1 as SE3.compose(T0.inverse()), F = K^-T [t_10]x R_10 K^-1); block 0
+// writes F, R_10, t_10 and |t_10| when `geom` is given
+__device__ void epi_geometry(const Args& a, double* F) {
+  if (a.F) {
+    for (int k = 0; k < 9; ++k) F[k] = a.F[k];
+    return;
+  }
+  double R1[9], R0[9], t1[3], t0[3], R10[9], ti[3], t10[3];
+  for (int k = 0; k < 9; ++k) {
+    R1[k] = a.R1[k];
+    R0[k] = a.R0[k];
+  }
+  for (int k = 0; k < 3; ++k) {
+    t1[k] = a.t1[k];
+    t0[k] = a.t0[k];
+  }
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      R10[3 * i + j] = R1[3 * i] * R0[3 * j] + R1[3 * i + 1] * R0[3 * j + 1] +
+                       R1[3 * i + 2] * R0[3 * j + 2];
+  for (int i = 0; i < 3; ++i) ti[i] = -(R0[i] * t0[0] + R0[3 + i] * t0[1] + R0[6 + i] * t0[2]);
+  for (int i = 0; i < 3; ++i)
+    t10[i] = R1[3 * i] * ti[0] + R1[3 * i + 1] * ti[1] + R1[3 * i + 2] * ti[2] + t1[i];
+  const double tx[9] = {0.0, -t10[2], t10[1], t10[2], 0.0, -t10[0], -t10[1], t10[0], 0.0};
+  const double ifx = 1.0 / (double)a.fx, ify = 1.0 / (double)a.fy;
+  const double Ki[9] = {ifx, 0.0, -(double)a.cx * ifx, 0.0, ify, -(double)a.cy * ify,
+                        0.0, 0.0, 1.0};
+  double A[9], B[9];
+  for (int i = 0; i < 3; ++i)          // A = [t]x R_10
+    for (int j = 0; j < 3; ++j)
+      A[3 * i + j] = tx[3 * i] * R10[j] + tx[3 * i + 1] * R10[3 + j] + tx[3 * i + 2] * R10[6 + j];
+  for (int i = 0; i < 3; ++i)          // B = A K^-1
+    for (int j = 0; j < 3; ++j)
+      B[3 * i + j] = A[3 * i] * Ki[j] + A[3 * i + 1] * Ki[3 + j] + A[3 * i + 2] * Ki[6 + j];
+  for (int i = 0; i < 3; ++i)          // F = K^-T B
+    for (int j = 0; j < 3; ++j)
+      F[3 * i + j] = Ki[i] * B[j] + Ki[3 + i] * B[3 + j] + Ki[6 + i] * B[6 + j];
+  if (blockIdx.x == 0 && a.geom) {
+    const double n = sqrt(t10[0] * t10[0] + t10[1] * t10[1] + t10[2] * t10[2]);
+    for (int k = 0; k < 9; ++k) {
+      a.geom[k] = F[k];
+      a.geom[9 + k] = R10[k];
+    }
+    for (int k = 0; k < 3; ++k) a.geom[18 + k] = t10[k];
+    a.geom[21] = n;
+    *a.t_norm = (float)n;
+  }
+}
+
+// a query row's side of the pair test: MODE_EPI its line (l0, l1, l2) and
+// lim = epi_tol max(l0^2 + l1^2, 1e-9); MODE_PROJ its pixel, lim = r^2 and
+// its level. Returns whether the row is live.
+struct RowTest {
+  double p0, p1, p2, lim;
+  int lev;
+};
+
+__device__ __forceinline__ bool epi_row(const Args& a, const double* F, int row, RowTest& rt) {
+  const float2 x = __ldg(reinterpret_cast<const float2*>(a.uv_q) + row);
+  const double u = x.x, v = x.y;
+  rt.p0 = F[0] * u + F[1] * v + F[2];
+  rt.p1 = F[3] * u + F[4] * v + F[5];
+  rt.p2 = F[6] * u + F[7] * v + F[8];
+  rt.lim = (double)a.tol * fmax(rt.p0 * rt.p0 + rt.p1 * rt.p1, 1e-9);
+  rt.lev = 0;
+  return a.qmask[row] != 0;
+}
+
+// PinholeCamera.project and in_bounds(border=2) in double; the row's lane 0
+// of chunk 0 writes its pixel (every row, visible or not, as the plain form)
+__device__ __forceinline__ bool proj_row(const Args& a, int row, bool write, RowTest& rt) {
+  const double X = a.Xw[3 * row], Y = a.Xw[3 * row + 1], Z = a.Xw[3 * row + 2];
+  double c[3];
+  for (int i = 0; i < 3; ++i)
+    c[i] = (double)a.R1[3 * i] * X + (double)a.R1[3 * i + 1] * Y + (double)a.R1[3 * i + 2] * Z +
+           (double)a.t1[i];
+  const double z = c[2];
+  const double iz = 1.0 / (fabs(z) < 1e-12 ? 1e-12 : z);
+  const double u = (double)a.fx * c[0] * iz + (double)a.cx;
+  const double v = (double)a.fy * c[1] * iz + (double)a.cy;
+  if (write) reinterpret_cast<float2*>(a.uv_p)[row] = make_float2((float)u, (float)v);
+  // radius 1.5^level in float32 (exact for small levels), squared
+  const int lev = a.level_q[row];
+  float r = a.tol;
+  for (int k = 0; k < lev; ++k) r = __fmul_rn(r, 1.5f);
+  rt.p0 = u;
+  rt.p1 = v;
+  rt.p2 = 0.0;
+  rt.lim = (double)__fmul_rn(r, r);
+  rt.lev = lev;
+  return a.qmask[row] != 0 && z > 1e-6 && u >= 2.0 && u <= (double)(a.width - 3) && v >= 2.0 &&
+         v <= (double)(a.height - 3);
+}
+
+template <int MODE>
+__device__ __forceinline__ bool pair_test(const RowTest& rt, const PredSmem& s, int c) {
+  const float2 x = s.uv[c];
+  if constexpr (MODE == MODE_EPI) {
+    const double n = rt.p0 * (double)x.x + rt.p1 * (double)x.y + rt.p2;
+    return n * n <= rt.lim;
+  } else {
+    const double du = (double)x.x - rt.p0, dv = (double)x.y - rt.p1;
+    return du * du + dv * dv <= rt.lim && abs(rt.lev - s.lev[c]) <= 1;
+  }
+}
+
+// With a pair test: a warp per query row, its lanes over the chunk's
+// columns 32 at a time (the pixels, levels and mask staged per block), the
+// live columns queued by ballot and drained as sparse_unit drains them.
+template <int MODE>
+__device__ void pred_unit(const Args& a, PredSmem& s, int group, int chunk, int c0, int c1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = group + warp * a.groups;
+  const bool in = row < a.N;
+  const int ncols = c1 - c0;
+  for (int c = threadIdx.x; c < ncols; c += THREADS) s.col[c] = COL_INIT;
+  if (MODE == MODE_EPI && threadIdx.x == 0) epi_geometry(a, s.F);
+  __syncthreads();
+  RowTest rt{};
+  bool live = false;
+  if (in) {
+    if constexpr (MODE == MODE_EPI)
+      live = epi_row(a, s.F, row, rt);
+    else
+      live = proj_row(a, row, chunk == 0 && lane == 0, rt);
+  }
+  if (!__syncthreads_or(live)) {               // every row masked: stage nothing
+    if (in && lane == 0) emit_row(a, chunk, row, empty());
+    return;
+  }
+  for (int c = threadIdx.x; c < ncols; c += THREADS) {
+    s.uv[c] = __ldg(reinterpret_cast<const float2*>(a.uv_t) + c0 + c);
+    s.tm[c] = a.tmask[c0 + c];
+    if constexpr (MODE == MODE_PROJ) s.lev[c] = __ldg(a.level_t + c0 + c);
+  }
+  __syncthreads();
+  if (live) {
+    uint32_t qr[8];
+    load_row(a.q, row, qr);
+    Best b = empty();
+    uint16_t* queue = s.queue[warp];
+    int queued = 0;                             // warp-uniform
+    auto drain = [&]() {
+      __syncwarp();
+      for (int k0 = lane; k0 < queued; k0 += 32 * DRAIN) {
+        int col[DRAIN];
+        uint4 t0[DRAIN], t1[DRAIN];
+#pragma unroll
+        for (int j = 0; j < DRAIN; ++j) {
+          col[j] = c0 + queue[min(k0 + 32 * j, queued - 1)];
+          const uint4* tp = reinterpret_cast<const uint4*>(a.t + (size_t)col[j] * 8);
+          t0[j] = __ldg(tp);
+          t1[j] = __ldg(tp + 1);
+        }
+#pragma unroll
+        for (int j = 0; j < DRAIN; ++j) {
+          if (k0 + 32 * j >= queued) continue;
+          const int d = dist(qr, t0[j], t1[j]);
+          push(b, d, col[j]);
+          atomicMin(&s.col[col[j] - c0], ((unsigned long long)d << 32) | (unsigned)row);
+        }
+      }
+      __syncwarp();
+      queued = 0;
+    };
+    // warp-uniform trips: the ballots need every lane
+    for (int base = 0; base < ncols; base += 32) {
+      const int c = base + lane;
+      const bool p = c < ncols && s.tm[c] != 0 && pair_test<MODE>(rt, s, c);
+      const unsigned bits = __ballot_sync(0xffffffffu, p);
+      if (bits == 0) continue;                   // warp-uniform
+      const int n = __popc(bits);
+      if (queued + n > QUEUE) drain();
+      if (p) queue[queued + __popc(bits & ((1u << lane) - 1u))] = (uint16_t)c;
+      queued += n;
+    }
+    if (queued) drain();
+    b = warp_merge(b);
+    if (lane == 0) emit_row(a, chunk, row, b);
+  } else if (in && lane == 0) {
+    emit_row(a, chunk, row, empty());
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < ncols; c += THREADS) {
+    const unsigned long long key = s.col[c];
+    if (key < COL_INIT) atomicMin(&a.col_best[c0 + c], key);
+  }
+}
+
+// matching._finish over every row, by the last block of all: d1 <= max_dist,
+// float(d1) < ratio float(d2) in float32, and the chosen column's best row
+// is this row; the column as int64 and the number of matches
+__device__ void finish(const Args& a) {
+  __shared__ int wsum[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int n = 0;
+  for (int i = threadIdx.x; i < a.N; i += THREADS) {
+    const int d1 = __ldcg(a.d1 + i), d2 = __ldcg(a.d2 + i), j = __ldcg(a.idx + i);
+    const bool ok = d1 <= a.max_dist && (float)d1 < __fmul_rn(a.ratio, (float)d2) &&
+                    __ldcg(a.col_row + j) == i;
+    a.ok[i] = ok;
+    a.best[i] = j;
+    n += ok;
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (lane == 0) wsum[warp] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) total += wsum[w];
+    *a.num = total;
+    a.tickets[a.groups + a.chunks] = 0;
+  }
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(const Args a) {
   __shared__ Smem sm;
   __shared__ unsigned int last;
+  constexpr bool SPARSE = MODE != MODE_DENSE;
   const int chunk = blockIdx.x % a.chunks, group = blockIdx.x / a.chunks;
   const int c0 = chunk * a.cw, c1 = min(c0 + a.cw, a.M);
-  if constexpr (SPARSE)
+  if constexpr (MODE == MODE_MASK)
     sparse_unit(a, sm.s, group, chunk, c0, c1);
-  else
+  else if constexpr (MODE == MODE_DENSE)
     dense_unit(a, sm.d, group, chunk, c0, c1);
+  else
+    pred_unit<MODE>(a, sm.p, group, chunk, c0, c1);
 
   // tickets: the last unit of a row group merges its rows, the last unit
   // of a column chunk unpacks its columns. The barrier, then one thread's
@@ -381,7 +665,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
   }
   __syncthreads();
   const unsigned int l = last;
-  if (l == 0) return;
+  if (l == 0 && a.ok == nullptr) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (l & 1u) {
     // a warp per row, lanes over the chunks; every first load in flight at once
@@ -406,7 +690,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
     if (threadIdx.x == 0) a.tickets[group] = 0;
   }
   if (l & 2u) {
-    constexpr int PER = (SPARSE ? SPARSE_CW : DENSE_CW) / THREADS;
+    constexpr int PER = (MODE == MODE_MASK ? SPARSE_CW : SPARSE ? PRED_CW : DENSE_CW) / THREADS;
     unsigned long long key[PER];
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -423,6 +707,17 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
     }
     if (threadIdx.x == 0) a.tickets[a.groups + chunk] = 0;
   }
+  if (a.ok == nullptr) return;
+  // the finish: the last block of all, after every row and column is final
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool fin = atomicAdd(&a.tickets[a.groups + a.chunks], 1u) == gridDim.x - 1u;
+    if (fin) __threadfence();
+    last = fin;
+  }
+  __syncthreads();
+  if (last) finish(a);
 }
 
 }  // namespace
@@ -451,8 +746,66 @@ extern "C" int hamming_resolve_launch(const void* q, const void* qmask, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int blocks = (unsigned int)groups * (unsigned int)chunks;
   if (pair)
-    hamming_resolve_kernel<true><<<blocks, THREADS, 0, s>>>(a);
+    hamming_resolve_kernel<MODE_MASK><<<blocks, THREADS, 0, s>>>(a);
   else
-    hamming_resolve_kernel<false><<<blocks, THREADS, 0, s>>>(a);
+    hamming_resolve_kernel<MODE_DENSE><<<blocks, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the pair-test modes (bound with ctypes): one launch on
+// `stream`, returns the CUDA error code. `p` holds the pointers in the
+// order of ops/hamming_match.py PRED_POINTERS, `f` the floats (fx, fy, cx,
+// cy, tol, ratio), `i` the ints (mode, N, M, groups, chunks, cw, width,
+// height, max_dist). The plan: groups = ceil(N / 8), cw <= PRED_CW.
+extern "C" int hamming_pairs_launch(void* const* p, const double* f, const int* i,
+                                    void* stream) {
+  const int mode = i[0], N = i[1], M = i[2], groups = i[3], chunks = i[4], cw = i[5];
+  if ((mode != MODE_EPI && mode != MODE_PROJ) || N <= 0 || M <= 0 || groups <= 0 ||
+      chunks <= 0 || cw <= 0 || (long long)groups * SPARSE_ROWS < N || cw > PRED_CW ||
+      (long long)chunks * cw < M || (long long)(chunks - 1) * cw >= M ||
+      (chunks > 1 && p[9] == nullptr) || p[26] == nullptr ||
+      (mode == MODE_EPI && p[21] == nullptr && (p[17] == nullptr || p[19] == nullptr)) ||
+      (mode == MODE_PROJ && (p[14] == nullptr || p[22] == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.q = static_cast<const uint32_t*>(p[0]);
+  a.qmask = static_cast<const uint8_t*>(p[1]);
+  a.t = static_cast<const uint32_t*>(p[2]);
+  a.tmask = static_cast<const uint8_t*>(p[3]);
+  a.pair = nullptr;
+  a.N = N; a.M = M; a.groups = groups; a.chunks = chunks; a.cw = cw;
+  a.d1 = static_cast<int32_t*>(p[5]);
+  a.d2 = static_cast<int32_t*>(p[6]);
+  a.idx = static_cast<int32_t*>(p[7]);
+  a.col_row = static_cast<int32_t*>(p[8]);
+  a.row_part = static_cast<int2*>(p[9]);
+  a.col_best = static_cast<unsigned long long*>(p[10]);
+  a.tickets = static_cast<unsigned int*>(p[11]);
+  a.uv_q = static_cast<const float*>(p[12]);
+  a.uv_t = static_cast<const float*>(p[13]);
+  a.Xw = static_cast<const float*>(p[14]);
+  a.level_q = static_cast<const int32_t*>(p[15]);
+  a.level_t = static_cast<const int32_t*>(p[16]);
+  a.R1 = static_cast<const float*>(p[17]);
+  a.t1 = static_cast<const float*>(p[18]);
+  a.R0 = static_cast<const float*>(p[19]);
+  a.t0 = static_cast<const float*>(p[20]);
+  a.F = static_cast<const float*>(p[21]);
+  a.uv_p = static_cast<float*>(p[22]);
+  a.geom = static_cast<double*>(p[23]);
+  a.t_norm = static_cast<float*>(p[24]);
+  a.best = static_cast<int64_t*>(p[25]);
+  a.ok = static_cast<uint8_t*>(p[26]);
+  a.num = static_cast<int64_t*>(p[27]);
+  a.fx = (float)f[0]; a.fy = (float)f[1]; a.cx = (float)f[2]; a.cy = (float)f[3];
+  a.tol = (float)f[4];
+  a.ratio = (float)f[5];
+  a.width = i[6]; a.height = i[7]; a.max_dist = i[8];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = (unsigned int)groups * (unsigned int)chunks;
+  if (mode == MODE_EPI)
+    hamming_resolve_kernel<MODE_EPI><<<blocks, THREADS, 0, s>>>(a);
+  else
+    hamming_resolve_kernel<MODE_PROJ><<<blocks, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

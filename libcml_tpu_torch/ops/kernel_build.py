@@ -27,7 +27,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # every kernel of the port
 SOURCES = (CSRC / "hamming_match.cu", CSRC / "track_lm.cu", CSRC / "pnp_lm.cu",
            CSRC / "ba_sweep.cu", CSRC / "ba_solve.cu", CSRC / "ba_run.cu",
-           CSRC / "trace_epipolar.cu", CSRC / "local_ba.cu", CSRC / "orb_extract.cu")
+           CSRC / "trace_epipolar.cu", CSRC / "local_ba.cu", CSRC / "orb_extract.cu",
+           CSRC / "triangulate.cu")
 
 
 class KernelBuildError(RuntimeError):

@@ -37,7 +37,10 @@ the pipelined mode (`pipelined=True`, the direct spine's lag-1 finalize)
 stages all three.
 
 Every Hamming match on these paths resolves through the hand-written CUDA
-kernel on the card (models/indirect/matching._resolve_from_desc). A run
+kernel on the card (models/indirect/matching._resolve_from_desc); the
+projection and epipolar matches test their pairs inside it (one launch, no
+pair mask), and the keyframe triangulation after the epipolar match is one
+launch of csrc/triangulate.cu (ops/triangulate.py). A run
 saves and resumes its full state (save_state / load_state), in-flight frames
 and tick included.
 """
@@ -66,18 +69,19 @@ from libcml_tpu_torch.models.indirect import indirect_ba as iba
 from libcml_tpu_torch.models.indirect.bow import KeyframeDatabase, default_vocabulary
 from libcml_tpu_torch.models.indirect.epnp import epnp_ransac
 from libcml_tpu_torch.models.indirect.matching import (
+    MatchResult,
     match_descriptors,
-    match_epipolar,
+    match_epipolar_plain,
     match_projection,
     match_window,
-    orientation_check,
     vfc_filter,
 )
 from libcml_tpu_torch.models.indirect.orb import extract_orb
-from libcml_tpu_torch.models.indirect.pnp import solve_pnp, triangulate_linear
-from libcml_tpu_torch.models.indirect.triangulation import fundamental, optimal_correct
+from libcml_tpu_torch.models.indirect.pnp import solve_pnp
+from libcml_tpu_torch.models.indirect.triangulation import fundamental
 from libcml_tpu_torch.models.indirect.twoview import two_view_init
 from libcml_tpu_torch.ops.image import build_pyramid
+from libcml_tpu_torch.ops.triangulate import epipolar_triangulate_cuda, plain_triangulate
 from libcml_tpu_torch.runtime.checker import CameraChecker
 from libcml_tpu_torch.runtime.odometry import (
     DirectOdometry,
@@ -186,20 +190,30 @@ def _epipolar_triangulate(desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1
     indirect/Mapping.cpp:139-239). `optimal` applies the Hartley-Sturm
     correction before the DLT (reference: Triangulation.h:141).
     Returns (MatchResult, X0 (N, 3) in keyframe-0 coordinates, ok (N,),
-    the baseline norm)."""
+    the baseline norm). On CUDA tensors two launches
+    (ops/triangulate.epipolar_triangulate_cuda), no host wait; on CPU
+    tensors _epipolar_triangulate_plain."""
+    if desc0.is_cuda:
+        m, X0, ok, t_norm = epipolar_triangulate_cuda(desc0, uv0, valid0, angle0, desc1, uv1,
+                                                      valid1, angle1, T_new, T0, cam, optimal)
+        return MatchResult(idx=m.best, dist=m.d1, valid=m.ok, num=m.num), X0, ok, t_norm
+    if desc0.device.type != "cpu":
+        raise ValueError(f"_epipolar_triangulate: unsupported device {desc0.device}")
+    return _epipolar_triangulate_plain(desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1,
+                                       T_new, T0, cam, optimal)
+
+
+def _epipolar_triangulate_plain(desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1,
+                                T_new: SE3, T0: SE3, cam: PinholeCamera, optimal: bool = True):
+    """The plain form of _epipolar_triangulate: the fundamental matrix
+    chain, match_epipolar_plain, orientation_check, optimal_correct and
+    triangulate_linear as PyTorch ops."""
     T_10 = T_new.compose(T0.inverse())
     t_norm = torch.linalg.norm(T_10.t)
     F = fundamental(T_10, cam)
-    m = match_epipolar(desc0, uv0, valid0, desc1, uv1, valid1, F)
-    ok = orientation_check(angle0, angle1, m.idx, m.valid)
-    if optimal:
-        uv0c, uv1c = optimal_correct(uv0, uv1[m.idx], F)
-    else:
-        uv0c, uv1c = uv0, uv1[m.idx]
-    X0, tri_ok = triangulate_linear(uv0c, uv1c, T_10, cam)
-    # parallax + depth sanity (the reference prunes low-parallax points)
-    depth_ok = (X0[:, 2] > 1e-3) & (X0[:, 2] < 1e4)
-    return m, X0, ok & tri_ok & depth_ok, t_norm
+    m = match_epipolar_plain(desc0, uv0, valid0, desc1, uv1, valid1, F)
+    tri = plain_triangulate(uv0, uv1, angle0, angle1, m.idx, m.valid, F, T_10, cam, optimal)
+    return m, tri["X0"], tri["ok"], t_norm
 
 
 def _map_projection_match(Xw, desc_p, valid_p, level_p, T: SE3, cam: PinholeCamera, feats):
