@@ -3410,18 +3410,37 @@ TRI_COST_OPS = 18
 TRI_ROW_OPS = 3 + 30 + 200 + 54 + TRI_COST_OPS * (129 + 80 + 1) + 6 * 40 + 60 + 120
 TRI_ROW_OPS_NO_CORRECTION = 3 + 120
 # faults planted in copies of the sources, each a substitution: the grid's
-# argmin taking the last index on ties, the t -> inf asymptote left out, and
+# shuffled argmin taking the last index on ties, the t -> inf asymptote left
+# out, and
 # the projection test's level window widened to 2; each must fail its
 # verdict (triangulate.tri_parity on triangulate.FAULT_PENCILS, or
 # hamming_match.pair_parity on phase 4's first projection match)
 TRI_FAULTS = {
-    "grid_ties_to_the_last_index": (tr.SOURCE, "if (i == 0 || c < best_c) {",
-                                    "if (i == 0 || c <= best_c) {"),
+    "grid_ties_to_the_last_index": (tr.SOURCE, "return c < bc || (c == bc && i < bi);",
+                                    "return c < bc || (c == bc && i > bi);"),
     "asymptote_left_out": (tr.SOURCE, "const bool use_inf = cost_inf < cost_best;",
                            "const bool use_inf = false;"),
     "level_window_of_2": (hm.SOURCE, "abs(rt.lev - s.lev[c]) <= 1", "abs(rt.lev - s.lev[c]) <= 2"),
 }
 
+
+# the outputs that pair_digest hashes: a pair-test match's (those it has),
+# a triangulation's
+PAIR_FIELDS = ("d1", "d2", "idx", "col_row", "best", "ok", "num", "uv_p", "geom", "t_norm")
+TRI_FIELDS = ("X0", "ok", "probe")
+
+
+def pair_digest(outputs, h=None) -> str:
+    """One sha256 over the output tensors of every call, in order: a
+    PairMatch's PAIR_FIELDS, a triangulation's (a dict) TRI_FIELDS; `h`, a
+    running hashlib object, to add them to."""
+    h = hashlib.sha256() if h is None else h
+    for out in outputs:
+        get = out.get if isinstance(out, dict) else lambda f, o=out: getattr(o, f, None)
+        for f in TRI_FIELDS if isinstance(out, dict) else PAIR_FIELDS:
+            if get(f) is not None:
+                h.update(get(f).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 class PairCapture:
     """Keeps (cloned) the arguments of every match_projection and
@@ -3498,7 +3517,7 @@ def projection_check(args, kw) -> tuple[dict, tuple]:
     rep["ok"] = rep["ok"] and rep["uv_vs_f64"] <= UV_TOL
     rep["max_abs_err"] = max(rep["max_abs_err"], rep["uv_max_err"])
     live = int((vis[:, None] & valid_f[None, :] & pair).sum())
-    return rep, (kargs, live, int(vis.sum()), int(valid_f.sum()))
+    return rep, (kargs, live, int(vis.sum()), int(valid_f.sum()), got)
 
 
 def epipolar_check(args, kw) -> tuple[dict, dict]:
@@ -3544,7 +3563,7 @@ def epipolar_check(args, kw) -> tuple[dict, dict]:
                and whole["t_norm_err"] <= 1e-6 * max(float(tnp), 1.0))
     return {"ok": bool(verdict), "match": mrep, "triangulation": trep, "whole": whole,
             "optimal": bool(optimal)}, {"m": m, "plain_match": mp, "X0": Xk, "ok": okk,
-                                        "probe": probe}
+                                        "probe": probe, "call": {"X0": X0, "ok": ok}}
 
 
 def write_tri_faults(out_dir: Path) -> dict:
@@ -3682,8 +3701,10 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
     every _epipolar_triangulate call held to the plain forms
     (projection_check, epipolar_check), the launches per call site of every
     kernel in phases 5, 7 and 10, the three planted faults, one
-    _epipolar_triangulate call's host waits, and cold and warm ms of the
-    three new entry points beside their bounds and plain forms."""
+    _epipolar_triangulate call's host waits, cold and warm ms of the three
+    entry points beside their bounds and plain forms, their `// stage:`
+    stamps (a line each), and one sha256 of every captured call's
+    outputs."""
     dev = torch.device("cuda")
     require(not cap.plain_on_card, f"a plain form ran on card tensors: {cap.plain_on_card}")
     proj = cap.calls["projection"]
@@ -3695,8 +3716,10 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
     worst = {"uv": 0.0, "uv_vs_f64": 0.0, "uv_off_frame": 0.0, "hamming_projection": 0.0,
              "hamming_epipolar": 0.0}
     failed = []
+    digest = hashlib.sha256()
     for k, (run, args, kw) in enumerate(proj):
-        rep, _ = projection_check(args, kw)
+        rep, (*_, got) = projection_check(args, kw)
+        pair_digest([got], digest)
         c = by_run.setdefault(f"projection/{run}", Counter())
         c["calls"] += 1
         for key in ("edge_pairs", "edge_rows", "rows_differing", "cols_differing",
@@ -3711,6 +3734,7 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
     tri_readings, kept = [], []
     for k, (run, args, kw) in enumerate(epi):
         rep, res = epipolar_check(args, kw)
+        pair_digest([res["m"], res["call"], {f: res[f] for f in TRI_FIELDS}], digest)
         if save is not None:
             kept.append((run, args, kw, res))
         c = by_run.setdefault(f"epipolar/{run}", Counter())
@@ -3730,6 +3754,11 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
         save_tri_calls(save, kept)
     edge_totals = {run: dict(c) for run, c in by_run.items()}
     print(json.dumps({"phase": "tri_edges", "by_run": edge_totals}))
+    # every captured call's outputs (the projection matches, then each
+    # epipolar call's match, whole call and triangulation on the plain
+    # match), so that another tree's kernels can be held to these bits
+    print(json.dumps({"phase": "tri_digest", "projection_calls": len(proj),
+                      "epipolar_calls": len(epi), "digest": digest.hexdigest()}))
     shown = Counter()
     for f in failed:
         shown[f["kind"]] += 1
@@ -3761,7 +3790,7 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
 
     # timing: phase 4's first projection match, phase 5's first keyframe pair
     floor = launch_floor()
-    _, (kargs, live, rows, cols) = projection_check(*proj[0][1:])
+    _, (kargs, live, rows, cols, _) = projection_check(*proj[0][1:])
     N, M = kargs[0].shape[0], kargs[7].shape[0]
     args, kw = proj[0][1], proj[0][2]
     projection = _timed(lambda: hm.match_projection_cuda(*kargs),
@@ -3799,6 +3828,19 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
     for name, row in (("projection", projection), ("epipolar", epipolar),
                       ("triangulate", triangulate)):
         require(row["launches_per_call"] == 1, f"{name}: {row['launches_per_call']} launches")
+    # the `// stage:` stamps of the three timed calls (tools/ba_stages.py
+    # pair_stamps: the marks made %globaltimer stamps in a copy of csrc/)
+    bs = _ba_stages()
+    stamps = bs.pair_stamps(bs.PairBuild("tree"), {
+        "hamming_projection": (lambda b: b.hm.match_projection_cuda(*kargs), hm.SOURCE.name),
+        "hamming_epipolar": (lambda b: b.hm.match_epipolar_cuda(desc0, uv0, valid0, desc1, uv1,
+                                                                valid1, poses=poses, cam=cam),
+                             hm.SOURCE.name),
+        "triangulate": (lambda b: b.tr.triangulate_cuda(uv0, uv1, angle0, angle1, m.best, m.ok,
+                                                         m.geom, cam, optimal), tr.SOURCE.name)},
+        20)
+    for name in ("hamming_projection", "hamming_epipolar", "triangulate"):
+        print(json.dumps({"phase": "tri_stamps", "kernel": name, "stamps": stamps[name]}))
     timing = {"hamming_projection": {**projection, "N": N, "M": M},
               "hamming_epipolar": {**epipolar, "N": uv0.shape[0], "M": uv1.shape[0]},
               "triangulate": {**triangulate, "N": uv0.shape[0], "optimal": bool(optimal)},
@@ -3816,7 +3858,7 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
                   "vs_plain_px": max(t["vs_plain"]["max_pixel"] for t in tri_readings),
                   "plain_vs_f64_px": max(t["plain_vs_f64_max_pixel"] for t in tri_readings)},
               "faults": {k: v["refused"] for k, v in faults.items() if k != "honest"},
-              "launches_per_site": per_site}
+              "launches_per_site": per_site, "digest": digest.hexdigest()}
     return public, timing
 
 

@@ -79,14 +79,35 @@
 //              |level_p - level_f| <= 1.
 // Both evaluate in double from the float32 inputs, so a pair sits on
 // float64's side of its limit; the plain float32 forms can flip a pair
-// within ~1e-5 of it, and the card's checks count those pairs. A block
-// stages its chunk's train pixels, levels and mask in shared memory; a
-// warp owns a query row, its lanes test 32 columns at once and queue the
-// live ones by ballot, and the queue is drained as in the mask mode.
-// With `ok` given, the last block of all (a third ticket) also applies
-// matching._finish: the distance gate, the Lowe ratio (d1 < ratio d2 in
-// float32) and the mutual check, and writes the row's column as int64 and
-// the number of matches, so a predicate match is one launch.
+// within ~1e-5 of it, and the card's checks count those pairs. The launch
+// (pairs_kernel) also applies matching._finish: the distance gate, the Lowe
+// ratio (d1 < ratio d2 in float32) and the mutual check, and writes the
+// row's column as int64 and the number of matches, so a predicate match is
+// one launch.
+// What bounds the pair modes on this card: latency. Phase 4's projection
+// match (4096 map rows, ~650 visible, x 1536 corners) reads ~0.2 MB once and
+// tests ~1e6 pairs; its time is the launch, a few dependent round trips and
+// a live row's 48 ballots (the stamps of the design before this one: two
+// waves of blocks, a live warp ~0.12 us a ballot, a one-block finish of
+// 5.9 us). So the launch is one
+// wave (at most PAIR_BLOCKS_PER_SM blocks an SM, ops/hamming_match.py
+// pair_plan), with one column chunk of up to PAIR_CW columns (dynamic
+// shared memory) at the hybrid's sizes, so no row partial is merged; each
+// block stages its chunk's train pixels (NaN where masked, which fails
+// every test) and levels once, their loads in flight while its threads
+// test their rows (a thread a row of its row group, at most PAIR_ROWS); the
+// live rows are listed in shared memory and, when the warps outnumber them,
+// each row's columns are cut into parts that several warps take (their
+// partials merged as chunks merge), so an invisible or masked row costs its
+// test only and a live row's ballots spread. A warp's lanes test 32 columns
+// at once, BALLOTS groups before their ballots, and queue the live ones;
+// the queue is drained as in the mask mode. Each row also writes its
+// (d1, d2, idx) packed (`rec`) for the finish. With one chunk its last
+// block (one ticket) loads the column keys and its threads' first
+// FIN_ROWS records together, keeps the keys in shared memory and finishes
+// from there; with more chunks a row group's last unit merges its rows, a
+// chunk's last unit unpacks its columns and the last block of all (a third
+// ticket) finishes.
 
 #include <climits>
 #include <cstdint>
@@ -103,7 +124,11 @@ constexpr int SPARSE_ROWS = WARPS;               // rows per unit with a pair ma
 constexpr int DENSE_ROWS = 32;                   // rows per unit without (a lane each)
 constexpr int SPARSE_CW = 2048;                  // most columns per unit
 constexpr int DENSE_CW = 512;
-constexpr int PRED_CW = 1024;                    // with a pair test computed here
+constexpr int PAIR_CW = 2048;                    // most columns per unit with a pair test
+constexpr int PAIR_ROWS = 64;                    // most rows per row group with a pair test
+constexpr int PAIR_BLOCKS_PER_SM = 3;            // the pair modes' resident blocks an SM
+constexpr int FIN_ROWS = 16;                     // rows a thread of the finish loads at once
+constexpr int BALLOTS = 4;                       // a pair-test warp's ballots in flight
 // the kernel's modes: no pair mask, a pair mask, the epipolar and the
 // projection pair tests (ops/hamming_match.py MODE_*)
 constexpr int MODE_DENSE = 0, MODE_MASK = 1, MODE_EPI = 2, MODE_PROJ = 3;
@@ -157,6 +182,7 @@ struct Args {
   int64_t* best;              // (N,) idx as int64
   uint8_t* ok;                // (N,) bool
   int64_t* num;               // () matches
+  int2* rec;                  // (N,) the pair modes' rows for the finish: (d1 | d2 << 16, idx)
 };
 
 struct SparseSmem {
@@ -171,20 +197,22 @@ struct DenseSmem {
   uint32_t tbits[DENSE_CW / 32];  // train-mask bits, word w: columns c0 + 32 w + 0..31
 };
 
-struct PredSmem {
-  unsigned long long col[PRED_CW];
-  uint16_t queue[WARPS][QUEUE];
-  float2 uv[PRED_CW];         // the chunk's train pixels, levels and mask
-  int lev[PRED_CW];
-  uint8_t tm[PRED_CW];
-  double F[9];
-};
-
 union Smem {
   SparseSmem s;
   DenseSmem d;
-  PredSmem p;
 };
+
+// The pair modes' shared memory: the unit's columns in dynamic shared
+// memory (pair_smem_bytes), the rest static.
+struct PairCols {
+  unsigned long long* col;    // the unit's column keys
+  float2* uv;                 // the chunk's train pixels (NaN where masked)
+  int* lev;                   // and levels
+};
+
+constexpr size_t pair_smem_bytes(int cw) {
+  return (size_t)cw * (sizeof(unsigned long long) + sizeof(float2) + sizeof(int));
+}
 
 // the partial of no live entry
 __device__ __forceinline__ Best empty() { return Best{INIT, INT_MAX, INIT}; }
@@ -240,9 +268,11 @@ __device__ __forceinline__ Best warp_merge(Best b) {
 }
 
 __device__ __forceinline__ void write_final(const Args& a, int row, Best b) {
-  a.d1[row] = min(b.d1, MASKED);
-  a.d2[row] = min(b.d2, MASKED);
-  a.idx[row] = b.d1 < MASKED ? b.i1 : 0;
+  const int d1 = min(b.d1, MASKED), d2 = min(b.d2, MASKED), idx = b.d1 < MASKED ? b.i1 : 0;
+  a.d1[row] = d1;
+  a.d2[row] = d2;
+  a.idx[row] = idx;
+  if (a.rec) a.rec[row] = make_int2(d1 | (d2 << 16), idx);
 }
 
 // a unit's partial for one row: the result itself when there is one chunk
@@ -428,12 +458,12 @@ __device__ void epi_geometry(const Args& a, double* F) {
   }
   double R1[9], R0[9], t1[3], t0[3], R10[9], ti[3], t10[3];
   for (int k = 0; k < 9; ++k) {
-    R1[k] = a.R1[k];
-    R0[k] = a.R0[k];
+    R1[k] = __ldg(a.R1 + k);
+    R0[k] = __ldg(a.R0 + k);
   }
   for (int k = 0; k < 3; ++k) {
-    t1[k] = a.t1[k];
-    t0[k] = a.t0[k];
+    t1[k] = __ldg(a.t1 + k);
+    t0[k] = __ldg(a.t0 + k);
   }
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
@@ -468,27 +498,25 @@ __device__ void epi_geometry(const Args& a, double* F) {
   }
 }
 
-// a query row's side of the pair test: MODE_EPI its line (l0, l1, l2) and
-// lim = epi_tol max(l0^2 + l1^2, 1e-9); MODE_PROJ its pixel, lim = r^2 and
-// its level. Returns whether the row is live.
+// a query row's side of the pair test: MODE_EPI its line (l0, l1, l2) from
+// its pixel x and lim = epi_tol max(l0^2 + l1^2, 1e-9); MODE_PROJ its
+// pixel, lim = r^2 and its level, and whether the row is live.
 struct RowTest {
   double p0, p1, p2, lim;
   int lev;
 };
 
-__device__ __forceinline__ bool epi_row(const Args& a, const double* F, int row, RowTest& rt) {
-  const float2 x = __ldg(reinterpret_cast<const float2*>(a.uv_q) + row);
+__device__ __forceinline__ void epi_row(const Args& a, const double* F, float2 x, RowTest& rt) {
   const double u = x.x, v = x.y;
   rt.p0 = F[0] * u + F[1] * v + F[2];
   rt.p1 = F[3] * u + F[4] * v + F[5];
   rt.p2 = F[6] * u + F[7] * v + F[8];
   rt.lim = (double)a.tol * fmax(rt.p0 * rt.p0 + rt.p1 * rt.p1, 1e-9);
   rt.lev = 0;
-  return a.qmask[row] != 0;
 }
 
-// PinholeCamera.project and in_bounds(border=2) in double; the row's lane 0
-// of chunk 0 writes its pixel (every row, visible or not, as the plain form)
+// PinholeCamera.project and in_bounds(border=2) in double; the row's test
+// in chunk 0 writes its pixel (every row, visible or not, as the plain form)
 __device__ __forceinline__ bool proj_row(const Args& a, int row, bool write, RowTest& rt) {
   const double X = a.Xw[3 * row], Y = a.Xw[3 * row + 1], Z = a.Xw[3 * row + 2];
   double c[3];
@@ -514,7 +542,7 @@ __device__ __forceinline__ bool proj_row(const Args& a, int row, bool write, Row
 }
 
 template <int MODE>
-__device__ __forceinline__ bool pair_test(const RowTest& rt, const PredSmem& s, int c) {
+__device__ __forceinline__ bool pair_test(const RowTest& rt, const PairCols& s, int c) {
   const float2 x = s.uv[c];
   if constexpr (MODE == MODE_EPI) {
     const double n = rt.p0 * (double)x.x + rt.p1 * (double)x.y + rt.p2;
@@ -525,41 +553,108 @@ __device__ __forceinline__ bool pair_test(const RowTest& rt, const PredSmem& s, 
   }
 }
 
-// With a pair test: a warp per query row, its lanes over the chunk's
-// columns 32 at a time (the pixels, levels and mask staged per block), the
-// live columns queued by ballot and drained as sparse_unit drains them.
+struct PairSmem {
+  uint16_t queue[WARPS][QUEUE];
+  RowTest rt[PAIR_ROWS];      // the live rows' tests
+  int rows[PAIR_ROWS];        // and the rows
+  Best part[WARPS];           // a split row's slices' partials
+  double F[9];
+  int n_live;
+  int wsum[WARPS];
+  unsigned int last;
+};
+
+// With a pair test: the unit's rows tested a thread a row (row j of the
+// group is row group + j groups), its columns staged meanwhile; the live
+// rows listed in shared memory and taken a warp at a time, its lanes over
+// the chunk's columns 32 at a time, the live columns queued by ballot and
+// drained as sparse_unit drains them; then the unit's column keys to the
+// global ones.
 template <int MODE>
-__device__ void pred_unit(const Args& a, PredSmem& s, int group, int chunk, int c0, int c1) {
+__device__ void pair_unit(const Args& a, PairSmem& s, const PairCols& sc, int group, int chunk,
+                          int c0, int c1) {
+  // stage: pair_start
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = group + warp * a.groups;
-  const bool in = row < a.N;
   const int ncols = c1 - c0;
-  for (int c = threadIdx.x; c < ncols; c += THREADS) s.col[c] = COL_INIT;
+  // MODE_EPI: thread 0 makes the geometry first, its loads ahead of the
+  // staging's
   if (MODE == MODE_EPI && threadIdx.x == 0) epi_geometry(a, s.F);
+  // the chunk's columns, every load in flight before the row tests
+  constexpr int PER = PAIR_CW / THREADS;
+  float2 uv[PER];
+  int lev[PER];
+  uint8_t tm[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int c = (int)threadIdx.x + k * THREADS;
+    if (c < ncols) {
+      uv[k] = __ldg(reinterpret_cast<const float2*>(a.uv_t) + c0 + c);
+      tm[k] = a.tmask[c0 + c];
+      if constexpr (MODE == MODE_PROJ) lev[k] = __ldg(a.level_t + c0 + c);
+    }
+  }
+  const int row = group + (int)threadIdx.x * a.groups;
+  const bool in = threadIdx.x < PAIR_ROWS && row < a.N;
+  // MODE_EPI: the row's pixel and mask in flight with the geometry
+  float2 xq = make_float2(0.f, 0.f);
+  bool qm = false;
+  if (MODE == MODE_EPI && in) {
+    xq = __ldg(reinterpret_cast<const float2*>(a.uv_q) + row);
+    qm = a.qmask[row] != 0;
+  }
+  if (threadIdx.x == 0) s.n_live = 0;
   __syncthreads();
+  // stage: pair_zero_geometry
   RowTest rt{};
   bool live = false;
   if (in) {
-    if constexpr (MODE == MODE_EPI)
-      live = epi_row(a, s.F, row, rt);
-    else
-      live = proj_row(a, row, chunk == 0 && lane == 0, rt);
+    if constexpr (MODE == MODE_EPI) {
+      epi_row(a, s.F, xq, rt);
+      live = qm;
+    } else {
+      live = proj_row(a, row, chunk == 0, rt);
+    }
   }
-  if (!__syncthreads_or(live)) {               // every row masked: stage nothing
-    if (in && lane == 0) emit_row(a, chunk, row, empty());
-    return;
+  // list the live rows (any order: a row's result does not depend on its
+  // warp), emit the others
+  if (live) {
+    const int k = atomicAdd(&s.n_live, 1);
+    s.rt[k] = rt;
+    s.rows[k] = row;
+  } else if (in) {
+    emit_row(a, chunk, row, empty());
   }
-  for (int c = threadIdx.x; c < ncols; c += THREADS) {
-    s.uv[c] = __ldg(reinterpret_cast<const float2*>(a.uv_t) + c0 + c);
-    s.tm[c] = a.tmask[c0 + c];
-    if constexpr (MODE == MODE_PROJ) s.lev[c] = __ldg(a.level_t + c0 + c);
+  if (!__syncthreads_or(live)) return;         // every row masked: stage nothing
+  // stage: pair_row_test
+  // a masked column's pixel staged as NaN, which fails every pair test
+  // (as does a NaN pixel itself), so the tests need no mask
+  const float nan = __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int c = (int)threadIdx.x + k * THREADS;
+    if (c < ncols) {
+      sc.col[c] = COL_INIT;
+      sc.uv[c] = tm[k] ? uv[k] : make_float2(nan, nan);
+      if constexpr (MODE == MODE_PROJ) sc.lev[c] = lev[k];
+    }
   }
   __syncthreads();
-  if (live) {
+  // stage: pair_staging
+  // the work: a live row's columns in `slices` parts when the warps
+  // outnumber the live rows, item w = (row w / slices, part w % slices), in
+  // granules of 32 BALLOTS columns
+  const int n_live = s.n_live;
+  const int slices = max(1, WARPS / n_live);
+  const int granules = (ncols + 32 * BALLOTS - 1) / (32 * BALLOTS);
+  uint16_t* queue = s.queue[warp];
+  for (int w = warp; w < n_live * slices; w += WARPS) {
+    const int k = w / slices, part = w % slices;
+    const RowTest rk = s.rt[k];
+    const int r = s.rows[k];
+    const int g0 = part * granules / slices, g1 = (part + 1) * granules / slices;
     uint32_t qr[8];
-    load_row(a.q, row, qr);
+    load_row(a.q, r, qr);
     Best b = empty();
-    uint16_t* queue = s.queue[warp];
     int queued = 0;                             // warp-uniform
     auto drain = [&]() {
       __syncwarp();
@@ -578,60 +673,208 @@ __device__ void pred_unit(const Args& a, PredSmem& s, int group, int chunk, int 
           if (k0 + 32 * j >= queued) continue;
           const int d = dist(qr, t0[j], t1[j]);
           push(b, d, col[j]);
-          atomicMin(&s.col[col[j] - c0], ((unsigned long long)d << 32) | (unsigned)row);
+          atomicMin(&sc.col[col[j] - c0], ((unsigned long long)d << 32) | (unsigned)r);
         }
       }
       __syncwarp();
       queued = 0;
     };
-    // warp-uniform trips: the ballots need every lane
-    for (int base = 0; base < ncols; base += 32) {
-      const int c = base + lane;
-      const bool p = c < ncols && s.tm[c] != 0 && pair_test<MODE>(rt, s, c);
-      const unsigned bits = __ballot_sync(0xffffffffu, p);
-      if (bits == 0) continue;                   // warp-uniform
-      const int n = __popc(bits);
-      if (queued + n > QUEUE) drain();
-      if (p) queue[queued + __popc(bits & ((1u << lane) - 1u))] = (uint16_t)c;
-      queued += n;
+    // warp-uniform trips: the ballots need every lane; BALLOTS groups of
+    // 32 columns tested before their ballots, without branches, so that
+    // their tests overlap
+    for (int base = 32 * BALLOTS * g0; base < 32 * BALLOTS * g1; base += 32 * BALLOTS) {
+      bool p[BALLOTS];
+#pragma unroll
+      for (int u = 0; u < BALLOTS; ++u) {
+        const int c = base + 32 * u + lane;
+        p[u] = (c < ncols) & pair_test<MODE>(rk, sc, min(c, ncols - 1));
+      }
+#pragma unroll
+      for (int u = 0; u < BALLOTS; ++u) {
+        const unsigned bits = __ballot_sync(0xffffffffu, p[u]);
+        if (bits == 0) continue;                 // warp-uniform
+        const int n = __popc(bits);
+        if (queued + n > QUEUE) drain();
+        if (p[u]) queue[queued + __popc(bits & ((1u << lane) - 1u))] =
+            (uint16_t)(base + 32 * u + lane);
+        queued += n;
+      }
     }
+    // stage: pair_ballots
     if (queued) drain();
     b = warp_merge(b);
-    if (lane == 0) emit_row(a, chunk, row, b);
-  } else if (in && lane == 0) {
-    emit_row(a, chunk, row, empty());
+    if (lane == 0) {
+      if (slices == 1)
+        emit_row(a, chunk, r, b);
+      else
+        s.part[w] = b;
+    }
+    // stage: pair_drains
   }
   __syncthreads();
+  // a split row's parts merged (order-free) and emitted
+  if (slices > 1 && (int)threadIdx.x < n_live) {
+    Best b = s.part[threadIdx.x * slices];
+    for (int q = 1; q < slices; ++q) b = merge(b, s.part[threadIdx.x * slices + q]);
+    emit_row(a, chunk, s.rows[threadIdx.x], b);
+  }
   for (int c = threadIdx.x; c < ncols; c += THREADS) {
-    const unsigned long long key = s.col[c];
+    const unsigned long long key = sc.col[c];
     if (key < COL_INIT) atomicMin(&a.col_best[c0 + c], key);
+  }
+  // stage: pair_col_atomics
+}
+
+// a thread's FIN_ROWS rows' records from row i0 on (rows i0 + k THREADS)
+__device__ __forceinline__ void load_recs(const Args& a, int i0, int2 (&rec)[FIN_ROWS]) {
+#pragma unroll
+  for (int k = 0; k < FIN_ROWS; ++k) {
+    const int i = i0 + k * THREADS;
+    rec[k] = i < a.N ? __ldcg(a.rec + i) : make_int2(0, 0);
   }
 }
 
-// matching._finish over every row, by the last block of all: d1 <= max_dist,
-// float(d1) < ratio float(d2) in float32, and the chosen column's best row
-// is this row; the column as int64 and the number of matches
-__device__ void finish(const Args& a) {
-  __shared__ int wsum[WARPS];
+// matching._finish over every row: d1 <= max_dist, float(d1) < ratio
+// float(d2) in float32, and the chosen column's best row is this row; the
+// column as int64 and the number of matches. A row's (d1, d2, idx) from
+// its record, `rec` holding the thread's first FIN_ROWS already; the
+// column's best row from the unpacked keys `keys` (columns 0..M-1, one
+// chunk) or from col_row.
+__device__ void finish(const Args& a, PairSmem& s, const unsigned long long* keys,
+                       int2 (&rec)[FIN_ROWS]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int n = 0;
-  for (int i = threadIdx.x; i < a.N; i += THREADS) {
-    const int d1 = __ldcg(a.d1 + i), d2 = __ldcg(a.d2 + i), j = __ldcg(a.idx + i);
-    const bool ok = d1 <= a.max_dist && (float)d1 < __fmul_rn(a.ratio, (float)d2) &&
-                    __ldcg(a.col_row + j) == i;
-    a.ok[i] = ok;
-    a.best[i] = j;
-    n += ok;
+  for (int i0 = threadIdx.x; i0 < a.N; i0 += THREADS * FIN_ROWS) {
+    if (i0 != (int)threadIdx.x) load_recs(a, i0, rec);
+    int cr[FIN_ROWS];
+#pragma unroll
+    for (int k = 0; k < FIN_ROWS; ++k)
+      if (i0 + k * THREADS < a.N) {
+        const int j = rec[k].y;
+        cr[k] = keys ? (int32_t)(uint32_t)(keys[j] & 0xffffffffull) : __ldcg(a.col_row + j);
+      }
+#pragma unroll
+    for (int k = 0; k < FIN_ROWS; ++k) {
+      const int i = i0 + k * THREADS;
+      if (i >= a.N) continue;
+      const int d1 = rec[k].x & 0xffff, d2 = rec[k].x >> 16, j = rec[k].y;
+      const bool ok = d1 <= a.max_dist && (float)d1 < __fmul_rn(a.ratio, (float)d2) && cr[k] == i;
+      a.ok[i] = ok;
+      a.best[i] = j;
+      n += ok;
+    }
   }
   n = __reduce_add_sync(0xffffffffu, n);
-  if (lane == 0) wsum[warp] = n;
+  if (lane == 0) s.wsum[warp] = n;
   __syncthreads();
   if (threadIdx.x == 0) {
     long long total = 0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += wsum[w];
+    for (int w = 0; w < WARPS; ++w) total += s.wsum[w];
     *a.num = total;
-    a.tickets[a.groups + a.chunks] = 0;
+  }
+  // stage: finish
+}
+
+// the last unit of a row group: a warp per row, lanes over the chunks;
+// every first load in flight at once
+__device__ void merge_rows(const Args& a, int group, int rows_per_group) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < rows_per_group; j0 += WARPS) {
+    const int row = group + (j0 + warp) * a.groups;
+    if (j0 + warp >= rows_per_group || row >= a.N) continue;   // warp-uniform
+    Best b = lane < a.chunks ? unpack_row(__ldcg(&a.row_part[(size_t)lane * a.N + row]))
+                             : empty();
+    for (int c = lane + 32; c < a.chunks; c += 32)
+      b = merge(b, unpack_row(__ldcg(&a.row_part[(size_t)c * a.N + row])));
+    b = warp_merge(b);
+    if (lane == 0) write_final(a, row, b);
+  }
+}
+
+// the last unit of a column chunk: its keys unpacked into col_row and reset,
+// and kept in `keys` (shared memory) when given
+__device__ void unpack_cols(const Args& a, int c0, int c1, unsigned long long* keys) {
+  constexpr int PER = PAIR_CW / THREADS;
+  unsigned long long key[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = c0 + (int)threadIdx.x + i * THREADS;
+    key[i] = j < c1 ? __ldcg(&a.col_best[j]) : 0ull;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = c0 + (int)threadIdx.x + i * THREADS;
+    if (j < c1) {
+      a.col_row[j] = (int32_t)(uint32_t)(key[i] & 0xffffffffull);
+      a.col_best[j] = COL_INIT;
+      if (keys) keys[j - c0] = key[i];
+    }
+  }
+}
+
+// The pair modes: (row group, column chunk) units, then the tickets.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, PAIR_BLOCKS_PER_SM) pairs_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ PairSmem s;
+  const int chunk = blockIdx.x % a.chunks, group = blockIdx.x / a.chunks;
+  const int c0 = chunk * a.cw, c1 = min(c0 + a.cw, a.M);
+  const PairCols sc{reinterpret_cast<unsigned long long*>(dyn),
+                    reinterpret_cast<float2*>(dyn + (size_t)a.cw * 8),
+                    reinterpret_cast<int*>(dyn + (size_t)a.cw * 16)};
+  pair_unit<MODE>(a, s, sc, group, chunk, c0, c1);
+
+  // tickets: the last unit of a row group merges its rows, the last unit
+  // of a column chunk unpacks its columns; with one chunk that unit is the
+  // last of all and finishes. The barrier, then one thread's fences around
+  // its tickets (the pattern of cooperative groups' grid barrier), order the
+  // block's writes before the ticket and the last block's reads after it.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    unsigned int l = 0;
+    if (a.chunks > 1 && atomicAdd(&a.tickets[group], 1u) == (unsigned)a.chunks - 1u) l |= 1u;
+    if (atomicAdd(&a.tickets[a.groups + chunk], 1u) == (unsigned)a.groups - 1u) l |= 2u;
+    if (l) __threadfence();
+    s.last = l;
+  }
+  __syncthreads();
+  const unsigned int l = s.last;
+  // stage: tickets
+  if (l & 1u) {
+    merge_rows(a, group, min(PAIR_ROWS, (a.N - group + a.groups - 1) / a.groups));
+    if (threadIdx.x == 0) a.tickets[group] = 0;
+    // stage: row_merge
+  }
+  if (l & 2u) {
+    // with one chunk, the finish's first rows load with the keys
+    int2 rec[FIN_ROWS];
+    if (a.chunks == 1) load_recs(a, threadIdx.x, rec);
+    unpack_cols(a, c0, c1, a.chunks == 1 ? sc.col : nullptr);
+    if (threadIdx.x == 0) a.tickets[a.groups + chunk] = 0;
+    // stage: col_unpack
+    if (a.chunks == 1) {
+      __syncthreads();
+      finish(a, s, sc.col, rec);
+      return;
+    }
+  }
+  if (a.chunks == 1) return;
+  // the finish: the last block of all, after every row and column is final
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool fin = atomicAdd(&a.tickets[a.groups + a.chunks], 1u) == gridDim.x - 1u;
+    if (fin) __threadfence();
+    s.last = fin;
+  }
+  __syncthreads();
+  if (s.last) {
+    int2 rec[FIN_ROWS];
+    load_recs(a, threadIdx.x, rec);
+    finish(a, s, nullptr, rec);
+    if (threadIdx.x == 0) a.tickets[a.groups + a.chunks] = 0;
   }
 }
 
@@ -644,10 +887,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
   const int c0 = chunk * a.cw, c1 = min(c0 + a.cw, a.M);
   if constexpr (MODE == MODE_MASK)
     sparse_unit(a, sm.s, group, chunk, c0, c1);
-  else if constexpr (MODE == MODE_DENSE)
-    dense_unit(a, sm.d, group, chunk, c0, c1);
   else
-    pred_unit<MODE>(a, sm.p, group, chunk, c0, c1);
+    dense_unit(a, sm.d, group, chunk, c0, c1);
 
   // tickets: the last unit of a row group merges its rows, the last unit
   // of a column chunk unpacks its columns. The barrier, then one thread's
@@ -665,7 +906,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
   }
   __syncthreads();
   const unsigned int l = last;
-  if (l == 0 && a.ok == nullptr) return;
+  if (l == 0) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (l & 1u) {
     // a warp per row, lanes over the chunks; every first load in flight at once
@@ -690,7 +931,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
     if (threadIdx.x == 0) a.tickets[group] = 0;
   }
   if (l & 2u) {
-    constexpr int PER = (MODE == MODE_MASK ? SPARSE_CW : SPARSE ? PRED_CW : DENSE_CW) / THREADS;
+    constexpr int PER = (SPARSE ? SPARSE_CW : DENSE_CW) / THREADS;
     unsigned long long key[PER];
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -707,17 +948,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) hamming_resolve_kernel(co
     }
     if (threadIdx.x == 0) a.tickets[a.groups + chunk] = 0;
   }
-  if (a.ok == nullptr) return;
-  // the finish: the last block of all, after every row and column is final
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const bool fin = atomicAdd(&a.tickets[a.groups + a.chunks], 1u) == gridDim.x - 1u;
-    if (fin) __threadfence();
-    last = fin;
-  }
-  __syncthreads();
-  if (last) finish(a);
 }
 
 }  // namespace
@@ -756,14 +986,16 @@ extern "C" int hamming_resolve_launch(const void* q, const void* qmask, const vo
 // `stream`, returns the CUDA error code. `p` holds the pointers in the
 // order of ops/hamming_match.py PRED_POINTERS, `f` the floats (fx, fy, cx,
 // cy, tol, ratio), `i` the ints (mode, N, M, groups, chunks, cw, width,
-// height, max_dist). The plan: groups = ceil(N / 8), cw <= PRED_CW.
+// height, max_dist). The plan (ops/hamming_match.py pair_plan): groups >=
+// ceil(N / PAIR_ROWS), cw <= PAIR_CW, chunks = ceil(M / cw); tickets holds
+// groups + chunks + 1 counters.
 extern "C" int hamming_pairs_launch(void* const* p, const double* f, const int* i,
                                     void* stream) {
   const int mode = i[0], N = i[1], M = i[2], groups = i[3], chunks = i[4], cw = i[5];
   if ((mode != MODE_EPI && mode != MODE_PROJ) || N <= 0 || M <= 0 || groups <= 0 ||
-      chunks <= 0 || cw <= 0 || (long long)groups * SPARSE_ROWS < N || cw > PRED_CW ||
+      chunks <= 0 || cw <= 0 || (long long)groups * PAIR_ROWS < N || cw > PAIR_CW ||
       (long long)chunks * cw < M || (long long)(chunks - 1) * cw >= M ||
-      (chunks > 1 && p[9] == nullptr) || p[26] == nullptr ||
+      (chunks > 1 && p[9] == nullptr) || p[26] == nullptr || p[28] == nullptr ||
       (mode == MODE_EPI && p[21] == nullptr && (p[17] == nullptr || p[19] == nullptr)) ||
       (mode == MODE_PROJ && (p[14] == nullptr || p[22] == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -797,15 +1029,27 @@ extern "C" int hamming_pairs_launch(void* const* p, const double* f, const int* 
   a.best = static_cast<int64_t*>(p[25]);
   a.ok = static_cast<uint8_t*>(p[26]);
   a.num = static_cast<int64_t*>(p[27]);
+  a.rec = static_cast<int2*>(p[28]);
   a.fx = (float)f[0]; a.fy = (float)f[1]; a.cx = (float)f[2]; a.cy = (float)f[3];
   a.tol = (float)f[4];
   a.ratio = (float)f[5];
   a.width = i[6]; a.height = i[7]; a.max_dist = i[8];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int blocks = (unsigned int)groups * (unsigned int)chunks;
+  const size_t smem = pair_smem_bytes(cw);
+  // the columns' dynamic shared memory and the static part may pass the
+  // default 48 KB (on the current device)
+  const int most = (int)pair_smem_bytes(PAIR_CW);
+  const cudaError_t e =
+      mode == MODE_EPI
+          ? cudaFuncSetAttribute(pairs_kernel<MODE_EPI>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most)
+          : cudaFuncSetAttribute(pairs_kernel<MODE_PROJ>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (e != cudaSuccess) return (int)e;
   if (mode == MODE_EPI)
-    hamming_resolve_kernel<MODE_EPI><<<blocks, THREADS, 0, s>>>(a);
+    pairs_kernel<MODE_EPI><<<blocks, THREADS, smem, s>>>(a);
   else
-    hamming_resolve_kernel<MODE_PROJ><<<blocks, THREADS, 0, s>>>(a);
+    pairs_kernel<MODE_PROJ><<<blocks, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }

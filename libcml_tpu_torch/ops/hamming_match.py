@@ -62,14 +62,17 @@ SPARSE_CW, DENSE_CW = 2048, 512
 # row merge's memory round trips to a call that is too small to fill the card
 SPLIT_MIN_ENTRIES = 1 << 16
 COL_INIT = MASKED << 32          # an untouched column key: (257, row 0)
-# the kernel's modes (csrc/hamming_match.cu MODE_*) and the most columns per
-# unit with a pair test computed in the kernel
+# the kernel's modes (csrc/hamming_match.cu MODE_*); with a pair test
+# computed in the kernel, the most columns per unit, the most rows per row
+# group, the blocks an SM of one wave, and the fewest rows a row group takes
+# while the wave has room (half a block's 8 warps: a live row's columns go
+# to two warps or more)
 MODE_DENSE, MODE_MASK, MODE_EPI, MODE_PROJ = 0, 1, 2, 3
-PRED_CW = 1024
+PAIR_CW, PAIR_ROWS, PAIR_BLOCKS_PER_SM, PAIR_MIN_ROWS = 2048, 64, 3, 4
 # hamming_pairs_launch's pointer table, in order
 PRED_POINTERS = ("q", "qmask", "t", "tmask", "pair", "d1", "d2", "idx", "col_row", "row_part",
                  "col_best", "tickets", "uv_q", "uv_t", "Xw", "level_q", "level_t", "R1", "t1",
-                 "R0", "t0", "F", "uv_p", "geom", "t_norm", "best", "ok", "num")
+                 "R0", "t0", "F", "uv_p", "geom", "t_norm", "best", "ok", "num", "rec")
 # csrc/hamming_match.cu epi_geometry's output: F (9), R_10 (9), t_10 (3), |t_10|
 GEOM_LEN = 22
 # A pair whose float64 test value lies within this relative distance of its
@@ -90,21 +93,32 @@ def _pairs_library() -> ctypes.CDLL:
     return kb.load(SOURCE, "hamming_pairs_launch", [ctypes.c_void_p] * 4)
 
 
-def plan(N: int, M: int, has_pair: bool, sms: int,
-         max_cw: int | None = None) -> tuple[int, int, int]:
+def plan(N: int, M: int, has_pair: bool, sms: int) -> tuple[int, int, int]:
     """(groups, chunks, cw): the kernel's grid of groups x chunks units. Row
     group g holds rows g, g + groups, ...; column chunk k holds columns
     [k cw, (k + 1) cw). From SPLIT_MIN_ENTRIES entries on, enough units to
     give each of `sms` SMs one (two without a pair mask, whose units are
-    shorter), and no more chunks than one per 32 columns. `max_cw` caps the
-    chunk (PRED_CW for the pair tests computed in the kernel)."""
-    rows, max_cw = ((SPARSE_ROWS, max_cw or SPARSE_CW) if has_pair
-                    else (DENSE_ROWS, max_cw or DENSE_CW))
+    shorter), and no more chunks than one per 32 columns."""
+    rows, max_cw = (SPARSE_ROWS, SPARSE_CW) if has_pair else (DENSE_ROWS, DENSE_CW)
     groups = -(-N // rows)
     want = (sms if has_pair else 2 * sms) if N * M >= SPLIT_MIN_ENTRIES else 1
     chunks = max(-(-M // max_cw), min(-(-want // groups), -(-M // 32)))
     cw = -(-M // chunks)
     return groups, -(-M // cw), cw
+
+
+def pair_plan(N: int, M: int, sms: int) -> tuple[int, int, int]:
+    """(groups, chunks, cw) of the pair-test modes: ceil(M / PAIR_CW) column
+    chunks of near equal width (one at the hybrid's 1,536 corners), and per
+    chunk as many row groups as one wave of PAIR_BLOCKS_PER_SM blocks an SM
+    holds, at most ceil(N / PAIR_MIN_ROWS), never fewer than
+    ceil(N / PAIR_ROWS). Row group g holds rows g + j groups, j < PAIR_ROWS."""
+    chunks = -(-M // PAIR_CW)
+    cw = -(-M // chunks)
+    chunks = -(-M // cw)
+    wave = max(1, PAIR_BLOCKS_PER_SM * sms // chunks)
+    groups = max(-(-N // PAIR_ROWS), min(-(-N // PAIR_MIN_ROWS), wave))
+    return groups, chunks, cw
 
 
 # per (device, stream): column keys at COL_INIT and tickets at 0, which the
@@ -195,12 +209,13 @@ def _pairs_launch(lib, mode: int, dev: torch.device, N: int, M: int, ptrs: dict,
                   ints, out: PairMatch) -> None:
     """One launch of hamming_pairs_launch on the current stream."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups, chunks, cw = plan(N, M, True, sms, PRED_CW)
+    groups, chunks, cw = pair_plan(N, M, sms)
     stream = torch.cuda.current_stream(dev).cuda_stream
     col_best, tickets = _scratch(dev, stream, M, groups + chunks + 1)
     row_part = torch.empty((chunks, N, 2), dtype=torch.int32, device=dev) if chunks > 1 else None
+    rec = torch.empty((N, 2), dtype=torch.int32, device=dev)
     ptrs = dict(ptrs, d1=out.d1, d2=out.d2, idx=out.idx, col_row=out.col_row, row_part=row_part,
-                col_best=col_best, tickets=tickets, best=out.best, ok=out.ok, num=out.num)
+                col_best=col_best, tickets=tickets, best=out.best, ok=out.ok, num=out.num, rec=rec)
     table = (ctypes.c_void_p * len(PRED_POINTERS))(
         *(None if ptrs.get(k) is None else ptrs[k].data_ptr() for k in PRED_POINTERS))
     f = (ctypes.c_double * 6)(*floats)

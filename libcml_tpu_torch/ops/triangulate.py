@@ -11,10 +11,13 @@ whole `_epipolar_triangulate` on the card, a numpy model and the verdict.
                               kernel. Two launches, no host wait.
   model_triangulate           the kernel's arithmetic in numpy: the bins in
                               float32, the correction (cross-product epipoles,
-                              torch.linspace's grid, first index on ties,
-                              40 golden-section steps, the asymptote) and the
-                              DLT in float64. `faults` plants the smoke's
-                              faults in it.
+                              torch.linspace's grid, first index on ties by
+                              the kernel's warp argmin, 40 golden-section
+                              steps as the reference, or with
+                              search="lanes" the kernel's section search
+                              over 32 lanes, the asymptote) and the DLT in
+                              float64. `faults` plants the smoke's faults
+                              in it.
   tri_parity                  the verdict on one call: the kernel against the
                               model and float64 (MODEL_TOL) and against the
                               plain float32 form (PLAIN_TOL, or the plain form
@@ -45,7 +48,10 @@ from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 SOURCE = kb.CSRC / "triangulate.cu"
 N_BINS, KEEP_BINS = 30, 3
+# the grid, the reference's golden-section steps, the kernel's section
+# search: its rounds and points a round (a warp's lanes)
 GRID, REFINE = 129, 40
+SECTIONS, SECTION_POINTS = 7, 32
 # the kernel against its numpy model and the plain form run in float64 (the
 # kernel computes in double; X0 is written in float32): corrected and
 # keyframe-0 pixels, and inverse depth relative
@@ -217,35 +223,100 @@ def _cost(t, a, b, c, d, f0, f1):
     return t * t / (1.0 + (f0 * t) ** 2) + Ct * Ct / (At * At + (f1 * Ct) ** 2 + 1e-30)
 
 
-def model_min_cost_t(a, b, c, d, f0, f1, faults=()):
+def sequential_argmin(costs) -> np.ndarray:
+    """The reference loop's grid index a row (N, 129): index 0 first, a
+    later index only on a strictly smaller cost (NaN never is)."""
+    costs = np.asarray(costs, np.float64)
+    best = np.zeros(len(costs), np.int64)
+    best_c = costs[:, 0].copy()
+    for i in range(1, costs.shape[1]):
+        take = costs[:, i] < best_c
+        best = np.where(take, i, best)
+        best_c = np.where(take, costs[:, i], best_c)
+    return best
+
+
+def _takes(c, i, bc, bi, last_on_ties: bool):
+    """csrc/triangulate.cu takes: whether (c, i) beats (bc, bi); with
+    `last_on_ties` the fault that breaks ties to the larger index."""
+    tie = (i > bi) if last_on_ties else (i < bi)
+    plain = ~np.isnan(c) & (np.isnan(bc) | (c < bc) | ((c == bc) & tie))
+    return ~((bi == 0) & np.isnan(bc)) & (((i == 0) & np.isnan(c)) | plain)
+
+
+def warp_argmin(costs, last_on_ties: bool = False) -> np.ndarray:
+    """The kernel's grid index a row (N, 129) as its warp finds it: lane
+    l folds its indices l, l + 32, ... in order, then the lanes merge by
+    xor shuffles at offsets 16, 8, 4, 2, 1, each by `takes`."""
+    costs = np.asarray(costs, np.float64)
+    N, G = costs.shape
+    per = -(-G // 32)
+    lane = np.arange(32)
+    bc = np.broadcast_to(costs[:, :32], (N, 32)).copy()
+    bi = np.broadcast_to(lane, (N, 32)).copy()
+    for k in range(1, per):
+        i = lane + 32 * k
+        ok = i < G
+        c = np.where(ok, costs[:, np.minimum(i, G - 1)], np.nan)
+        take = ok & _takes(c, np.broadcast_to(i, (N, 32)), bc, bi, last_on_ties)
+        bc, bi = np.where(take, c, bc), np.where(take, i, bi)
+    for off in (16, 8, 4, 2, 1):
+        oc, oi = bc[:, lane ^ off], bi[:, lane ^ off]
+        take = _takes(oc, oi, bc, bi, last_on_ties)
+        bc, bi = np.where(take, oc, bc), np.where(take, oi, bi)
+    assert (bi == bi[:, :1]).all(), "the lanes disagree"
+    return bi[:, 0]
+
+
+def lane_section(pencil, lo, hi):
+    """The kernel's section search on (N,) brackets [lo, hi] of the pencils
+    (a, b, c, d, f0, f1): SECTIONS rounds, each putting lane k at lo + (k +
+    1) h, h = (hi - lo) / (SECTION_POINTS + 1), and keeping the neighbours
+    of the first smallest cost (NaN as +inf). Returns the last round's
+    smallest point (the last bracket's middle)."""
+    col = lambda v: np.asarray(v, np.float64)[:, None]   # noqa: E731
+    k = np.arange(1, SECTION_POINTS + 1, dtype=np.float64)[None, :]
+    for _ in range(SECTIONS):
+        h = (hi - lo) * (1.0 / (SECTION_POINTS + 1))
+        v = _cost(np.tan(col(lo) + k * col(h)), *(col(x) for x in pencil))
+        best = np.argmin(np.where(np.isnan(v), np.inf, v), 1)
+        mid = lo + (best + 1) * h
+        lo, hi = lo + best * h, lo + (best + 2) * h
+    return mid
+
+
+def model_min_cost_t(a, b, c, d, f0, f1, faults=(), search: str = "golden"):
     """_min_cost_t as the kernel computes it, float64, batched over (N,)
     pencils: (t_best, cost_best, the grid's index, the grid costs (N, 129)).
-    The first grid index on ties, or the last with the fault
-    "grid_ties_to_the_last_index"."""
+    The grid's index by the kernel's warp (warp_argmin: the first index on
+    ties, or the last with the fault "grid_ties_to_the_last_index"); then
+    the reference's 40 golden-section steps, or (search="lanes") the
+    kernel's section search (lane_section)."""
     col = lambda v: np.asarray(v, np.float64)[:, None]   # noqa: E731
     theta = grid_angles()
     costs = _cost(np.tan(theta)[None, :], col(a), col(b), col(c), col(d), col(f0), col(f1))
-    if "grid_ties_to_the_last_index" in faults:
-        best = GRID - 1 - np.argmin(costs[:, ::-1], 1)
-    else:
-        best = np.argmin(costs, 1)
+    best = warp_argmin(costs, "grid_ties_to_the_last_index" in faults)
     step = theta[1] - theta[0]
     lo, hi = theta[best] - step, theta[best] + step
-    gr = 0.6180339887498949
-    for _ in range(REFINE):
-        m1, m2 = hi - gr * (hi - lo), lo + gr * (hi - lo)
-        take_lo = _cost(np.tan(m1), a, b, c, d, f0, f1) < _cost(np.tan(m2), a, b, c, d, f0, f1)
-        lo, hi = np.where(take_lo, lo, m1), np.where(take_lo, m2, hi)
+    if search == "lanes":
+        lo = hi = lane_section((a, b, c, d, f0, f1), lo, hi)
+    else:
+        gr = 0.6180339887498949
+        for _ in range(REFINE):
+            m1, m2 = hi - gr * (hi - lo), lo + gr * (hi - lo)
+            take_lo = (_cost(np.tan(m1), a, b, c, d, f0, f1)
+                       < _cost(np.tan(m2), a, b, c, d, f0, f1))
+            lo, hi = np.where(take_lo, lo, m1), np.where(take_lo, m2, hi)
     t = np.tan(0.5 * (lo + hi))
     return t, _cost(t, a, b, c, d, f0, f1), best, costs
 
 
-def model_correct(F, x0, x1, faults=()) -> dict:
+def model_correct(F, x0, x1, faults=(), search: str = "golden") -> dict:
     """optimal_correct as the kernel computes it, float64: `corrected` (N, 4)
     and `basin_gap` (N,), the relative cost gap between the grid's two lowest
     local minima, or between the best and the asymptote (inf where there is
     no second). `faults`: "grid_ties_to_the_last_index",
-    "asymptote_left_out"."""
+    "asymptote_left_out"; `search`: model_min_cost_t's."""
     F = np.asarray(F, np.float64)
     x0, x1 = np.asarray(x0, np.float64), np.asarray(x1, np.float64)
     N = len(x0)
@@ -267,7 +338,7 @@ def model_correct(F, x0, x1, faults=()) -> dict:
     a, b, c, d = Fpp[:, 1, 1], Fpp[:, 1, 2], Fpp[:, 2, 1], Fpp[:, 2, 2]
     f0, f1 = e0[:, 2], e1[:, 2]
     col = lambda v: v[:, None]   # noqa: E731
-    t, cost_best, best, costs = model_min_cost_t(a, b, c, d, f0, f1, faults)
+    t, cost_best, best, costs = model_min_cost_t(a, b, c, d, f0, f1, faults, search)
     cost_inf = 1.0 / np.maximum(f0 * f0, 1e-30) + c * c / (a * a + f1 * f1 * c * c + 1e-30)
     use_inf = cost_inf < cost_best
     if "asymptote_left_out" in faults:

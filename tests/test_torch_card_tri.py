@@ -60,11 +60,14 @@ def two_view_case(name: str, cam: PinholeCamera = CAM) -> dict:
     the same points (their descriptors a few bits apart, their angles
     rotated together), poses T0 and T_new (world to camera, float32
     arrays). `name`: "b512", "b2000" (3 levels of that budget), "all_masked",
-    "n1", "pure_rotation", "forward" (a 9 mm forward baseline)."""
-    budget = {"b2000": 2000, "n1": None}.get(name, 512)
+    "n1", "nK" (K corners a keyframe), "pure_rotation", "forward" (a 9 mm
+    forward baseline)."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    N = M = 1 if budget is None else 3 * budget
-    n_common = 1 if budget is None else int(0.6 * N)
+    if name[0] == "n" and name[1:].isdigit():
+        N = M = int(name[1:])
+    else:
+        N = M = 3 * {"b2000": 2000}.get(name, 512)
+    n_common = max(1, int(0.6 * N))
     R0, t0 = np.eye(3), np.zeros(3)
     if name == "pure_rotation":
         Rn, tn = _rot(0.03, 0.01), np.zeros(3)
@@ -123,17 +126,23 @@ def two_view_case(name: str, cam: PinholeCamera = CAM) -> dict:
 def projection_case(name: str, cam: PinholeCamera = CAM) -> dict:
     """match_projection's inputs from a two-view case: keyframe 0's points
     (a 4096-slot map, the common points valid and the rest padding) against
-    keyframe 1's corners at its pose."""
-    c = two_view_case(name, cam)
+    keyframe 1's corners at its pose. "strideS": b512's points only in the
+    map slots 5, 5 + S, 5 + 2 S, ... (S 512: row group 5 of the mask mode's plan; S 264:
+    one row group of the pair modes' plan on 132 SMs, so that its warps take
+    two live rows each)."""
+    stride = int(name[6:]) if name.startswith("stride") else None
+    c = two_view_case("b512" if stride else name, cam)
     P = max(4096, len(c["X"]))
+    slots = np.arange(5, P, stride)[:len(c["X"])] if stride else np.arange(len(c["X"]))
+    n = len(slots)
     Xw = np.zeros((P, 3), np.float32)
-    Xw[:len(c["X"])] = c["X"]
+    Xw[slots] = c["X"][:n]
     valid = np.zeros(P, bool)
-    valid[:len(c["X"])] = c["valid0"][:len(c["X"])]
+    valid[slots] = True if stride else c["valid0"][:n]
     desc = np.zeros((P, 8), np.uint32)
-    desc[:len(c["X"])] = c["desc0"][:len(c["X"])]
+    desc[slots] = c["desc0"][:n]
     level = np.zeros(P, np.int32)
-    level[:len(c["X"])] = c["level0"][:len(c["X"])]
+    level[slots] = c["level0"][:n]
     return {"Xw": Xw, "desc_p": desc, "valid_p": valid, "level_p": level,
             "R": c["R_new"], "t": c["t_new"], "desc_f": c["desc1"], "uv_f": c["uv1"],
             "level_f": c["level1"], "valid_f": c["valid1"]}
@@ -152,8 +161,12 @@ def se3(R, t) -> SE3:
     return SE3(R=R, t=t)
 
 
-TWO_VIEW_CASES = ["b512", "b2000", "all_masked", "n1", "pure_rotation", "forward"]
-PROJECTION_CASES = ["b512", "b2000", "all_masked", "n1"]
+# n1537: a triangulation of 1,537 rows (one more than a block count of
+# 8-row blocks); n2049: one corner over the pair modes' column chunk
+# (PAIR_CW), so the split route runs; n1001: N a multiple of neither 8 nor 32
+TWO_VIEW_CASES = ["b512", "b2000", "all_masked", "n1", "n1537", "pure_rotation", "forward"]
+PROJECTION_CASES = ["b512", "b2000", "all_masked", "n1", "stride512", "stride264", "n2049",
+                    "n1001"]
 
 
 @pytest.fixture
@@ -203,11 +216,13 @@ def test_cuda_projection_match(cuda, name, radius):
     assert d64.numel() == 0 or (float(d64.max()) < 1e-4 and float(dp.max()) < 1e-2)
     if name == "all_masked":
         assert int(got.num) == 0
-    elif name.startswith("b"):
+    elif name.startswith("b") or name == "n2049":
         assert int(got.num) > 100
+    elif name.startswith("stride"):
+        assert int(got.num) > 0
 
 
-@pytest.mark.parametrize("name", ["b512", "b2000", "n1"])
+@pytest.mark.parametrize("name", ["b512", "b2000", "n1", "n2049", "n1001"])
 def test_cuda_epipolar_match_with_F(cuda, name):
     c = tensors(two_view_case(name), cuda)
     T_10 = se3(c["R_new"], c["t_new"]).compose(se3(c["R0"], c["t0"]).inverse())
@@ -271,5 +286,5 @@ def test_cuda_epipolar_triangulate(cuda, name, optimal):
     assert rep["ok"], rep
     if name == "pure_rotation":
         assert not bool(ok.any()) and not bool(okp.any())
-    elif name in ("b512", "b2000"):
+    elif name in ("b512", "b2000", "n1537"):
         assert int(ok.sum()) > 100

@@ -9,10 +9,16 @@ _min_cost_t, hybrid._epipolar_triangulate with optimal True and False),
 on seeded numpy inputs at N <= 256; the t -> inf branch, exact grid ties, a
 pure rotation and masked rows; the CPU path never loading a library and a
 card call without one raising; and the verdicts (pair_parity, tri_parity)
-refusing the faults the smoke plants.
+refusing the faults the smoke plants. The kernels' own work split: the
+pair modes' plan covering every row and column once, the triangulation's
+warp argmin (its lane strides and shuffle order) against the sequential
+loop's rule, the smoke's fault targets each once in the shipped sources,
+and every `// stage:` mark found by tools/ba_stages.py.
 """
 
 import math
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +41,11 @@ from libcml_tpu_torch.ops import kernel_build as kb
 from libcml_tpu_torch.ops import triangulate as tr
 from libcml_tpu_torch.runtime import hybrid as thyb
 from test_torch_card_tri import projection_case, se3, tensors, two_view_case
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import ba_stages  # noqa: E402
+import chip_smoke as cs  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -218,6 +229,56 @@ def test_min_cost_t_matches_plain_and_jax_with_exact_ties():
     tp, _ = ttri._min_cost_t(*(torch.tensor(x, dtype=torch.float32) for x in tie))
     assert abs(float(tp[0]) + 0.3) < 1e-3
 
+
+
+@pytest.mark.parametrize("scene", ["small", "forward"])
+def test_lane_section_model_matches_golden_and_jax(scene):
+    """The kernel's section search over a warp's lanes (tr.lane_section, in
+    place of the reference's 40 golden-section steps): on seeded pencils
+    its minimum within 1e-7 rad of the golden model's and of the JAX
+    package's float32 _min_cost_t (or their costs equal to float64's
+    flatness, 1e-12 relative, and float32's, 1e-6); on noisy two-view pairs
+    its corrected pixels within MODEL_TOL of the golden model's and of the
+    JAX package's optimal_correct run in float64 (the same basins)."""
+    rng = np.random.default_rng(5)
+    a, b, c, d = rng.normal(size=(4, 256))
+    f0, f1 = rng.uniform(-2, 2, (2, 256))
+    tl, cl, _, _ = tr.model_min_cost_t(a, b, c, d, f0, f1, search="lanes")
+    tg, cg, _, _ = tr.model_min_cost_t(a, b, c, d, f0, f1)
+    tj, cj = jmin_cost_t(*(jnp.asarray(x, jnp.float32) for x in (a, b, c, d, f0, f1)))
+    for t_ref, c_ref, flat in ((tg, cg, 1e-12), (np.asarray(tj), np.asarray(cj), 1e-6)):
+        close = np.abs(np.arctan(tl) - np.arctan(t_ref)) < 1e-7
+        same = np.abs(cl - c_ref) <= flat * np.maximum(np.abs(cl), 1e-6)
+        assert np.all(close | same)
+    n = 200
+    cam = TCAM if scene == "small" else FORWARD_CAM
+    rng = np.random.default_rng(9)
+    uv = rng.uniform([10, 10], [cam.width - 10, cam.height - 10], (n, 2))
+    z = rng.uniform(2.0, 12.0, n)
+    X = np.c_[(uv[:, 0] - cam.cx) / cam.fx * z, (uv[:, 1] - cam.cy) / cam.fy * z, z]
+    R = _rot_small(0.01) if scene == "small" else np.eye(3)
+    t = np.array([0.2, 0.01, 0.05]) if scene == "small" else np.array([0.0002, 0.0001, -0.009])
+    Xc = X @ R.T + t
+    x1 = np.c_[cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx, cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy]
+    x0 = uv + rng.normal(0, 0.5, uv.shape)
+    x1 = x1 + rng.normal(0, 0.7, x1.shape)
+    Ki = np.linalg.inv(np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]]))
+    F = Ki.T @ np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ R @ Ki
+    lanes = tr.model_correct(F, x0, x1, search="lanes")
+    golden = tr.model_correct(F, x0, x1)
+    hold = golden["basin_gap"] > tr.BASIN_REL
+    assert hold.mean() > 0.95
+    px = tr.MODEL_TOL["px"]
+    assert np.abs(lanes["corrected"] - golden["corrected"]).max(1)[hold].max() <= px
+    with jax.enable_x64(True):
+        j0, j1 = joptimal(jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(F))
+    jx = np.c_[np.asarray(j0), np.asarray(j1)]
+    assert np.abs(lanes["corrected"] - jx).max(1)[hold].max() <= px
+
+
+def _rot_small(yaw: float) -> np.ndarray:
+    c, s = math.cos(yaw), math.sin(yaw)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 def _f64_plain(c, idx, valid, F64, T_10, optimal):
     t = tensors(c, "cpu")
@@ -437,3 +498,105 @@ def test_cpu_calls_load_no_library_and_card_calls_raise_without_one(monkeypatch)
                                                p["valid_f"])):
         with pytest.raises(kb.KernelBuildError):
             fn()
+
+
+# -- the kernels' work split and the smoke's faults -----------------------------------------------
+
+
+@pytest.mark.parametrize("M", [1, 1536, hm.PAIR_CW + 1])
+@pytest.mark.parametrize("N", [1, 7, 650, 4096])
+def test_pair_plan_covers_every_row_and_column_once(N, M):
+    """pair_plan's units (row group g: rows g + j groups, j < PAIR_ROWS;
+    chunk k: columns [k cw, (k + 1) cw)) hold every row and column exactly
+    once, pass hamming_pairs_launch's checks, and fit one wave of
+    PAIR_BLOCKS_PER_SM blocks an SM on 132 SMs where a wave can hold them."""
+    groups, chunks, cw = hm.pair_plan(N, M, 132)
+    rows = (np.arange(groups)[:, None] + np.arange(hm.PAIR_ROWS)[None, :] * groups).ravel()
+    rows = rows[rows < N]
+    np.testing.assert_array_equal(np.sort(rows), np.arange(N))
+    cols = np.concatenate([np.arange(k * cw, min((k + 1) * cw, M)) for k in range(chunks)])
+    np.testing.assert_array_equal(cols, np.arange(M))
+    assert 0 < cw <= hm.PAIR_CW and chunks * cw >= M and (chunks - 1) * cw < M
+    assert groups * hm.PAIR_ROWS >= N
+    if -(-N // hm.PAIR_ROWS) * chunks <= hm.PAIR_BLOCKS_PER_SM * 132:
+        assert groups * chunks <= hm.PAIR_BLOCKS_PER_SM * 132
+    assert (chunks == 1) == (M <= hm.PAIR_CW)
+
+
+def _grid_costs(pencils) -> np.ndarray:
+    """The 129 grid costs of (N, 6) pencils (a, b, c, d, f0, f1)."""
+    P = np.asarray(pencils, np.float64)
+    tan = np.tan(tr.grid_angles())[None, :]
+    return tr._cost(tan, *(P[:, k:k + 1] for k in range(6)))
+
+
+@pytest.mark.parametrize("case", ["tie", "random", "nan_at_0", "nan_elsewhere"])
+def test_warp_argmin_follows_the_sequential_rule(case):
+    """The kernel's grid argmin as its warp finds it (tr.warp_argmin: lane l
+    folds l, l + 32, ..., then xor shuffles) against the reference loop's
+    rule (tr.sequential_argmin): the exact tie of FAULT_PENCILS["tie"]
+    (first index; the fault the last), seeded random pencils with and
+    without costs rounded into ties, a NaN at index 0 (kept), NaNs
+    elsewhere (never taken)."""
+    rng = np.random.default_rng(11)
+    if case == "tie":
+        costs = _grid_costs([[10.0, 0.0, 0.0, 1.0, 0.0, 1.0]])
+    else:
+        costs = _grid_costs(np.c_[rng.normal(size=(256, 4)), rng.uniform(-2, 2, (256, 2))])
+        costs[128:] = np.round(costs[128:], 1)          # many exact ties
+    if case == "nan_at_0":
+        costs[:, 0] = np.nan
+    if case == "nan_elsewhere":
+        costs[rng.random(costs.shape) < 0.2] = np.nan
+        costs[:, 0] = np.where(np.isnan(costs[:, 0]), 1e9, costs[:, 0])
+    got, want = tr.warp_argmin(costs), tr.sequential_argmin(costs)
+    np.testing.assert_array_equal(got, want)
+    if case == "nan_at_0":
+        assert (got == 0).all()
+    else:
+        assert not np.isnan(costs[np.arange(len(got)), got]).any()
+    last = tr.warp_argmin(costs, last_on_ties=True)
+    if case == "tie":
+        assert last[0] > got[0] and costs[0, last[0]] == costs[0, got[0]]
+    if case == "random":
+        assert (last != got).any()
+        row_min = np.nanmin(costs, 1)
+        np.testing.assert_array_equal(costs[np.arange(len(got)), last], row_min)
+
+
+@pytest.mark.parametrize("fault", sorted(cs.TRI_FAULTS))
+def test_tri_fault_targets_occur_once_in_shipped_sources(fault, tmp_path):
+    """Each of the smoke's planted faults (cs.TRI_FAULTS) names a line its
+    shipped source holds exactly once, and the copy write_tri_faults makes
+    differs from it by that substitution alone."""
+    src, old, new = cs.TRI_FAULTS[fault]
+    text = src.read_text()
+    assert text.count(old) == 1 and new not in text
+    copy = cs.write_tri_faults(tmp_path)[fault]
+    assert copy.read_text() == text.replace(old, new)
+    assert src.read_text() == text
+
+
+@pytest.mark.parametrize("source", [hm.SOURCE, tr.SOURCE], ids=lambda p: p.name)
+def test_stage_marks_are_found_by_ba_stages(source, tmp_path):
+    """Every `// stage:` mark of the pair-test and triangulation sources is
+    one that tools/ba_stages.py's MARK finds, each name once, and the copy
+    that instrument writes (as --pairs does) has a stamp for each; a source
+    that has marks gets no UNMARKED_PAIR_MARKS."""
+    text = source.read_text()
+    written = [ln.strip()[len("// stage: "):] for ln in text.splitlines()
+               if ln.strip().startswith("// stage:")]
+    found = [m.group(2) for m in ba_stages.MARK.finditer(text)]
+    assert found == written and len(set(found)) == len(found) > 0, (written, found)
+    assert ba_stages.add_unmarked_pair_marks(source.name, text) == text
+
+    class Tree:
+        csrc = kb.CSRC
+
+    copy, stages = ba_stages.instrument(Tree(), tmp_path / "pair_stages",
+                                        prefix=("hamming_", "triangulate"),
+                                        edit=ba_stages.add_unmarked_pair_marks)
+    stamped = (copy / source.name).read_text()
+    assert set(found) <= set(stages)
+    assert all(f"ba_stage({stages.index(n)});" in stamped for n in found)
+    assert not any(ln.strip().startswith("// stage:") for ln in stamped.splitlines())

@@ -44,6 +44,25 @@ stamps (its `// stage: NAME` marks in csrc/orb_extract.cu, as
 chip_smoke.py phase 17 prints them for this tree); then the builds' cold
 and warm device ms in turns (each in order, then in reverse). Needs one
 CUDA card; no JAX.
+
+    python3 tools/ba_stages.py --pairs [--parent DIR] [--frames 60] [--reps 20] [--out FILE]
+
+--pairs takes the pair-test modes of the Hamming kernel and the
+triangulation kernel instead (ops/hamming_match.py match_projection_cuda and
+match_epipolar_cuda, ops/triangulate.py triangulate_cuda) on real calls:
+every match_projection and _epipolar_triangulate call of the smoke's
+hybrid-tracking frames and of the full hybrid over its first `--frames`
+frames (chip_smoke.PairCapture, as phases 4 and 5 make them). For each
+build: the sha256 of every call's outputs by kernel (chip_smoke.pair_digest:
+equal across builds where the kernels agree bit for bit) and the first call
+that differs; its triangulations under triangulate.tri_parity against the
+golden-section model, float64 and the plain form (tri_readings); the stage
+stamps (`// stage: NAME` marks in csrc/hamming_match.cu and
+csrc/triangulate.cu; a tree whose sources have none, such as commit
+58485b9's, gets them at fixed lines, UNMARKED_PAIR_MARKS) of the projection
+match at phase 4's first call, the epipolar match at phase 5's first
+keyframe and the triangulation after it; then cold and warm device ms of
+those three in turns.
 """
 
 from __future__ import annotations
@@ -58,6 +77,7 @@ import re
 import shutil
 import statistics
 import sys
+from collections import Counter
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -70,9 +90,13 @@ from libcml_tpu_torch import workload as wl  # noqa: E402
 from libcml_tpu_torch.models.direct import ba as tree_ba  # noqa: E402
 from libcml_tpu_torch.ops import ba_sweep as tree_bk  # noqa: E402
 from libcml_tpu_torch.ops import kernel_build as kb  # noqa: E402
+from libcml_tpu_torch.models.indirect.triangulation import fundamental  # noqa: E402
+from libcml_tpu_torch.ops import hamming_match as tree_hm  # noqa: E402
 from libcml_tpu_torch.ops import orb_extract as tree_oe  # noqa: E402
+from libcml_tpu_torch.ops import triangulate as tree_tr  # noqa: E402
 from libcml_tpu_torch.ops.image import build_pyramid  # noqa: E402
 from libcml_tpu_torch.runtime.odometry import DirectOdometry  # noqa: E402
+from libcml_tpu_torch.core.lie import SE3  # noqa: E402
 
 # MAXB: blocks whose stamps the tables hold (the ORB kernel's cell pass has
 # 1,570 blocks at 640x480)
@@ -325,6 +349,254 @@ def orb_main(a, dev, card: str) -> dict:
     return out
 
 
+class PairBuild:
+    """The pair-test Hamming kernel and the triangulation kernel of one tree:
+    its wrapper modules `hm` and `tr` (for another tree, its
+    ops/hamming_match.py and ops/triangulate.py loaded from its files, `tr`
+    pointed at that `hm`, both at its own csrc/); inside `sources(dir)`, the
+    wrappers launch the libraries built from the sources in `dir`."""
+
+    def __init__(self, name: str, tree: Path | None = None):
+        self.name = name
+        if tree is None:
+            self.hm, self.tr, self.csrc = tree_hm, tree_tr, kb.CSRC
+        else:
+            pkg = tree / "libcml_tpu_torch"
+            self.csrc = pkg / "csrc"
+            self.hm = _load_module(f"_hamming_match_{name}", pkg / "ops" / "hamming_match.py")
+            self.tr = _load_module(f"_triangulate_{name}", pkg / "ops" / "triangulate.py")
+            self.tr.hm = self.hm
+            for mod in (self.hm, self.tr):
+                mod.SOURCE = self.csrc / mod.SOURCE.name
+
+    @contextlib.contextmanager
+    def sources(self, csrc: Path):
+        before = self.hm.SOURCE, self.tr.SOURCE
+        self.hm.SOURCE, self.tr.SOURCE = (csrc / p.name for p in before)
+        try:
+            yield
+        finally:
+            self.hm.SOURCE, self.tr.SOURCE = before
+
+
+# The pair-test and triangulation sources before their redesign (commit
+# 58485b9) carry no `// stage:` marks: each (anchor, name, indent,
+# occurrence) puts one after the `occurrence`-th line run that reads
+# `anchor`, where the redesign's stages begin and end in that code
+UNMARKED_PAIR_MARKS = {
+    "hamming_match.cu": (
+        ("void pred_unit(const Args& a, PredSmem& s, int group, int chunk, int c0, int c1) {",
+         "pair_start", 2, 1),
+        ("  if (MODE == MODE_EPI && threadIdx.x == 0) epi_geometry(a, s.F);\n  __syncthreads();",
+         "pair_zero_geometry", 2, 1),
+        ("      live = proj_row(a, row, chunk == 0 && lane == 0, rt);\n  }\n"
+         "  if (!__syncthreads_or(live)) {               // every row masked: stage nothing\n"
+         "    if (in && lane == 0) emit_row(a, chunk, row, empty());\n    return;\n  }",
+         "pair_row_test", 2, 1),
+        ("    if constexpr (MODE == MODE_PROJ) s.lev[c] = __ldg(a.level_t + c0 + c);\n  }\n"
+         "  __syncthreads();", "pair_staging", 2, 1),
+        ("      if (p) queue[queued + __popc(bits & ((1u << lane) - 1u))] = (uint16_t)c;\n"
+         "      queued += n;\n    }", "pair_ballots", 4, 1),
+        ("    if (queued) drain();\n    b = warp_merge(b);\n    if (lane == 0) emit_row(a, chunk,"
+         " row, b);", "pair_drains", 4, 2),
+        ("    if (key < COL_INIT) atomicMin(&a.col_best[c0 + c], key);\n  }", "pair_col_atomics",
+         2, 2),
+        ("    *a.num = total;\n    a.tickets[a.groups + a.chunks] = 0;\n  }", "finish", 2, 1),
+        ("  const unsigned int l = last;", "tickets", 2, 1),
+        ("    if (threadIdx.x == 0) a.tickets[group] = 0;", "row_merge", 4, 1),
+        ("    if (threadIdx.x == 0) a.tickets[a.groups + chunk] = 0;", "col_unpack", 4, 1)),
+    "triangulate.cu": (
+        ("__global__ void __launch_bounds__(TPB) triangulate_kernel(const TriArgs a) {",
+         "tri_start", 2, 1),
+        ("    for (int k = 0; k < KEEP; ++k) keep[k] = hist[top[k]] >= floor10 ? top[k] : -1;\n"
+         "  }\n  __syncthreads();", "tri_histogram", 2, 1),
+        ("  const Pencil p{Fpp[4], Fpp[5], Fpp[7], Fpp[8], e0[2], e1[2]};", "tri_epipoles", 2, 1),
+        ("      best = i;\n    }\n  }", "tri_grid", 2, 1),
+        ("    else\n      lo = m1;\n  }", "tri_golden", 2, 1),
+        ("  a.ok[i] = a.valid[i] && in_top && tri_ok && depth_ok;", "tri_dlt", 2, 1)),
+}
+
+
+def add_unmarked_pair_marks(name: str, text: str) -> str:
+    """UNMARKED_PAIR_MARKS put into a source that has no `// stage:` mark."""
+    if MARK.search(text) or name not in UNMARKED_PAIR_MARKS:
+        return text
+    for anchor, mark, indent, occurrence in UNMARKED_PAIR_MARKS[name]:
+        i = -1
+        for _ in range(occurrence):
+            i = text.index(anchor, i + 1)
+        j = text.index("\n", i + len(anchor) - 1) + 1
+        text = text[:j] + " " * indent + f"// stage: {mark}\n" + text[j:]
+    return text
+
+
+def pair_stamps(build: PairBuild, calls: dict, reps: int) -> dict | None:
+    """The build's stage stamps on each named call (stage_report over `reps`
+    calls of a copy of its csrc/ with its `// stage:` marks made stamps),
+    None where its sources have no marks. `calls`: name -> (fn(build),
+    source name)."""
+    copy, stages = instrument(build, kb.BUILD_DIR / "pair_stages" / build.name,
+                              prefix=("hamming_", "triangulate"), edit=add_unmarked_pair_marks)
+    if not stages:
+        return None
+    kb.build_many([copy / build.hm.SOURCE.name, copy / build.tr.SOURCE.name])
+    named = {n: (lambda fn=fn: fn(build), src) for n, (fn, src) in calls.items()}
+    return {**stage_report(build, copy, stages, named, reps), "blocks_held": MAXB}
+
+
+def capture_pairs(dev, frames: int):
+    """Every match_projection and _epipolar_triangulate call (cloned
+    arguments, chip_smoke.PairCapture) of the smoke's hybrid-tracking frames
+    (phase 4) and of the full hybrid over its first `frames` frames (phase
+    5), with phase 4's projection inputs."""
+    cam, traj, imgs = wl.render_frames(dev, max(frames, max(cs.HYBRID_FRAMES) + 1))
+    with cs.PairCapture() as cap:
+        cap.run = "hybrid_tracking"
+        cs.hybrid_phase(dev, cam, traj, imgs)
+        cap.run = "hybrid"
+        odo = wl.hybrid_odometry(cam, dev=dev)
+        for i, (img, _) in enumerate(imgs[:frames]):
+            odo.process(img.cpu().numpy(), float(i))
+        torch.cuda.synchronize()
+    return cap.calls
+
+
+def projection_args(args, kw) -> tuple:
+    """match_projection_cuda's arguments of a captured match_projection call."""
+    Xw, desc_p, valid_p, level_p, T, cam, desc_f, uv_f, level_f, valid_f = args[:10]
+    c = lambda x: x.contiguous()   # noqa: E731
+    return (c(Xw), c(desc_p), c(valid_p), c(level_p), c(T.R), c(T.t), cam, c(desc_f), c(uv_f),
+            c(level_f), c(valid_f), cs._radius(kw, args))
+
+
+def epipolar_args(args, kw) -> tuple:
+    """(match_epipolar_cuda's positional arguments, its keywords,
+    triangulate_cuda's feature arguments, cam, optimal) of a captured
+    _epipolar_triangulate call."""
+    desc0, uv0, valid0, angle0, desc1, uv1, valid1, angle1, T_new, T0, cam = \
+        (x.contiguous() if torch.is_tensor(x) else x for x in args[:11])
+    optimal = kw.get("optimal", args[11] if len(args) > 11 else True)
+    poses = tuple(x.contiguous() for x in (T_new.R, T_new.t, T0.R, T0.t))
+    return ((desc0, uv0, valid0, desc1, uv1, valid1), {"poses": poses, "cam": cam},
+            (uv0, uv1, angle0, angle1), cam, optimal)
+
+
+def run_pairs(build: PairBuild, calls: dict) -> dict:
+    """The build's outputs on every captured call, by kernel: projection
+    matches, epipolar matches (T_10 and F made in the launch) and the
+    triangulation on each of those matches (with its probe)."""
+    out = {"hamming_projection": [], "hamming_epipolar": [], "triangulate": []}
+    for _, args, kw in calls["projection"]:
+        out["hamming_projection"].append(build.hm.match_projection_cuda(*projection_args(args,
+                                                                                         kw)))
+    for _, args, kw in calls["epipolar"]:
+        margs, mkw, feats, cam, optimal = epipolar_args(args, kw)
+        m = build.hm.match_epipolar_cuda(*margs, **mkw)
+        probe = torch.full((feats[0].shape[0], 4), float("nan"), device=feats[0].device)
+        X0, ok = build.tr.triangulate_cuda(*feats, m.best, m.ok, m.geom, cam, optimal, probe)
+        out["hamming_epipolar"].append(m)
+        out["triangulate"].append({"X0": X0, "ok": ok, "probe": probe})
+    torch.cuda.synchronize()
+    return out
+
+
+def tri_readings(calls: dict, res: dict) -> dict:
+    """The build's triangulations (on its own matches) under this tree's
+    verdict tr.tri_parity against the plain float32 form, the golden-section
+    numpy model and the plain form in float64, as chip_smoke.epipolar_check
+    holds them: calls that pass, the largest corrected-pixel distance from
+    the model and keyframe-0 pixel distance from float64, basin and depth
+    edges."""
+    out = Counter()
+    worst = {"vs_model_px": 0.0, "vs_f64_px": 0.0, "vs_f64_corrected_px": 0.0}
+    for (_, args, kw), m, t in zip(calls["epipolar"], res["hamming_epipolar"],
+                                   res["triangulate"]):
+        _, _, (uv0, uv1, angle0, angle1), cam, optimal = epipolar_args(args, kw)
+        T_10 = args[8].compose(args[9].inverse())
+        plain = tree_tr.plain_triangulate(uv0, uv1, angle0, angle1, m.best, m.ok,
+                                          fundamental(T_10, cam), T_10, cam, optimal)
+        f64 = tree_tr.plain_triangulate(uv0.double(), uv1.double(), angle0, angle1, m.best, m.ok,
+                                        m.geom[:9].reshape(3, 3),
+                                        SE3(R=m.geom[9:18].reshape(3, 3), t=m.geom[18:21]),
+                                        cam, optimal)
+        model = tree_tr.model_triangulate(*(x.cpu().numpy() for x in (uv0, uv1, angle0, angle1,
+                                                                      m.best, m.ok)),
+                                          m.geom.cpu().numpy(), cam, optimal)
+        rep = tree_tr.tri_parity({"X0": t["X0"], "ok": t["ok"], "corrected": t["probe"]}, plain,
+                                 model, f64, cam)
+        out["calls"] += 1
+        out["ok"] += int(rep["ok"])
+        out["rows"] += rep["rows"]
+        out["basin_edges"] += rep["basin_edges"]
+        out["depth_edges"] += rep["depth_edges"]
+        worst["vs_model_px"] = max(worst["vs_model_px"], rep["vs_model"]["max_corrected_px"])
+        worst["vs_f64_px"] = max(worst["vs_f64_px"], rep["vs_f64"]["max_pixel"])
+        worst["vs_f64_corrected_px"] = max(worst["vs_f64_corrected_px"],
+                                           rep["vs_f64"]["max_corrected_px"])
+    return {**out, **worst}
+
+
+def pairs_main(a, dev, card: str) -> dict:
+    """--pairs: both kernels of each build on every captured call."""
+    builds = [PairBuild("tree")] + ([PairBuild("parent", a.parent.resolve())] if a.parent else [])
+    built = kb.build_many([p for b in builds for p in (b.hm.SOURCE, b.tr.SOURCE)], verbose=True)
+    out = {"card": card, "ptxas": {f"{p.parent.parent.parent.name}/{p.name}":
+                                   [ln.strip() for ln in log.splitlines()
+                                    if "registers" in ln or "spill" in ln or "smem" in ln]
+                                   for p, _, log in built}, "builds": {}}
+    print(json.dumps(out), flush=True)
+    calls = capture_pairs(dev, a.frames)
+    proj, epi = calls["projection"], calls["epipolar"]
+    out["calls"] = {"projection": len(proj), "epipolar": len(epi)}
+    print(json.dumps({"calls": out["calls"]}), flush=True)
+    results = {b.name: run_pairs(b, calls) for b in builds}
+    first = builds[0].name
+    for b in builds:
+        res = results[b.name]
+        row = {"build": b.name, "digest": {k: cs.pair_digest(v) for k, v in res.items()},
+               "tri_parity": tri_readings(calls, res), "card": card}
+        if b.name != first:
+            row["first_differing_call"] = {
+                k: next((i for i, (x, y) in enumerate(zip(v, results[first][k]))
+                         if cs.pair_digest([x]) != cs.pair_digest([y])), None)
+                for k, v in res.items()}
+        out["builds"][b.name] = row
+        print(json.dumps(row), flush=True)
+
+    # the timed calls: phase 4's first projection match, phase 5's first
+    # keyframe's epipolar match and the triangulation after it
+    pargs = projection_args(*proj[0][1:])
+    run5 = [c for c in epi if c[0] == "hybrid"] or epi
+    margs, mkw, feats, cam, optimal = epipolar_args(*run5[0][1:])
+    ms = {b.name: b.hm.match_epipolar_cuda(*margs, **mkw) for b in builds}
+    timed = {
+        "hamming_projection": (lambda b: b.hm.match_projection_cuda(*pargs), "hamming_match.cu"),
+        "hamming_epipolar": (lambda b: b.hm.match_epipolar_cuda(*margs, **mkw),
+                             "hamming_match.cu"),
+        "triangulate": (lambda b: b.tr.triangulate_cuda(*feats, ms[b.name].best, ms[b.name].ok,
+                                                         ms[b.name].geom, cam, optimal),
+                        "triangulate.cu")}
+    out["shapes"] = {"hamming_projection": [pargs[0].shape[0], pargs[7].shape[0]],
+                     "hamming_epipolar": [margs[0].shape[0], margs[3].shape[0]],
+                     "triangulate": [feats[0].shape[0], bool(optimal)]}
+    for b in builds:
+        stamps = pair_stamps(b, timed, a.reps)
+        out["builds"][b.name]["stamps"] = stamps
+        for name in timed:
+            print(json.dumps({"build": b.name, "stamps": name,
+                              **(stamps[name] if stamps else {"none": True}), "card": card}),
+                  flush=True)
+    floor = cs.launch_floor()
+    times = {n: {b.name: {"cold": [], "warm": []} for b in builds} for n in timed}
+    for b in builds + builds[::-1]:
+        for n, (fn, _) in timed.items():
+            times[n][b.name]["cold"].append(cs.cuda_ms(lambda: fn(b)))
+            times[n][b.name]["warm"].append(cs.cuda_ms(lambda: fn(b), cold=False))
+    out.update(ms=times, floor=floor)
+    print(json.dumps({"ms": times, **floor, "shapes": out["shapes"], "card": card}), flush=True)
+    return out
+
+
 def capture_window(dev, frames: int):
     """The last run_ba call's (state, images, cam, cfg) of DirectOdometry on
     the smoke's first `frames` frames."""
@@ -346,6 +618,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--orb", action="store_true",
                     help="the ORB call at budgets 512, 800 and 2000 in place of the BA window")
+    ap.add_argument("--pairs", action="store_true",
+                    help="the pair-test Hamming kernel and the triangulation kernel on the "
+                         "hybrid's captured calls in place of the BA window")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ba_stages: CUDA is not available", file=sys.stderr)
@@ -353,8 +628,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.nvidia_smi("name,power.limit")
-    if a.orb:
-        out = orb_main(a, dev, card)
+    if a.orb or a.pairs:
+        out = (orb_main if a.orb else pairs_main)(a, dev, card)
         if a.out:
             a.out.parent.mkdir(parents=True, exist_ok=True)
             a.out.write_text(json.dumps(out, indent=1))
