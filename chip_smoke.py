@@ -5,10 +5,11 @@
 Phases (any failure exits non-zero, and no result line is printed):
   0. the card: `nvidia-smi` name and power limit, torch's device name;
      exits non-zero without CUDA.
-  1. build the ten hand-written kernel sources (csrc/hamming_match.cu,
+  1. build the twelve hand-written kernel sources (csrc/hamming_match.cu,
      track_lm.cu, pnp_lm.cu, ba_sweep.cu, ba_solve.cu, ba_run.cu,
-     trace_epipolar.cu, local_ba.cu, orb_extract.cu, triangulate.cu) from
-     the sources in this checkout, one nvcc each, all started together.
+     trace_epipolar.cu, local_ba.cu, orb_extract.cu, triangulate.cu,
+     kf_activate.cu, kf_refresh.cu) from the sources in this checkout, one
+     nvcc each, all started together.
   2. the kernel against its plain PyTorch version on the card, at the
      main path's shapes (random masks and frame 1's real phase-4 masks)
      and at edge cases, exact equality required; kernel times with CUDA
@@ -214,12 +215,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      phase 4's first match) refused; one _epipolar_triangulate call with no
      sync and no memcpy; cold and warm ms of the three entry points beside
      the launch floor, their plain forms', bounds and shares.
+ 19. the direct keyframe programs (csrc/kf_activate.cu, csrc/kf_refresh.cu)
+     on every call that phases 3, 5 and 9 made of _activate_and_clear and
+     _refresh_after_kf (the keyframe events) and of their pieces at start-up
+     (add_points, _tracker_ref_in_frame, _working_rho_range, select_points
+     with the keyframe's and the initializer's budgets, seed_immatures),
+     each through its dispatcher against its plain form on the same inputs
+     (kf_programs.activate_parity and the range, selection and seed bit for
+     bit; refresh_parity and ref_parity: the arena bit for bit, the tracker
+     reference's pixels within UV_TOL, its samples the plain form's bits at
+     the kernel's pixels, a validity that differs only within EDGE_REL of
+     its threshold, each such point printed); one launch a call (at most
+     three allowed for _refresh_after_kf); two planted faults (a row's
+     positions one free slot further, the top k's ties to the highest index
+     on the first refresh's keyframe flat below its top third) refused;
+     both programs' cold and warm ms beside the launch floor, their host
+     waits (none) and enqueues (one), plain ms, bounds and shares, and each
+     refresh stage alone through its entry point.
 Every phase from 3 on reports every kernel's launches of its run (counted
 from 0 just before it and read just after); phase 3 must launch track_lm on
-every tracked frame, the BA kernels, and trace_epipolar once on every frame
-whose pose is good; phase 4 the projection test and pnp_lm twice a frame
-and orb_extract once for frame 0 and each tracked frame, phases 5 and 7
-both LM kernels, phase 5 local_ba.
+every tracked frame, the BA kernels, trace_epipolar once on every frame
+whose pose is good, and the keyframe kernels at least once a keyframe;
+phase 4 the projection test and pnp_lm twice a frame and orb_extract once
+for frame 0 and each tracked frame, phases 5 and 7 both LM kernels, phase 5
+local_ba and the keyframe kernels.
 Then phase 2's real-input cases captured in phases 5, 6 and 10 (the first
 keyframe's epipolar band, a relocalization match_descriptors call, the
 staged tick's match_projection; the masks made by the plain forms from the
@@ -237,7 +256,9 @@ path's run and phase 15's times and bound; for local_ba the launches of
 every path's run and phase 16's times and bound; for orb_extract the
 launches of every path's run and phase 17's times and bound; for
 hamming_projection, hamming_epipolar and triangulate the launches of every
-path's run and phase 18's times and bounds), and the result line
+path's run and phase 18's times and bounds; for kf_activate and kf_refresh
+the launches of every path's run and phase 19's times and bounds), and the
+result line
 {"ok": true, "device": {...}} last.
 """
 
@@ -270,7 +291,8 @@ from libcml_tpu_torch.data import corridor
 from libcml_tpu_torch.data.kitti import KittiCapture
 from libcml_tpu_torch.eval.trajectory import ate_rmse
 from libcml_tpu_torch.core.lie import SE3, skew
-from libcml_tpu_torch.models.direct import ba, residuals, tracer, tracker
+from libcml_tpu_torch.models.direct import ba, initializer, residuals, selector, tracer, tracker
+from libcml_tpu_torch.models.direct import window as win_mod
 from libcml_tpu_torch.models.indirect import indirect_ba as iba
 from libcml_tpu_torch.models.indirect import matching, orb
 from libcml_tpu_torch.models.indirect import pnp as pnp_mod
@@ -279,6 +301,7 @@ from libcml_tpu_torch.models.indirect.triangulation import fundamental
 from libcml_tpu_torch.ops import ba_sweep as bk
 from libcml_tpu_torch.ops import hamming_match as hm
 from libcml_tpu_torch.ops import kernel_build, pnp_lm, track_lm
+from libcml_tpu_torch.ops import kf_programs as kfp
 from libcml_tpu_torch.ops import local_ba as lba
 from libcml_tpu_torch.ops import orb_extract as oe
 from libcml_tpu_torch.ops import trace_epipolar as te
@@ -309,14 +332,15 @@ class SmokeFailure(RuntimeError):
 # every kernel's wrapper, whose launch counts each path's run reports: the
 # Hamming kernel's three entry points (the mask modes; the projection and
 # epipolar pair tests computed in the kernel), the triangulation, the LM,
-# BA, tracer, local BA and ORB kernels
+# BA, tracer, local BA and ORB kernels, and the direct keyframe programs'
 PATH_KERNELS = {"hamming_resolve": hm.hamming_resolve_cuda,
                 "hamming_projection": hm.match_projection_cuda,
                 "hamming_epipolar": hm.match_epipolar_cuda, "triangulate": tr.triangulate_cuda,
                 "track_lm": track_lm.track_lm_cuda, "pnp_lm": pnp_lm.pnp_lm_cuda,
                 "ba_sweep": bk.ba_sweep_cuda, "ba_solve": bk.ba_solve_cuda,
                 "ba_run": bk.ba_run_cuda, "trace_epipolar": te.trace_rows_cuda,
-                "local_ba": lba.local_ba_cuda, "orb_extract": oe.orb_extract_cuda}
+                "local_ba": lba.local_ba_cuda, "orb_extract": oe.orb_extract_cuda,
+                "kf_activate": kfp.kf_activate_cuda, "kf_refresh": kfp.kf_refresh_cuda}
 HAMMING_MODES = ("hamming_resolve", "hamming_projection", "hamming_epipolar")
 
 
@@ -635,6 +659,9 @@ def direct_phase(dev, cam, traj, frames) -> tuple[dict, dict]:
             f"the direct path's BA launches {lm}")
     require(good > 0 and lm["trace_epipolar"] == good,
             f"the tracer launched {lm['trace_epipolar']} times over {good} good-pose frames")
+    require(lm["kf_activate"] >= kf and lm["kf_refresh"] >= kf,
+            f"the keyframe programs' launches {lm['kf_activate']}, {lm['kf_refresh']} over "
+            f"{kf} keyframes")
     require(odo.segments == 0 and lost == 0, "direct path lost tracking")
     return res, _snapshot(odo)
 
@@ -914,6 +941,8 @@ def full_hybrid_phase(dev, cam, traj, frames, sites: CallSites) -> tuple[dict, d
     require(np.isfinite(ate) and ate < 0.1, f"hybrid ATE {ate} >= 0.1")
     require(lm["track_lm"] > 0 and lm["pnp_lm"] > 0, f"the hybrid's LM launches {lm}")
     require(lm["local_ba"] > 0, f"the hybrid launched no local BA kernel: {lm}")
+    require(lm["kf_activate"] > 0 and lm["kf_refresh"] > 0,
+            f"the hybrid launched no keyframe-program kernel: {lm}")
     require(odo.segments == 0 and lost == 0, "hybrid lost tracking")
     require(ev["ok_kf"] >= 1, "no indirect keyframe triangulated points and completed a local BA")
     require(launches == sum(sites.launches.values()),
@@ -1872,15 +1901,19 @@ class BACapture:
 
 
 def _map_fields(x, fn):
-    """A BAState or IndirectFactors with `fn` applied to every tensor (SE3
-    fields through R and t); any other tensor through `fn`; else x."""
-    if isinstance(x, (ba.BAState, ba.IndirectFactors)):
-        out = {}
-        for f in dataclasses.fields(x):
-            v = getattr(x, f.name)
-            out[f.name] = SE3(R=fn(v.R), t=fn(v.t)) if isinstance(v, SE3) else fn(v)
-        return type(x)(**out)
-    return fn(x) if isinstance(x, torch.Tensor) else x
+    """`x` with `fn` applied to every tensor inside it: a tensor, or the
+    fields of a dataclass (a BAState, a Window, an SE3, ...) and the items
+    of a tuple or list, recursively; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        kw = {f.name: _map_fields(getattr(x, f.name), fn) for f in dataclasses.fields(x)}
+        # one without tensors (a camera, a config) stays the same object
+        same = all(v is getattr(x, k) for k, v in kw.items())
+        return x if same else dataclasses.replace(x, **kw)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_fields(v, fn) for v in x)
+    return x
 
 
 def _clone_fields(x):
@@ -3862,6 +3895,368 @@ def tri_phase(cap: PairCapture, sites_by_phase: dict, card: str, popc_rate: floa
     return public, timing
 
 
+# -- phase 19 -----------------------------------------------------------------
+
+# every call site of the direct keyframe programs and their pieces: the
+# keyframe event's two programs (_make_keyframe), the startup's pieces
+# (_promote_initialization, the hybrid's _promote_two_view, set_first's
+# selection, _rebuild_tracker_ref); each module's own global is wrapped
+KF_SITES = ((odometry, "_activate_and_clear"), (odometry, "_refresh_after_kf"),
+            (win_mod, "add_points"), (odometry, "_tracker_ref_in_frame"),
+            (odometry, "_working_rho_range"), (hybrid, "_working_rho_range"),
+            (odometry, "select_points"), (hybrid, "select_points"),
+            (initializer, "select_points"), (odometry, "seed_immatures"),
+            (hybrid, "seed_immatures"))
+KF_RUNS = ("direct", "hybrid", "direct_pipelined")
+# planted faults (a source substitution each) that phase 19 builds beside the
+# kernels and runs: position i of a row lands in the (i+1)-th free slot; the
+# top k's ties go to the highest cell index (run on a keyframe flat below its
+# top third, where the cut falls among cells that score 0)
+KF_FAULTS = {
+    "dest_one_free_slot_further": (kfp.ACTIVATE_SOURCE, "      const int s = slots[i];\n",
+                                   "      const int s = slots[min(i + 1, m - 1)];\n"),
+    "topk_ties_to_the_highest_index": (kfp.REFRESH_SOURCE,
+                                       "cnt += (o > me) | ((o == me) & (j < c));",
+                                       "cnt += (o > me) | ((o == me) & (j > c));"),
+}
+# the plain forms' float32 operations, for the bounds: a bilinear sample's
+# floors, clamps, fractions and complements (8) and 6 products and 3 sums a
+# channel; the gradient weight (2 products, 3 sums, a reciprocal, a product,
+# a root); a point transform (unproject 6, two 3x3 products and sums 30,
+# project 8, the tests 8, the cell 4); a selection pixel (2 products, a sum,
+# a root, the threshold and border tests 5); a cell's rank (2 compares a
+# cell)
+KF_SAMPLE_OPS = 8 + 9 * 3
+KF_WEIGHT_OPS = 8
+KF_POINT_OPS = 6 + 30 + 8 + 8 + 4
+KF_PIXEL_OPS = 4 + 5
+# a BA arena row's bytes (uv, host, idepth, idepth_fej, colour, weight,
+# point_valid; res_active is F more) and an immature entry's (uv, colour,
+# rho_lo, rho_hi, n_ok, n_fail, valid)
+KF_BA_ROW_BYTES = 8 + 4 + 4 + 4 + 32 + 32 + 1
+KF_ARENA_ENTRY_BYTES = 8 + 32 + 4 + 4 + 4 + 4 + 1
+
+
+class KfCapture:
+    """Keeps (cloned) the arguments of every call of the keyframe programs
+    and their pieces (KF_SITES) that a run makes, by run."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self.run: str | None = None
+        self._orig: dict = {}
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if self.run is not None:
+                self.calls.setdefault(self.run, []).append((name, _clone_fields(args),
+                                                            _clone_fields(kw)))
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for mod, name in KF_SITES:
+            self._orig[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, self._wrap(name, getattr(mod, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self._orig.items():
+            setattr(mod, name, fn)
+
+
+def _kf_launches() -> tuple[int, int]:
+    return kfp.kf_activate_cuda.launches, kfp.kf_refresh_cuda.launches
+
+
+def kf_check(name: str, args: tuple, kw: dict) -> dict:
+    """One captured call: the kernel (through its dispatcher) against the
+    plain form on the same inputs, with the launches it made."""
+    before = _kf_launches()
+    if name == "_activate_and_clear":
+        got = odometry._activate_and_clear(*args, **kw)
+        n = _kf_launches()
+        want = odometry._activate_and_clear_plain(*args, **kw)
+        rep = kfp.activate_parity(got, want)
+        rep["written"] = int(got[0].ba.point_valid.sum() - args[0].ba.point_valid.sum())
+    elif name == "add_points":
+        got = win_mod.add_points(*args, **kw)
+        n = _kf_launches()
+        slot = args[1]
+        want = win_mod.add_points_plain(args[0], int(slot), *args[2:], **kw)
+        rep = kfp.activate_parity((got, None), (want, None))
+    elif name == "_refresh_after_kf":
+        window, slot, pyr, imm, cam, cfg = args
+        got = odometry._refresh_after_kf(*args)
+        n = _kf_launches()
+        want = odometry._refresh_after_kf_plain(*args)
+        rep = kfp.refresh_parity(got, want, window.ba, int(slot), cam, pyr, cfg)
+    elif name == "_tracker_ref_in_frame":
+        window, slot, pyr, cam, cfg = args
+        got = odometry._tracker_ref_in_frame(*args)
+        n = _kf_launches()
+        want = odometry._tracker_ref_in_frame_plain(*args)
+        rep = kfp.ref_parity(got, want, window.ba, int(slot), cam, pyr, cfg)
+        rep["max_abs_err"] = rep["max_uv_err"]
+    else:
+        fn, plain = {"_working_rho_range": (odometry._working_rho_range,
+                                            odometry._working_rho_range_plain),
+                     "select_points": (selector.select_points, selector.select_points_plain),
+                     "seed_immatures": (tracer.seed_immatures, tracer.seed_immatures_plain)}[name]
+        got = fn(*args, **kw)
+        n = _kf_launches()
+        want = plain(*args, **kw)
+        if name == "seed_immatures":
+            got, want = [getattr(got, f) for f in kfp._ARENA_FIELDS], \
+                [getattr(want, f) for f in kfp._ARENA_FIELDS]
+        differing = [i for i, (a, b) in enumerate(zip(got, want)) if not kfp._bits_equal(a, b)]
+        rep = {"ok": not differing, "differing": differing, "max_abs_err": max(
+            kfp._max_err(a, b) for a, b in zip(got, want))}
+    rep["launches"] = (n[0] - before[0], n[1] - before[1])
+    return rep
+
+
+def activate_bound(window, imm, cfg) -> tuple[float, str, dict]:
+    """Least time of one _activate_and_clear, in ms: the larger of its bytes
+    over the HBM rate and its operations over the f32 rate. Bytes: the BA
+    arena's point rows read once and written once, the immature arena's
+    entries read once and their validity written, the frames' flags, and
+    each texel (3 channels) the ready candidates' pattern samples read,
+    counted once. Operations: each candidate's readiness (6), each ready
+    one's 8 samples and weights."""
+    ba = window.ba
+    P, F = ba.uv.shape[0], ba.ab.shape[0]
+    R, K = imm.valid.shape
+    ready, _ = tracer.mature_mask(imm, cfg)
+    n_ready = int(ready.sum())
+    H, W = window.images.shape[1:3]
+    ids = []
+    for r in range(R):
+        m = ready[r]
+        if not bool(m.any()):
+            continue
+        uv = residuals.pattern_uv(imm.uv[r][m])
+        x0 = torch.clamp(torch.floor(uv[..., 0]), 0, W - 2).long()
+        y0 = torch.clamp(torch.floor(uv[..., 1]), 0, H - 2).long()
+        base = (r * H * W + y0 * W + x0).reshape(-1)
+        ids += [base, base + 1, base + W, base + W + 1]
+    texels = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    nbytes = (2 * P * (KF_BA_ROW_BYTES + F) + R * K * (8 + 4 + 4 + 4 + 1 + 1) + F
+              + 12 * texels)
+    ops = R * K * 6 + n_ready * 8 * (KF_SAMPLE_OPS + KF_WEIGHT_OPS)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "ops": ops, "ready": n_ready, "texels": texels}
+    return (t_o, "operations", detail) if t_o > t_b else (t_b, "bytes", detail)
+
+
+def refresh_bound(window, slot, pyr, imm, cam, cfg) -> tuple[float, str, dict]:
+    """Least time of one _refresh_after_kf, in ms, as activate_bound counts
+    it. Bytes: the keyframe's two gradient channels at every pixel of level
+    0 (the selection), the window's points and poses, the texels the
+    reference's samples read at every level and the seeds' pattern samples
+    read (counted once), the immature arena read once and written once, and
+    the reference, the range and the selection written once. Operations:
+    the points' transforms, the reference's samples and weights, the
+    selection's pixels, and the cells' ranks (two compares a pair)."""
+    ba = window.ba
+    P, F = ba.uv.shape[0], ba.ab.shape[0]
+    Fi, K = imm.valid.shape
+    L = len(pyr)
+    H, W = pyr[0].shape[:2]
+    ref, new = odometry._refresh_after_kf_plain(window, slot, pyr, imm, cam, cfg)
+    texels = 0
+    for l in range(L):
+        h, w = pyr[l].shape[:2]
+        x0 = torch.nan_to_num(torch.clamp(torch.floor(ref.uv[l][:, 0]), 0, w - 2)).long()
+        y0 = torch.nan_to_num(torch.clamp(torch.floor(ref.uv[l][:, 1]), 0, h - 2)).long()
+        b = y0 * w + x0
+        texels += int(torch.unique(torch.cat([b, b + 1, b + w, b + w + 1])).numel())
+    uv = residuals.pattern_uv(new.uv[int(slot)])
+    x0 = torch.clamp(torch.floor(uv[..., 0]), 0, W - 2).long()
+    y0 = torch.clamp(torch.floor(uv[..., 1]), 0, H - 2).long()
+    b = (y0 * W + x0).reshape(-1)
+    seed_texels = int(torch.unique(torch.cat([b, b + 1, b + W, b + W + 1])).numel())
+    g = kfp.select_geometry(H, W, cfg.points_per_kf)
+    cells = g["Hc"] * g["Wc"]
+    nbytes = (H * W * 8 + P * (8 + 4 + 4 + 1) + F * 48 + 12 * texels + 4 * seed_texels
+              + 2 * Fi * K * KF_ARENA_ENTRY_BYTES + L * P * (8 + 4 + 4 + 1) + P * 4 + 8
+              + cfg.points_per_kf * (8 + 1 + 4))
+    ops = (P * KF_POINT_OPS + L * P * (KF_SAMPLE_OPS + KF_WEIGHT_OPS) + H * W * KF_PIXEL_OPS
+           + 2 * cells * cells + K * 8 * (8 + 9))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    detail = {"bytes": nbytes, "ops": ops, "texels": texels, "seed_texels": seed_texels,
+              "cells": cells}
+    return (t_o, "operations", detail) if t_o > t_b else (t_b, "bytes", detail)
+
+
+@contextlib.contextmanager
+def kf_sources(activate: Path | None = None, refresh: Path | None = None):
+    """kf_programs' wrappers launching the libraries built from the given
+    sources inside the block."""
+    before = kfp.ACTIVATE_SOURCE, kfp.REFRESH_SOURCE
+    kfp.ACTIVATE_SOURCE = activate or before[0]
+    kfp.REFRESH_SOURCE = refresh or before[1]
+    try:
+        yield
+    finally:
+        kfp.ACTIVATE_SOURCE, kfp.REFRESH_SOURCE = before
+
+
+def write_kf_faults(out_dir: Path) -> dict:
+    """Each planted fault's source: a copy of its kernel with one
+    substitution, in out_dir/NAME/ beside copies of the headers. Returns
+    {name: path}."""
+    paths = {}
+    for name, (source, old, new) in KF_FAULTS.items():
+        text = source.read_text()
+        require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
+        path = out_dir / name / source.name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        for header in source.parent.glob("*.cuh"):
+            shutil.copy(header, path.parent / header.name)
+        path.write_text(text.replace(old, new))
+        paths[name] = path
+    return paths
+
+
+def half_flat(pyr) -> tuple:
+    """The keyframe's pyramid flat (grey 100, no gradient) below the top
+    third of every level."""
+    out = []
+    for G in pyr:
+        G = G.clone()
+        G[G.shape[0] // 3:] = torch.tensor([100.0, 0.0, 0.0], device=G.device)
+        out.append(G)
+    return tuple(out)
+
+
+def kf_faults(act_call: tuple, ref_call: tuple) -> dict:
+    """Each planted fault built and run on one call through the verdict
+    (the slot fault on the activation that writes the most points, the tie
+    fault on the first refresh with its keyframe flat below its top third),
+    beside the honest kernel on the same inputs."""
+    paths = write_kf_faults(kernel_build.BUILD_DIR / "kf_faults")
+    kernel_build.build_many(list(paths.values()))
+    window, slot, pyr, imm, cam, cfg = ref_call
+    flat_call = (window, slot, half_flat(pyr), imm, cam, cfg)
+    out = {}
+    for name, path in (("honest", None), *paths.items()):
+        act = path if name == "dest_one_free_slot_further" else None
+        ref = path if name == "topk_ties_to_the_highest_index" else None
+        with kf_sources(act, ref):
+            a = kf_check("_activate_and_clear", act_call, {})
+            r = kf_check("_refresh_after_kf", flat_call, {})
+        out[name] = {"activate_ok": a["ok"], "activate_differing": a["differing"],
+                     "refresh_ok": r["ok"], "refresh_arena_differing": r["arena_differing"]}
+    return out
+
+
+def kf_timing(name: str, args: tuple, bound: tuple, card: str) -> dict:
+    """Cold and warm ms of one program call through its dispatcher beside
+    the launch floor, its enqueues and device operations, its host waits,
+    the plain form's ms, the bound and its share."""
+    fn = getattr(odometry, name)
+    plain = getattr(odometry, name + "_plain")
+    host, device_ops = launches_per_call(lambda: fn(*args))
+    waits = _syncs(lambda: fn(*args))
+    ms, warm = cuda_ms(lambda: fn(*args)), cuda_ms(lambda: fn(*args), cold=False)
+    floor = launch_floor()
+    t, by, detail = bound
+    return {"kernel_ms": ms, "kernel_warm_ms": warm, **floor,
+            "above_floor_ms": ms - floor["floor_ms"],
+            "above_floor_warm_ms": warm - floor["floor_warm_ms"],
+            "plain_ms": cuda_ms(lambda: plain(*args), reps=10), "launches_per_call": host,
+            "device_ops_per_call": device_ops, "host_waits": waits, "bound_ms": t,
+            "bound_by": by, "bound_detail": detail, "bound_share": t / ms, "library_ms": None,
+            "card": card}
+
+
+def kf_phase(cap: KfCapture, card: str) -> tuple[dict, dict]:
+    """Phase 19: the keyframe programs' kernels against their plain forms on
+    the card, on every call of the programs and their pieces that phases 3,
+    5 and 9 made (kf_check: activate_parity, refresh_parity, ref_parity;
+    the range, the selection and the seed bit for bit); one launch a call
+    of the activation kernel or of the refresh kernel (1 for a piece, 1 for
+    _refresh_after_kf, at most 3 allowed), no plain form on the card in the
+    runs; the two planted faults refused; cold and warm ms of both programs
+    on phase 3's first keyframe event, their host waits (none), plain ms,
+    bounds and shares."""
+    counts = {run: Counter(name for name, _, _ in cap.calls.get(run, [])) for run in KF_RUNS}
+    print(json.dumps({"phase": "kf_calls", **{k: dict(v) for k, v in counts.items()}}))
+    for run in KF_RUNS:
+        require(counts[run]["_activate_and_clear"] > 0 and counts[run]["_refresh_after_kf"] > 0,
+                f"{run}: no keyframe program captured: {dict(counts[run])}")
+        require(counts[run]["_tracker_ref_in_frame"] > 0 and counts[run]["select_points"] > 0,
+                f"{run}: no startup piece captured: {dict(counts[run])}")
+    reports, worst, edges = [], 0.0, 0
+    by_name: dict = {}
+    for run in KF_RUNS:
+        for k, (name, args, kw) in enumerate(cap.calls[run]):
+            rep = kf_check(name, args, kw)
+            rep.update(run=run, call=k, name=name)
+            limit = 3 if name == "_refresh_after_kf" else 1
+            n = sum(rep["launches"])
+            require(rep["ok"] and 1 <= n <= limit,
+                    f"phase 19: {run} call {k} ({name}) against its plain form: {rep}")
+            worst = max(worst, rep.get("max_abs_err", 0.0))
+            edges += rep.get("edge_points", 0)
+            if rep.get("edge_points"):
+                print(f"  kf {run} call {k} {name}: {rep['edge_points']} reference points "
+                      f"at a decision's edge")
+            by_name.setdefault(name, []).append(rep)
+            reports.append(rep)
+    act_calls = [args for run in KF_RUNS for name, args, _ in cap.calls[run]
+                 if name == "_activate_and_clear"]
+    ref_calls = [args for run in KF_RUNS for name, args, _ in cap.calls[run]
+                 if name == "_refresh_after_kf"]
+    written = [r["written"] for r in by_name["_activate_and_clear"]]
+    act = act_calls[int(np.argmax(written))]
+    faults = kf_faults(act, ref_calls[0])
+    print(json.dumps({"phase": "kf_faults", **faults}))
+    require(faults["honest"]["activate_ok"] and faults["honest"]["refresh_ok"],
+            f"the kernels fail their own fault inputs: {faults['honest']}")
+    require(not faults["dest_one_free_slot_further"]["activate_ok"],
+            "the shifted-slot fault passed the activation's verdict")
+    require(not faults["topk_ties_to_the_highest_index"]["refresh_ok"],
+            "the tie fault passed the refresh's verdict")
+    # the main path's shapes: phase 3's first keyframe event (the activation
+    # that writes the most points of phase 3)
+    first = [args for name, args, _ in cap.calls["direct"] if name == "_activate_and_clear"]
+    act3 = first[int(np.argmax([r["written"] for r in by_name["_activate_and_clear"]
+                                if r["run"] == "direct"]))]
+    ref3 = next(args for name, args, _ in cap.calls["direct"] if name == "_refresh_after_kf")
+    timing = {"_activate_and_clear": kf_timing("_activate_and_clear", act3,
+                                               activate_bound(*act3), card),
+              "_refresh_after_kf": kf_timing("_refresh_after_kf", ref3,
+                                             refresh_bound(*ref3), card)}
+    # each of the refresh's stages alone (one launch of its stage mask, the
+    # pieces' entry points) on the same call
+    window, slot, pyr, imm, cam, cfg = ref3
+    uv, valid, _ = selector.select_points(pyr[0], cfg.points_per_kf)
+    lo, hi = odometry._working_rho_range(window.ba, cfg)
+    stages = {"A_reference": lambda: odometry._tracker_ref_in_frame(window, slot, pyr, cam, cfg),
+              "B_range": lambda: odometry._working_rho_range(window.ba, cfg),
+              "C_select": lambda: selector.select_points(pyr[0], cfg.points_per_kf),
+              "D_seed": lambda: tracer.seed_immatures(imm, slot, pyr[0], uv, valid, lo, hi)}
+    timing["_refresh_after_kf"]["stage_ms"] = {k: cuda_ms(f) for k, f in stages.items()}
+    for name, t in timing.items():
+        limit = 3 if name == "_refresh_after_kf" else 1
+        require(1 <= t["launches_per_call"] <= limit,
+                f"{name} made {t['launches_per_call']} launches a call")
+        require(t["host_waits"]["syncs"] == 0 and t["host_waits"]["memcpys"] == 0,
+                f"{name} waits for the device: {t['host_waits']}")
+        require(t["bound_share"] <= 1.0, f"{name}: under its bound: the bound is wrong")
+    print(json.dumps({"phase": "kf_timing", **timing}))
+    public = {"calls": {k: dict(v) for k, v in counts.items()},
+              "checked": len(reports), "edge_points": edges, "max_abs_err": worst,
+              "written_per_activation": written,
+              "faults": {k: not (v["activate_ok"] and v["refresh_ok"])
+                         for k, v in faults.items() if k != "honest"},
+              "uv_tol": kfp.UV_TOL, "edge_rel": kfp.EDGE_REL}
+    print(json.dumps({"phase": "kf_public", **public}))
+    return public, timing
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of libcml_tpu_torch on one CUDA card.")
@@ -3904,13 +4299,15 @@ def main(argv=None) -> int:
     lba_cap = LocalBACapture().__enter__()
     # and every extract_orb call watched (captured for phase 17 in phases 4-7)
     orb_cap = OrbCapture().__enter__()
+    # and the keyframe programs' calls (captured for phase 19 in phases 3, 5, 9)
+    kf_cap = KfCapture().__enter__()
     with LMCapture() as cap, TraceCapture() as trace_cap:
         cap.arm("track_lm", TRACK_FROM)
         t0 = time.perf_counter()
-        trace_cap.phase = "direct"
+        trace_cap.phase = kf_cap.run = "direct"
         with BACapture(every=("run_ba", "_marg_pieces")) as ba_cap:
             direct, direct_snap = direct_phase(dev, cam, traj, frames)
-        trace_cap.phase = None
+        trace_cap.phase = kf_cap.run = None
         print(f"phase 3 (direct) {time.perf_counter() - t0:.1f} s")
 
         # every match_projection and _epipolar_triangulate call of phases 4-12
@@ -3928,11 +4325,11 @@ def main(argv=None) -> int:
             cap.sites = sites
             t0 = time.perf_counter()
             trace_cap.phase = "hybrid"
-            lba_cap.run = orb_cap.run = pair_cap.run = "hybrid"
+            lba_cap.run = orb_cap.run = pair_cap.run = kf_cap.run = "hybrid"
             with BACapture(every=("run_ba_mixed",)) as mixed_cap:
                 full, hybrid_snap = full_hybrid_phase(dev, cam, traj, frames, sites)
             site_tables["hybrid"] = _site_table(sites)
-            lba_cap.run = orb_cap.run = None
+            lba_cap.run = orb_cap.run = kf_cap.run = None
             trace_cap.phase = None
             print(f"phase 5 (hybrid) {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
@@ -3971,7 +4368,9 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     t0 = time.perf_counter()
+    kf_cap.run = "direct_pipelined"
     pipe_direct = pipelined_direct_phase(cam, traj, frames, direct)
+    kf_cap.__exit__()
     print(f"phase 9 (pipelined direct) {time.perf_counter() - t0:.1f} s")
     staged = {}
     with CallSites() as sites:
@@ -4035,6 +4434,10 @@ def main(argv=None) -> int:
     tri_public, tri_timing = tri_phase(pair_cap, site_tables, card, popc_rate, opts.save_tri)
     print(f"phase 18 (pair tests in the Hamming kernel, triangulation) "
           f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    kf_public, kf_times = kf_phase(kf_cap, card)
+    print(f"phase 19 (direct keyframe programs) {time.perf_counter() - t0:.1f} s")
 
     main_row = next(r for r in rows if r["case"] == PHASE4_CASE)
     cli_row = next(r for r in rows if r["case"] == CLI_CASE)
@@ -4205,6 +4608,24 @@ def main(argv=None) -> int:
             "floor_warm_ms": t["floor_warm_ms"], "launches_per_call": t["launches_per_call"],
             "N": t["N"]})
     kernels[-1]["epipolar_triangulate"] = tri_timing["epipolar_triangulate"]
+    for name, program, source, replaces in (
+            ("kf_activate", "_activate_and_clear", "kf_activate.cu",
+             "libcml_tpu/runtime/odometry.py:444"),
+            ("kf_refresh", "_refresh_after_kf", "kf_refresh.cu",
+             "libcml_tpu/runtime/odometry.py:461")):
+        by_path = {k: v[name] for k, v in runs.items() if v[name]}
+        t = kf_times[program]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "libcml_tpu_torch/csrc/" + source,
+            "replaces": replaces, "program": f"{replaces} {program}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_per_direct_frame": direct["kernel_launches"][name] / direct["frames"],
+            "max_abs_err": kf_public["max_abs_err"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "kernel_warm_ms": t["kernel_warm_ms"],
+            "bound_share": t["bound_share"], "floor_ms": t["floor_ms"],
+            "floor_warm_ms": t["floor_warm_ms"], "launches_per_call": t["launches_per_call"],
+            "edge_points": kf_public["edge_points"]})
     print(json.dumps({"direct": direct, "hybrid_tracking": hyb, "hybrid": full,
                       "relocalization": reloc, "entry_points": entry,
                       "repeatability": repeat, "pipelined_direct": pipe_direct,
@@ -4213,7 +4634,7 @@ def main(argv=None) -> int:
                       "sharded": sharded, "match_ratio": ratio, "lm_public": lm_public,
                       "ba_public": ba_public, "trace_public": trace_public,
                       "local_ba_public": lba_public, "orb_public": orb_public,
-                      "tri_public": tri_public}))
+                      "tri_public": tri_public, "kf_public": kf_public}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as Fnn
 
 from libcml_tpu_torch.ops.image import gradient_squared_norm
+from libcml_tpu_torch.ops.kf_programs import select_cuda
 
 _REGION = 32  # histogram-threshold block size (matches reference regions)
 
@@ -61,7 +62,25 @@ def select_points(
     """Select up to n_points high-gradient, spatially spread pixels.
 
     grad0: (H, W, 3) gradient image at level 0.
-    Returns (uv (n, 2) float32, valid (n,) bool, score (n,) float32)."""
+    Returns (uv (n, 2) float32, valid (n,) bool, score (n,) float32): one
+    launch of the hand-written kernel (ops/kf_programs.select_cuda) for a
+    CUDA image, select_points_plain for a CPU one; any other device
+    raises."""
+    if grad0.is_cuda:
+        return select_cuda(grad0, n_points, quantile, add_threshold, border)
+    if grad0.device.type == "cpu":
+        return select_points_plain(grad0, n_points, quantile, add_threshold, border)
+    raise ValueError(f"select_points: unsupported device {grad0.device}")
+
+
+def select_points_plain(
+    grad0: torch.Tensor,
+    n_points: int,
+    quantile: float = 0.5,
+    add_threshold: float = 7.0,
+    border: int = 4,
+):
+    """select_points in plain PyTorch."""
     H, W = grad0.shape[0], grad0.shape[1]
     dev = grad0.device
     g2 = gradient_squared_norm(grad0)

@@ -20,6 +20,7 @@ from libcml_tpu_torch.core.lie import SE3
 from libcml_tpu_torch.models.direct.config import DirectConfig
 from libcml_tpu_torch.models.direct.residuals import pattern_uv
 from libcml_tpu_torch.ops.image import bilinear
+from libcml_tpu_torch.ops.kf_programs import seed_cuda
 from libcml_tpu_torch.ops.trace_epipolar import trace_rows_cuda
 
 _BIG = 1e12
@@ -167,7 +168,27 @@ def seed_immatures(
     rho_lo: torch.Tensor,      # scalar working-range bounds
     rho_hi: torch.Tensor,
 ) -> ImmatureArena:
-    """Reset `slot`'s row with fresh candidates (makeNewTraces)."""
+    """Reset `slot`'s row with fresh candidates (makeNewTraces): one launch
+    of the hand-written kernel (ops/kf_programs.seed_cuda) for CUDA
+    tensors, seed_immatures_plain for CPU tensors; any other device
+    raises."""
+    if _on_card(uv):
+        return ImmatureArena(**seed_cuda(arena, slot, grad0, uv, valid, rho_lo, rho_hi))
+    if uv.device.type == "cpu":
+        return seed_immatures_plain(arena, slot, grad0, uv, valid, rho_lo, rho_hi)
+    raise ValueError(f"seed_immatures: unsupported device {uv.device}")
+
+
+def seed_immatures_plain(
+    arena: ImmatureArena,
+    slot,
+    grad0: torch.Tensor,
+    uv: torch.Tensor,
+    valid: torch.Tensor,
+    rho_lo: torch.Tensor,
+    rho_hi: torch.Tensor,
+) -> ImmatureArena:
+    """seed_immatures in plain PyTorch."""
     color = bilinear(grad0[..., 0], pattern_uv(uv))          # (K, 8)
     F = arena.valid.shape[0]
     onehot = torch.arange(F, device=uv.device) == slot

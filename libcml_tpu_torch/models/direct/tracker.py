@@ -36,6 +36,7 @@ from libcml_tpu_torch.models.direct.residuals import (
     rel_pose_jacobian,
 )
 from libcml_tpu_torch.ops.image import bilinear
+from libcml_tpu_torch.ops.kf_programs import tracker_ref_cuda
 from libcml_tpu_torch.ops.track_lm import track_lm_cuda
 
 
@@ -82,7 +83,27 @@ def make_tracker_ref(
     cfg: DirectConfig,
 ) -> TrackerRef:
     """Sample the host keyframe's intensities and gradient weights at every
-    pyramid level (single-pixel support, as CoarseTracker::calcRes)."""
+    pyramid level (single-pixel support, as CoarseTracker::calcRes): one
+    launch of the hand-written kernel (ops/kf_programs.tracker_ref_cuda)
+    for CUDA tensors, make_tracker_ref_plain for CPU tensors; any other
+    device raises."""
+    if uv0.is_cuda:
+        return TrackerRef(**tracker_ref_cuda(kf_grad_pyr, cam0, cfg,
+                                             points=(uv0, idepth, valid)))
+    if uv0.device.type == "cpu":
+        return make_tracker_ref_plain(kf_grad_pyr, cam0, uv0, idepth, valid, cfg)
+    raise ValueError(f"make_tracker_ref: unsupported device {uv0.device}")
+
+
+def make_tracker_ref_plain(
+    kf_grad_pyr: tuple[torch.Tensor, ...],
+    cam0: PinholeCamera,
+    uv0: torch.Tensor,
+    idepth: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: DirectConfig,
+) -> TrackerRef:
+    """make_tracker_ref in plain PyTorch."""
     uvs, colors, weights, valids = [], [], [], []
     for l, G in enumerate(kf_grad_pyr):
         cam_l = cam0.level(l)

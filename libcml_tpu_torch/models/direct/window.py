@@ -19,6 +19,7 @@ from libcml_tpu_torch.models.direct.ba import BAState, _onehot, empty_state
 from libcml_tpu_torch.models.direct.config import DirectConfig
 from libcml_tpu_torch.models.direct.residuals import pattern_uv
 from libcml_tpu_torch.ops.image import bilinear
+from libcml_tpu_torch.ops.kf_programs import kf_activate_cuda
 
 
 @dataclasses.dataclass
@@ -94,9 +95,31 @@ def add_points(
     valid: torch.Tensor,    # (K,)
     cfg: DirectConfig,
 ) -> Window:
-    """Activate K new points hosted in `slot`, scattered into free point
-    slots (deterministic: lowest free indices first). Each new point gets
-    residuals to every other valid frame."""
+    """Activate K new points hosted in `slot` (an int or a 0-d tensor),
+    scattered into free point slots: one launch of the hand-written kernel
+    (ops/kf_programs.kf_activate_cuda) for CUDA tensors, add_points_plain
+    for CPU tensors; any other device raises."""
+    if uv.is_cuda:
+        new, _ = kf_activate_cuda(window.ba, window.images, cfg,
+                                  points=(uv, idepth, valid, slot))
+        return window.replace(ba=window.ba.replace(**new))
+    if uv.device.type == "cpu":
+        return add_points_plain(window, slot, uv, idepth, valid, cfg)
+    raise ValueError(f"add_points: unsupported device {uv.device}")
+
+
+def add_points_plain(
+    window: Window,
+    slot,
+    uv: torch.Tensor,
+    idepth: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: DirectConfig,
+) -> Window:
+    """add_points in plain PyTorch: the K new points go to free point slots
+    (deterministic: position i to the i-th lowest free index, written only
+    where the candidate is valid). Each new point gets residuals to every
+    other valid frame."""
     ba = window.ba
     K = uv.shape[0]
     dev = uv.device

@@ -28,7 +28,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 SOURCES = (CSRC / "hamming_match.cu", CSRC / "track_lm.cu", CSRC / "pnp_lm.cu",
            CSRC / "ba_sweep.cu", CSRC / "ba_solve.cu", CSRC / "ba_run.cu",
            CSRC / "trace_epipolar.cu", CSRC / "local_ba.cu", CSRC / "orb_extract.cu",
-           CSRC / "triangulate.cu")
+           CSRC / "triangulate.cu", CSRC / "kf_activate.cu", CSRC / "kf_refresh.cu")
 
 
 class KernelBuildError(RuntimeError):

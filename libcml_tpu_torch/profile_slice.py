@@ -20,7 +20,10 @@ spans for the profiled windows only; a stage's numbers include the stages
 nested in it. A stage's device time is that of the work its CUDA runtime
 calls enqueued, matched by their correlation ids, so a kernel launched
 through ctypes (the hand-written kernels) counts as well as one launched by
-a torch operator; `track_lm` and `pnp_lm` are the LM kernels' launches
+a torch operator; `kf_activate`, `kf_refresh` and `kf_tracker_ref` are the
+keyframe programs' kernels (inside `_activate_and_clear`,
+`_refresh_after_kf` and the hybrid's reference rebuilds); `track_lm` and
+`pnp_lm` are the LM kernels' launches
 (inside `track`, `track_multi` and `solve_pnp`), `trace_epipolar` the
 tracer kernel's (inside `trace_immatures_rows`), `local_ba` the local BA
 kernel's (inside `time_local_ba`). `_preprocess` (or
@@ -73,7 +76,10 @@ STAGES = (
     (odometry, "_scalar_bundle", "_scalar_bundle"),
     (odometry, "_kf_insert_and_ba", "_kf_insert_and_ba"),
     (odometry, "_activate_and_clear", "_activate_and_clear"),
+    (odometry, "kf_activate_cuda", "kf_activate"),
     (odometry, "_refresh_after_kf", "_refresh_after_kf"),
+    (odometry, "refresh_cuda", "kf_refresh"),
+    (odometry, "tracker_ref_cuda", "kf_tracker_ref"),
     (ba, "run_ba", "run_ba"), (ba, "update_residual_status", "update_residual_status"),
     (ba, "_marg_pieces", "_marg_pieces"), (ba, "marg_host_schur", "marg_host_schur"),
     (hybrid, "_extract", "time_orb"), (hybrid, "_project_match_pnp", "time_pnp"),
