@@ -226,9 +226,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      reference's pixels within UV_TOL, its samples the plain form's bits at
      the kernel's pixels, a validity that differs only within EDGE_REL of
      its threshold, each such point printed); one launch a call (at most
-     three allowed for _refresh_after_kf); two planted faults (a row's
+     three allowed for _refresh_after_kf); three planted faults (a row's
      positions one free slot further, the top k's ties to the highest index
-     on the first refresh's keyframe flat below its top third) refused;
+     on the first refresh's keyframe flat below its top third, the region
+     quantile's low rank one too high on it striped) refused;
      both programs' cold and warm ms beside the launch floor, their host
      waits (none) and enqueues (one), plain ms, bounds and shares, and each
      refresh stage alone through its entry point.
@@ -3908,16 +3909,23 @@ KF_SITES = ((odometry, "_activate_and_clear"), (odometry, "_refresh_after_kf"),
             (initializer, "select_points"), (odometry, "seed_immatures"),
             (hybrid, "seed_immatures"))
 KF_RUNS = ("direct", "hybrid", "direct_pipelined")
-# planted faults (a source substitution each) that phase 19 builds beside the
-# kernels and runs: position i of a row lands in the (i+1)-th free slot; the
-# top k's ties go to the highest cell index (run on a keyframe flat below its
-# top third, where the cut falls among cells that score 0)
+# planted faults (a source substitution each, and the input it is run on)
+# that phase 19 builds beside the kernels and runs: position i of a row
+# lands one free slot further within each scan thread's run (the last
+# repeats), on the activation that writes the most points; the top k's ties
+# go to the highest cell index, on a keyframe flat below its top third
+# (the cut falls among cells that score 0); the region quantile's low rank
+# one too high, on a keyframe whose regions hold equal halves of zero and of
+# one magnitude (the two middle keys differ: `striped`)
 KF_FAULTS = {
-    "dest_one_free_slot_further": (kfp.ACTIVATE_SOURCE, "      const int s = slots[i];\n",
-                                   "      const int s = slots[min(i + 1, m - 1)];\n"),
+    "dest_one_free_slot_further": (kfp.ACTIVATE_SOURCE, "        const int b = __ffs(f) - 1;\n",
+                                   "        const int b = __ffs(f & (f - 1u) ? f & (f - 1u) : f)"
+                                   " - 1;\n", "activation"),
     "topk_ties_to_the_highest_index": (kfp.REFRESH_SOURCE,
                                        "cnt += (o > me) | ((o == me) & (j < c));",
-                                       "cnt += (o > me) | ((o == me) & (j > c));"),
+                                       "cnt += (o > me) | ((o == me) & (j > c));", "half_flat"),
+    "quantile_rank_one_too_high": (kfp.REFRESH_SOURCE, "  }, a.q_lo, a.q_hi, sm, red);",
+                                   "  }, a.q_lo + 1, a.q_hi, sm, red);", "striped"),
 }
 # the plain forms' float32 operations, for the bounds: a bilinear sample's
 # floors, clamps, fractions and complements (8) and 6 products and 3 sums a
@@ -4107,7 +4115,7 @@ def write_kf_faults(out_dir: Path) -> dict:
     substitution, in out_dir/NAME/ beside copies of the headers. Returns
     {name: path}."""
     paths = {}
-    for name, (source, old, new) in KF_FAULTS.items():
+    for name, (source, old, new, _) in KF_FAULTS.items():
         text = source.read_text()
         require(text.count(old) == 1, f"fault {name}: its source line is not in the kernel")
         path = out_dir / name / source.name
@@ -4130,24 +4138,45 @@ def half_flat(pyr) -> tuple:
     return tuple(out)
 
 
+def striped(pyr, c: float = 50.0) -> tuple:
+    """The keyframe's pyramid with level 0's gradient (gx, gy) set to (0, 0)
+    on even columns and (c, 0) on odd ones: every 32x32 region holds 512
+    zero magnitudes and 512 of c, so its median c / 2 lies between its two
+    middle keys, and every pixel of magnitude c > 14 passes the smoothed
+    threshold (c / 2 + 7)^2 (a quantile of c would pass none)."""
+    G = pyr[0].clone()
+    odd = torch.arange(G.shape[1], device=G.device) % 2 == 1
+    G[..., 1] = torch.where(odd, torch.tensor(c, device=G.device), torch.zeros((), device=G.device))
+    G[..., 2] = 0.0
+    return (G, *pyr[1:])
+
+
 def kf_faults(act_call: tuple, ref_call: tuple) -> dict:
-    """Each planted fault built and run on one call through the verdict
-    (the slot fault on the activation that writes the most points, the tie
-    fault on the first refresh with its keyframe flat below its top third),
-    beside the honest kernel on the same inputs."""
+    """Each planted fault built and run through the verdict on its input
+    (KF_FAULTS: the activation that writes the most points, or the first
+    refresh with its keyframe half flat or striped), beside the honest
+    kernel on every input."""
     paths = write_kf_faults(kernel_build.BUILD_DIR / "kf_faults")
     kernel_build.build_many(list(paths.values()))
     window, slot, pyr, imm, cam, cfg = ref_call
-    flat_call = (window, slot, half_flat(pyr), imm, cam, cfg)
+    refs = {kind: (window, slot, make(pyr), imm, cam, cfg)
+            for kind, make in (("half_flat", half_flat), ("striped", striped))}
     out = {}
     for name, path in (("honest", None), *paths.items()):
-        act = path if name == "dest_one_free_slot_further" else None
-        ref = path if name == "topk_ties_to_the_highest_index" else None
-        with kf_sources(act, ref):
-            a = kf_check("_activate_and_clear", act_call, {})
-            r = kf_check("_refresh_after_kf", flat_call, {})
-        out[name] = {"activate_ok": a["ok"], "activate_differing": a["differing"],
-                     "refresh_ok": r["ok"], "refresh_arena_differing": r["arena_differing"]}
+        kind = KF_FAULTS[name][3] if path else None
+        rep = {}
+        if kind in (None, "activation"):
+            with kf_sources(activate=path):
+                a = kf_check("_activate_and_clear", act_call, {})
+            rep.update(activate_ok=a["ok"], activate_differing=a["differing"])
+        for k, call in refs.items():
+            if kind in (None, k):
+                with kf_sources(refresh=path):
+                    r = kf_check("_refresh_after_kf", call, {})
+                rep[f"refresh_{k}_ok"] = r["ok"]
+                rep[f"refresh_{k}_arena_differing"] = r["arena_differing"]
+        rep["ok"] = all(v for key, v in rep.items() if key.endswith("_ok"))
+        out[name] = rep
     return out
 
 
@@ -4178,7 +4207,7 @@ def kf_phase(cap: KfCapture, card: str) -> tuple[dict, dict]:
     the range, the selection and the seed bit for bit); one launch a call
     of the activation kernel or of the refresh kernel (1 for a piece, 1 for
     _refresh_after_kf, at most 3 allowed), no plain form on the card in the
-    runs; the two planted faults refused; cold and warm ms of both programs
+    runs; the three planted faults refused; cold and warm ms of both programs
     on phase 3's first keyframe event, their host waits (none), plain ms,
     bounds and shares."""
     counts = {run: Counter(name for name, _, _ in cap.calls.get(run, [])) for run in KF_RUNS}
@@ -4213,12 +4242,9 @@ def kf_phase(cap: KfCapture, card: str) -> tuple[dict, dict]:
     act = act_calls[int(np.argmax(written))]
     faults = kf_faults(act, ref_calls[0])
     print(json.dumps({"phase": "kf_faults", **faults}))
-    require(faults["honest"]["activate_ok"] and faults["honest"]["refresh_ok"],
-            f"the kernels fail their own fault inputs: {faults['honest']}")
-    require(not faults["dest_one_free_slot_further"]["activate_ok"],
-            "the shifted-slot fault passed the activation's verdict")
-    require(not faults["topk_ties_to_the_highest_index"]["refresh_ok"],
-            "the tie fault passed the refresh's verdict")
+    require(faults["honest"]["ok"], f"the kernels fail their own fault inputs: {faults['honest']}")
+    for name in KF_FAULTS:
+        require(not faults[name]["ok"], f"the planted fault {name} passed its verdict")
     # the main path's shapes: phase 3's first keyframe event (the activation
     # that writes the most points of phase 3)
     first = [args for name, args, _ in cap.calls["direct"] if name == "_activate_and_clear"]
@@ -4250,8 +4276,7 @@ def kf_phase(cap: KfCapture, card: str) -> tuple[dict, dict]:
     public = {"calls": {k: dict(v) for k, v in counts.items()},
               "checked": len(reports), "edge_points": edges, "max_abs_err": worst,
               "written_per_activation": written,
-              "faults": {k: not (v["activate_ok"] and v["refresh_ok"])
-                         for k, v in faults.items() if k != "honest"},
+              "faults": {k: not v["ok"] for k, v in faults.items() if k != "honest"},
               "uv_tol": kfp.UV_TOL, "edge_rel": kfp.EDGE_REL}
     print(json.dumps({"phase": "kf_public", **public}))
     return public, timing

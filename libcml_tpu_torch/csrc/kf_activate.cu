@@ -25,23 +25,30 @@
 // and residuals to every other valid frame. The arena's rows lose their
 // ready candidates.
 //
-// Design. The colours and weights do not depend on where a point lands:
-// every block computes them for the ready candidates of its grid-stride
-// share (a thread a candidate, 8 bilinear taps of 3 channels) into a
-// scratch buffer, and copies its share of the arena's P rows into the new
-// tensors. The last block to finish (a ticket, with fences on both sides,
-// as hamming_match.cu's finish) runs the R dependent free-slot scans over
-// the P validity flags in shared memory (a thread a contiguous run of slots,
-// a block scan of the runs' free counts, each free slot of rank under K
-// listed for its position, the ready positions' slots marked taken before
-// the next row's scan), then writes every ready candidate's row at once. It
-// then sets the ticket back to 0. No host read, one launch.
+// Design. Every block computes the readiness of all R K candidates itself
+// (4 loads and a few operations each) as ballot bits in shared memory, and
+// runs the R dependent free-slot scans itself: a thread holds a run of at
+// most 32 point slots as a bit mask of free slots, a row's scan is the
+// block's exclusive sum of the runs' free counts (ballots on the counts'
+// bits in a warp, one __syncthreads for the warps' totals), and each run's
+// free slots under position K take the row's ready bits at their positions,
+// marking those slots taken before the next row (and each landed
+// candidate's slot in shared memory). No block waits for another: a block
+// then writes its own candidates' rows. A candidate is 4
+// threads (2 of its 8 taps each, loaded before the scans), and candidate j
+// lives in block j mod G, so the ready ones, which come in runs, spread
+// over the grid's SMs (the ticket design of commit cb7cc16 gathered them by
+// contiguous share and scattered them from one block: one SM serving a
+// warp's 32 scattered lines one at a time took 7.6 us and 3.5 us of its
+// 20.7). The arena's valid rows
+// are copied before the scans, its free rows after them unless a candidate
+// took them. No host read, one launch, no ticket.
 //
 // Bound: bytes. The arena's rows are read once and written once, the
 // candidates' state read once and each ready candidate's 32 texels read;
-// the arithmetic is a few hundred operations a candidate. The latency of
-// the R scans in one block (a few hundred cycles each) and of the launch
-// are what it costs.
+// the arithmetic is a few hundred operations a candidate. What it costs is
+// latency: the candidates' two dependent loads, the R scans (a few hundred
+// cycles each) and the launch.
 //
 // Numerics: every product, sum and quotient is rounded on its own
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn) as the plain form's
@@ -57,7 +64,10 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int MAX_BLOCKS = 264;
+constexpr int GROUP = 4;                   // threads a candidate: 2 taps each
+constexpr int CANDS = THREADS / GROUP;     // candidates a block
+constexpr int MAX_RUN = 32;                // slots a thread's scan mask holds
+constexpr int READY_CHUNK = 16;            // candidates' loads a thread issues at once
 // models/direct/residuals.PATTERN
 __constant__ float PAT_U[8] = {0.f, -1.f, 1.f, -2.f, 0.f, 2.f, -1.f, 0.f};
 __constant__ float PAT_V[8] = {-2.f, -1.f, -1.f, 0.f, 0.f, 0.f, 1.f, 2.f};
@@ -101,11 +111,6 @@ struct Args {
   unsigned char* o_point_valid;
   unsigned char* o_res_active;
   unsigned char* o_imm_valid;    // mode 0
-  // scratch: per candidate 8 colours then 8 weights, the inverse depth, readiness
-  float* s_cw;
-  float* s_rho;
-  unsigned char* s_ready;
-  unsigned* ticket;              // 0 between launches
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -117,12 +122,6 @@ __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
   return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
 }
 __device__ __forceinline__ float max_nan(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
-
-__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
-
-__device__ __forceinline__ int row_slot(const Args& a, int r) {
-  return a.mode == 0 ? r : (a.slot_ptr ? (int)*a.slot_ptr : a.slot_val);
-}
 
 // ops/image.py bilinear on an (H, W, 3) image: the base pixel clamped to
 // [0, W-2] x [0, H-2] (a NaN coordinate reads pixel 0), the fractions to
@@ -144,212 +143,281 @@ __device__ __forceinline__ void bilinear3(const float* img, int H, int W, float 
   }
 }
 
-// A candidate's readiness and inverse depth (tracer.mature_mask, then
-// add_points' clamp).
-__device__ __forceinline__ bool candidate(const Args& a, int r, int i, float& rho) {
-  const int j = r * a.K + i;
-  if (a.mode == 1) {
-    rho = max_nan(a.pt_idepth[i], a.idepth_min);
-    return a.pt_valid[i] != 0;
-  }
-  const float lo = a.imm_lo[j], hi = a.imm_hi[j];
-  const float mid = __fsqrt_rn(mul(lo, hi));
+// An arena candidate's maturity (tracer.mature_mask) from its loaded
+// fields, and then its interval's midpoint
+__device__ __forceinline__ bool matured(const Args& a, float lo, float hi, int nok, bool valid,
+                                        float& mid) {
+  if (!valid || nok < a.min_traces) return false;   // mid is read only when matured
+  mid = __fsqrt_rn(mul(lo, hi));
   const float relwidth = __fdiv_rn(sub(hi, lo), max_nan(mid, 1e-6f));
-  rho = max_nan(mid, a.idepth_min);
-  return a.imm_valid[j] != 0 && a.imm_nok[j] >= a.min_traces && relwidth < a.max_relwidth;
+  return relwidth < a.max_relwidth;
 }
 
-// Exclusive sum of v over the block's threads, and the total.
-__device__ __forceinline__ int block_exclusive(int v, int& total, int* warp_sums) {
+// A warp's chunk of candidates j = base + 32 u + lane (u < READY_CHUNK): their
+// fields, loaded together before any is tested
+struct Chunk {
+  float lo[READY_CHUNK], hi[READY_CHUNK];
+  int nok[READY_CHUNK];
+  bool valid[READY_CHUNK];
+};
+__device__ __forceinline__ void load_chunk(const Args& a, int base, int RK, Chunk& x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < READY_CHUNK; ++u) {
+    const int j = min(base + 32 * u + lane, RK - 1);
+    if (a.mode == 0) {
+      x.lo[u] = a.imm_lo[j];
+      x.hi[u] = a.imm_hi[j];
+      x.nok[u] = a.imm_nok[j];
+      x.valid[u] = a.imm_valid[j] != 0;
+    } else {
+      x.valid[u] = a.pt_valid[j % a.K] != 0;
+    }
+  }
+}
+// ... and their part in the scans (ready, and the row's slot a frame slot),
+// one ballot word each into `bits`
+__device__ __forceinline__ void chunk_bits(const Args& a, int base, int slot1, int RK,
+                                           const Chunk& x, unsigned* bits) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < READY_CHUNK; ++u) {
+    bool ok = base + 32 * u + lane < RK;
+    float mid;
+    if (a.mode == 0) ok = ok && matured(a, x.lo[u], x.hi[u], x.nok[u], x.valid[u], mid);
+    else ok = ok && x.valid[u] && slot1 >= 0 && slot1 < a.F;
+    const unsigned w = __ballot_sync(FULL, ok);
+    if (lane == 0 && base + 32 * u < RK) bits[(base >> 5) + u] = w;
+  }
+}
+
+// Point row p of the window, its residual flags apart, loaded and stored
+// whole (every load before the stores: a store may alias a later load, so
+// interleaved each pair would wait a memory round trip)
+struct Row {
+  float2 uv;
+  int host;
+  float rho, fej;
+  unsigned char pv;
+  float4 c[2], w[2];
+};
+__device__ __forceinline__ Row load_row(const Args& a, int p) {
+  Row x;
+  x.uv = reinterpret_cast<const float2*>(a.uv)[p];
+  x.host = a.host[p];
+  x.rho = a.idepth[p];
+  x.fej = a.idepth_fej[p];
+  x.pv = a.point_valid[p];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    x.c[k] = reinterpret_cast<const float4*>(a.color)[2 * p + k];
+    x.w[k] = reinterpret_cast<const float4*>(a.weight)[2 * p + k];
+  }
+  return x;
+}
+__device__ __forceinline__ void store_row(const Args& a, int p, const Row& x) {
+  reinterpret_cast<float2*>(a.o_uv)[p] = x.uv;
+  a.o_host[p] = x.host;
+  a.o_idepth[p] = x.rho;
+  a.o_idepth_fej[p] = x.fej;
+  a.o_point_valid[p] = x.pv;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    reinterpret_cast<float4*>(a.o_color)[2 * p + k] = x.c[k];
+    reinterpret_cast<float4*>(a.o_weight)[2 * p + k] = x.w[k];
+  }
+}
+
+// One block an SM at the smoke's shapes (56 blocks): the registers a thread
+// may take are not cut to fit two, so the chunk's and the row's loads stay
+// in registers (at the compiler's default of 128 they spilled).
+__global__ void __launch_bounds__(THREADS, 1) activate_kernel(const Args a) {
+  // bit j of the first ceil(R K / 32) words: candidate j takes part; of the
+  // next as many: candidate j landed, in the slot dest[j] of the short array after
+  extern __shared__ unsigned smem[];
+  __shared__ int s_free[2][WARPS];           // the warps' free counts, by row parity
+  __shared__ unsigned s_taken[THREADS];      // each run's slots taken
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < WARPS) warp_sums[lane] = w;   // inclusive sums of the warps
-  }
-  __syncthreads();
-  total = warp_sums[WARPS - 1];
-  const int before = warp == 0 ? 0 : warp_sums[warp - 1];
-  __syncthreads();                            // warp_sums free for the next scan
-  return before + x - v;
-}
+  const int G = gridDim.x, RK = a.R * a.K;
+  const int slot1 = a.mode == 1 ? (a.slot_ptr ? (int)*a.slot_ptr : a.slot_val) : 0;
+  // stage: activate_start
 
-__global__ void __launch_bounds__(THREADS) activate_kernel(const Args a) {
-  extern __shared__ unsigned char smem[];
-  __shared__ int warp_sums[WARPS];
-  __shared__ int s_last;
-  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;
-
-  // every block: its share of the P rows copied into the new tensors, each
-  // row's loads issued before its stores (a store may alias a later load,
-  // so the compiler keeps a load after an earlier store: interleaved, each
-  // pair would wait a memory round trip)
-  for (int p = gtid; p < a.P; p += gstride) {
-    const float2 uv = reinterpret_cast<const float2*>(a.uv)[p];
-    const int host = a.host[p];
-    const float rho = a.idepth[p], fej = a.idepth_fej[p];
-    const unsigned char pv = a.point_valid[p];
-    float4 c[2], w[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      c[k] = reinterpret_cast<const float4*>(a.color)[2 * p + k];
-      w[k] = reinterpret_cast<const float4*>(a.weight)[2 * p + k];
+  // every load that needs nothing loaded first is issued before the first
+  // use: this block's candidate j = c G + blockIdx.x (its taps 2q, 2q + 1
+  // follow its readiness), this thread's run of point slots [s0, s1), its
+  // first point row, every candidate's readiness
+  const int c = threadIdx.x / GROUP, q = threadIdx.x % GROUP;
+  const int j = c * G + blockIdx.x;
+  const int r = j / max(a.K, 1), i = j - r * a.K;
+  const int slot = a.mode == 0 ? r : slot1;
+  float lo = 0.f, hi = 0.f;   // mode 1: hi is the point's inverse depth
+  int nok = 0;
+  bool imm_valid = false;
+  float2 uv = make_float2(0.f, 0.f);
+  if (j < RK) {
+    if (a.mode == 0) {
+      lo = a.imm_lo[j];
+      hi = a.imm_hi[j];
+      nok = a.imm_nok[j];
+      imm_valid = a.imm_valid[j] != 0;
+    } else {
+      hi = a.pt_idepth[i];
+      imm_valid = a.pt_valid[i] != 0;
     }
-    reinterpret_cast<float2*>(a.o_uv)[p] = uv;
-    a.o_host[p] = host;
-    a.o_idepth[p] = rho;
-    a.o_idepth_fej[p] = fej;
-    a.o_point_valid[p] = pv;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      reinterpret_cast<float4*>(a.o_color)[2 * p + k] = c[k];
-      reinterpret_cast<float4*>(a.o_weight)[2 * p + k] = w[k];
-    }
+    uv = reinterpret_cast<const float2*>(a.mode == 0 ? a.imm_uv + 2 * j : a.pt_uv + 2 * i)[0];
   }
-  for (int b = gtid; b < a.P * a.F; b += gstride) a.o_res_active[b] = a.res_active[b];
-  // and its share of the candidates: readiness, inverse depth, and the
-  // ready ones' colours and weights in their host image (every tap's loads
-  // before the stores)
-  for (int j = gtid; j < a.R * a.K; j += gstride) {
-    const int r = j / a.K, i = j - r * a.K;
-    float rho;
-    const bool ready = candidate(a, r, i, rho);
-    const int slot = row_slot(a, r);
-    const bool ok = ready && slot >= 0 && slot < a.F;
-    float cw[16];
-    if (ok) {
-      const float* uvp = a.mode == 0 ? a.imm_uv + 2 * j : a.pt_uv + 2 * i;
-      const float u = uvp[0], v = uvp[1];
-      const float* img = a.images + (long long)slot * a.H * a.W * 3;
+  const int run = (a.P + THREADS - 1) / THREADS;
+  const int s0 = min((int)threadIdx.x * run, a.P), s1 = min(s0 + run, a.P);
+  unsigned valid = 0u;
+  for (int s = s0; s < s1; ++s) valid |= (unsigned)(a.point_valid[s] != 0) << (s - s0);
+  const unsigned run_mask = s1 - s0 >= 32 ? FULL : (1u << (s1 - s0)) - 1u;
+  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = G * THREADS;
+  Row held;
+  if (gtid < a.P) held = load_row(a, gtid);
+  const int words = (RK + 31) >> 5;
+  unsigned* ready_bits = smem;
+  unsigned* landed = smem + words;
+  short* dest = reinterpret_cast<short*>(smem + 2 * words);
+  for (int w = threadIdx.x; w < words; w += THREADS) landed[w] = 0u;
+  const int first_base = warp * 32 * READY_CHUNK;
+  Chunk chunk;
+  if (first_base < RK) load_chunk(a, first_base, RK, chunk);
+  const int b0 = gtid;   // this thread's first residual flag, and its row's validity
+  const bool flag_held = b0 < a.P * a.F;
+  unsigned char flag = 0, flag_row_valid = 0;
+  if (flag_held) {
+    flag = a.res_active[b0];
+    flag_row_valid = a.point_valid[b0 / a.F];
+  }
+  // the candidate's readiness, inverse depth (add_points' clamp), colours
+  // and weights in its host image
+  float rho = hi;
+  bool ready = imm_valid;
+  if (a.mode == 0) ready = matured(a, lo, hi, nok, imm_valid, rho);
+  rho = max_nan(rho, a.idepth_min);
+  ready = ready && j < RK;
+  const bool ok = ready && slot >= 0 && slot < a.F;
+  if (j < RK && a.mode == 0 && q == 0) a.o_imm_valid[j] = (imm_valid && !ready) ? 1 : 0;
+  float2 col = make_float2(0.f, 0.f), wgt = col;
+  if (ok) {
+    const float* img = a.images + (long long)slot * a.H * a.W * 3;
+    float s[2][3];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float s[3];
-        bilinear3(img, a.H, a.W, add(u, PAT_U[k]), add(v, PAT_V[k]), s);
-        const float gsq = add(mul(s[1], s[1]), mul(s[2], s[2]));
-        cw[k] = s[0];
-        cw[8 + k] = __fsqrt_rn(mul(__frcp_rn(add(gsq, a.c2)), a.c2));
+    for (int t = 0; t < 2; ++t)
+      bilinear3(img, a.H, a.W, add(uv.x, PAT_U[2 * q + t]), add(uv.y, PAT_V[2 * q + t]), s[t]);
+    float cw[4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float gsq = add(mul(s[t][1], s[t][1]), mul(s[t][2], s[t][2]));
+      cw[t] = s[t][0];
+      cw[2 + t] = __fsqrt_rn(mul(__frcp_rn(add(gsq, a.c2)), a.c2));
+    }
+    col = make_float2(cw[0], cw[1]);
+    wgt = make_float2(cw[2], cw[3]);
+  }
+  // every candidate's part in the scans: a warp's chunks of 32 READY_CHUNK
+  if (first_base < RK) chunk_bits(a, first_base, slot1, RK, chunk, ready_bits);
+  for (int base = first_base + THREADS * READY_CHUNK; base < RK; base += THREADS * READY_CHUNK) {
+    load_chunk(a, base, RK, chunk);
+    chunk_bits(a, base, slot1, RK, chunk, ready_bits);
+  }
+  // the valid rows copied now (no candidate lands on them)
+  if (gtid < a.P && held.pv) store_row(a, gtid, held);
+  for (int p = gtid + gstride; p < a.P; p += gstride)
+    if (a.point_valid[p]) store_row(a, p, load_row(a, p));
+  if (flag_held && flag_row_valid) a.o_res_active[b0] = flag;
+  for (int b = b0 + gstride; b < a.P * a.F; b += gstride) {   // both loads before the test
+    const unsigned char pv = a.point_valid[b / a.F], act = a.res_active[b];
+    if (pv) a.o_res_active[b] = act;
+  }
+  // stage: candidates
+  __syncthreads();
+
+  // the R dependent scans: position pos of row r takes the pos-th free slot
+  // as rows 0..r-1 left them, ready or not
+  const unsigned lanes_below = (1u << lane) - 1u;
+  unsigned taken = 0u;
+  for (int row = 0; row < a.R; ++row) {
+    const unsigned free = ~(valid | taken) & run_mask;
+    const int n = __popc(free);
+    int before = 0, total = 0;   // the warp's exclusive sum and total of n (n <= 32)
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+      const unsigned m = __ballot_sync(FULL, (n >> b) & 1);
+      before += __popc(m & lanes_below) << b;
+      total += __popc(m) << b;
+    }
+    if (lane == 0) s_free[row & 1][warp] = total;
+    __syncthreads();
+    before += __reduce_add_sync(FULL, lane < warp ? s_free[row & 1][lane] : 0);
+    if (n > 0 && before < a.K) {
+      // the ready bits of positions before .. before + m - 1 of this row
+      const int g = row * a.K + before, wd = g >> 5, m = min(n, a.K - before);
+      const unsigned long long pair =
+          ((unsigned long long)(wd + 1 < words ? ready_bits[wd + 1] : 0u) << 32) | ready_bits[wd];
+      unsigned ready = (unsigned)(pair >> (g & 31)) & (m == 32 ? FULL : (1u << m) - 1u);
+      unsigned f = free;
+      for (int k = 0; ready; ++k, ready >>= 1) {   // position k takes the k-th free slot
+        const int b = __ffs(f) - 1;
+        f &= f - 1u;
+        if (ready & 1u) {
+          taken |= 1u << b;
+          atomicOr(landed + ((g + k) >> 5), 1u << ((g + k) & 31));
+          dest[g + k] = (short)(s0 + b);
+        }
       }
     }
-    a.s_ready[j] = ok ? 1 : 0;
-    a.s_rho[j] = rho;
-    if (a.mode == 0) a.o_imm_valid[j] = (a.imm_valid[j] != 0 && !ready) ? 1 : 0;
-    if (ok) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        reinterpret_cast<float4*>(a.s_cw)[4 * j + k] =
-            make_float4(cw[4 * k], cw[4 * k + 1], cw[4 * k + 2], cw[4 * k + 3]);
-    }
   }
-
-  // the last block out scans and scatters
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    const bool last = atomicAdd(a.ticket, 1u) == gridDim.x - 1u;
-    if (last) __threadfence();
-    s_last = last;
-  }
-  __syncthreads();
-  if (!s_last) return;
-
-  // shared memory: the P validity flags, the candidates' readiness, each
-  // row's free slots by position, and every candidate's destination
-  const int RK = a.R * a.K;
-  unsigned char* pv = smem;
-  unsigned char* rdy = smem + pad16(a.P);
-  int* slots = reinterpret_cast<int*>(smem + pad16(a.P) + pad16(RK));
-  int* dest = slots + a.K;
-  for (int p = threadIdx.x; p < a.P; p += THREADS) pv[p] = a.point_valid[p];
-  for (int j = threadIdx.x; j < RK; j += THREADS) {
-    rdy[j] = __ldcg(a.s_ready + j);
-    dest[j] = -1;
-  }
-  __syncthreads();
-  // the R dependent scans, in shared memory only
-  const int run = (a.P + THREADS - 1) / THREADS;
-  const int s0 = min(threadIdx.x * run, a.P), s1 = min(s0 + run, a.P);
-  for (int r = 0; r < a.R; ++r) {
-    int n_free = 0;
-    for (int s = s0; s < s1; ++s) n_free += pv[s] == 0;
-    int total;
-    int pos = block_exclusive(n_free, total, warp_sums);
-    for (int s = s0; s < s1 && pos < a.K; ++s)
-      if (pv[s] == 0) slots[pos++] = s;
-    __syncthreads();
-    const int m = min(a.K, total);
-    for (int i = threadIdx.x; i < m; i += THREADS) {
-      if (!rdy[r * a.K + i]) continue;
-      const int s = slots[i];
-      dest[r * a.K + i] = s;
-      pv[s] = 1;
-    }
-    __syncthreads();
-  }
+  s_taken[threadIdx.x] = taken;
   // stage: scans
-  // every ready candidate's row written, all at once (its loads first)
-  for (int j = threadIdx.x; j < RK; j += THREADS) {
+  __syncthreads();
+
+  // this block's landed candidates' rows, and its free rows that none took
+  if (ok && ((landed[j >> 5] >> (j & 31)) & 1u)) {
     const int s = dest[j];
-    if (s < 0) continue;
-    const int r = j / a.K, i = j - r * a.K;
-    const int slot = row_slot(a, r);
-    const float2 uv = reinterpret_cast<const float2*>(a.mode == 0 ? a.imm_uv + 2 * j
-                                                                  : a.pt_uv + 2 * i)[0];
-    const float rho = __ldcg(a.s_rho + j);
-    float4 cw[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cw[k] = __ldcg(reinterpret_cast<const float4*>(a.s_cw) + 4 * j + k);
-    reinterpret_cast<float2*>(a.o_uv)[s] = uv;
-    a.o_host[s] = slot;
-    a.o_idepth[s] = rho;
-    a.o_idepth_fej[s] = rho;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      reinterpret_cast<float4*>(a.o_color)[2 * s + k] = cw[k];
-      reinterpret_cast<float4*>(a.o_weight)[2 * s + k] = cw[2 + k];
+    reinterpret_cast<float2*>(a.o_color + 8 * (long long)s)[q] = col;
+    reinterpret_cast<float2*>(a.o_weight + 8 * (long long)s)[q] = wgt;
+    if (q == 0) {
+      reinterpret_cast<float2*>(a.o_uv)[s] = uv;
+      a.o_host[s] = slot;
+      a.o_idepth[s] = rho;
+      a.o_idepth_fej[s] = rho;
+      a.o_point_valid[s] = 1;
     }
-    a.o_point_valid[s] = 1;
-    for (int f = 0; f < a.F; ++f)
-      a.o_res_active[s * a.F + f] = (a.frame_valid[f] != 0 && f != slot) ? 1 : 0;
+    for (int f = q; f < a.F; f += GROUP)
+      a.o_res_active[(long long)s * a.F + f] = (a.frame_valid[f] != 0 && f != slot) ? 1 : 0;
+  }
+  auto untaken_free = [&](int p) {
+    const int owner = p / run;
+    return !a.point_valid[p] && !((s_taken[owner] >> (p - owner * run)) & 1u);
+  };
+  if (gtid < a.P && untaken_free(gtid)) store_row(a, gtid, held);
+  for (int p = gtid + gstride; p < a.P; p += gstride)
+    if (untaken_free(p)) store_row(a, p, load_row(a, p));
+  if (flag_held && !flag_row_valid && untaken_free(b0 / a.F)) a.o_res_active[b0] = flag;
+  for (int b = b0 + gstride; b < a.P * a.F; b += gstride) {
+    const unsigned char act = a.res_active[b];
+    if (untaken_free(b / a.F)) a.o_res_active[b] = act;
   }
   // stage: scatter
-  if (threadIdx.x == 0) *a.ticket = 0u;
 }
-
-int shared_bytes(int P, int K, int R) { return pad16(P) + pad16(R * K) + 4 * K + 4 * R * K; }
 
 }  // namespace
 
 // One launch of the kernel on `stream` (a is filled by the wrapper,
-// ops/kf_programs.py, whose ctypes structure mirrors Args field by field).
-// Returns the CUDA error of the launch.
+// ops/kf_programs.py, whose ctypes structure mirrors Args field by field):
+// ceil(R K / 64) blocks of 256. Returns the CUDA error of the launch.
 extern "C" int kf_activate_launch(const void* args, void* stream) {
   const Args& a = *static_cast<const Args*>(args);
-  if (a.P <= 0 || a.F <= 0 || a.F > 32 || a.K < 0 || a.K > a.P || a.R < 0 || a.H < 2 ||
-      a.W < 2 || (a.mode != 0 && a.mode != 1))
+  if (a.P <= 0 || a.P > THREADS * MAX_RUN || a.F <= 0 || a.F > 32 || a.K < 0 || a.K > a.P ||
+      a.R < 0 || a.H < 2 || a.W < 2 || (a.mode != 0 && a.mode != 1))
     return (int)cudaErrorInvalidValue;
-  const int smem = shared_bytes(a.P, a.K, a.R);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        activate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int work = a.R * a.K > a.P ? a.R * a.K : a.P;
-  int blocks = (work + THREADS - 1) / THREADS;
-  blocks = blocks < 1 ? 1 : (blocks > MAX_BLOCKS ? MAX_BLOCKS : blocks);
-  activate_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const long long rk = (long long)a.R * a.K;
+  const long long smem = 8 * ((rk + 31) / 32) + 2 * rk;   // two bit sets, the slots
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const long long blocks = rk > 0 ? (rk + CANDS - 1) / CANDS : 1;
+  activate_kernel<<<(unsigned)blocks, THREADS, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return (int)cudaGetLastError();
 }
 

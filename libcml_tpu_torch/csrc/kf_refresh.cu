@@ -1,5 +1,5 @@
-// The post-keyframe refresh of the direct path, one cooperative launch a
-// call, for Hopper (sm_90a).
+// The post-keyframe refresh of the direct path, one launch a call, for
+// Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package runs `_refresh_after_kf`
 // (libcml_tpu/runtime/odometry.py:461) as one jitted program, XLA fusing
@@ -14,41 +14,51 @@
 // `seed_immatures`), each a launch of this kernel with a stage mask.
 // ops/kf_programs.py is the wrapper.
 //
-// Stages (bit k of `stages`), run in four phases with a grid barrier
-// (grid_barrier.cuh) between phases that hold work:
+// Stages (bit k of `stages`: one of them, or all four), in up to three
+// phases with a grid barrier (grid_barrier.cuh) between them; a mask whose
+// work is all in phase 1 (B, D, A of given points) is a plain launch:
 //   A (1) the tracker reference: the P window points projected into frame
 //     `slot` (phase 2: a thread a point, its pixel, inverse depth, validity
 //     and 4x4 cell kept, its inverse depth's bits max-ed into the cell
 //     table, which phase 1 zeroed: a positive float orders as its bits),
 //     then (phase 3, a thread a (level, point)) kept where its inverse
 //     depth exceeds 0.8 of its cell's largest, and sampled at every level;
-//     with `ref_points`, given points are sampled (make_tracker_ref).
+//     given points (make_tracker_ref) are sampled in phase 1.
 //   B (2) the working inverse-depth range: the median of the valid points'
-//     inverse depths (phase 1, one block: a bitonic sort of the P keys in
-//     shared memory, the invalid and NaN ones last, then
-//     torch.nanquantile's interpolation between the two middle values),
-//     1.0 when there is none; [med / 8, med x 8] clamped to the config.
+//     inverse depths (phase 1, one block: the keys at the two middle ranks
+//     of torch.nanquantile's interpolation by a radix selection,
+//     select_ranks), 1.0 when there is none; [med / 8, med x 8] clamped to
+//     the config.
 //   C (4) the candidate selection: each 32x32 region's gradient-magnitude
-//     quantile (phase 1, a block a region: a bitonic sort of its 1,024
-//     values, torch.quantile's interpolation; a NaN in the region gives
-//     NaN), then (phase 2) the regions' thresholds smoothed 3x3 with the
-//     edge replicated in the plain form's order, squared, and each
-//     pot x pot cell's first maximum of the masked squared gradient (a warp
-//     a cell, two redux.sync), then (phase 3) the stable top k of the
-//     cells' maxima by rank (a warp a cell counts the greater maxima and
-//     the equal ones at a lower index: lax.top_k's order), the rest padded.
-//   D (8) the seed (phase 4, a thread a position): the 8 pattern colours of
-//     channel 0 at each selected pixel, written into row `slot` of new
-//     arena tensors with the range, zero counts and the validity; phase 1
-//     copies the other rows.
-// So `_refresh_after_kf` is one launch (15) with no host read; the pieces
-// are launches of one stage.
+//     quantile (phase 1, a block a region: its two ranks by select_ranks,
+//     torch.quantile's interpolation; a NaN in the region gives NaN), then
+//     (phase 2) the regions' thresholds smoothed 3x3 with the edge
+//     replicated in the plain form's order, squared, and each pot x pot
+//     cell's first maximum of the masked squared gradient (a warp a cell,
+//     two redux.sync), then (phase 3) the stable top k of the cells' maxima
+//     by rank (a warp a cell counts the greater maxima and the equal ones
+//     at a lower index: lax.top_k's order), the rest padded.
+//   D (8) the seed: the 8 pattern colours of channel 0 at each selected
+//     pixel, written into row `slot` of new arena tensors with the range,
+//     zero counts and the validity, the other rows copied (phase 1). In a
+//     refresh the warp that ranks a cell under k seeds its position (lanes
+//     0-7 a tap each) in phase 3, and B's range is read there.
+// So `_refresh_after_kf` is one launch (15) with two grid barriers and no
+// host read; the pieces are launches of one stage.
 //
 // Bound: bytes. The keyframe's level-0 gradient image is read (3.7 MB at
 // 640 x 480) for the selection, the window's points and the arena once;
-// the 1,036 ranks' ~1.1 M comparisons and the sorts are a few
-// microseconds of one block each. What it costs is latency: the sorts'
-// dependent stages, three grid barriers, the launch.
+// the 1,036 ranks' ~1.1 M comparisons and the selections are a few
+// microseconds. What it costs is latency, and the design keeps it short:
+// a selection takes four histogram passes (one __syncthreads each) where a
+// bitonic sort of 1,024 keys took 55 dependent stages; the grid is sized to
+// the units of the mask (at 640 x 480 a refresh is 1 + 300 blocks of 256);
+// only the blocks that own cells build the threshold table, each from the
+// 300 quantiles copied into shared memory once (in the sorting design of
+// commit cb7cc16 each of 396 blocks read every quantile 9 times from L2);
+// the scattered gathers (samples, seeds) are spread over every block, since
+// one SM serves a warp's 32 scattered lines one at a time (that design's
+// 512 seeds in one block: 9 us).
 //
 // Numerics: every product, sum and quotient is rounded on its own as the
 // plain form's separate PyTorch operations round them on the card
@@ -56,26 +66,34 @@
 // float is a product with its float32 reciprocal there (PyTorch's CUDA
 // division by a CPU scalar), `c2 / x` is x.reciprocal() * c2, the point
 // transforms are the plain form's matrix products as cuBLAS rounds them
-// (dot3, gemv3). Every output is the plain form's bit for bit on the
-// smoke's calls; ops/kf_programs.py still holds the reference's pixels
-// within a stated tolerance and its validity within a stated edge, since
-// the cuBLAS kernels' orders are measured, not documented.
+// (dot3, gemv3). A selection gives the sorted keys' own values at its
+// ranks, so every output is the plain form's bit for bit on the smoke's
+// calls; ops/kf_programs.py still holds the reference's pixels within a
+// stated tolerance and its validity within a stated edge, since the
+// cuBLAS kernels' orders are measured, not documented.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "grid_barrier.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int REGION = 32, REGION_N = REGION * REGION;
 constexpr int MAX_LEVELS = 8;
-constexpr int SMEM_WORDS = 16384;          // 64 KB of dynamic shared memory
+constexpr int SMEM_WORDS = 16384;          // the largest launch's tables: 64 KB
 constexpr int SMEM_BYTES = SMEM_WORDS * 4;
-constexpr int BLOCKS_PER_SM = 3;
-constexpr int ST_REF = 1, ST_RANGE = 2, ST_SELECT = 4, ST_SEED = 8;
+constexpr int BINS = 256;                  // a radix pass's digits
+constexpr int SELECT_WORDS = 3 * BINS;     // a selection's three histograms
+constexpr int RANGE_KEYS = 8;              // B's keys a thread held in registers
+constexpr int GATHER = 64;                 // gathered items a block (samples, seeds)
+constexpr int CELL_CHUNK = 8;              // a lane's cell pixels loaded at once
+constexpr unsigned NO_KEY = 0xFFFFFFFFu;
+constexpr int ST_REF = 1, ST_RANGE = 2, ST_SELECT = 4, ST_SEED = 8, ST_ALL = 15;
 __constant__ float PAT_U[8] = {0.f, -1.f, 1.f, -2.f, 0.f, 2.f, -1.f, 0.f};
 __constant__ float PAT_V[8] = {-2.f, -1.f, -1.f, 0.f, 0.f, 0.f, 1.f, 2.f};
 
@@ -215,24 +233,6 @@ __device__ __forceinline__ float lerp(float lo, float hi, float w) {
                          : __fmaf_rn(-sub(hi, lo), sub(1.f, w), hi);
 }
 
-// Ascending bitonic sort of n (a power of two) keys in shared memory.
-__device__ void bitonic_sort(unsigned* key, int n) {
-  for (int k = 2; k <= n; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += THREADS) {
-        const int l = i ^ j;
-        if (l > i) {
-          const unsigned x = key[i], y = key[l];
-          if ((x > y) == ((i & k) == 0)) {
-            key[i] = y;
-            key[l] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-}
-
 // a float's bits in an order that sorts as the values (-0 before +0)
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
@@ -242,74 +242,161 @@ __device__ __forceinline__ float order_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
 }
 
+// The keys at ranks r0 and r1 (r1 = r0 or r0 + 1, both under the count of
+// keys) of the keys that `each` hands this block's threads, as an ascending
+// sort of them holds them. `each(f)` calls f(key, present) for every slot
+// (a slot without a key: present false). A radix selection from the top
+// digit: four passes, each a shared histogram of the 8-bit digit of the
+// keys that match the digits found so far (one atomic a key: a region's
+// magnitudes share a few top digits, yet counting a warp's equal digits
+// once, by __match_any_sync or by lane 0's digit, was slower), which every warp
+// scans for the bin holding the rank (lane l sums bins 8l..8l+7, a shuffle
+// scan, a ballot for the lane, that lane's walk); three histograms in turn,
+// the next cleared while the current is counted, so a pass takes one
+// __syncthreads. The key at r1 is the same key where its equal keys reach
+// r1, else the least key above it (a block-wide minimum).
+// ops/kf_programs.py model_select_ranks follows the passes. `sm`:
+// SELECT_WORDS words; `red`: a word a warp.
+template <class Each>
+__device__ uint2 select_ranks(Each each, int r0, int r1, unsigned* sm, unsigned* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 2 * BINS; i += THREADS) sm[i] = 0u;
+  __syncthreads();
+  unsigned prefix = 0u, mask = 0u, equal = 0u;
+  int r = r0;   // the rank among the keys that match `prefix`
+#pragma unroll
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    unsigned* h = sm + (pass % 3) * BINS;
+    each([&](unsigned k, bool present) {
+      if (present && (k & mask) == prefix) atomicAdd(h + ((k >> shift) & 0xFFu), 1u);
+    });
+    if (pass == 1 || pass == 2)   // the histogram of pass + 1, read last in pass - 2
+      for (int i = threadIdx.x; i < BINS; i += THREADS) sm[((pass + 1) % 3) * BINS + i] = 0u;
+    __syncthreads();
+    const uint4 lo4 = reinterpret_cast<const uint4*>(h)[2 * lane];
+    const uint4 hi4 = reinterpret_cast<const uint4*>(h)[2 * lane + 1];
+    const unsigned c[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+    unsigned sum = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += c[j];
+    unsigned incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int at = __ffs(__ballot_sync(FULL, (unsigned)r < incl)) - 1;
+    unsigned before = incl - sum, bin_count = 0u;
+    int digit = 7;
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!found && before + c[j] > (unsigned)r) {
+        found = true;
+        digit = j;
+        bin_count = c[j];
+      }
+      if (!found) before += c[j];
+    }
+    prefix |= (unsigned)(8 * at + __shfl_sync(FULL, digit, at)) << shift;
+    mask |= 0xFFu << shift;
+    equal = __shfl_sync(FULL, bin_count, at);
+    r -= (int)__shfl_sync(FULL, before, at);
+  }
+  unsigned k1 = prefix;
+  if ((unsigned)(r + (r1 - r0)) >= equal) {   // block-uniform: r1 is past the equal keys
+    unsigned m = NO_KEY;
+    each([&](unsigned k, bool present) {
+      if (present && k > prefix) m = min(m, k);
+    });
+    m = __reduce_min_sync(FULL, m);
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    k1 = red[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) k1 = min(k1, red[w]);
+  }
+  return make_uint2(prefix, k1);
+}
+
 // B: the median of the valid, non-NaN inverse depths, as
 // torch.nanquantile(·, 0.5) takes it; 1.0 when there are none; the range.
-__device__ void range_unit(const Args& a, unsigned* key) {
-  __shared__ int s_count;
-  int n = 1;
-  while (n < a.P) n <<= 1;
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
+// The keys are each point's order_key (the others are left out: they sort
+// after every valid key in the plain form's sorted array), held in
+// registers up to RANGE_KEYS a thread, else read again each pass.
+__device__ void range_unit(const Args& a, unsigned* sm, unsigned* red) {
+  const bool regs = a.P <= RANGE_KEYS * THREADS;
+  unsigned key[RANGE_KEYS];
   int mine = 0;
-  for (int base = threadIdx.x; base < n; base += 4 * THREADS) {   // 4 loads, then 4 stores
-    float v[4];
-    bool ok[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * THREADS;
-      ok[u] = i < a.P && a.ba_pv[i];
-      v[u] = i < a.P ? a.ba_idepth[i] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = base + u * THREADS;
-      const bool real = ok[u] && !isnan(v[u]);
-      mine += real;
-      if (i < n) key[i] = real ? order_key(v[u]) : 0xFFFFFFFFu;   // +inf is 0xFF800000
-    }
+  for (int j = 0; j < RANGE_KEYS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const bool in = regs && i < a.P;
+    const float v = in ? __ldg(a.ba_idepth + i) : 0.f;
+    const bool ok = in && __ldg(a.ba_pv + i) && !isnan(v);
+    key[j] = ok ? order_key(v) : NO_KEY;
+    mine += ok;
   }
-  if (mine) atomicAdd(&s_count, mine);
-  __syncthreads();
-  bitonic_sort(key, n);
-  if (threadIdx.x == 0) {
-    const int m = s_count;
-    float med = __int_as_float(0x7FC00000);
-    if (m > 0) {   // the rank q (m - 1) in float32, its floor and ceiling
-      const float rank = mul(0.5f, (float)(m - 1));
-      const int lo = (int)rank, hi = (int)ceilf(rank);
-      med = lerp(order_value(key[lo]), order_value(key[hi]), sub(rank, (float)lo));
+  auto global = [&](auto f) {   // every lane of a warp runs the same iterations
+    for (int i0 = 0; i0 < a.P; i0 += THREADS) {
+      const int i = i0 + threadIdx.x;
+      const float v = i < a.P ? __ldg(a.ba_idepth + i) : 0.f;
+      f(order_key(v), i < a.P && __ldg(a.ba_pv + i) && !isnan(v));
     }
-    if (!isfinite(med)) med = 1.f;
+  };
+  if (!regs) global([&](unsigned, bool present) { mine += present; });
+  mine = __reduce_add_sync(FULL, mine);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = (unsigned)mine;
+  __syncthreads();
+  int m = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) m += (int)red[w];
+  float med = __int_as_float(0x7FC00000);
+  if (m > 0) {   // the rank q (m - 1) in float32, its floor and ceiling
+    const float rank = mul(0.5f, (float)(m - 1));
+    const int lo = (int)rank, hi = (int)ceilf(rank);
+    const uint2 k = regs ? select_ranks([&](auto f) {
+#pragma unroll
+                             for (int j = 0; j < RANGE_KEYS; ++j) f(key[j], key[j] != NO_KEY);
+                           }, lo, hi, sm, red)
+                         : select_ranks(global, lo, hi, sm, red);
+    med = lerp(order_value(k.x), order_value(k.y), sub(rank, (float)lo));
+  }
+  if (!isfinite(med)) med = 1.f;
+  if (threadIdx.x == 0) {
     *a.rho_lo = max_nan(mul(med, 0.125f), a.idepth_min);
     *a.rho_hi = min_nan(mul(med, 8.f), a.idepth_max);
   }
-  __syncthreads();
 }
 
-// C, phase 1: region r's gradient-magnitude quantile (NaN if any value is).
-__device__ void region_unit(const Args& a, int r, unsigned* key) {
+// C, phase 1: region r's gradient-magnitude quantile (NaN if any value is);
+// the magnitudes are >= +0, so their bits order as the values
+__device__ void region_unit(const Args& a, int r, unsigned* sm, unsigned* red) {
   const int ry = r / a.Wr, rx = r - ry * a.Wr;
   const float* img = a.pyr[0];
-  int nan = 0;
   constexpr int PER = REGION_N / THREADS;
-  float g[PER];
+  unsigned key[PER];
+  int nan = 0;
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = threadIdx.x + k * THREADS;
     const int y = ry * REGION + (i >> 5), x = rx * REGION + (i & 31);
-    g[k] = __fsqrt_rn(grad2(img, (long long)y * a.W + x));
+    const float g = __fsqrt_rn(grad2(img, (long long)y * a.W + x));
+    nan |= isnan(g);
+    key[k] = __float_as_uint(g);
   }
+  // also the barrier before this block's previous selection's histograms are cleared
+  if (__syncthreads_or(nan)) {
+    if (threadIdx.x == 0) a.q_region[r] = __int_as_float(0x7FC00000);
+    return;
+  }
+  const uint2 k = select_ranks([&](auto f) {
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    nan |= isnan(g[k]);
-    key[threadIdx.x + k * THREADS] = isnan(g[k]) ? 0xFFFFFFFFu : __float_as_uint(g[k]);   // g >= +0
-  }
-  nan = __syncthreads_or(nan);
-  bitonic_sort(key, REGION_N);
+    for (int j = 0; j < PER; ++j) f(key[j], true);
+  }, a.q_lo, a.q_hi, sm, red);
   if (threadIdx.x == 0)
-    a.q_region[r] = nan ? __int_as_float(0x7FC00000)
-                        : lerp(__uint_as_float(key[a.q_lo]), __uint_as_float(key[a.q_hi]), a.q_w);
-  __syncthreads();
+    a.q_region[r] = lerp(__uint_as_float(k.x), __uint_as_float(k.y), a.q_w);
 }
 
 // A, phase 2: point p projected into the keyframe, into the cell table
@@ -350,7 +437,7 @@ __device__ void project_point(const Args& a, int p) {
   if (ok) atomicMax(a.cells + cid, __float_as_uint(rho));
 }
 
-// A, phase 3: point p at level l
+// A, phase 3 (given points: phase 1): point p at level l
 __device__ void sample_point(const Args& a, int l, int p) {
   float u0, v0, rho;
   bool ok;
@@ -380,20 +467,17 @@ __device__ void sample_point(const Args& a, int l, int p) {
                  vl <= (float)(a.cam_h[l] - 4);
 }
 
-// C, phase 2: the regions' smoothed squared thresholds into shared memory,
-// and their maximum (NaN if any is); returns the maximum
-__device__ float threshold_table(const Args& a, float* th2) {
-  __shared__ unsigned s_max;
-  __shared__ int s_nan;
-  if (threadIdx.x == 0) {
-    s_max = 0u;
-    s_nan = 0;
-  }
+// C, phase 2: the regions' smoothed squared thresholds into shared memory
+// (the quantiles copied there first, so that the block reads each from L2
+// once), and their maximum (NaN if any is); returns the maximum
+__device__ float threshold_table(const Args& a, float* th2, float* q, unsigned* red) {
+  const int n = a.Hr * a.Wr;
+  for (int r = threadIdx.x; r < n; r += THREADS) q[r] = __ldcg(a.q_region + r);
   __syncthreads();
   const float inv9 = 1.f / 9.f;   // float32(1 / 9): PyTorch's CUDA division by a Python float
   unsigned mx = 0u;
-  int nan = 0;
-  for (int r = threadIdx.x; r < a.Hr * a.Wr; r += THREADS) {
+  bool nan = false;
+  for (int r = threadIdx.x; r < n; r += THREADS) {
     const int i = r / a.Wr, j = r - i * a.Wr;
     float sm = 0.f;
 #pragma unroll
@@ -401,18 +485,22 @@ __device__ float threshold_table(const Args& a, float* th2) {
 #pragma unroll
       for (int dj = 0; dj < 3; ++dj) {
         const int ii = min(max(i + di - 1, 0), a.Hr - 1), jj = min(max(j + dj - 1, 0), a.Wr - 1);
-        const float t = add(__ldcg(a.q_region + ii * a.Wr + jj), a.th_add);
+        const float t = add(q[ii * a.Wr + jj], a.th_add);
         sm = (di == 0 && dj == 0) ? t : add(sm, t);
       }
     const float t2 = mul(mul(sm, inv9), mul(sm, inv9));
     th2[r] = t2;
-    if (isnan(t2)) nan = 1;
+    if (isnan(t2)) nan = true;
     else mx = max(mx, __float_as_uint(t2));   // t2 >= +0
   }
-  atomicMax(&s_max, mx);
-  if (nan) atomicOr(&s_nan, 1);
+  mx = __reduce_max_sync(FULL, mx);
+  const bool any_nan = __any_sync(FULL, nan);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = any_nan ? NO_KEY : mx;
   __syncthreads();
-  return s_nan ? __int_as_float(0x7FC00000) : __uint_as_float(s_max);
+  unsigned out = 0u;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) out = max(out, red[w]);   // NO_KEY: a NaN threshold
+  return out == NO_KEY ? __int_as_float(0x7FC00000) : __uint_as_float(out);
 }
 
 // C, phase 2: cell c's first maximum of the masked squared gradient (a warp)
@@ -422,21 +510,47 @@ __device__ void cell_max(const Args& a, int c, const float* th2, float th_out) {
   const float* img = a.pyr[0];
   float best = -1.f;   // a lane without a pixel keeps -1: key 0, no index
   int arg = 0x7FFFFFFF;
-  for (int o = lane; o < a.pot * a.pot; o += 32) {
-    const int oy = o / a.pot, ox = o - oy * a.pot;
-    const int y = cy * a.pot + oy, x = cx * a.pot + ox;
-    const float g2 = grad2(img, (long long)y * a.W + x);
-    float th = th_out;
-    if (y < a.Hr * REGION && x < a.Wr * REGION) {
-      th = th2[(y / REGION) * a.Wr + x / REGION];
-      if (isinf(th)) th = th_out;
+  const int n = a.pot * a.pot;
+  // the lane's pixel (oy, ox) in the cell, stepped 32 pixels at a time
+  // without a division
+  const int q32 = 32 / a.pot, r32 = 32 - q32 * a.pot;
+  int oy = lane / a.pot, ox = lane - oy * a.pot;
+  for (int o0 = lane; o0 < n; o0 += 32 * CELL_CHUNK) {   // a chunk's loads, then its tests
+    float gx[CELL_CHUNK], gy[CELL_CHUNK];
+    int ys[CELL_CHUNK], xs[CELL_CHUNK];
+#pragma unroll
+    for (int u = 0; u < CELL_CHUNK; ++u) {
+      const bool in = o0 + 32 * u < n;
+      ys[u] = cy * a.pot + (in ? oy : 0);
+      xs[u] = cx * a.pot + (in ? ox : 0);
+      const long long i = (long long)ys[u] * a.W + xs[u];
+      gx[u] = __ldg(img + 3 * i + 1);
+      gy[u] = __ldg(img + 3 * i + 2);
+      ox += r32;
+      oy += q32;
+      if (ox >= a.pot) {
+        ox -= a.pot;
+        ++oy;
+      }
     }
-    const bool ok = g2 > th && x >= a.border && x < a.W - a.border && y >= a.border &&
-                    y < a.H - a.border;
-    const float sc = ok ? g2 : 0.f;
-    if (sc > best) {
-      best = sc;
-      arg = o;
+#pragma unroll
+    for (int u = 0; u < CELL_CHUNK; ++u) {
+      const int o = o0 + 32 * u;
+      if (o >= n) break;
+      const int y = ys[u], x = xs[u];
+      const float g2 = add(mul(gx[u], gx[u]), mul(gy[u], gy[u]));
+      float th = th_out;
+      if (y < a.Hr * REGION && x < a.Wr * REGION) {
+        th = th2[((unsigned)y / REGION) * a.Wr + (unsigned)x / REGION];
+        if (isinf(th)) th = th_out;
+      }
+      const bool ok = g2 > th && x >= a.border && x < a.W - a.border && y >= a.border &&
+                      y < a.H - a.border;
+      const float sc = ok ? g2 : 0.f;
+      if (sc > best) {
+        best = sc;
+        arg = o;
+      }
     }
   }
   // scores are >= +0 and never NaN: their bits order as the values
@@ -449,43 +563,18 @@ __device__ void cell_max(const Args& a, int c, const float* th2, float th_out) {
   }
 }
 
-// C, phase 3: cell c's rank among the cells' maxima (greater ones, and
-// equal ones at a lower index), and its slot when it ranks under k (a warp)
-__device__ void rank_cell(const Args& a, int c, const float* best) {
-  const int lane = threadIdx.x & 31, n = a.Hc * a.Wc;
-  const float me = best[c];
-  unsigned cnt = 0;
-  for (int j = lane; j < n; j += 32) {
-    const float o = best[j];
-    cnt += (o > me) | ((o == me) & (j < c));
-  }
-  const unsigned rank = __reduce_add_sync(FULL, cnt);
-  if (lane == 0 && rank < (unsigned)a.k) {
-    const int off = __ldcg(a.cell_arg + c);
-    const int oy = off / a.pot, ox = off - oy * a.pot;
-    const int cy = c / a.Wc, cx = c - cy * a.Wc;
-    a.sel_uv[2 * rank] = (float)(cx * a.pot + ox);
-    a.sel_uv[2 * rank + 1] = (float)(cy * a.pot + oy);
-    a.sel_valid[rank] = me > 0.f;
-    a.sel_score[rank] = me;
-  }
+// D: pattern tap t of seed position i at pixel (u, v), and the position's
+// other fields (the seeded row `slot`)
+__device__ __forceinline__ void seed_tap(const Args& a, int i, float u, float v, int t) {
+  float c;
+  bilinear<0, 1>(a.seed_img, a.sh, a.sw, add(u, PAT_U[t]), add(v, PAT_V[t]), &c);
+  a.o_color[8 * ((long long)a.slot * a.Ki + i) + t] = c;
 }
-
-// D, phase 4: position i of row `slot` (every load before the stores: a
-// store may alias a later load, so interleaved each would wait a round trip)
-__device__ void seed_position(const Args& a, int i) {
+__device__ __forceinline__ void seed_fields(const Args& a, int i, float u, float v,
+                                            unsigned char valid, float lo, float hi) {
   const long long o = (long long)a.slot * a.Ki + i;
-  const float u = __ldcg(a.seed_uv + 2 * i), v = __ldcg(a.seed_uv + 2 * i + 1);
-  const float lo = __ldcg(a.seed_lo), hi = __ldcg(a.seed_hi);
-  const unsigned char valid = __ldcg(a.seed_valid + i);
-  float c[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    bilinear<0, 1>(a.seed_img, a.sh, a.sw, add(u, PAT_U[k]), add(v, PAT_V[k]), c + k);
   a.o_uv[2 * o] = u;
   a.o_uv[2 * o + 1] = v;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) a.o_color[8 * o + k] = c[k];
   a.o_lo[o] = lo;
   a.o_hi[o] = hi;
   a.o_nok[o] = 0;
@@ -493,149 +582,253 @@ __device__ void seed_position(const Args& a, int i) {
   a.o_valid[o] = valid;
 }
 
-__device__ void copy_row(const Args& a, long long o) {
-  const float u = a.im_uv[2 * o], v = a.im_uv[2 * o + 1];
-  float c[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) c[k] = a.im_color[8 * o + k];
-  const float lo = a.im_lo[o], hi = a.im_hi[o];
-  const int nok = a.im_nok[o], nfail = a.im_nfail[o];
-  const unsigned char valid = a.im_valid[o];
-  a.o_uv[2 * o] = u;
-  a.o_uv[2 * o + 1] = v;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) a.o_color[8 * o + k] = c[k];
-  a.o_lo[o] = lo;
-  a.o_hi[o] = hi;
-  a.o_nok[o] = nok;
-  a.o_nfail[o] = nfail;
-  a.o_valid[o] = valid;
+// C, phase 3: cell c's rank among the cells' maxima (greater ones, and
+// equal ones at a lower index), and its slot when it ranks under k (a
+// warp); with `seed` the warp also seeds that position (lanes 0-7 a tap)
+__device__ void rank_cell(const Args& a, int c, const float* best, bool seed, float lo,
+                          float hi) {
+  const int lane = threadIdx.x & 31, n = a.Hc * a.Wc;
+  const int off = __ldcg(a.cell_arg + c);   // issued before the count, used after it
+  const float me = best[c];
+  unsigned cnt = 0;
+  for (int j = lane; j < n; j += 32) {
+    const float o = best[j];
+    cnt += (o > me) | ((o == me) & (j < c));
+  }
+  const unsigned rank = __reduce_add_sync(FULL, cnt);
+  if (rank >= (unsigned)a.k) return;
+  const int oy = off / a.pot, ox = off - oy * a.pot;
+  const int cy = c / a.Wc, cx = c - cy * a.Wc;
+  const float u = (float)(cx * a.pot + ox), v = (float)(cy * a.pot + oy);
+  if (lane == 0) {
+    a.sel_uv[2 * rank] = u;
+    a.sel_uv[2 * rank + 1] = v;
+    a.sel_valid[rank] = me > 0.f;
+    a.sel_score[rank] = me;
+  }
+  if (seed) {
+    if (lane < 8) seed_tap(a, (int)rank, u, v, lane);
+    if (lane == 0) seed_fields(a, (int)rank, u, v, me > 0.f, lo, hi);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS) refresh_kernel(const Args a) {
-  extern __shared__ unsigned smem[];
+// an arena entry copied (its loads first: a store may alias a later load,
+// so interleaved each would wait a round trip)
+struct Entry {
+  float2 uv;
+  float4 c0, c1;
+  float lo, hi;
+  int nok, nfail;
+  unsigned char valid;
+};
+__device__ __forceinline__ Entry load_entry(const Args& a, long long o) {
+  Entry e;
+  e.uv = reinterpret_cast<const float2*>(a.im_uv)[o];
+  e.c0 = reinterpret_cast<const float4*>(a.im_color)[2 * o];
+  e.c1 = reinterpret_cast<const float4*>(a.im_color)[2 * o + 1];
+  e.lo = a.im_lo[o];
+  e.hi = a.im_hi[o];
+  e.nok = a.im_nok[o];
+  e.nfail = a.im_nfail[o];
+  e.valid = a.im_valid[o];
+  return e;
+}
+__device__ __forceinline__ void store_entry(const Args& a, long long o, const Entry& e) {
+  reinterpret_cast<float2*>(a.o_uv)[o] = e.uv;
+  reinterpret_cast<float4*>(a.o_color)[2 * o] = e.c0;
+  reinterpret_cast<float4*>(a.o_color)[2 * o + 1] = e.c1;
+  a.o_lo[o] = e.lo;
+  a.o_hi[o] = e.hi;
+  a.o_nok[o] = e.nok;
+  a.o_nfail[o] = e.nfail;
+  a.o_valid[o] = e.valid;
+}
+
+// Three blocks an SM, so that a 640 x 480 refresh's 301 blocks are
+// co-resident, and no fewer registers than that allows (at the compiler's
+// default of 64 it spilled).
+__global__ void __launch_bounds__(THREADS, 3) refresh_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned smem[];
+  __shared__ unsigned red[WARPS];
   __shared__ unsigned arrived;
-  if (threadIdx.x == 0) arrived = 0u;
-  __syncthreads();
+  if (threadIdx.x == 0) arrived = 0u;   // grid_sync's count (its __syncthreads orders this)
   const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;
-  const int gwarp = blockIdx.x * WARPS + (threadIdx.x >> 5), nwarps = gridDim.x * WARPS;
+  // a gathered item's thread: consecutive items on consecutive blocks
+  const int sid = blockIdx.x + gridDim.x * threadIdx.x;
   const bool ref = a.stages & ST_REF, window = ref && !a.ref_points;
   const bool sel = a.stages & ST_SELECT, seed = a.stages & ST_SEED;
   const bool seed_row = seed && a.slot >= 0 && a.slot < a.Fi;
-  bool did = false;
+  const int n_cells = a.Hc * a.Wc;
+  const bool cell_block = sel && blockIdx.x * WARPS < n_cells;   // owns cells in phases 2, 3
+  // stage: refresh_start
 
   // phase 1: the range (unit 0), the regions' quantiles (units 1..), the
-  // cell table zeroed, the arena's other rows copied
-  if (window || (a.stages & ST_RANGE) || sel || seed) {
-    const int n_reg = sel ? a.Hr * a.Wr : 0, first = (a.stages & ST_RANGE) ? 1 : 0;
-    for (int u = blockIdx.x; u < first + n_reg; u += gridDim.x) {
-      if (u < first) range_unit(a, smem);
-      else region_unit(a, u - first, smem);
-    }
-    if (window)
-      for (int i = gtid; i < a.Wc4 * a.Hc4; i += gstride) a.cells[i] = 0u;
-    if (seed)
-      for (long long o = gtid; o < (long long)a.Fi * a.Ki; o += gstride)
-        if (!seed_row || o / a.Ki != a.slot) copy_row(a, o);
-    did = true;
+  // cell table zeroed, the arena's other rows copied (the first entry's
+  // loads issued before the unit, its stores after it), the seeds without
+  // a selection (8 threads a position), given points sampled
+  if (window)
+    for (int i = gtid; i < a.Wc4 * a.Hc4; i += gstride) a.cells[i] = 0u;
+  const long long n_arena = seed ? (long long)a.Fi * a.Ki : 0;
+  auto copied = [&](long long o) { return !seed_row || o / a.Ki != a.slot; };
+  Entry held;
+  const bool hold = gtid < n_arena && copied(gtid);
+  if (hold) held = load_entry(a, gtid);
+  const int first = (a.stages & ST_RANGE) ? 1 : 0, units = first + (sel ? a.Hr * a.Wr : 0);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    if (u < first) range_unit(a, smem, red);
+    else region_unit(a, u - first, smem, red);
   }
-  // stage: phase1
-  // phase 2: the points into the cell table; the cells' maxima
-  if (window || sel) {
-    if (did) gridbar::grid_sync(a.bar, arrived);
-    if (window)
-      for (int p = gtid; p < a.P; p += gstride) project_point(a, p);
-    if (sel) {
-      float* th2 = reinterpret_cast<float*>(smem);
-      const float th_out = threshold_table(a, th2);
-      for (int c = gwarp; c < a.Hc * a.Wc; c += nwarps) cell_max(a, c, th2, th_out);
+  // stage: units
+  if (hold) store_entry(a, gtid, held);
+  for (long long o = gtid + gstride; o < n_arena; o += gstride)
+    if (copied(o)) store_entry(a, o, load_entry(a, o));
+  if (seed_row && !sel) {
+    const float lo = __ldg(a.seed_lo), hi = __ldg(a.seed_hi);
+    for (int g = gtid; g < 8 * a.Ki; g += gstride) {
+      const int i = g >> 3, t = g & 7;
+      const float u = __ldg(a.seed_uv + 2 * i), v = __ldg(a.seed_uv + 2 * i + 1);
+      const unsigned char valid = __ldg(a.seed_valid + i);
+      seed_tap(a, i, u, v, t);
+      if (t == 0) seed_fields(a, i, u, v, valid, lo, hi);
     }
-    did = true;
+  }
+  if (ref && a.ref_points)
+    for (int i = sid; i < a.L * a.P; i += gstride) sample_point(a, i / a.P, i % a.P);
+  // stage: phase1
+  if (!window && !sel) return;   // no barrier was taken, none is left to reset
+
+  // phase 2: the points into the cell table; the cells' maxima
+  gridbar::grid_sync(a.bar, arrived);
+  // stage: barrier1
+  if (window)
+    for (int p = sid; p < a.P; p += gstride) project_point(a, p);
+  if (cell_block) {
+    float* th2 = reinterpret_cast<float*>(smem);
+    const float th_out = threshold_table(a, th2, th2 + a.Hr * a.Wr, red);
+    // stage: thresholds
+    for (int c = blockIdx.x * WARPS + (threadIdx.x >> 5); c < n_cells; c += gridDim.x * WARPS)
+      cell_max(a, c, th2, th_out);
   }
   // stage: phase2
-  // phase 3: the z-buffer test and the levels' samples; the ranks
-  if (ref || sel) {
-    if (did) gridbar::grid_sync(a.bar, arrived);
-    if (ref)
-      for (int i = gtid; i < a.L * a.P; i += gstride) sample_point(a, i / a.P, i % a.P);
-    if (sel) {
+
+  // phase 3: the z-buffer test and the levels' samples; the ranks (with the
+  // seeds in a refresh) and the padded positions
+  gridbar::grid_sync(a.bar, arrived);
+  // stage: barrier2
+  if (window)
+    for (int i = sid; i < a.L * a.P; i += gstride) sample_point(a, i / a.P, i % a.P);
+  if (sel) {
+    const float lo = seed_row ? __ldcg(a.seed_lo) : 0.f, hi = seed_row ? __ldcg(a.seed_hi) : 0.f;
+    if (cell_block) {
       float* best = reinterpret_cast<float*>(smem);
-      for (int c = threadIdx.x; c < a.Hc * a.Wc; c += THREADS) best[c] = __ldcg(a.cell_best + c);
+      for (int c = threadIdx.x; c < n_cells; c += THREADS) best[c] = __ldcg(a.cell_best + c);
       __syncthreads();
-      for (int c = gwarp; c < a.Hc * a.Wc; c += nwarps) rank_cell(a, c, best);
-      for (int r = a.k + gtid; r < a.n_points; r += gstride) {
-        a.sel_uv[2 * r] = 0.f;
-        a.sel_uv[2 * r + 1] = 0.f;
-        a.sel_valid[r] = 0;
-        a.sel_score[r] = 0.f;
+      // stage: maxima
+      for (int c = blockIdx.x * WARPS + (threadIdx.x >> 5); c < n_cells; c += gridDim.x * WARPS)
+        rank_cell(a, c, best, seed_row, lo, hi);
+    }
+    for (int r = a.k + sid; r < a.n_points; r += gstride) {
+      a.sel_uv[2 * r] = 0.f;
+      a.sel_uv[2 * r + 1] = 0.f;
+      a.sel_valid[r] = 0;
+      a.sel_score[r] = 0.f;
+      if (seed_row) {
+        for (int t = 0; t < 8; ++t) seed_tap(a, r, 0.f, 0.f, t);
+        seed_fields(a, r, 0.f, 0.f, 0, lo, hi);
       }
     }
-    did = true;
   }
   // stage: phase3
-  // phase 4: the seeded row
-  if (seed_row) {
-    if (did) gridbar::grid_sync(a.bar, arrived);
-    for (int i = gtid; i < a.Ki; i += gstride) seed_position(a, i);
-  }
-  // stage: phase4
   gridbar::finish_sync(a.bar);
 }
 
-// The co-resident grid on the current device: its SMs times the blocks an
-// SM holds, at most BLOCKS_PER_SM (found once a device): 3 an SM on an H100,
-// so that the range and the 300 regions of a 640 x 480 keyframe take one
-// block each.
-cudaError_t grid_blocks(int* blocks) {
-  static int cached[64];
+// The blocks an SM holds at `smem` bytes of dynamic shared memory on the
+// current device (found once a device and 4 KB step of shared memory).
+cudaError_t blocks_per_sm(int smem, int* sms, int* per_sm) {
+  static int cached_sms[64], cached[64][SMEM_BYTES / 4096 + 1];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev < 64 && cached[dev] > 0) {
-    *blocks = cached[dev];
+  const int step = (smem + 4095) / 4096;
+  if (dev < 64 && cached[dev][step] > 0) {
+    *sms = cached_sms[dev];
+    *per_sm = cached[dev][step];
     return cudaSuccess;
   }
-  int sms = 0, per_sm = 0;
   e = cudaFuncSetAttribute(refresh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BYTES);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, reinterpret_cast<const void*>(refresh_kernel), THREADS, SMEM_BYTES);
+        per_sm, reinterpret_cast<const void*>(refresh_kernel), THREADS, step * 4096);
   if (e != cudaSuccess) return e;
-  if (per_sm == 0) return cudaErrorLaunchOutOfResources;
-  *blocks = sms * (per_sm < BLOCKS_PER_SM ? per_sm : BLOCKS_PER_SM);
-  if (dev < 64) cached[dev] = *blocks;
+  if (*per_sm == 0) return cudaErrorLaunchOutOfResources;
+  if (dev < 64) {
+    cached_sms[dev] = *sms;
+    cached[dev][step] = *per_sm;
+  }
   return cudaSuccess;
 }
 
+long long cdiv(long long n, long long d) { return (n + d - 1) / d; }
+
 }  // namespace
 
-// One cooperative launch on `stream` (the wrapper, ops/kf_programs.py,
-// fills Args through a ctypes structure of the same fields). Returns the
-// CUDA error of the launch.
+// One launch on `stream` of a stage mask (one stage or all four; the
+// wrapper, ops/kf_programs.py, fills Args through a ctypes structure of the
+// same fields): a cooperative launch of the blocks its units need (at most
+// the co-resident grid) when it holds a grid barrier (A of the window's
+// points, C), else a plain one. Returns the CUDA error of the launch.
 extern "C" int kf_refresh_launch(const void* args, void* stream) {
   const Args& a = *static_cast<const Args*>(args);
-  if (a.stages <= 0 || a.stages > 15 || a.L < 1 || a.L > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  int sort_n = 1;
-  while (sort_n < a.P) sort_n <<= 1;
-  if (((a.stages & ST_RANGE) && sort_n > SMEM_WORDS) ||
-      ((a.stages & ST_SELECT) && (a.Hr * a.Wr > SMEM_WORDS || a.Hc * a.Wc > SMEM_WORDS ||
-                                  a.Hr < 1 || a.Wr < 1 || a.Hc < 1 || a.Wc < 1)))
+  const int s = a.stages;
+  if ((s != ST_REF && s != ST_RANGE && s != ST_SELECT && s != ST_SEED && s != ST_ALL) ||
+      a.L < 1 || a.L > MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  const cudaError_t e = grid_blocks(&blocks);
-  if (e != cudaSuccess) return (int)e;
+  const bool window = (s & ST_REF) && !a.ref_points, sel = s & ST_SELECT;
+  const int n_reg = a.Hr * a.Wr, n_cells = a.Hc * a.Wc;
+  if (sel && (2 * n_reg > SMEM_WORDS || n_cells > SMEM_WORDS || a.Hr < 1 || a.Wr < 1 ||
+              a.Hc < 1 || a.Wc < 1))
+    return (int)cudaErrorInvalidValue;
+  // the units of each phase: blocks (B, the regions), warps (the cells),
+  // threads (the cell table, the arena), gathered items (samples, seeds)
+  long long blocks = ((s & ST_RANGE) ? 1 : 0) + (sel ? n_reg : 0);
+  if (sel) blocks = std::max(blocks, cdiv(n_cells, WARPS));
+  if (s & ST_REF) blocks = std::max(blocks, cdiv((long long)a.L * a.P, GATHER));
+  if (window) blocks = std::max(blocks, cdiv((long long)a.Wc4 * a.Hc4, THREADS));
+  if (s & ST_SEED)
+    blocks = std::max({blocks, cdiv((long long)a.Fi * a.Ki, THREADS), cdiv(8LL * a.Ki, THREADS)});
+  blocks = std::max(blocks, 1LL);
+  int words = (s & (ST_RANGE | ST_SELECT)) ? SELECT_WORDS : 0;
+  if (sel) words = std::max({words, 2 * n_reg, n_cells});
+  const int smem = 4 * words;
   Args copy = a;
   void* params[] = {&copy};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(refresh_kernel), dim3(blocks), dim3(THREADS), params,
-      SMEM_BYTES, static_cast<cudaStream_t>(stream));
+  cudaError_t err;
+  if (window || sel) {
+    int sms = 0, per_sm = 0;
+    err = blocks_per_sm(smem, &sms, &per_sm);
+    if (err != cudaSuccess) return (int)err;
+    blocks = std::min(blocks, (long long)sms * per_sm);
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(refresh_kernel),
+                                      dim3((unsigned)blocks), dim3(THREADS), params, smem,
+                                      static_cast<cudaStream_t>(stream));
+  } else {
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(refresh_kernel), dim3((unsigned)blocks),
+                           dim3(THREADS), params, smem, static_cast<cudaStream_t>(stream));
+  }
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The blocks of the kernel's co-resident grid on the current device.
-extern "C" int kf_refresh_grid_blocks(int* out) { return (int)grid_blocks(out); }
+// The blocks of the kernel's co-resident grid on the current device at the
+// largest shared memory a launch takes.
+extern "C" int kf_refresh_grid_blocks(int* out) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t e = blocks_per_sm(SMEM_BYTES, &sms, &per_sm);
+  if (e == cudaSuccess) *out = sms * per_sm;
+  return (int)e;
+}
 
 // sizeof(Args), for the wrapper's check of its structure.
 extern "C" int kf_refresh_args_size() { return (int)sizeof(Args); }

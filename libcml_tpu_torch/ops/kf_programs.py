@@ -4,8 +4,9 @@ numpy models of their schedules, and the verdicts.
   kf_activate_cuda   csrc/kf_activate.cu, one launch: `_activate_and_clear`
                      (mature_mask, then add_points for every frame slot's
                      arena row) or `add_points` for one row of given
-                     points. Each row's free-slot scan over the arena's
-                     validity flags runs in the launch's last block.
+                     points. Every block runs each row's free-slot scan
+                     over the arena's validity flags itself and writes its
+                     own candidates' rows.
   kf_refresh_cuda    csrc/kf_refresh.cu, one cooperative launch of a stage
                      mask: A the tracker reference (the window's points
                      projected into the keyframe behind a 4x4-cell z-buffer,
@@ -48,9 +49,10 @@ from libcml_tpu_torch.ops.kernel_build import KernelLaunchError
 
 ACTIVATE_SOURCE = kb.CSRC / "kf_activate.cu"
 REFRESH_SOURCE = kb.CSRC / "kf_refresh.cu"
-ACTIVATE_THREADS = 256         # csrc/kf_activate.cu THREADS: the last block's threads
+ACTIVATE_THREADS = 256         # csrc/kf_activate.cu THREADS: each block's scan threads
+ACTIVATE_MAX_RUN = 32          # csrc/kf_activate.cu MAX_RUN: slots a scan thread holds
 MAX_LEVELS = 8                 # csrc/kf_refresh.cu MAX_LEVELS
-SMEM_WORDS = 16384             # csrc/kf_refresh.cu SMEM_WORDS: sort keys, regions, cells
+SMEM_WORDS = 16384             # csrc/kf_refresh.cu SMEM_WORDS: two region tables, or cells
 REGION = 32                    # models/direct/selector._REGION
 ST_REF, ST_RANGE, ST_SELECT, ST_SEED = 1, 2, 4, 8
 ALL_STAGES = 15
@@ -80,7 +82,7 @@ class _ActArgs(ctypes.Structure):
         ("idepth_min", ctypes.c_float), ("c2", ctypes.c_float)] + [
         (n, ctypes.c_void_p) for n in ("o_uv", "o_host", "o_idepth", "o_idepth_fej", "o_color",
                                        "o_weight", "o_point_valid", "o_res_active",
-                                       "o_imm_valid", "s_cw", "s_rho", "s_ready", "ticket")]
+                                       "o_imm_valid")]
 
 
 _I8 = ctypes.c_int * MAX_LEVELS
@@ -146,18 +148,6 @@ def _library(source, symbol: str, struct) -> ctypes.CDLL:
     return lib
 
 
-_TICKETS: dict[torch.device, torch.Tensor] = {}
-
-
-def _ticket(dev: torch.device) -> torch.Tensor:
-    """The activation kernel's ticket on `dev`: 0 between launches (its last
-    block resets it); launches on one device run in stream order."""
-    t = _TICKETS.get(dev)
-    if t is None:
-        t = _TICKETS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return t
-
-
 # -- kf_activate -------------------------------------------------------------------------
 
 
@@ -181,6 +171,9 @@ def kf_activate_cuda(ba, images: torch.Tensor, cfg, arena=None, points=None):
                          f"{tuple(images.shape)}")
     if F > 32:
         raise ValueError(f"kf_activate_cuda takes at most 32 frame slots, got {F}")
+    if P > ACTIVATE_THREADS * ACTIVATE_MAX_RUN:
+        raise ValueError(f"kf_activate_cuda takes at most {ACTIVATE_THREADS * ACTIVATE_MAX_RUN} "
+                         f"point slots, got {P}")
     ins = {"uv": _aligned(_c(ba.uv, torch.float32, "uv"), 8, "uv"),
            "host": _c(ba.host, torch.int32, "host"),
            "idepth": _c(ba.idepth, torch.float32, "idepth"),
@@ -243,11 +236,6 @@ def kf_activate_cuda(ba, images: torch.Tensor, cfg, arena=None, points=None):
            "res_active": torch.empty_like(ins["res_active"])}
     for name, x in out.items():
         setattr(a, "o_" + name, x.data_ptr())
-    n = max(R * K, 1)
-    scratch = (torch.empty(n * 16, dtype=torch.float32, device=dev),
-               torch.empty(n, dtype=torch.float32, device=dev),
-               torch.empty(n, dtype=torch.uint8, device=dev), _ticket(dev))
-    a.s_cw, a.s_rho, a.s_ready, a.ticket = (x.data_ptr() for x in scratch)
     lib = _library(ACTIVATE_SOURCE, "kf_activate_launch", _ActArgs)
     with torch.cuda.device(dev):
         err = lib.kf_activate_launch(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
@@ -378,7 +366,7 @@ def _set_select(a: _RefArgs, grad0: torch.Tensor, n_points: int, quantile: float
     if n_points <= 0:
         raise ValueError(f"select needs a positive point budget, got {n_points}")
     g = select_geometry(H, W, n_points, quantile)
-    if g["Hr"] * g["Wr"] > SMEM_WORDS or g["Hc"] * g["Wc"] > SMEM_WORDS:
+    if 2 * g["Hr"] * g["Wr"] > SMEM_WORDS or g["Hc"] * g["Wc"] > SMEM_WORDS:
         raise ValueError("select on the card: too many regions or cells for shared memory")
     if g["Hc"] < 1 or g["Wc"] < 1:
         raise ValueError(f"select on the card: no {g['pot']}-pixel cell in {H}x{W}")
@@ -406,6 +394,8 @@ _ARENA_TYPES = (torch.float32, torch.float32, torch.float32, torch.float32, torc
 def _set_seed(a: _RefArgs, arena, slot: int, grad0: torch.Tensor, keep: list) -> dict:
     F, K = arena.valid.shape
     ins = [_c(getattr(arena, f), t, f"arena {f}") for f, t in zip(_ARENA_FIELDS, _ARENA_TYPES)]
+    _aligned(ins[0], 8, "arena uv")        # copied as float2 and float4 rows
+    _aligned(ins[1], 16, "arena color")
     g = _c(grad0, torch.float32, "seed image")
     if g.ndim != 3 or g.shape[2] != 3 or g.shape[0] < 2 or g.shape[1] < 2:
         raise ValueError(f"seed on the card: the image must be (H, W, 3), got {tuple(g.shape)}")
@@ -491,8 +481,6 @@ def rho_range_cuda(ba, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage B alone: the working range (rho_lo, rho_hi), 0-d tensors."""
     dev = ba.uv.device
     _cuda(dev, "rho_range_cuda")
-    if ba.uv.shape[0] > SMEM_WORDS:
-        raise ValueError(f"rho_range_cuda sorts at most {SMEM_WORDS} points in shared memory")
     keep: list = []
     a = _refresh_args(cfg=cfg)
     a.stages = ST_RANGE
@@ -549,8 +537,8 @@ def seed_cuda(arena, slot: int, grad0: torch.Tensor, uv: torch.Tensor, valid: to
 
 def model_free_slot_scan(point_valid: np.ndarray, K: int,
                          threads: int = ACTIVATE_THREADS) -> np.ndarray:
-    """The last block's scan of one row (csrc/kf_activate.cu): each of
-    `threads` threads counts the free slots of its contiguous run, an
+    """A block's scan of one row (csrc/kf_activate.cu): each of `threads`
+    threads counts the free slots of its contiguous run (a bit mask), an
     exclusive sum over the threads gives its first position, and it lists
     its free slots from there while the position is under K. Returns the
     (min(K, free),) destination of each position."""
@@ -575,8 +563,8 @@ def model_activate(point_valid: np.ndarray, ready: np.ndarray, shift: int = 0,
                    threads: int = ACTIVATE_THREADS) -> tuple[np.ndarray, np.ndarray]:
     """The kernel's R dependent scans and scatters on the validity flags:
     ready (R, K) -> (dest (R, K), -1 where nothing is written; the new
-    flags). `shift` plants the smoke's fault: position i takes the
-    (i + shift)-th free slot (the last one repeats)."""
+    flags). `shift` plants a slot fault: position i takes the (i +
+    shift)-th free slot (the last one repeats)."""
     pv = point_valid.astype(bool).copy()
     R, K = ready.shape
     dest = np.full((R, K), -1, np.int64)
@@ -590,27 +578,31 @@ def model_activate(point_valid: np.ndarray, ready: np.ndarray, shift: int = 0,
     return dest, pv
 
 
-def bitonic_sort(keys: np.ndarray) -> np.ndarray:
-    """csrc/kf_refresh.cu bitonic_sort: the same compare-exchange network,
-    ascending, on a power-of-two count of unsigned keys."""
-    k = np.array(keys, dtype=np.uint32)
-    n = k.shape[0]
-    assert n & (n - 1) == 0
-    i = np.arange(n)
-    size = 2
-    while size <= n:
-        j = size >> 1
-        while j > 0:
-            l = i ^ j
-            m = l > i
-            a, b = k[i[m]], k[l[m]]
-            up = (i[m] & size) == 0
-            swap = (a > b) == up
-            ii, ll = i[m][swap], l[m][swap]
-            k[ii], k[ll] = b[swap], a[swap]
-            j >>= 1
-        size <<= 1
-    return k
+def model_select_ranks(keys: np.ndarray, r0: int, r1: int) -> tuple[np.uint32, np.uint32]:
+    """csrc/kf_refresh.cu select_ranks: the keys at ranks r0 and r1 (r1 = r0
+    or r0 + 1, both under the count) of unsigned `keys` as an ascending sort
+    holds them. Four passes from the top 8-bit digit: a histogram of the
+    digit over the keys that match the digits found so far, the bin whose
+    running count passes the rank (the rank then counted inside it); after
+    the last pass the bin holds the keys equal to the one found. The key at
+    r1 is that key while its equal keys reach r1, else the least key above
+    it."""
+    k = np.asarray(keys, np.uint32).reshape(-1)
+    prefix = mask = equal = 0
+    r = int(r0)
+    for shift in (24, 16, 8, 0):
+        match = (k & np.uint32(mask)) == np.uint32(prefix)
+        hist = np.bincount(((k[match] >> np.uint32(shift)) & np.uint32(0xFF)).astype(np.int64),
+                           minlength=256)
+        running = np.cumsum(hist)
+        digit = int(np.argmax(running > r))
+        before = int(running[digit] - hist[digit])
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+        equal = int(hist[digit])
+        r -= before
+    k1 = prefix if r + (int(r1) - int(r0)) < equal else int(k[k > np.uint32(prefix)].min())
+    return np.uint32(prefix), np.uint32(k1)
 
 
 def _lerp(lo: np.float32, hi: np.float32, w: np.float32) -> np.float32:
@@ -624,14 +616,15 @@ def _lerp(lo: np.float32, hi: np.float32, w: np.float32) -> np.float32:
 
 def model_region_quantile(values: np.ndarray, quantile: float = 0.5) -> np.float32:
     """A region's quantile as csrc/kf_refresh.cu takes it: NaN if any value
-    is, else the bitonic network's sorted keys (the values' bits, >= +0)
-    at torch.quantile's float32 rank, interpolated."""
+    is, else the keys (the values' bits, >= +0) at torch.quantile's float32
+    ranks by model_select_ranks, interpolated."""
     v = np.asarray(values, np.float32).reshape(-1)
     if np.isnan(v).any():
         return np.float32(np.nan)
     q_lo, q_hi, q_w = _quantile_rank(quantile)
-    s = bitonic_sort(v.view(np.uint32)).view(np.float32)
-    return _lerp(s[q_lo], s[q_hi], np.float32(q_w))
+    k0, k1 = model_select_ranks(v.view(np.uint32), q_lo, q_hi)
+    f = np.array([k0, k1], np.uint32).view(np.float32)
+    return _lerp(f[0], f[1], np.float32(q_w))
 
 
 def _order_key(v: np.ndarray) -> np.ndarray:
@@ -647,22 +640,19 @@ def _order_value(k: np.uint32) -> np.float32:
 
 def model_rho_range(idepth: np.ndarray, point_valid: np.ndarray, idepth_min: float,
                     idepth_max: float) -> tuple[np.float32, np.float32]:
-    """Stage B: the valid, non-NaN inverse depths' keys sorted by the
-    bitonic network (the rest after them), torch.nanquantile's float32 rank
-    of 0.5 and its interpolation; 1.0 when none (or not finite)."""
+    """Stage B: the valid, non-NaN inverse depths' order keys (the others
+    left out: they sort after them) at torch.nanquantile's float32 ranks of
+    0.5 by model_select_ranks, interpolated; 1.0 when none (or not
+    finite)."""
     v = np.asarray(idepth, np.float32)
     ok = np.asarray(point_valid, bool) & ~np.isnan(v)
-    n = 1 << max(0, int(np.ceil(np.log2(max(v.shape[0], 1)))))
-    keys = np.full(n, 0xFFFFFFFF, np.uint32)
-    keys[:v.shape[0]][ok] = _order_key(v[ok])
-    keys = bitonic_sort(keys)
     m = int(ok.sum())
     med = np.float32(np.nan)
     if m > 0:
         rank = np.float32(0.5) * np.float32(m - 1)
         lo = int(rank)
-        med = _lerp(_order_value(keys[lo]), _order_value(keys[int(np.ceil(rank))]),
-                    np.float32(rank - np.float32(lo)))
+        k0, k1 = model_select_ranks(_order_key(v[ok]), lo, int(np.ceil(rank)))
+        med = _lerp(_order_value(k0), _order_value(k1), np.float32(rank - np.float32(lo)))
     if not np.isfinite(med):
         med = np.float32(1.0)
     with np.errstate(over="ignore"):

@@ -8,9 +8,13 @@ windows at 640x480 (the smoke's configuration) and 160x120: a window
 after three keyframes with a third of its candidates matured, an arena
 whose ready and waiting candidates interleave with fewer free point slots
 than ready ones, an all-invalid window (the range's median 1.0), a flat
-keyframe (every cell's score 0: the top k by index), and a window whose
-points crowd a few 4x4 cells of the keyframe (the z-buffer decides); one
-launch a call.
+keyframe (every cell's score 0: the top k by index), a window whose points
+crowd a few 4x4 cells of the keyframe (the z-buffer decides), a keyframe
+flat below its top third (the top k's cut among equal scores, regions whose
+quantile is 0), and a window of 1,500 point slots (no power of two: the
+range's selection and the scans' runs); one launch a call, each piece alone
+too (the seed and the reference of given points as plain launches, the
+others on the grid their stage needs).
 
 This file imports only torch, numpy, pytest and the port, so that it runs on
 the card machine (which has no JAX package):
@@ -44,7 +48,7 @@ SIZES = {"640x480": (640, 480, DirectConfig(num_levels=4, max_points=2048, point
                                             init_points=512, max_frames=7)),
          "160x120": (160, 120, DirectConfig(num_levels=3, max_points=256, points_per_kf=64,
                                             init_points=256, max_frames=4))}
-CASES = ("window", "overflow", "all_invalid", "flat", "crowded")
+CASES = ("window", "overflow", "all_invalid", "flat", "crowded", "half_flat", "p1500")
 KF_FRAMES = (0, 2, 4)
 REFRESH_FRAME = 6
 
@@ -105,6 +109,8 @@ def kf_case(name: str, size: str = "160x120") -> KfCase:
     inserted as the keyframe of the refresh (slot 3). `name` picks the
     variant (CASES)."""
     W, H, cfg = SIZES[size]
+    if name == "p1500":
+        cfg = dataclasses.replace(cfg, max_points=1500)
     cam = camera(W, H)
     if size not in _FRAMES:
         _FRAMES[size] = _frames(cam, REFRESH_FRAME + 1)
@@ -168,6 +174,10 @@ def kf_case(name: str, size: str = "160x120") -> KfCase:
     if name == "flat":
         pyr = tuple(torch.stack([torch.full_like(p[..., 0], 100.0), torch.zeros_like(p[..., 1]),
                                  torch.zeros_like(p[..., 2])], -1) for p in pyr)
+    if name == "half_flat":
+        pyr = tuple(p.clone() for p in pyr)
+        for p in pyr:
+            p[p.shape[0] // 3:] = torch.tensor([100.0, 0.0, 0.0])
     T = SE3(R=torch.tensor(np.asarray(R, np.float32)), t=torch.tensor(np.asarray(t, np.float32)))
     w, slot = win.add_keyframe(w, pyr[0], T, torch.zeros(2), REFRESH_FRAME)
     return KfCase(w, imm, pyr[:L], int(slot), cam, cfg)

@@ -20,12 +20,15 @@ kf_case, carried across by `convert.py`). Tolerances, with their reasons:
     torch.nanquantile interpolate the two middle values with other
     roundings).
 The schedule models (the activation's free-slot scans, the z-buffer's two
-passes, the regional quantile's bitonic sort, the stable top k by rank, the
-cells' first maxima by lanes, the range's median) are held to the plain
-forms exactly.
+passes, the regional quantile's and the range median's radix selection, the
+stable top k by rank, the cells' first maxima by lanes) are held to the
+plain forms and to a sort exactly; the smoke's planted faults are checked
+against the kernel sources they edit.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -353,18 +356,27 @@ def test_model_cell_argmax_matches_torch(pot):
     np.testing.assert_array_equal(arg, torch.argmax(torch.tensor(s), -1).numpy())
 
 
-@pytest.mark.parametrize("n_valid", [0, 1, 2, 7, 8, 255])
-def test_model_rho_range_matches_plain(n_valid):
-    """The bitonic sort's median at torch.nanquantile's rank (odd and even
-    counts, a NaN inverse depth among the valid ones), the range from it."""
-    rng = np.random.default_rng(n_valid)
-    P = 256
-    cfg = SIZES["160x120"][2]
+@pytest.mark.parametrize("P,n_valid,nan_rows", [
+    (256, 0, False), (256, 1, False), (256, 2, False), (256, 7, False), (256, 8, False),
+    (256, 255, False), (1500, 941, False), (2047, 2047, False), (2048, 1024, False),
+    (2048, 2, False), (2048, 0, True), (2048, 1, True), (2048, 2, True)])
+def test_model_rho_range_matches_plain(P, n_valid, nan_rows):
+    """The radix selection's median at torch.nanquantile's ranks (odd and
+    even counts, a NaN inverse depth among the valid ones, counts that are
+    no power of two; with `nan_rows` every fifth slot valid and NaN, so
+    that 0, 1 or 2 keys of 2,048 slots take part), the range from it."""
+    rng = np.random.default_rng(P + n_valid)
+    cfg = dataclasses.replace(SIZES["160x120"][2], max_points=P)
     idepth = (rng.random(P) * 3).astype(np.float32)
     valid = np.zeros(P, bool)
-    valid[rng.choice(P, n_valid, replace=False)] = True
-    if n_valid > 2:
-        idepth[np.nonzero(valid)[0][0]] = np.nan
+    if nan_rows:
+        idepth[::5] = np.nan
+        valid[::5] = True
+        valid[1 + 5 * np.arange(n_valid)] = True
+    else:
+        valid[rng.choice(P, n_valid, replace=False)] = True
+        if n_valid > 2:
+            idepth[np.nonzero(valid)[0][0]] = np.nan
     ba = tba.empty_state(cfg).replace(idepth=torch.tensor(idepth),
                                       point_valid=torch.tensor(valid))
     want = todo._working_rho_range_plain(ba, cfg)
@@ -373,11 +385,64 @@ def test_model_rho_range_matches_plain(n_valid):
         assert np.float32(x) == y.numpy(), (x, y)
 
 
-def test_bitonic_sort_sorts():
-    rng = np.random.default_rng(0)
-    for n in (1, 2, 64, 1024, 2048):
-        k = rng.integers(0, 2**32 - 1, n, dtype=np.uint64).astype(np.uint32)
-        np.testing.assert_array_equal(kfp.bitonic_sort(k), np.sort(k))
+def _order_keys(v) -> np.ndarray:
+    return kfp._order_key(np.asarray(v, np.float32))
+
+
+def _select_case(name: str):
+    """(keys, [(r0, r1), ...]) of a hard case for the radix selection."""
+    rng = np.random.default_rng(len(name))
+    if name == "all_equal":
+        return np.full(2048, 0x3F800000, np.uint32), [(0, 0), (1023, 1024), (2047, 2047)]
+    if name == "two_values":
+        k = _order_keys(rng.permutation(np.repeat(np.float32([5.0, 7.0]), 1024)))
+        return k, [(1023, 1024), (1022, 1023), (1024, 1025)]
+    if name == "signed_zeros":
+        k = _order_keys(rng.permutation(np.float32([-0.0] * 600 + [0.0] * 600 + [-1.0, 1.0])))
+        return k, [(600, 601), (599, 600), (0, 1), (1200, 1201)]
+    if name == "top_keys":   # the largest keys, 0xFFFFFFFF among them (a NaN's order key)
+        k = np.concatenate([np.full(3, 0xFFFFFFFF, np.uint32), np.uint32([0xFFFFFFFE, 0]),
+                            rng.integers(0, 2**32 - 2, 1019, dtype=np.uint64).astype(np.uint32)])
+        return rng.permutation(k), [(1021, 1022), (1020, 1021), (1023, 1023), (0, 1)]
+    if name == "one_bucket":   # 1,024 keys under one top digit
+        k = np.uint32(0x42000000) + rng.permutation(1024).astype(np.uint32)
+        return k, [(511, 512), (0, 1), (1022, 1023)]
+    if name == "one_low_bucket":   # and under one top three digits, with repeats
+        k = np.uint32(0x42424200) + rng.integers(0, 256, 1024).astype(np.uint32)
+        return k, [(511, 512), (255, 256)]
+    P = int(name[1:])   # "pN": N random keys with repeats
+    k = rng.integers(0, 2**20, P, dtype=np.uint64).astype(np.uint32) << np.uint32(12)
+    return k, [((P - 1) // 2, P // 2), (0, 0), (P - 2, P - 1)]
+
+
+@pytest.mark.parametrize("name", ["all_equal", "two_values", "signed_zeros", "top_keys",
+                                  "one_bucket", "one_low_bucket", "p1500", "p2047", "p2048"])
+def test_model_select_ranks_matches_sort(name):
+    """model_select_ranks (the kernel's four radix passes, then the equal
+    keys' count or the least key above) gives a sort's keys at both ranks."""
+    keys, ranks = _select_case(name)
+    s = np.sort(keys)
+    for r0, r1 in ranks:
+        assert kfp.model_select_ranks(keys, r0, r1) == (s[r0], s[r1]), (name, r0, r1)
+
+
+def test_quantile_rank_fault_shows_on_striped_regions():
+    """The smoke's planted fault (the region quantile's low rank one too
+    high) changes a region's quantile where the two middle keys differ: a
+    region of 512 zeros and 512 magnitudes c has median c / 2, the fault
+    takes c; then no pixel of magnitude c passes the fault's threshold
+    (c + 7)^2, where the honest one, (c / 2 + 7)^2, passes them all for
+    c > 14."""
+    c = np.float32(50.0)
+    v = np.where(np.arange(1024) % 2 == 0, np.float32(0), c).astype(np.float32)
+    q_lo, q_hi, q_w = kfp._quantile_rank(0.5)
+    honest = kfp.model_region_quantile(v)
+    assert honest == torch.quantile(torch.tensor(v), 0.5).numpy() == c / 2
+    k0, k1 = kfp.model_select_ranks(v.view(np.uint32), q_lo + 1, q_hi)
+    f = np.array([k0, k1], np.uint32).view(np.float32)
+    faulty = kfp._lerp(f[0], f[1], np.float32(q_w))
+    assert faulty == c
+    assert (honest + 7) ** 2 < c * c < (faulty + 7) ** 2
 
 
 def test_seed_immatures_dispatch_on_cpu_is_plain(cases):
@@ -406,3 +471,52 @@ def test_dispatchers_raise_on_other_devices():
     with pytest.raises(ValueError):
         twin.add_points(w, 0, torch.zeros((4, 2), device="meta"), torch.ones(4, device="meta"),
                         torch.ones(4, dtype=torch.bool, device="meta"), cfg)
+
+
+# -- the smoke's planted faults and the stamp tool against the kernel sources ----------
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("fault", ["dest_one_free_slot_further", "topk_ties_to_the_highest_index",
+                                   "quantile_rank_one_too_high"])
+def test_planted_fault_edits_its_kernel_once(fault, tmp_path):
+    """chip_smoke.KF_FAULTS: each fault's line is in its kernel source
+    once, and write_kf_faults' copy differs from the source there only."""
+    cs = _chip_smoke()
+    source, old, new, _ = cs.KF_FAULTS[fault]
+    text = source.read_text()
+    assert text.count(old) == 1 and old != new
+    path = cs.write_kf_faults(tmp_path)[fault]
+    assert path.read_text() == text.replace(old, new)
+    assert (path.parent / "grid_barrier.cuh").exists()
+
+
+def test_kf_stage_marks_are_found_by_ba_stages(tmp_path):
+    """tools/ba_stages.py --kf stamps every `// stage:` mark of both
+    keyframe kernels, and puts the marks that the sources of commit
+    cb7cc16 lacked (KF_MARKS) where their anchors stand, such as the
+    activation's ticket."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import ba_stages
+
+    class Tree:
+        csrc = kfp.kb.CSRC
+
+    copy, stages = ba_stages.instrument(Tree(), tmp_path / "kf_stages", prefix=("kf_",),
+                                        edit=ba_stages.add_kf_marks)
+    assert stages == ["activate_start", "candidates", "scans", "scatter", "refresh_start",
+                      "units", "phase1", "barrier1", "thresholds", "phase2", "barrier2",
+                      "maxima", "phase3"]
+    for name in ("kf_activate.cu", "kf_refresh.cu"):
+        stamped = (copy / name).read_text()
+        assert not any(ln.strip().startswith("// stage:") for ln in stamped.splitlines())
+    anchor = ba_stages.KF_MARKS["kf_activate.cu"][2][0]
+    old = "__global__ void k() {\n" + anchor + "\n  x();\n}\n"
+    assert ba_stages.add_kf_marks("kf_activate.cu", old) == (
+        "__global__ void k() {\n" + anchor + "\n  // stage: ticket\n  x();\n}\n")

@@ -63,6 +63,23 @@ csrc/triangulate.cu; a tree whose sources have none, such as commit
 match at phase 4's first call, the epipolar match at phase 5's first
 keyframe and the triangulation after it; then cold and warm device ms of
 those three in turns.
+
+    python3 tools/ba_stages.py --kf [--parent DIR] [--frames 60] [--reps 20] [--out FILE]
+
+--kf takes the direct path's keyframe kernels instead (ops/kf_programs.py:
+csrc/kf_activate.cu and csrc/kf_refresh.cu) on real calls: every call of the
+keyframe programs and their pieces that DirectOdometry makes on the smoke's
+first `--frames` frames (chip_smoke.KfCapture, as phase 3 makes them: 640x480,
+P 2,048, F 7, K 512, 300 regions, 1,036 cells of side 17). For each build:
+one sha256 of every captured call's outputs by program (equal across builds
+where the kernels agree bit for bit) and the first call that differs; the
+stage stamps (`// stage:` marks; those a source lacks, such as commit
+cb7cc16's `candidates` and `ticket`, are put in at fixed lines, KF_MARKS) of the
+activation that writes the most points, the first refresh and each of the
+refresh's pieces alone on that refresh's inputs (its stage mask: A the
+window's reference, A of given points, B the range, C the selection, D the
+seed); then the cold and warm device ms of all of them in turns beside the
+launch floor.
 """
 
 from __future__ import annotations
@@ -72,6 +89,7 @@ import contextlib
 import ctypes
 import hashlib
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -92,10 +110,14 @@ from libcml_tpu_torch.ops import ba_sweep as tree_bk  # noqa: E402
 from libcml_tpu_torch.ops import kernel_build as kb  # noqa: E402
 from libcml_tpu_torch.models.indirect.triangulation import fundamental  # noqa: E402
 from libcml_tpu_torch.ops import hamming_match as tree_hm  # noqa: E402
+from libcml_tpu_torch.ops import kf_programs as tree_kfp  # noqa: E402
 from libcml_tpu_torch.ops import orb_extract as tree_oe  # noqa: E402
 from libcml_tpu_torch.ops import triangulate as tree_tr  # noqa: E402
 from libcml_tpu_torch.ops.image import build_pyramid  # noqa: E402
+from libcml_tpu_torch.runtime import odometry  # noqa: E402
 from libcml_tpu_torch.runtime.odometry import DirectOdometry  # noqa: E402
+from libcml_tpu_torch.models.direct import selector, tracer  # noqa: E402
+from libcml_tpu_torch.models.direct import window as win_mod  # noqa: E402
 from libcml_tpu_torch.core.lie import SE3  # noqa: E402
 
 # MAXB: blocks whose stamps the tables hold (the ORB kernel's cell pass has
@@ -597,6 +619,221 @@ def pairs_main(a, dev, card: str) -> dict:
     return out
 
 
+class KfBuild:
+    """The keyframe kernels of one tree: its wrapper module `kfp` (for
+    another tree, its ops/kf_programs.py loaded from its files and pointed
+    at its own csrc/); inside `sources(dir)`, the wrappers launch the
+    libraries built from the sources in `dir`."""
+
+    def __init__(self, name: str, tree: Path | None = None):
+        self.name = name
+        if tree is None:
+            self.kfp, self.csrc = tree_kfp, kb.CSRC
+        else:
+            pkg = tree / "libcml_tpu_torch"
+            self.csrc = pkg / "csrc"
+            self.kfp = _load_module(f"_kf_programs_{name}", pkg / "ops" / "kf_programs.py")
+            self.kfp.ACTIVATE_SOURCE = self.csrc / self.kfp.ACTIVATE_SOURCE.name
+            self.kfp.REFRESH_SOURCE = self.csrc / self.kfp.REFRESH_SOURCE.name
+
+    @property
+    def sources_now(self) -> tuple[Path, Path]:
+        return self.kfp.ACTIVATE_SOURCE, self.kfp.REFRESH_SOURCE
+
+    @contextlib.contextmanager
+    def sources(self, csrc: Path):
+        before = self.sources_now
+        self.kfp.ACTIVATE_SOURCE, self.kfp.REFRESH_SOURCE = (csrc / p.name for p in before)
+        try:
+            yield
+        finally:
+            self.kfp.ACTIVATE_SOURCE, self.kfp.REFRESH_SOURCE = before
+
+
+# Stage marks that a keyframe source may lack (commit cb7cc16's carry only
+# phase1-4, scans and scatter): each (anchor, name, indent) puts `// stage: name`
+# after the line that ends the anchor's first occurrence, where the mark is
+# missing and the anchor is present
+KF_MARKS = {
+    "kf_activate.cu": (
+        ("  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;",
+         "activate_start", 2),
+        ("            make_float4(cw[4 * k], cw[4 * k + 1], cw[4 * k + 2], cw[4 * k + 3]);\n"
+         "    }\n  }", "candidates", 2),
+        ("  if (!s_last) return;", "ticket", 2)),
+    "kf_refresh.cu": (
+        ("  bool did = false;", "refresh_start", 2),),
+}
+
+
+def add_kf_marks(name: str, text: str) -> str:
+    """KF_MARKS put into a keyframe source where they are missing."""
+    for anchor, mark, indent in KF_MARKS.get(name, ()):
+        if f"// stage: {mark}\n" in text or anchor not in text:
+            continue
+        i = text.index(anchor)
+        j = text.index("\n", i + len(anchor) - 1) + 1
+        text = text[:j] + " " * indent + f"// stage: {mark}\n" + text[j:]
+    return text
+
+
+def kf_stamps(build: KfBuild, calls: dict, reps: int) -> dict | None:
+    """The build's stage stamps on each named call (stage_report over `reps`
+    calls of a copy of its csrc/ with its `// stage:` marks made stamps).
+    `calls`: name -> (fn(build), source name)."""
+    copy, stages = instrument(build, kb.BUILD_DIR / "kf_stages" / build.name, prefix=("kf_",),
+                              edit=add_kf_marks)
+    if not stages:
+        return None
+    kb.build_many([copy / p.name for p in build.sources_now])
+    named = {n: (lambda fn=fn: fn(build), src) for n, (fn, src) in calls.items()}
+    return {**stage_report(build, copy, stages, named, reps), "blocks_held": MAXB}
+
+
+def kf_call(kfp, name: str, args: tuple, kw: dict):
+    """A captured keyframe-program call (a KF_SITES name) through `kfp`'s
+    kernel wrappers, as the dispatcher makes it on the card."""
+    fn = {"_activate_and_clear": odometry._activate_and_clear,
+          "_refresh_after_kf": odometry._refresh_after_kf, "add_points": win_mod.add_points,
+          "_tracker_ref_in_frame": odometry._tracker_ref_in_frame,
+          "_working_rho_range": odometry._working_rho_range,
+          "select_points": selector.select_points, "seed_immatures": tracer.seed_immatures}[name]
+    x = inspect.signature(fn).bind(*args, **kw)
+    x.apply_defaults()
+    A = x.arguments
+    if name == "_activate_and_clear":
+        return kfp.kf_activate_cuda(A["window"].ba, A["window"].images, A["cfg"],
+                                    arena=A["immature"])
+    if name == "add_points":
+        return kfp.kf_activate_cuda(A["window"].ba, A["window"].images, A["cfg"],
+                                    points=(A["uv"], A["idepth"], A["valid"], A["slot"]))
+    if name == "_refresh_after_kf":
+        return kfp.refresh_cuda(A["window"].ba, int(A["slot"]), A["kf_pyr"], A["immature"],
+                                A["cam"], A["cfg"])
+    if name == "_tracker_ref_in_frame":
+        return kfp.tracker_ref_cuda(A["kf_pyr"], A["cam"], A["cfg"], ba=A["window"].ba,
+                                    slot=int(A["slot"]))
+    if name == "_working_rho_range":
+        return kfp.rho_range_cuda(A["ba"], A["cfg"])
+    if name == "select_points":
+        return kfp.select_cuda(*A.values())
+    return kfp.seed_cuda(*A.values())
+
+
+def tensor_digest(x, h=None):
+    """One sha256 over every tensor in `x` (dicts in key order, sequences
+    in order)."""
+    h = h or hashlib.sha256()
+    if isinstance(x, dict):
+        for k in sorted(x):
+            h.update(k.encode())
+            tensor_digest(x[k], h)
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            tensor_digest(y, h)
+    elif torch.is_tensor(x):
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    elif x is not None:
+        h.update(repr(x).encode())
+    return h
+
+
+def capture_kf(dev, frames: int) -> list:
+    """Every keyframe-program call (cloned arguments, chip_smoke.KfCapture)
+    of DirectOdometry on the smoke's first `frames` frames."""
+    cam, _, imgs = wl.render_frames(dev, frames)
+    with cs.KfCapture() as cap:
+        cap.run = "direct"
+        odo = DirectOdometry(cam, wl.BENCH_CFG)
+        for i, (img, _) in enumerate(imgs):
+            odo.process(img.cpu().numpy(), float(i))
+        torch.cuda.synchronize()
+    return cap.calls["direct"]
+
+
+def kf_main(a, dev, card: str) -> dict:
+    """--kf: both keyframe kernels of each build on every captured call."""
+    builds = [KfBuild("tree")] + ([KfBuild("parent", a.parent.resolve())] if a.parent else [])
+    built = kb.build_many([p for b in builds for p in b.sources_now], verbose=True)
+    out = {"card": card, "ptxas": {f"{p.parent.parent.parent.name}/{p.name}":
+                                   [ln.strip() for ln in log.splitlines()
+                                    if "registers" in ln or "spill" in ln or "smem" in ln]
+                                   for p, _, log in built}, "builds": {}}
+    print(json.dumps(out), flush=True)
+    calls = capture_kf(dev, a.frames)
+    out["calls"] = dict(Counter(name for name, _, _ in calls))
+    print(json.dumps({"calls": out["calls"]}), flush=True)
+    results = {}
+    for b in builds:
+        res = {}
+        for name, args, kw in calls:
+            res.setdefault(name, []).append(tensor_digest(kf_call(b.kfp, name, args, kw))
+                                            .hexdigest())
+        torch.cuda.synchronize()
+        results[b.name] = res
+    first = builds[0].name
+    for b in builds:
+        res = results[b.name]
+        row = {"build": b.name, "card": card,
+               "digest": {n: hashlib.sha256("".join(v).encode()).hexdigest()
+                          for n, v in res.items()}}
+        if b.name != first:
+            row["first_differing_call"] = {
+                n: next((i for i, (x, y) in enumerate(zip(v, results[first][n])) if x != y),
+                        None) for n, v in res.items()}
+        out["builds"][b.name] = row
+        print(json.dumps(row), flush=True)
+
+    # the timed calls: the activation that writes the most points, the
+    # first refresh, and the refresh's pieces alone on its inputs
+    acts = [(args, kw) for name, args, kw in calls if name == "_activate_and_clear"]
+    written = []
+    for args, kw in acts:
+        new, _ = kf_call(tree_kfp, "_activate_and_clear", args, kw)
+        written.append(int(new["point_valid"].sum() - args[0].ba.point_valid.sum()))
+    act = acts[int(np.argmax(written))][0]
+    window, slot, pyr, imm, cam, cfg = next(args for name, args, _ in calls
+                                            if name == "_refresh_after_kf")
+    slot = int(slot)
+    ba = window.ba
+    uv, valid, _ = tree_kfp.select_cuda(pyr[0], cfg.points_per_kf)
+    lo, hi = tree_kfp.rho_range_cuda(ba, cfg)
+    timed = {
+        "activate": (lambda b: b.kfp.kf_activate_cuda(act[0].ba, act[0].images, act[2],
+                                                      arena=act[1]), "kf_activate.cu"),
+        "refresh": (lambda b: b.kfp.refresh_cuda(ba, slot, pyr, imm, cam, cfg), "kf_refresh.cu"),
+        "A_reference": (lambda b: b.kfp.tracker_ref_cuda(pyr, cam, cfg, ba=ba, slot=slot),
+                        "kf_refresh.cu"),
+        "A_points": (lambda b: b.kfp.tracker_ref_cuda(
+            pyr, cam, cfg, points=(ba.uv, ba.idepth, ba.point_valid)), "kf_refresh.cu"),
+        "B_range": (lambda b: b.kfp.rho_range_cuda(ba, cfg), "kf_refresh.cu"),
+        "C_select": (lambda b: b.kfp.select_cuda(pyr[0], cfg.points_per_kf), "kf_refresh.cu"),
+        "D_seed": (lambda b: b.kfp.seed_cuda(imm, slot, pyr[0], uv, valid, lo, hi),
+                   "kf_refresh.cu")}
+    out["shapes"] = {"P": ba.uv.shape[0], "F": ba.ab.shape[0], "K": imm.valid.shape[1],
+                     "image": list(pyr[0].shape[:2]), "levels": len(pyr),
+                     "activation_written": max(written), "points_valid": int(ba.point_valid.sum()),
+                     **tree_kfp.select_geometry(pyr[0].shape[0], pyr[0].shape[1],
+                                                cfg.points_per_kf)}
+    print(json.dumps({"shapes": out["shapes"]}), flush=True)
+    for b in builds:
+        stamps = kf_stamps(b, timed, a.reps)
+        out["builds"][b.name]["stamps"] = stamps
+        for name in timed:
+            print(json.dumps({"build": b.name, "stamps": name,
+                              **(stamps[name] if stamps else {"none": True}), "card": card}),
+                  flush=True)
+    floor = cs.launch_floor()
+    times = {n: {b.name: {"cold": [], "warm": []} for b in builds} for n in timed}
+    for b in builds + builds[::-1]:
+        for n, (fn, _) in timed.items():
+            times[n][b.name]["cold"].append(cs.cuda_ms(lambda: fn(b)))
+            times[n][b.name]["warm"].append(cs.cuda_ms(lambda: fn(b), cold=False))
+    out.update(ms=times, floor=floor)
+    print(json.dumps({"ms": times, **floor, "card": card}), flush=True)
+    return out
+
+
 def capture_window(dev, frames: int):
     """The last run_ba call's (state, images, cam, cfg) of DirectOdometry on
     the smoke's first `frames` frames."""
@@ -621,6 +858,9 @@ def main() -> int:
     ap.add_argument("--pairs", action="store_true",
                     help="the pair-test Hamming kernel and the triangulation kernel on the "
                          "hybrid's captured calls in place of the BA window")
+    ap.add_argument("--kf", action="store_true",
+                    help="the direct path's keyframe kernels on its captured calls in place "
+                         "of the BA window")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ba_stages: CUDA is not available", file=sys.stderr)
@@ -628,8 +868,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = cs.nvidia_smi("name,power.limit")
-    if a.orb or a.pairs:
-        out = (orb_main if a.orb else pairs_main)(a, dev, card)
+    if a.orb or a.pairs or a.kf:
+        out = (orb_main if a.orb else pairs_main if a.pairs else kf_main)(a, dev, card)
         if a.out:
             a.out.parent.mkdir(parents=True, exist_ok=True)
             a.out.write_text(json.dumps(out, indent=1))
